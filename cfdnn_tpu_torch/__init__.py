@@ -1,0 +1,24 @@
+"""cfdnn_tpu_torch: the PyTorch/CUDA port of cfdnn_tpu for NVIDIA Hopper.
+
+A second package beside the JAX reference `cfdnn_tpu`, with the same
+module names, array layouts and Config. It imports torch and NumPy, never
+JAX. This first slice is the forward-Euler, fixed-dt step of the 128^3
+Taylor-Green and channel benchmarks (bench.py), carried on the GPU by four
+hand-written CUDA kernels (ops/kernels.py).
+"""
+
+from .config import (BCType, Config, ConvectiveScheme, PoissonSolverType,
+                     SimulationMode, TimeIntegrator, TurbulenceModel)
+from .fields import (State, init_poiseuille, init_taylor_green,
+                     perturbed_channel, poiseuille_exact, state_from_numpy,
+                     state_to_numpy, velocity_shapes, zero_state)
+from .mesh import Mesh
+from .solver import Simulation, StepDiagnostics
+
+__all__ = [
+    "BCType", "Config", "ConvectiveScheme", "PoissonSolverType",
+    "SimulationMode", "TimeIntegrator", "TurbulenceModel",
+    "State", "init_poiseuille", "init_taylor_green", "perturbed_channel",
+    "poiseuille_exact", "state_from_numpy", "state_to_numpy",
+    "velocity_shapes", "zero_state", "Mesh", "Simulation", "StepDiagnostics",
+]

@@ -1,0 +1,145 @@
+"""Headline benchmark of the PyTorch port on one CUDA card.
+
+Runs the exact configurations of the reference's `bench.py` `bench_tgv`
+(128^3 all-periodic Taylor-Green, skew, dt 1e-3) and `bench_channel`
+(128^3 channel, stretched no-slip y, central, dt 2e-4), forward Euler in
+float32 and benchmark mode, and prints one JSON line with bench.py's
+headline keys: ms/step and Mcells/s of each grid, the channel's float32
+post-projection divergence, and the card.
+
+The `*_vs_baseline` ratios of bench.py are left out: they divide by
+published H200 figures, not by a measurement on this card.
+
+    python -m cfdnn_tpu_torch.bench
+
+A card is required; there is no CPU fallback for a measurement.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import time
+
+import numpy as np
+import torch
+
+from . import (BCType, Config, ConvectiveScheme, Simulation, TimeIntegrator,
+               init_taylor_green, perturbed_channel)
+from .utils.timing import marginal_step_seconds
+
+
+def tgv_config(n: int = 128, dtype: str = "float32", **kw) -> Config:
+    """bench.py bench_tgv's configuration."""
+    return Config(
+        Nx=n, Ny=n, Nz=n,
+        bc_x=BCType.PERIODIC, bc_y=BCType.PERIODIC, bc_z=BCType.PERIODIC,
+        y_min=0.0, y_max=2 * np.pi, z_min=0.0, z_max=2 * np.pi,
+        nu=1.0 / 1600.0, nu_specified=True, dp_dx=0.0, dp_dx_specified=True,
+        dt=1e-3 if n <= 128 else 1e-4, adaptive_dt=False,
+        time_integrator=TimeIntegrator.EULER,
+        convective_scheme=ConvectiveScheme.SKEW,
+        benchmark=True, dtype=dtype, **kw)
+
+
+def channel_config(n: int = 128, dtype: str = "float32", **kw) -> Config:
+    """bench.py bench_channel's configuration."""
+    return Config(
+        Nx=n, Ny=n, Nz=n, stretch_y=True,
+        nu=1e-4, nu_specified=True, dp_dx=-1e-3, dp_dx_specified=True,
+        dt=2e-4 if n <= 128 else 5e-5, adaptive_dt=False,
+        benchmark=True, dtype=dtype, **kw)
+
+
+def tgv_case(n=128, device="cuda", dtype="float32", **kw):
+    """(Simulation, initial State) of the TGV benchmark."""
+    sim = Simulation(tgv_config(n, dtype, **kw), device=device)
+    return sim, init_taylor_green(sim.cfg, sim.mesh, device=device)
+
+
+def channel_case(n=128, device="cuda", dtype="float32", **kw):
+    """(Simulation, initial State) of the channel benchmark; the noise
+    comes from a torch.Generator seeded with `seed` (default 0)."""
+    seed = kw.pop("seed", 0)
+    sim = Simulation(channel_config(n, dtype, **kw), device=device)
+    gen = torch.Generator(device=sim.device).manual_seed(seed)
+    return sim, perturbed_channel(sim.cfg, sim.mesh, gen, amp=0.05,
+                                  device=device)
+
+
+def _sync(device):
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def time_steps(sim, state, steps=1000, reps=3):
+    """Differential best-of-reps seconds/step of `sim.run` (the constant
+    per-call cost, including the final diagnostics step, cancels) and the
+    diagnostics of the first run."""
+    short = max(steps // 5, 1)
+    state, d = sim.run(state, steps)
+    sim.run(state, short)
+    _sync(sim.device)
+    if not math.isfinite(float(d.ke)):
+        raise FloatingPointError("NaN in benchmark run")
+
+    def run(n):
+        sim.run(state, n)
+        _sync(sim.device)
+
+    s = marginal_step_seconds(lambda: run(steps), lambda: run(short),
+                              steps, short, reps)
+    return s, d
+
+
+def device_events(prof):
+    """The device-side entries (kernels, copies, fills) of a finished
+    torch.profiler run's key_averages()."""
+    from torch.autograd import DeviceType
+    return [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and e.self_device_time_total > 0]
+
+
+def profile_steps(sim, state, steps=20):
+    """Device time of a window of `steps` steps, by kernel, from
+    torch.profiler (CUPTI): {"device_ms_per_step": total kernel time per
+    step, "wall_ms_per_step": the profiled window's host time per step,
+    "kernels": [(name, ms per step, launches per step), ...] longest
+    first}. The window is one `sim.run`, so its last step carries the
+    diagnostics reductions."""
+    from torch.profiler import ProfilerActivity, profile
+    sim.run(state, steps)
+    _sync(sim.device)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        sim.run(state, steps)
+        _sync(sim.device)
+        wall = time.perf_counter() - t0
+    rows = sorted(((e.key, e.self_device_time_total / steps / 1e3,
+                    e.count / steps) for e in device_events(prof)),
+                  key=lambda r: -r[1])
+    return {"device_ms_per_step": sum(r[1] for r in rows),
+            "wall_ms_per_step": wall * 1e3 / steps, "kernels": rows}
+
+
+def main():
+    if not torch.cuda.is_available():
+        raise SystemExit("cfdnn_tpu_torch.bench: no CUDA device; the "
+                         "benchmark measures the card and has no CPU path")
+    s_tgv, _ = time_steps(*tgv_case())
+    s_ch, d_ch = time_steps(*channel_case())
+    cells = 128 ** 3
+    print(json.dumps({
+        "tgv_ms_per_step": s_tgv * 1e3,
+        "tgv_mcells_per_s": cells / s_tgv / 1e6,
+        "channel_ms_per_step": s_ch * 1e3,
+        "channel_mcells_per_s": cells / s_ch / 1e6,
+        "channel_div_linf_f32": float(d_ch.div_linf),
+        "device": torch.cuda.get_device_name(0),
+    }), flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,209 @@
+// predictor_channel: the fused Euler momentum predictor of the wall-y
+// channel (periodic uniform x and z, no-slip walls in y at any stretching,
+// O2 skew or central convection, scalar nu). The channel main path.
+//
+// Replaces cfdnn_tpu/ops/pallas_kernels.py fused_predictor_channel (body
+// _channel_kernel, math predictor_slab_math_channel with nut_e=None,
+// y-metrics _channel_y_arrays). The plain PyTorch twin is ops/kernels.py
+// predictor_channel_twin. The cell nu_t operand of the TPU kernel waits
+// for the LES slice.
+//
+// Shapes: u, w (nx, ny, nz); v (nx, ny+1, nz) with the wall faces stored.
+// y-metrics (device vectors): inv_dy (ny), inv_dyc (ny+1), inv_dgy (ny+1),
+// inv2_cy (ny), inv2_fy (ny+1).
+// Wall ghosts, each as the twin builds them:
+//   u, w tangential  -> -interior (odd reflection to 0 at the wall)
+//   v normal         -> 2 v_wall - v_next (linear extrapolation)
+//   cell quantities  -> mirror copy (phi_c of skew v, the v diffusion flux)
+// Star v is computed at the wall faces too, exactly as the twin computes
+// it; the solver's BC pass zeroes those faces afterwards.
+//
+// Bound on the H100: device-memory bandwidth (three fields in, three out,
+// ~200 flops a cell). Design: one thread per (i, j_face, k) point of the
+// v grid, z fastest within a warp; threads with j < ny also produce u and
+// w at (i, j, k). Periodic x/z wrap by index arithmetic; the wall ghosts
+// are formed in registers from the interior values, so no padded copy is
+// ever written.
+#include "common.cuh"
+
+namespace {
+
+using cfdnn::at3;
+using cfdnn::wrap_m;
+using cfdnn::wrap_p;
+
+// Tangential wall pad of a (nx, ny, nz) field at row jj in [-1, ny].
+template <typename T>
+__device__ __forceinline__ T wall_t(const T* __restrict__ f, int i, int jj,
+                                    int k, int ny, int nz) {
+    if (jj < 0) return -f[at3(i, 0, k, ny, nz)];
+    if (jj >= ny) return -f[at3(i, ny - 1, k, ny, nz)];
+    return f[at3(i, jj, k, ny, nz)];
+}
+
+template <typename T>
+__global__ void predictor_channel_kernel(
+        const T* __restrict__ u, const T* __restrict__ v,
+        const T* __restrict__ w, const T* __restrict__ dt_ptr,
+        const T* __restrict__ inv_dy, const T* __restrict__ inv_dyc,
+        const T* __restrict__ inv_dgy, const T* __restrict__ inv2_cy,
+        const T* __restrict__ inv2_fy,
+        T* __restrict__ su, T* __restrict__ sv, T* __restrict__ sw,
+        int nx, int ny, int nz, T ihx, T ihz, T nu, T fx, int skew) {
+    const int nyv = ny + 1;
+    const long long idx = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+    if (idx >= static_cast<long long>(nx) * nyv * nz) return;
+    const int k = static_cast<int>(idx % nz);
+    const long long r = idx / nz;
+    const int j = static_cast<int>(r % nyv);   // y-face index of v; cell j of u, w
+    const int i = static_cast<int>(r / nyv);
+    const int im = wrap_m(i, nx), ip = wrap_p(i, nx);
+    const int km = wrap_m(k, nz), kp = wrap_p(k, nz);
+    const T h = T(0.5), two = T(2);
+    const T dt = *dt_ptr;
+
+#define U(I, J, K) u[at3(I, J, K, ny, nz)]
+#define W(I, J, K) w[at3(I, J, K, ny, nz)]
+#define V(I, J, K) v[at3(I, J, K, nyv, nz)]
+
+    if (j < ny) {
+        // ---- u (x-face, y-center, z-center) ---------------------------
+        const T c = U(i, j, k);
+        const T xp = U(ip, j, k), xm = U(im, j, k);
+        const T zp = U(i, j, kp), zm = U(i, j, km);
+        const T yp = wall_t(u, i, j + 1, k, ny, nz);
+        const T ym = wall_t(u, i, j - 1, k, ny, nz);
+        // v at (x-face, y-face j / j+1), w at (x-face, z-face k / k+1)
+        const T ve_lo = h * (V(im, j, k) + V(i, j, k));
+        const T ve_hi = h * (V(im, j + 1, k) + V(i, j + 1, k));
+        const T we_lo = h * (W(im, j, k) + W(i, j, k));
+        const T we_hi = h * (W(im, j, kp) + W(i, j, kp));
+        T conv;
+        if (skew) {
+            conv = h * ((h * (c + xp)) * xp - (h * (xm + c)) * xm) * ihx;
+            conv += h * (ve_hi * yp - ve_lo * ym) * inv_dy[j];
+            conv += h * (we_hi * zp - we_lo * zm) * ihz;
+        } else {
+            conv = c * (xp - xm) * (h * ihx);
+            conv += (h * (ve_lo + ve_hi)) * (yp - ym) * inv2_cy[j];
+            conv += (h * (we_lo + we_hi)) * (zp - zm) * (h * ihz);
+        }
+        const T f_lo = nu * ((c - ym) * inv_dgy[j]);
+        const T f_hi = nu * ((yp - c) * inv_dgy[j + 1]);
+        const T lap = nu * (xp - two * c + xm) * ihx * ihx
+                    + (f_hi - f_lo) * inv_dy[j]
+                    + nu * (zp - two * c + zm) * ihz * ihz;
+        su[at3(i, j, k, ny, nz)] = c + dt * (-conv + lap + fx);
+
+        // ---- w (z-face, y-center) --------------------------------------
+        const T cw = W(i, j, k);
+        const T wxp = W(ip, j, k), wxm = W(im, j, k);
+        const T wzp = W(i, j, kp), wzm = W(i, j, km);
+        const T wyp = wall_t(w, i, j + 1, k, ny, nz);
+        const T wym = wall_t(w, i, j - 1, k, ny, nz);
+        // u at (x-face, z-face), v at (y-face, z-face)
+        const T ue_lo = h * (U(i, j, km) + U(i, j, k));
+        const T ue_hi = h * (U(ip, j, km) + U(ip, j, k));
+        const T vw_lo = h * (V(i, j, km) + V(i, j, k));
+        const T vw_hi = h * (V(i, j + 1, km) + V(i, j + 1, k));
+        T convw;
+        if (skew) {
+            convw = h * ((h * (cw + wzp)) * wzp - (h * (wzm + cw)) * wzm) * ihz;
+            convw += h * (ue_hi * wxp - ue_lo * wxm) * ihx;
+            convw += h * (vw_hi * wyp - vw_lo * wym) * inv_dy[j];
+        } else {
+            convw = cw * (wzp - wzm) * (h * ihz);
+            convw += (h * (ue_lo + ue_hi)) * (wxp - wxm) * (h * ihx);
+            convw += (h * (vw_lo + vw_hi)) * (wyp - wym) * inv2_cy[j];
+        }
+        const T g_lo = nu * ((cw - wym) * inv_dgy[j]);
+        const T g_hi = nu * ((wyp - cw) * inv_dgy[j + 1]);
+        const T lapw = nu * (wxp - two * cw + wxm) * ihx * ihx
+                     + (g_hi - g_lo) * inv_dy[j]
+                     + nu * (wzp - two * cw + wzm) * ihz * ihz;
+        sw[at3(i, j, k, ny, nz)] = cw + dt * (-convw + lapw);
+    }
+
+    // ---- v (y-face j of ny+1, wall faces included) ----------------------
+    const T c = V(i, j, k);
+    const T xp = V(ip, j, k), xm = V(im, j, k);
+    const T zp = V(i, j, kp), zm = V(i, j, km);
+    // odd-reflection normal pad: 2 v_wall - v_next beyond each wall
+    const T np_ = (j == ny) ? two * V(i, ny, k) - V(i, ny - 1, k) : V(i, j + 1, k);
+    const T nm_ = (j == 0) ? two * V(i, 0, k) - V(i, 1, k) : V(i, j - 1, k);
+    // u and w interpolated to y-face j from the wall-padded cell rows
+    const T ue_lo = h * (wall_t(u, i, j - 1, k, ny, nz) + wall_t(u, i, j, k, ny, nz));
+    const T ue_hi = h * (wall_t(u, ip, j - 1, k, ny, nz) + wall_t(u, ip, j, k, ny, nz));
+    const T wy_lo = h * (wall_t(w, i, j - 1, k, ny, nz) + wall_t(w, i, j, k, ny, nz));
+    const T wy_hi = h * (wall_t(w, i, j - 1, kp, ny, nz) + wall_t(w, i, j, kp, ny, nz));
+    // cells j (above the face) and j-1 (below), mirrored beyond the walls
+    const int jc_hi = j < ny - 1 ? j : ny - 1;
+    const int jc_lo = j > 0 ? j - 1 : 0;
+    T conv;
+    if (skew) {
+        const T c_hi = h * (V(i, jc_hi, k) + V(i, jc_hi + 1, k));
+        const T c_lo = h * (V(i, jc_lo, k) + V(i, jc_lo + 1, k));
+        conv = h * (c_hi * np_ - c_lo * nm_) * inv_dyc[j];
+        conv += h * (ue_hi * xp - ue_lo * xm) * ihx;
+        conv += h * (wy_hi * zp - wy_lo * zm) * ihz;
+    } else {
+        conv = c * (np_ - nm_) * inv2_fy[j];
+        conv += (h * (ue_lo + ue_hi)) * (xp - xm) * (h * ihx);
+        conv += (h * (wy_lo + wy_hi)) * (zp - zm) * (h * ihz);
+    }
+    const T f_hi = nu * ((V(i, jc_hi + 1, k) - V(i, jc_hi, k)) * inv_dy[jc_hi]);
+    const T f_lo = nu * ((V(i, jc_lo + 1, k) - V(i, jc_lo, k)) * inv_dy[jc_lo]);
+    const T lap = nu * (xp - two * c + xm) * ihx * ihx
+                + (f_hi - f_lo) * inv_dyc[j]
+                + nu * (zp - two * c + zm) * ihz * ihz;
+    sv[at3(i, j, k, nyv, nz)] = c + dt * (-conv + lap);
+#undef U
+#undef W
+#undef V
+}
+
+template <typename T>
+int launch(const void* u, const void* v, const void* w, const void* dt,
+           const void* inv_dy, const void* inv_dyc, const void* inv_dgy,
+           const void* inv2_cy, const void* inv2_fy,
+           void* su, void* sv, void* sw, int nx, int ny, int nz,
+           double ihx, double ihz, double nu, double fx, int skew,
+           void* stream) {
+    const long long n = static_cast<long long>(nx) * (ny + 1) * nz;
+    predictor_channel_kernel<T><<<cfdnn::blocks_for(n), cfdnn::kBlock, 0,
+                                  static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const T*>(u), static_cast<const T*>(v),
+        static_cast<const T*>(w), static_cast<const T*>(dt),
+        static_cast<const T*>(inv_dy), static_cast<const T*>(inv_dyc),
+        static_cast<const T*>(inv_dgy), static_cast<const T*>(inv2_cy),
+        static_cast<const T*>(inv2_fy),
+        static_cast<T*>(su), static_cast<T*>(sv), static_cast<T*>(sw),
+        nx, ny, nz, T(ihx), T(ihz), T(nu), T(fx), skew);
+    return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" int cfdnn_predictor_channel_f32(
+        const void* u, const void* v, const void* w, const void* dt,
+        const void* inv_dy, const void* inv_dyc, const void* inv_dgy,
+        const void* inv2_cy, const void* inv2_fy,
+        void* su, void* sv, void* sw, int nx, int ny, int nz,
+        double ihx, double ihz, double nu, double fx, int skew,
+        void* stream) {
+    return launch<float>(u, v, w, dt, inv_dy, inv_dyc, inv_dgy, inv2_cy,
+                         inv2_fy, su, sv, sw, nx, ny, nz, ihx, ihz, nu, fx,
+                         skew, stream);
+}
+
+extern "C" int cfdnn_predictor_channel_f64(
+        const void* u, const void* v, const void* w, const void* dt,
+        const void* inv_dy, const void* inv_dyc, const void* inv_dgy,
+        const void* inv2_cy, const void* inv2_fy,
+        void* su, void* sv, void* sw, int nx, int ny, int nz,
+        double ihx, double ihz, double nu, double fx, int skew,
+        void* stream) {
+    return launch<double>(u, v, w, dt, inv_dy, inv_dyc, inv_dgy, inv2_cy,
+                          inv2_fy, su, sv, sw, nx, ny, nz, ihx, ihz, nu, fx,
+                          skew, stream);
+}

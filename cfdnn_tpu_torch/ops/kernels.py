@@ -1,0 +1,643 @@
+"""The port's hand-written Hopper kernels, their plain twins and launch counts
+(counterpart of `cfdnn_tpu/ops/pallas_kernels.py`).
+
+Four CUDA C++ kernels, in `cfdnn_tpu_torch/csrc/`, carry the main-path
+step of both benchmark grids:
+
+  predictor_periodic  <- pallas_kernels.fused_predictor (all-periodic TGV)
+  predictor_channel   <- pallas_kernels.fused_predictor_channel (wall-y)
+  divergence          <- pallas_kernels.fused_divergence
+  correct             <- pallas_kernels.fused_correct
+
+Each source file's head says what bounds the kernel on the H100 (all four
+are bandwidth-bound stencils) and what its design does about it. Each
+kernel computes what its TPU kernel computes, not the TPU kernel's x-slab
+structure: one thread per output point, z fastest within a warp, periodic
+wrap by index arithmetic, float and double instantiations.
+
+Beside each kernel stand:
+  - its plain PyTorch twin (`*_twin`), the eager form of the same math.
+    For the predictors that is the reference's slab math on whole arrays
+    (torch.roll in place of the x halo); for divergence and correct it is
+    the operator library itself (`ops.operators`), the single source of
+    truth the TPU kernels also ran;
+  - a launch count, the integer attribute `launches` of the public
+    wrapper, raised by one where the CUDA kernel is launched and nowhere
+    else.
+
+The public wrappers check device, dtype, shape and contiguity, then take
+the twin for CPU tensors (the CPU tests run that path, as the reference's
+tests run the Pallas kernels in interpret mode) and launch the kernel for
+CUDA tensors, raising on any other device and on any CUDA error. There is
+no fallback from a kernel to its twin. Each call goes through a
+`torch.autograd.Function` whose backward differentiates the twin, as the
+reference's `vjp_via` (solver.py) differentiates the jnp path.
+
+Build: at first use, `nvcc` compiles every `csrc/*.cu` for sm_90a, one
+process per source, all started together, and links them into one shared
+library with a plain C interface, loaded with ctypes. The library goes to
+`build/cfdnn_tpu_torch/<hash of the sources and flags>/` beside the
+package (listed in `.gitignore`), so a fresh checkout builds it itself.
+Nothing is compiled or imported from CUDA when this module is imported.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+from typing import Optional, Tuple
+
+import torch
+
+from ..config import BCType, ConvectiveScheme
+from . import operators as ops
+from .grid import Geometry
+
+_CSRC = Path(__file__).resolve().parent.parent / "csrc"
+_BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "cfdnn_tpu_torch"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-Xcompiler", "-fPIC")
+LIB_NAME = "libcfdnn_kernels.so"
+
+
+# ---------------------------------------------------------------------------
+# Build and bind
+# ---------------------------------------------------------------------------
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    from torch.utils.cpp_extension import CUDA_HOME
+    if CUDA_HOME and (Path(CUDA_HOME) / "bin" / "nvcc").exists():
+        return str(Path(CUDA_HOME) / "bin" / "nvcc")
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
+                       "toolkit (set CUDA_HOME or put nvcc on PATH)")
+
+
+def build_library() -> Tuple[Path, float]:
+    """Build (or find) the kernels' shared library.
+
+    Returns its path and the seconds spent compiling (0 when a library of
+    the same sources and flags was already there). `-Xptxas=-v` reports
+    each kernel's registers and spills into `build.log` beside it.
+    """
+    sources = sorted(_CSRC.glob("*.cu"))
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sorted(_CSRC.glob("*.cuh")) + sources:
+        digest.update(path.name.encode())
+        digest.update(path.read_bytes())
+    out_dir = _BUILD_ROOT / digest.hexdigest()[:16]
+    lib = out_dir / LIB_NAME
+    if lib.exists():
+        return lib, 0.0
+    nvcc = _nvcc()
+    out_dir.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+        procs = []
+        for src in sources:
+            obj = Path(tmp) / (src.stem + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, "-Xptxas=-v", "-c", str(src),
+                   "-o", str(obj)]
+            procs.append((src, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
+        log, failed = [], []
+        for src, _, proc in procs:
+            out = proc.communicate()[0].decode(errors="replace")
+            log.append(f"== {src.name}\n{out}")
+            if proc.returncode:
+                failed.append(src.name)
+        (out_dir / "build.log").write_text("\n".join(log))
+        if failed:
+            raise RuntimeError(f"nvcc failed on {failed}:\n" + "\n".join(log))
+        tmp_lib = Path(tmp) / LIB_NAME
+        link = subprocess.run(
+            [nvcc, "-shared", "-o", str(tmp_lib),
+             *(str(obj) for _, obj, _ in procs)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+        if link.returncode:
+            raise RuntimeError("nvcc link failed:\n"
+                               + link.stdout.decode(errors="replace"))
+        os.replace(tmp_lib, lib)
+    return lib, time.perf_counter() - t0
+
+
+_P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+_SIGNATURES = {
+    "predictor_periodic": [_P] * 7 + [_I] * 3 + [_D] * 5 + [_P],
+    "predictor_channel": [_P] * 12 + [_I] * 3 + [_D] * 4 + [_I, _P],
+    "divergence": [_P] * 7 + [_I] * 6 + [_P],
+    "correct": [_P] * 11 + [_I] * 6 + [_P],
+}
+_lib: Optional[ctypes.CDLL] = None
+
+
+def _bind(path) -> ctypes.CDLL:
+    """Load the library at `path` and declare every entry point's C
+    signature (pointers and the stream as c_void_p)."""
+    lib = ctypes.CDLL(str(path))
+    for name, args in _SIGNATURES.items():
+        for suffix in ("f32", "f64"):
+            fn = getattr(lib, f"cfdnn_{name}_{suffix}")
+            fn.argtypes = args
+            fn.restype = ctypes.c_int
+    lib.cfdnn_error_string.argtypes = [ctypes.c_int]
+    lib.cfdnn_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on the first call."""
+    global _lib
+    if _lib is None:
+        _lib = _bind(build_library()[0])
+    return _lib
+
+
+def _launch(name: str, like: torch.Tensor, *args) -> None:
+    lib = library()
+    suffix = "f32" if like.dtype == torch.float32 else "f64"
+    stream = torch.cuda.current_stream(like.device).cuda_stream
+    err = getattr(lib, f"cfdnn_{name}_{suffix}")(*args, stream)
+    if err:
+        msg = lib.cfdnn_error_string(err).decode()
+        raise RuntimeError(f"{name}: CUDA error {err} ({msg})")
+
+
+# ---------------------------------------------------------------------------
+# Checks and the autograd bridge
+# ---------------------------------------------------------------------------
+
+
+def _check(name: str, tensors, shapes) -> None:
+    """Same device, float32/float64 of one dtype, contiguous, and each
+    tensor of its expected shape (None: any shape)."""
+    for t in tensors:
+        if not torch.is_tensor(t):
+            raise TypeError(f"{name}: expected tensors (dt as a 0-d tensor), "
+                            f"got {type(t).__name__}")
+    t0 = tensors[0]
+    if t0.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"{name}: dtype {t0.dtype}; float32 or float64 only")
+    for t, shape in zip(tensors, shapes):
+        if t.device != t0.device:
+            raise ValueError(f"{name}: tensors on {t.device} and {t0.device}")
+        if t.dtype != t0.dtype:
+            raise TypeError(f"{name}: mixed dtypes {t.dtype} and {t0.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: a tensor of shape {tuple(t.shape)} "
+                             "is not contiguous")
+        if shape is not None and tuple(t.shape) != tuple(shape):
+            raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
+                             f"{tuple(shape)}")
+    if t0.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: device {t0.device}; the kernels run on "
+                         "CUDA and their twins on the CPU")
+
+
+class _ViaTwin(torch.autograd.Function):
+    """Forward: `launch` (the kernel on CUDA, the twin on the CPU).
+    Backward: autograd through the plain twin, which computes the same
+    function."""
+
+    @staticmethod
+    def forward(ctx, launch, twin, kw, *tensors):
+        ctx.twin, ctx.kw = twin, kw
+        ctx.save_for_backward(*tensors)
+        return launch(*tensors, **kw)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        xs = [t.detach().requires_grad_(t.requires_grad)
+              for t in ctx.saved_tensors]
+        with torch.enable_grad():
+            out = ctx.twin(*xs, **ctx.kw)
+        outs = out if isinstance(out, tuple) else (out,)
+        wanted = [x for x in xs if x.requires_grad]
+        got = iter(torch.autograd.grad(outs, wanted, grads,
+                                       allow_unused=True))
+        return (None, None, None) + tuple(
+            next(got) if x.requires_grad else None for x in xs)
+
+
+def _axis_mode(ax) -> int:
+    """0: one cell (skipped), 1: periodic (N faces), 2: bounded (N+1)."""
+    if ax.n == 1:
+        return 0
+    return 1 if ax.periodic else 2
+
+
+def _nfaces(ax) -> int:
+    return ax.n if ax.periodic else ax.n + 1
+
+
+# ---------------------------------------------------------------------------
+# predictor_periodic  <-  pallas_kernels.fused_predictor
+# ---------------------------------------------------------------------------
+
+
+def _X(f, n):
+    return torch.roll(f, -n, dims=0)
+
+
+def _Ry(f, n):
+    return torch.roll(f, -n, dims=1)
+
+
+def _Rz(f, n):
+    return torch.roll(f, -n, dims=2)
+
+
+def predictor_periodic_twin(u, v, w, dt, *, hx, hy, hz, nu, fx):
+    """Plain twin of `predictor_periodic`: the reference's
+    predictor_slab_math on whole arrays, x wrapped like y and z.
+
+    Math = the operators' periodic-uniform path: skew form
+    0.5*(adv_hi*phi_{+1} - adv_lo*phi_{-1})/h per axis + nu * second
+    differences + the body force fx on u, then the Euler star update.
+    """
+    ihx, ihy, ihz = 1.0 / hx, 1.0 / hy, 1.0 / hz
+
+    # ---- u component (x-face staggered) -------------------------------
+    hi_n = _X(u, 1)
+    lo_n = _X(u, -1)
+    conv_u = 0.5 * ((0.5 * (u + hi_n)) * hi_n
+                    - (0.5 * (lo_n + u)) * lo_n) * ihx
+    Ue = 0.5 * (_X(v, -1) + v)                 # v at (xf_i, yf_j)
+    conv_u = conv_u + 0.5 * (_Ry(Ue, 1) * _Ry(u, 1) - Ue * _Ry(u, -1)) * ihy
+    We = 0.5 * (_X(w, -1) + w)                 # w at (xf_i, zf_k)
+    conv_u = conv_u + 0.5 * (_Rz(We, 1) * _Rz(u, 1) - We * _Rz(u, -1)) * ihz
+    lap_u = ((_X(u, 1) - 2.0 * u + _X(u, -1)) * ihx * ihx
+             + (_Ry(u, 1) - 2.0 * u + _Ry(u, -1)) * ihy * ihy
+             + (_Rz(u, 1) - 2.0 * u + _Rz(u, -1)) * ihz * ihz)
+    star_u = u + dt * (-conv_u + nu * lap_u + fx)
+
+    # ---- v component (y-face staggered) -------------------------------
+    hi_n = _Ry(v, 1)
+    lo_n = _Ry(v, -1)
+    conv_v = 0.5 * ((0.5 * (v + hi_n)) * hi_n
+                    - (0.5 * (lo_n + v)) * lo_n) * ihy
+    Ue = 0.5 * (_Ry(u, -1) + u)                # u at (xf_i, yf_j)
+    conv_v = conv_v + 0.5 * (_X(Ue, 1) * _X(v, 1) - Ue * _X(v, -1)) * ihx
+    We = 0.5 * (_Ry(w, -1) + w)                # w at (yf_j, zf_k)
+    conv_v = conv_v + 0.5 * (_Rz(We, 1) * _Rz(v, 1) - We * _Rz(v, -1)) * ihz
+    lap_v = ((_X(v, 1) - 2.0 * v + _X(v, -1)) * ihx * ihx
+             + (_Ry(v, 1) - 2.0 * v + _Ry(v, -1)) * ihy * ihy
+             + (_Rz(v, 1) - 2.0 * v + _Rz(v, -1)) * ihz * ihz)
+    star_v = v + dt * (-conv_v + nu * lap_v)
+
+    # ---- w component (z-face staggered) -------------------------------
+    hi_n = _Rz(w, 1)
+    lo_n = _Rz(w, -1)
+    conv_w = 0.5 * ((0.5 * (w + hi_n)) * hi_n
+                    - (0.5 * (lo_n + w)) * lo_n) * ihz
+    Ue = 0.5 * (_Rz(u, -1) + u)                # u at (xf_i, zf_k)
+    conv_w = conv_w + 0.5 * (_X(Ue, 1) * _X(w, 1) - Ue * _X(w, -1)) * ihx
+    Ve = 0.5 * (_Rz(v, -1) + v)                # v at (yf_j, zf_k)
+    conv_w = conv_w + 0.5 * (_Ry(Ve, 1) * _Ry(w, 1) - Ve * _Ry(w, -1)) * ihy
+    lap_w = ((_X(w, 1) - 2.0 * w + _X(w, -1)) * ihx * ihx
+             + (_Ry(w, 1) - 2.0 * w + _Ry(w, -1)) * ihy * ihy
+             + (_Rz(w, 1) - 2.0 * w + _Rz(w, -1)) * ihz * ihz)
+    star_w = w + dt * (-conv_w + nu * lap_w)
+
+    return star_u, star_v, star_w
+
+
+def _predictor_periodic_launch(u, v, w, dt, *, hx, hy, hz, nu, fx):
+    if u.device.type == "cpu":
+        return predictor_periodic_twin(u, v, w, dt, hx=hx, hy=hy, hz=hz,
+                                       nu=nu, fx=fx)
+    return _predictor_periodic_cuda(u, v, w, dt, hx=hx, hy=hy, hz=hz,
+                                    nu=nu, fx=fx)
+
+
+def _predictor_periodic_cuda(u, v, w, dt, *, hx, hy, hz, nu, fx):
+    su, sv, sw = (torch.empty_like(a) for a in (u, v, w))
+    nx, ny, nz = u.shape
+    _launch("predictor_periodic", u,
+            *(t.data_ptr() for t in (u, v, w, dt, su, sv, sw)), nx, ny, nz,
+            1.0 / hx, 1.0 / hy, 1.0 / hz, float(nu), float(fx))
+    predictor_periodic.launches += 1
+    return su, sv, sw
+
+
+def predictor_periodic(u, v, w, dt, *, hx, hy, hz, nu, fx):
+    """Euler star (u*, v*, w*) of the all-periodic uniform O2 skew
+    predictor with scalar nu and body force fx on u. u, v, w: (Nx, Ny, Nz);
+    dt: a 0-d tensor of the same device and dtype."""
+    _check("predictor_periodic", (u, v, w, dt),
+           (None, u.shape, u.shape, ()))
+    if u.ndim != 3:
+        raise ValueError(f"predictor_periodic: u has shape {tuple(u.shape)}")
+    kw = dict(hx=hx, hy=hy, hz=hz, nu=nu, fx=fx)
+    return _ViaTwin.apply(_predictor_periodic_launch, predictor_periodic_twin,
+                          kw, u, v, w, dt)
+
+
+predictor_periodic.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# predictor_channel  <-  pallas_kernels.fused_predictor_channel
+# ---------------------------------------------------------------------------
+
+
+def channel_slab_eligible(geom: Geometry, cfg) -> bool:
+    """Structural gate of the channel predictor (the reference's
+    pallas_kernels.channel_slab_eligible)."""
+    x, y, z = geom.axes
+    return (x.periodic and x.uniform and z.periodic and z.uniform
+            and y.bc == BCType.WALL and z.n > 1
+            and cfg.space_order == 2
+            and cfg.convective_scheme in (ConvectiveScheme.SKEW,
+                                          ConvectiveScheme.CENTRAL)
+            and not cfg.implicit_y_diffusion
+            # the wall ghosts hardcode stationary no-slip
+            and cfg.lid_velocity == 0.0)
+
+
+def channel_y_arrays(geom: Geometry):
+    """The five y-geometry vectors of the channel predictor, (1, n, 1):
+      inv_dy  (Ny)    1/cell width
+      inv_dyc (Ny+1)  1/center-to-center distance at faces (boundary:
+                      half-cell, the folded Poisson metric)
+      inv_dgy (Ny+1)  1/ghost-aware center spacing (mirror ghosts) for
+                      wall-tangential gradients (operators._inv_dpos_c)
+      inv2_cy (Ny)    1/(2-apart ghost-aware center distance): cc_central
+      inv2_fy (Ny+1)  1/(2-apart face distance, odd-reflection ghosts)
+    """
+    y = geom.axes[1]
+    p = y.pos_c_pad
+    inv_dgy = 1.0 / (p[:, 1:] - p[:, :-1])
+    inv2_cy = 1.0 / (p[:, 2:] - p[:, :-2])
+    pf = y.pos_f_pad
+    inv2_fy = 1.0 / (pf[:, 2:] - pf[:, :-2])
+    return (y.inv_d.contiguous(), y.inv_dc.contiguous(), inv_dgy.contiguous(),
+            inv2_cy.contiguous(), inv2_fy.contiguous())
+
+
+def _scheme_is_skew(scheme) -> bool:
+    if scheme not in (ConvectiveScheme.SKEW, ConvectiveScheme.CENTRAL):
+        raise NotImplementedError(
+            f"predictor_channel: scheme {scheme}; skew and central only")
+    return scheme == ConvectiveScheme.SKEW
+
+
+def predictor_channel_twin(u, v, w, dt, inv_dy, inv_dyc, inv_dgy, inv2_cy,
+                           inv2_fy, *, hx, hz, nu, fx, scheme):
+    """Plain twin of `predictor_channel`: the reference's
+    predictor_slab_math_channel (scalar nu) on whole arrays.
+
+    u, w: (Nx, Ny, Nz); v: (Nx, Ny+1, Nz) with the wall faces stored;
+    the y vectors as `channel_y_arrays` gives them. Math identical to
+    ops._conv_skew / _conv_advective(CENTRAL) + ops.diffusive for this BC
+    set.
+    """
+    skew = _scheme_is_skew(scheme)
+    ihx, ihz = 1.0 / hx, 1.0 / hz
+
+    def wall_pad_t(f):
+        # pad_tangential WALL: ghosts = -interior (no-slip value 0)
+        return torch.cat([-f[:, :1], f, -f[:, -1:]], dim=1)
+
+    def mirror_pad_c(f):
+        # pad_center neumann: mirror values
+        return torch.cat([f[:, :1], f, f[:, -1:]], dim=1)
+
+    # ---- u component (x-face, y-center, z-center) ---------------------
+    hi_n = _X(u, 1)
+    lo_n = _X(u, -1)
+    Ve = 0.5 * (_X(v, -1) + v)                   # (Nx, Ny+1, Nz)
+    up = wall_pad_t(u)                           # (Nx, Ny+2, Nz)
+    We = 0.5 * (_X(w, -1) + w)
+    if skew:
+        conv_u = 0.5 * ((0.5 * (u + hi_n)) * hi_n
+                        - (0.5 * (lo_n + u)) * lo_n) * ihx
+        conv_u = conv_u + 0.5 * (Ve[:, 1:] * up[:, 2:]
+                                 - Ve[:, :-1] * up[:, :-2]) * inv_dy
+        conv_u = conv_u + 0.5 * (_Rz(We, 1) * _Rz(u, 1)
+                                 - We * _Rz(u, -1)) * ihz
+    else:
+        conv_u = u * (hi_n - lo_n) * (0.5 * ihx)
+        V_at_u = 0.5 * (Ve[:, :-1] + Ve[:, 1:])
+        conv_u = conv_u + V_at_u * (up[:, 2:] - up[:, :-2]) * inv2_cy
+        W_at_u = 0.5 * (We + _Rz(We, 1))
+        conv_u = conv_u + W_at_u * (_Rz(u, 1) - _Rz(u, -1)) * (0.5 * ihz)
+    g_uy = (up[:, 1:] - up[:, :-1]) * inv_dgy    # (Nx, Ny+1, Nz) faces
+    F = nu * g_uy
+    lap_u = (nu * (_X(u, 1) - 2.0 * u + _X(u, -1)) * ihx * ihx
+             + (F[:, 1:] - F[:, :-1]) * inv_dy
+             + nu * (_Rz(u, 1) - 2.0 * u + _Rz(u, -1)) * ihz * ihz)
+    star_u = u + dt * (-conv_u + lap_u + fx)
+
+    # ---- v component (y-face staggered: Ny+1 values incl. walls) ------
+    npad = torch.cat([2.0 * v[:, :1] - v[:, 1:2], v,
+                      2.0 * v[:, -1:] - v[:, -2:-1]], dim=1)
+    ue_yf = 0.5 * (up[:, :-1] + up[:, 1:])       # u at (x-face, y-face)
+    wp = wall_pad_t(w)
+    w_yf = 0.5 * (wp[:, :-1] + wp[:, 1:])        # w at (y-face, z-face)
+    if skew:
+        phi_c = 0.5 * (v[:, :-1] + v[:, 1:])     # (Nx, Ny, Nz)
+        cpad = mirror_pad_c(phi_c)               # (Nx, Ny+2, Nz)
+        conv_v = 0.5 * (cpad[:, 1:] * npad[:, 2:]
+                        - cpad[:, :-1] * npad[:, :-2]) * inv_dyc
+        conv_v = conv_v + 0.5 * (_X(ue_yf, 1) * _X(v, 1)
+                                 - ue_yf * _X(v, -1)) * ihx
+        conv_v = conv_v + 0.5 * (_Rz(w_yf, 1) * _Rz(v, 1)
+                                 - w_yf * _Rz(v, -1)) * ihz
+    else:
+        conv_v = v * (npad[:, 2:] - npad[:, :-2]) * inv2_fy
+        U_at_v = 0.5 * (ue_yf + _X(ue_yf, 1))
+        conv_v = conv_v + U_at_v * (_X(v, 1) - _X(v, -1)) * (0.5 * ihx)
+        W_at_v = 0.5 * (w_yf + _Rz(w_yf, 1))
+        conv_v = conv_v + W_at_v * (_Rz(v, 1) - _Rz(v, -1)) * (0.5 * ihz)
+    g_vy = (v[:, 1:] - v[:, :-1]) * inv_dy       # (Nx, Ny, Nz) cells
+    Fp = mirror_pad_c(nu * g_vy)
+    lap_v = (nu * (_X(v, 1) - 2.0 * v + _X(v, -1)) * ihx * ihx
+             + (Fp[:, 1:] - Fp[:, :-1]) * inv_dyc
+             + nu * (_Rz(v, 1) - 2.0 * v + _Rz(v, -1)) * ihz * ihz)
+    star_v = v + dt * (-conv_v + lap_v)
+
+    # ---- w component (z-face staggered; y-center like u) --------------
+    hi_n = _Rz(w, 1)
+    lo_n = _Rz(w, -1)
+    Ue = 0.5 * (_Rz(u, -1) + u)                  # u at (x-face, z-face)
+    Ve_w = 0.5 * (_Rz(v, -1) + v)                # (Nx, Ny+1, Nz)
+    if skew:
+        conv_w = 0.5 * ((0.5 * (w + hi_n)) * hi_n
+                        - (0.5 * (lo_n + w)) * lo_n) * ihz
+        conv_w = conv_w + 0.5 * (_X(Ue, 1) * _X(w, 1)
+                                 - Ue * _X(w, -1)) * ihx
+        conv_w = conv_w + 0.5 * (Ve_w[:, 1:] * wp[:, 2:]
+                                 - Ve_w[:, :-1] * wp[:, :-2]) * inv_dy
+    else:
+        conv_w = w * (hi_n - lo_n) * (0.5 * ihz)
+        U_at_w = 0.5 * (Ue + _X(Ue, 1))
+        conv_w = conv_w + U_at_w * (_X(w, 1) - _X(w, -1)) * (0.5 * ihx)
+        V_at_w = 0.5 * (Ve_w[:, :-1] + Ve_w[:, 1:])
+        conv_w = conv_w + V_at_w * (wp[:, 2:] - wp[:, :-2]) * inv2_cy
+    g_wy = (wp[:, 1:] - wp[:, :-1]) * inv_dgy
+    Fw = nu * g_wy
+    lap_w = (nu * (_X(w, 1) - 2.0 * w + _X(w, -1)) * ihx * ihx
+             + (Fw[:, 1:] - Fw[:, :-1]) * inv_dy
+             + nu * (_Rz(w, 1) - 2.0 * w + _Rz(w, -1)) * ihz * ihz)
+    star_w = w + dt * (-conv_w + lap_w)
+
+    return star_u, star_v, star_w
+
+
+def _predictor_channel_launch(u, v, w, dt, *ys, hx, hz, nu, fx, scheme):
+    if u.device.type == "cpu":
+        return predictor_channel_twin(u, v, w, dt, *ys, hx=hx, hz=hz,
+                                      nu=nu, fx=fx, scheme=scheme)
+    return _predictor_channel_cuda(u, v, w, dt, *ys, hx=hx, hz=hz, nu=nu,
+                                   fx=fx, scheme=scheme)
+
+
+def _predictor_channel_cuda(u, v, w, dt, *ys, hx, hz, nu, fx, scheme):
+    skew = _scheme_is_skew(scheme)
+    su, sv, sw = (torch.empty_like(a) for a in (u, v, w))
+    nx, ny, nz = u.shape
+    _launch("predictor_channel", u,
+            *(t.data_ptr() for t in (u, v, w, dt, *ys, su, sv, sw)),
+            nx, ny, nz, 1.0 / hx, 1.0 / hz, float(nu), float(fx), int(skew))
+    predictor_channel.launches += 1
+    return su, sv, sw
+
+
+def predictor_channel(u, v, w, dt, ys, *, hx, hz, nu, fx, scheme):
+    """Euler star (u*, v*, w*) of the wall-y channel predictor (periodic
+    uniform x/z, stretched no-slip y, O2 skew or central, scalar nu, body
+    force fx on u). `ys` = channel_y_arrays(geom). Star v is produced at
+    the wall faces too; the caller's BC pass zeroes them."""
+    nx, ny, nz = u.shape
+    if ny < 2:
+        raise ValueError("predictor_channel: needs Ny >= 2")
+    _check("predictor_channel", (u, v, w, dt, *ys),
+           ((nx, ny, nz), (nx, ny + 1, nz), (nx, ny, nz), (),
+            (1, ny, 1), (1, ny + 1, 1), (1, ny + 1, 1), (1, ny, 1),
+            (1, ny + 1, 1)))
+    kw = dict(hx=hx, hz=hz, nu=nu, fx=fx, scheme=scheme)
+    return _ViaTwin.apply(_predictor_channel_launch, predictor_channel_twin,
+                          kw, u, v, w, dt, *ys)
+
+
+predictor_channel.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# divergence  <-  pallas_kernels.fused_divergence
+# correct     <-  pallas_kernels.fused_correct
+# ---------------------------------------------------------------------------
+
+
+def _check_geom(name: str, geom: Geometry, fields) -> None:
+    if geom.space_order != 2:
+        raise NotImplementedError(f"{name}: O2 only (O4 is ROADMAP A.2)")
+    f0 = fields[0]
+    for ax in geom.axes:
+        for t in (ax.inv_d, ax.inv_dc):
+            if t.device != f0.device or t.dtype != f0.dtype:
+                raise ValueError(
+                    f"{name}: geometry on {t.device}/{t.dtype}, fields on "
+                    f"{f0.device}/{f0.dtype}")
+
+
+def _face_shapes(geom: Geometry):
+    x, y, z = geom.axes
+    return ((_nfaces(x), y.n, z.n), (x.n, _nfaces(y), z.n),
+            (x.n, y.n, _nfaces(z)))
+
+
+def divergence_twin(u, v, w, *, geom):
+    """Plain twin of `divergence`: ops.operators.divergence."""
+    return ops.divergence((u, v, w), geom)
+
+
+def _divergence_launch(u, v, w, *, geom):
+    if u.device.type == "cpu":
+        return divergence_twin(u, v, w, geom=geom)
+    return _divergence_cuda(u, v, w, geom=geom)
+
+
+def _divergence_cuda(u, v, w, *, geom):
+    x, y, z = geom.axes
+    out = torch.empty((x.n, y.n, z.n), dtype=u.dtype, device=u.device)
+    _launch("divergence", u,
+            *(t.data_ptr() for t in (u, v, w, x.inv_d, y.inv_d, z.inv_d,
+                                     out)), x.n, y.n, z.n,
+            *(_axis_mode(ax) for ax in geom.axes))
+    divergence.launches += 1
+    return out
+
+
+def divergence(u, v, w, *, geom: Geometry):
+    """Staggered O2 cell divergence of (u, v, w) on `geom`."""
+    _check("divergence", (u, v, w), _face_shapes(geom))
+    _check_geom("divergence", geom, (u,))
+    return _ViaTwin.apply(_divergence_launch, divergence_twin,
+                          dict(geom=geom), u, v, w)
+
+
+divergence.launches = 0
+
+
+def correct_twin(u, v, w, p, dt, *, geom):
+    """Plain twin of `correct`: ops.operators.correct_velocity."""
+    return ops.correct_velocity((u, v, w), p, dt, geom)
+
+
+def _correct_launch(u, v, w, p, dt, *, geom):
+    if u.device.type == "cpu":
+        return correct_twin(u, v, w, p, dt, geom=geom)
+    return _correct_cuda(u, v, w, p, dt, geom=geom)
+
+
+def _correct_cuda(u, v, w, p, dt, *, geom):
+    ou, ov, ow = (torch.empty_like(a) for a in (u, v, w))
+    x, y, z = geom.axes
+    _launch("correct", u,
+            *(t.data_ptr() for t in (u, v, w, p, dt, x.inv_dc, y.inv_dc,
+                                     z.inv_dc, ou, ov, ow)), x.n, y.n, z.n,
+            *(_axis_mode(ax) for ax in geom.axes))
+    correct.launches += 1
+    return ou, ov, ow
+
+
+def correct(u, v, w, p, dt, *, geom: Geometry):
+    """(u, v, w) - dt * grad(p) at the stored faces, O2, with the Neumann
+    pressure ghost at bounded axes (zero gradient at the boundary faces)."""
+    for ax in geom.axes:
+        if not ax.periodic and "dirichlet" in (ax.p_lo, ax.p_hi):
+            raise NotImplementedError(
+                "correct: a Dirichlet pressure end (the inflow/outflow "
+                "pair) is not served by the kernel; ROADMAP A.8")
+    x, y, z = geom.axes
+    _check("correct", (u, v, w, p, dt),
+           _face_shapes(geom) + ((x.n, y.n, z.n), ()))
+    _check_geom("correct", geom, (u,))
+    return _ViaTwin.apply(_correct_launch, correct_twin, dict(geom=geom),
+                          u, v, w, p, dt)
+
+
+correct.launches = 0
+
+
+KERNELS = (predictor_periodic, predictor_channel, divergence, correct)
+
+
+def reset_launch_counts() -> None:
+    for k in KERNELS:
+        k.launches = 0
+
+
+def launch_counts() -> dict:
+    return {k.__name__: k.launches for k in KERNELS}

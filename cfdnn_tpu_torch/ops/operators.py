@@ -1,0 +1,327 @@
+"""Staggered-MAC spatial operators, O2 (port of `cfdnn_tpu/ops/operators.py`).
+
+Plain PyTorch functions on unique-DOF staggered tensors; ghosts are
+materialized by the `ops.bc` pads. These are the port's single source of
+truth, as the jnp operators are the reference's: the hand-written kernels
+in `ops/kernels.py` are tested against them. `tests/test_torch_ops.py`
+holds each one to the reference at float64 roundoff.
+
+Not ported yet, and raising where reached: the O4 stencils (ROADMAP A.2,
+refused by `Geometry.make`), the upwind and upwind2 schemes (A.2) and a
+cell-varying viscosity in `diffusive` (the LES slice, A.9).
+
+Component/axis convention: comps = (u, v, w); component c is staggered along
+axis c ("s" below); "d" ranges over the three derivative directions.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from ..config import BCType, ConvectiveScheme
+from .bc import face_pair, pad_center, pad_normal, pad_pressure, pad_tangential, sl
+from .grid import AxisGeom, Geometry
+
+Tensor = torch.Tensor
+Vel = Tuple[Tensor, Tensor, Tensor]
+
+
+# ---------------------------------------------------------------------------
+# Primitive interpolation / differentiation helpers
+# ---------------------------------------------------------------------------
+
+
+def _R(f: Tensor, n: int, axis: int) -> Tensor:
+    """Element i+n of a periodic array."""
+    return torch.roll(f, -n, dims=axis)
+
+
+def ax_of(b: Tensor) -> int:
+    """Axis a broadcast-shaped (1,N,1)-style array varies along."""
+    for i, s in enumerate(b.shape):
+        if s > 1:
+            return i
+    return 0
+
+
+def _stored_faces(x: Tensor, axis: int, ax: AxisGeom) -> Tensor:
+    """Slice an (N+1)-face array to the stored-face count (N if periodic)."""
+    return sl(x, axis, 0, -1) if ax.periodic else x
+
+
+def _inv_dpos_c(ax: AxisGeom) -> Tensor:
+    """1/(ghost-aware center spacing) at all N+1 faces.
+
+    Interior faces equal 1/dc; boundary faces use the mirrored-ghost distance
+    (so a wall-tangential derivative across the wall face is exact no-slip).
+    """
+    p = ax.pos_c_pad
+    a = ax_of(p)
+    return 1.0 / (sl(p, a, 1, None) - sl(p, a, 0, -1))
+
+
+def f2c_mean(f: Tensor, axis: int, ax: AxisGeom) -> Tensor:
+    lo, hi = face_pair(f, axis, ax.bc)
+    return 0.5 * (lo + hi)
+
+
+def f2c_diff(f: Tensor, axis: int, ax: AxisGeom) -> Tensor:
+    lo, hi = face_pair(f, axis, ax.bc)
+    return (hi - lo) * ax.inv_d
+
+
+def c2f_mean(fc: Tensor, axis: int, ax: AxisGeom, kind: str = "vel",
+             wall=(0.0, 0.0)) -> Tensor:
+    """Cell-centered -> stored faces, arithmetic mean.
+
+    `wall`: tangential wall velocity pair for kind="vel".
+    """
+    if ax.bc == BCType.PERIODIC:
+        return 0.5 * (_R(fc, -1, axis) + fc)
+    pad = (pad_tangential(fc, axis, ax.bc, wall=wall) if kind == "vel"
+           else pad_center(fc, axis, ax.bc, kind="neumann"))
+    avg = 0.5 * (sl(pad, axis, 0, -1) + sl(pad, axis, 1, None))
+    return _stored_faces(avg, axis, ax)
+
+
+def c2f_diff(fc: Tensor, axis: int, ax: AxisGeom, kind: str = "vel",
+             wall=(0.0, 0.0)) -> Tensor:
+    """Cell-centered -> derivative at stored faces (ghost-aware spacing)."""
+    inv_sp = _inv_dpos_c(ax)
+    if ax.bc == BCType.PERIODIC:
+        a = ax_of(inv_sp)
+        return (fc - _R(fc, -1, axis)) * sl(inv_sp, a, 0, -1)
+    pad = (pad_tangential(fc, axis, ax.bc, wall=wall) if kind == "vel"
+           else pad_center(fc, axis, ax.bc, kind="neumann"))
+    g = (sl(pad, axis, 1, None) - sl(pad, axis, 0, -1)) * inv_sp
+    return _stored_faces(g, axis, ax)
+
+
+def cc_central(phi: Tensor, axis: int, ax: AxisGeom, wall=(0.0, 0.0)) -> Tensor:
+    """Central derivative at centers of a field cell-centered along `axis`."""
+    p = ax.pos_c_pad
+    a = ax_of(p)
+    den = sl(p, a, 2, None) - sl(p, a, 0, -2)
+    if ax.bc == BCType.PERIODIC:
+        return (_R(phi, 1, axis) - _R(phi, -1, axis)) / den
+    pad = pad_tangential(phi, axis, ax.bc, wall=wall)
+    return (sl(pad, axis, 2, None) - sl(pad, axis, 0, -2)) / den
+
+
+def ff_central(phi: Tensor, axis: int, ax: AxisGeom) -> Tensor:
+    """Central derivative at stored faces of a field staggered along `axis`."""
+    p = ax.pos_f_pad
+    a = ax_of(p)
+    den = sl(p, a, 2, None) - sl(p, a, 0, -2)
+    if ax.bc == BCType.PERIODIC:
+        return (_R(phi, 1, axis) - _R(phi, -1, axis)) / den
+    pad = pad_normal(phi, axis, ax.bc)
+    return (sl(pad, axis, 2, None) - sl(pad, axis, 0, -2)) / den
+
+
+# ---------------------------------------------------------------------------
+# Convective term
+# ---------------------------------------------------------------------------
+
+
+def _advecting_velocity(comps: Vel, s: int, d: int, geom: Geometry) -> Tensor:
+    """Component d interpolated to the DOF points of component s (4-pt avg)."""
+    if d == s:
+        return comps[s]
+    uc = f2c_mean(comps[d], d, geom.axes[d])
+    return c2f_mean(uc, s, geom.axes[s], kind="vel",
+                    wall=geom.axes[s].tang[d])
+
+
+def _conv_advective(comps: Vel, s: int, geom: Geometry,
+                    scheme: ConvectiveScheme) -> Tensor:
+    """Advective form u.grad(phi) with central derivatives."""
+    if scheme != ConvectiveScheme.CENTRAL:
+        raise NotImplementedError(
+            f"convective_scheme={scheme.value}: the port has the skew and "
+            "central schemes; upwind and upwind2 are ROADMAP A.2")
+    phi = comps[s]
+    out = torch.zeros_like(phi)
+    for d in range(3):
+        ax = geom.axes[d]
+        if ax.n == 1:
+            continue
+        adv = _advecting_velocity(comps, s, d, geom)
+        dphi = (ff_central(phi, d, ax) if d == s
+                else cc_central(phi, d, ax, wall=ax.tang[s]))
+        out = out + adv * dphi
+    return out
+
+
+def _periodic_bdiff(F: Tensor, axis: int, ax: AxisGeom) -> Tensor:
+    """(F_i - F_{i-1}) * inv_dc with wrap — the shared periodic
+    backward-difference of _bdiff_stored AND pressure_grad_face (the
+    two must stay identical for D.G = L projection consistency)."""
+    a = ax_of(ax.inv_dc)
+    return (F - _R(F, -1, axis)) * sl(ax.inv_dc, a, 0, -1)
+
+
+def _bdiff_stored(F: Tensor, axis: int, ax: AxisGeom) -> Tensor:
+    """(F_i - F_{i-1}) * inv_dc at the stored faces of a cell-centered F
+    (neumann ghosts)."""
+    if ax.bc == BCType.PERIODIC:
+        return _periodic_bdiff(F, axis, ax)
+    pad = pad_center(F, axis, ax.bc, kind="neumann")
+    g = (sl(pad, axis, 1, None) - sl(pad, axis, 0, -1)) * ax.inv_dc
+    return _stored_faces(g, axis, ax)
+
+
+def _conv_skew(comps: Vel, s: int, geom: Geometry) -> Tensor:
+    """Exactly energy-conserving skew form.
+
+    For each control-volume face pair of phi,
+        N(phi) = (u_f_hi * phi_nb_hi - u_f_lo * phi_nb_lo) / (2 W)
+    with u_f the advecting velocity interpolated to the CV face and W the CV
+    width. The flux telescopes, so sum_cells V * phi * N(phi) == 0 to
+    roundoff for any velocity field and stretching.
+    """
+    phi = comps[s]
+    axs = geom.axes[s]
+    out = torch.zeros_like(phi)
+    for d in range(3):
+        ax = geom.axes[d]
+        if ax.n == 1:
+            continue
+        if d == s:
+            phi_c = f2c_mean(phi, s, axs)                 # u_f at CV faces
+            if axs.bc == BCType.PERIODIC:
+                u_lo = _R(phi_c, -1, s)
+                u_hi = phi_c
+                lo_n = _R(phi, -1, s)
+                hi_n = _R(phi, 1, s)
+            else:
+                cpad = pad_center(phi_c, s, axs.bc, kind="neumann")
+                u_lo = _stored_faces(sl(cpad, s, 0, -1), s, axs)
+                u_hi = _stored_faces(sl(cpad, s, 1, None), s, axs)
+                npad = pad_normal(phi, s, axs.bc)
+                lo_n = sl(npad, s, 0, -2)
+                hi_n = sl(npad, s, 2, None)
+            inv_w = _stored_faces(axs.inv_dc, ax_of(axs.inv_dc), axs)
+            out = out + 0.5 * (u_hi * hi_n - u_lo * lo_n) * inv_w
+        else:
+            U_e = c2f_mean(comps[d], s, axs, kind="vel",  # at CV faces (edges)
+                           wall=axs.tang[d])
+            u_lo, u_hi = face_pair(U_e, d, ax.bc)
+            if ax.bc == BCType.PERIODIC:
+                lo_n = _R(phi, -1, d)
+                hi_n = _R(phi, 1, d)
+            else:
+                tpad = pad_tangential(phi, d, ax.bc, wall=ax.tang[s])
+                lo_n = sl(tpad, d, 0, -2)
+                hi_n = sl(tpad, d, 2, None)
+            out = out + 0.5 * (u_hi * hi_n - u_lo * lo_n) * ax.inv_d
+    return out
+
+
+def convective(comps: Vel, geom: Geometry,
+               scheme: ConvectiveScheme = ConvectiveScheme.CENTRAL) -> Vel:
+    """Convective term for each momentum component at its own DOF points:
+    central is the advective form u.grad(phi), skew the exactly
+    energy-conserving telescoping form (see _conv_skew)."""
+    out = []
+    for s in range(3):
+        if scheme == ConvectiveScheme.SKEW:
+            out.append(_conv_skew(comps, s, geom))
+        else:
+            out.append(_conv_advective(comps, s, geom, scheme))
+    return tuple(out)
+
+
+# ---------------------------------------------------------------------------
+# Diffusive term (Laplacian form, scalar viscosity)
+# ---------------------------------------------------------------------------
+
+
+def diffusive(comps: Vel, nu, geom: Geometry, skip_y: bool = False) -> Vel:
+    """div(nu grad(phi)) per component for a scalar nu (a Python float or
+    a 0-d tensor). `skip_y` omits the y-direction term (implicit
+    y-diffusion)."""
+    if torch.is_tensor(nu) and nu.ndim != 0:
+        raise NotImplementedError(
+            "diffusive() with a cell-varying viscosity: the corner-averaged "
+            "nu_t path comes with the LES slice, ROADMAP A.9")
+    out = []
+    for s in range(3):
+        phi = comps[s]
+        axs = geom.axes[s]
+        term = torch.zeros_like(phi)
+        for d in range(3):
+            ax = geom.axes[d]
+            if ax.n == 1 or (skip_y and d == 1):
+                continue
+            if d == s:
+                F = nu * f2c_diff(phi, s, axs)
+                term = term + _bdiff_stored(F, s, axs)
+            else:
+                F = nu * c2f_diff(phi, d, ax, kind="vel", wall=ax.tang[s])
+                lo, hi = face_pair(F, d, ax.bc)
+                term = term + (hi - lo) * ax.inv_d
+        out.append(term)
+    return tuple(out)
+
+
+# ---------------------------------------------------------------------------
+# Divergence / projection pieces
+# ---------------------------------------------------------------------------
+
+
+def divergence(comps: Vel, geom: Geometry) -> Tensor:
+    """Staggered cell divergence."""
+    div = None
+    for axis in range(3):
+        ax = geom.axes[axis]
+        if ax.n == 1:
+            continue
+        lo, hi = face_pair(comps[axis], axis, ax.bc)
+        t = (hi - lo) * ax.inv_d
+        div = t if div is None else div + t
+    return div
+
+
+def pressure_grad_face(p: Tensor, axis: int, geom: Geometry) -> Tensor:
+    """dp/dx_axis at the stored faces of the normal velocity component.
+
+    Uses the Neumann mirror ghost so wall boundary faces get exactly zero
+    gradient; interior faces use the same 1/dc spacings as the consistent
+    Laplacian metrics, which makes the projection exact (D.G = L) on
+    stretched grids.
+    """
+    ax = geom.axes[axis]
+    if ax.bc == BCType.PERIODIC:
+        return _periodic_bdiff(p, axis, ax)
+    pad = pad_pressure(p, axis, ax)
+    g = (sl(pad, axis, 1, None) - sl(pad, axis, 0, -1)) * ax.inv_dc
+    return _stored_faces(g, axis, ax)
+
+
+def correct_velocity(comps: Vel, p_corr: Tensor, dt, geom: Geometry) -> Vel:
+    """u <- u* - dt grad(p')."""
+    out = []
+    for axis in range(3):
+        f = comps[axis]
+        if geom.axes[axis].n == 1:
+            out.append(f)
+            continue
+        out.append(f - dt * pressure_grad_face(p_corr, axis, geom))
+    return tuple(out)
+
+
+def laplacian(p: Tensor, geom: Geometry) -> Tensor:
+    """Consistent scalar Laplacian L = D(G(p)) used by the Poisson solver."""
+    lap = None
+    for axis in range(3):
+        ax = geom.axes[axis]
+        if ax.n == 1:
+            continue
+        g = pressure_grad_face(p, axis, geom)
+        lo, hi = face_pair(g, axis, ax.bc)
+        t = (hi - lo) * ax.inv_d
+        lap = t if lap is None else lap + t
+    return lap

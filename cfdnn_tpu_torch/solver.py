@@ -1,0 +1,275 @@
+"""Fractional-step incompressible Navier-Stokes solver, the Euler slice
+(port of `cfdnn_tpu/solver.py`).
+
+One step is predictor -> BC -> divergence -> direct FDM Poisson solve ->
+pressure correction -> BC, with forward Euler at a fixed dt. Where the
+reference jits the step and scans n of them, the port runs the same
+functions eagerly in a plain Python loop; the per-step work on CUDA goes
+through the hand-written kernels of `ops/kernels.py`.
+
+Kernel dispatch is explicit (`Simulation.kernels`): on CUDA with
+use_pallas "auto" or "on",
+  - predictor_periodic when the grid is all-periodic uniform, 3-D, O2
+    skew with no turbulence closure (the reference's fused_predictor);
+  - predictor_channel when `channel_slab_eligible` holds;
+  - divergence and correct whenever x is periodic and uniform.
+use_pallas="off" runs the eager operator chain, "auto" off CUDA too (the
+reference's "auto" resolves to its operators off an accelerator), and
+"on" runs the kernels' wrappers on any device (on the CPU they take the
+plain twins, as the reference's "on" runs Pallas in interpret mode). "on"
+raises when no ported kernel serves the config's predictor.
+
+Everything outside the slice raises NotImplementedError naming the ROADMAP
+item that brings it (`_check_supported`); no Config field is ignored.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import torch
+
+from .config import (BCType, Config, ConvectiveScheme, PoissonSolverType,
+                     TimeIntegrator, TurbulenceModel)
+from .fields import State, zero_state
+from .mesh import Mesh
+from .ops import kernels
+from .ops import operators as ops
+from .ops.bc import apply_velocity_bc
+from .ops.grid import Geometry
+from .poisson.fdm import FDMPoissonSolver
+
+
+@dataclasses.dataclass(frozen=True)
+class StepDiagnostics:
+    """Per-step scalars returned alongside the new state (0-d tensors on
+    the state's device; zeros for the steps a benchmark-mode run takes
+    without diagnostics)."""
+
+    residual: torch.Tensor     # max |u - u_old|
+    div_linf: torch.Tensor     # post-projection max |div u|
+    dt: torch.Tensor
+    ke: torch.Tensor           # volume-averaged kinetic energy
+    nan_flag: torch.Tensor
+
+
+@dataclasses.dataclass(frozen=True)
+class KernelPlan:
+    """Which hand-written kernels a Simulation's step launches."""
+
+    predictor: Optional[str]   # "periodic" | "channel" | None (eager)
+    projection: bool           # divergence + correct kernels
+
+
+def _check_supported(cfg: Config) -> None:
+    """Raise NotImplementedError for every config the Euler slice does not
+    serve, naming the ROADMAP item that brings it."""
+    n_dev = 1
+    for d in (cfg.mesh_shape or (1,)):
+        n_dev *= int(d)
+    bcs = (cfg.bc_x, cfg.bc_y, cfg.bc_z)
+    unsupported = [
+        (cfg.time_integrator != TimeIntegrator.EULER,
+         f"time_integrator={cfg.time_integrator.value}", "A.8 (RK2/RK3)"),
+        (cfg.adaptive_dt, "adaptive_dt=True", "A.8 (adaptive dt)"),
+        (cfg.implicit_y_diffusion, "implicit_y_diffusion=True",
+         "A.8 (implicit y-diffusion)"),
+        (cfg.space_order != 2, f"space_order={cfg.space_order}",
+         "A.2 (O4 stencils)"),
+        (cfg.convective_scheme in (ConvectiveScheme.UPWIND,
+                                   ConvectiveScheme.UPWIND2),
+         f"convective_scheme={cfg.convective_scheme.value}",
+         "A.2 (upwind schemes)"),
+        (cfg.turb_model != TurbulenceModel.NONE,
+         f"turb_model={cfg.turb_model.value}",
+         "A.9, A.11, A.12 (turbulence closures)"),
+        (cfg.trip_enabled, "trip_enabled=True", "A.14 (trip forcing)"),
+        (cfg.recycling_inflow, "recycling_inflow=True",
+         "A.14 (recycling inflow)"),
+        (cfg.filter_strength > 0.0, f"filter_strength={cfg.filter_strength}",
+         "A.14 (velocity filter)"),
+        (cfg.force_ramp_time > 0, f"force_ramp_time={cfg.force_ramp_time}",
+         "A.8 (force ramp)"),
+        (cfg.bulk_velocity_target > 0,
+         f"bulk_velocity_target={cfg.bulk_velocity_target}",
+         "A.8 (bulk-velocity control)"),
+        (any(b in (BCType.INFLOW, BCType.OUTFLOW) for b in bcs),
+         "an inflow/outflow boundary", "A.8 (inflow pinning, outlet)"),
+        (n_dev > 1, f"mesh_shape={tuple(cfg.mesh_shape)}",
+         "A.17 (multi-device)"),
+        (cfg.poisson_solver == PoissonSolverType.MG, "poisson_solver=mg",
+         "A.13 (multigrid)"),
+    ]
+    for bad, what, item in unsupported:
+        if bad:
+            raise NotImplementedError(
+                f"{what}: not in the port's Euler slice yet; ROADMAP {item}")
+    if cfg.use_pallas not in ("auto", "on", "off"):
+        raise ValueError(f"use_pallas={cfg.use_pallas!r} — expected "
+                         "'auto' | 'on' | 'off'")
+
+
+class Simulation:
+    """Owns mesh/config/geometry/Poisson operator and the step, on one
+    explicit torch device."""
+
+    def __init__(self, cfg: Config, mesh: Optional[Mesh] = None, *, device):
+        cfg = cfg.finalize()
+        _check_supported(cfg)
+        self.cfg = cfg
+        self.device = torch.device(device)
+        self.mesh = mesh or Mesh.from_config(cfg)
+        self.geom = Geometry.make(self.mesh, cfg, self.device)
+        self.dtype = self.geom.dtype
+        self.poisson = self._make_poisson()
+        self._dt = torch.full((), cfg.dt, dtype=self.dtype, device=self.device)
+        self._zero = torch.zeros((), dtype=self.dtype, device=self.device)
+        self._fx = float(-cfg.dp_dx / cfg.rho)
+        self.kernels = self._select_kernels()
+        self._channel_ys = (kernels.channel_y_arrays(self.geom)
+                            if self.kernels.predictor == "channel" else None)
+
+    def _make_poisson(self):
+        cfg = self.cfg
+        try:
+            return FDMPoissonSolver(self.mesh, cfg, geom=self.geom,
+                                    device=self.device)
+        except ValueError as e:
+            if cfg.poisson_solver != PoissonSolverType.AUTO:
+                raise
+            raise NotImplementedError(
+                f"{e}: this mesh needs the multigrid Poisson solver, "
+                "ROADMAP A.13") from e
+
+    def _select_kernels(self) -> KernelPlan:
+        cfg, geom = self.cfg, self.geom
+        if cfg.use_pallas == "off" or (cfg.use_pallas == "auto"
+                                       and self.device.type != "cuda"):
+            return KernelPlan(None, False)
+        x, y, z = geom.axes
+        predictor = None
+        if (all(ax.periodic and ax.uniform for ax in geom.axes) and z.n > 1
+                and cfg.convective_scheme == ConvectiveScheme.SKEW):
+            predictor = "periodic"
+        elif kernels.channel_slab_eligible(geom, cfg):
+            predictor = "channel"
+        projection = x.periodic and x.uniform
+        if cfg.use_pallas == "on" and (predictor is None or not projection):
+            raise NotImplementedError(
+                "use_pallas='on': no ported kernel serves this config's "
+                "predictor (the reference runs fused_predictor_general, "
+                "ROADMAP B.6) or its projection (non-periodic x); use "
+                "'auto' or 'off'")
+        return KernelPlan(predictor, projection)
+
+    def initial_state(self) -> State:
+        return zero_state(self.cfg, device=self.device)
+
+    # ------------------------------------------------------------------
+    # Physics pieces
+    # ------------------------------------------------------------------
+
+    def _apply_bc(self, comps):
+        return apply_velocity_bc(*comps, self.geom)
+
+    def _momentum_rhs(self, comps):
+        cfg, geom = self.cfg, self.geom
+        conv = ops.convective(comps, geom, cfg.convective_scheme)
+        diff = ops.diffusive(comps, cfg.nu, geom)
+        ru = -conv[0] + diff[0] + self._fx
+        rv = -conv[1] + diff[1]
+        rw = -conv[2] + diff[2]
+        return ru, rv, rw
+
+    def _euler_substep(self, comps, dt):
+        cfg, geom = self.cfg, self.geom
+        if self.kernels.predictor == "periodic":
+            star = kernels.predictor_periodic(
+                *comps, dt, hx=geom.x.h, hy=geom.y.h, hz=geom.z.h,
+                nu=float(cfg.nu), fx=self._fx)
+        elif self.kernels.predictor == "channel":
+            star = kernels.predictor_channel(
+                *comps, dt, self._channel_ys, hx=geom.x.h, hz=geom.z.h,
+                nu=float(cfg.nu), fx=self._fx, scheme=cfg.convective_scheme)
+        else:
+            rhs = self._momentum_rhs(comps)
+            star = tuple(c + dt * r for c, r in zip(comps, rhs))
+        return self._apply_bc(star)
+
+    def _project(self, comps, dt):
+        """Divergence -> Poisson -> correction -> BC."""
+        geom = self.geom
+        if self.kernels.projection:
+            div = kernels.divergence(*comps, geom=geom)
+        else:
+            div = ops.divergence(comps, geom)
+        p_corr = self.poisson.solve(div / dt)
+        if self.kernels.projection:
+            comps = kernels.correct(*comps, p_corr, dt, geom=geom)
+        else:
+            comps = ops.correct_velocity(comps, p_corr, dt, geom)
+        return self._apply_bc(comps), p_corr
+
+    def _advance_velocity(self, comps, dt):
+        """One Euler step of the velocity with its projection. The
+        predictor is pressure-free, so the projection correction IS the
+        pressure: it replaces p, never accumulates into it."""
+        star = self._euler_substep(comps, dt)
+        return self._project(star, dt)
+
+    # ------------------------------------------------------------------
+    # The step
+    # ------------------------------------------------------------------
+
+    def _step_impl(self, state: State,
+                   with_diags: bool = True) -> Tuple[State, StepDiagnostics]:
+        comps = (state.u, state.v, state.w)
+        dt = self._dt
+        new_comps, p = self._advance_velocity(comps, dt)
+        zero = self._zero
+        if with_diags:
+            div = ops.divergence(new_comps, self.geom)
+            res = torch.maximum(
+                torch.max(torch.abs(new_comps[0] - comps[0])),
+                torch.maximum(torch.max(torch.abs(new_comps[1] - comps[1])),
+                              torch.max(torch.abs(new_comps[2] - comps[2]))))
+            ke = 0.5 * (torch.mean(new_comps[0] ** 2)
+                        + torch.mean(new_comps[1] ** 2)
+                        + torch.mean(new_comps[2] ** 2))
+            div_linf = torch.max(torch.abs(div))
+            nan_flag = ~torch.isfinite(ke)
+        else:
+            # benchmark/throughput mode: skip the extra reduction passes
+            res = ke = div_linf = zero
+            nan_flag = torch.zeros((), dtype=torch.bool, device=self.device)
+        # Kahan-compensated t += dt (fields.State.t_comp)
+        t_comp = state.t_comp if state.t_comp is not None else zero
+        y = dt - t_comp
+        t_new = state.t + y
+        new_state = state.replace(
+            u=new_comps[0], v=new_comps[1], w=new_comps[2], p=p,
+            t=t_new, t_comp=(t_new - state.t) - y,
+            step=state.step + 1, dt_prev=dt,
+        )
+        diags = StepDiagnostics(residual=res, div_linf=div_linf, dt=dt,
+                                ke=ke, nan_flag=nan_flag)
+        return new_state, diags
+
+    # ------------------------------------------------------------------
+    # Public API
+    # ------------------------------------------------------------------
+
+    def step(self, state: State) -> Tuple[State, StepDiagnostics]:
+        return self._step_impl(state, with_diags=True)
+
+    def run(self, state: State, n: int) -> Tuple[State, StepDiagnostics]:
+        """n steps. In benchmark or perf mode the first n-1 skip the
+        diagnostics reductions and the last computes them, so the returned
+        diagnostics are always real (the reference's _nsteps_impl)."""
+        if n < 1:
+            raise ValueError(f"run: n={n}, need n >= 1")
+        fast = self.cfg.benchmark or self.cfg.perf_mode
+        for _ in range(n - 1):
+            state, _ = self._step_impl(state, with_diags=not fast)
+        return self._step_impl(state, with_diags=True)

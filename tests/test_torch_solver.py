@@ -1,0 +1,229 @@
+"""The port's Simulation (Euler slice) against the JAX reference's, float64
+on the CPU, plus its dispatch, its refusals and its import hygiene.
+
+Trajectories: 16^3 Taylor-Green (all-periodic, skew) and a 16x24x8
+stretched channel (central, the bench scheme), 5 steps with
+use_pallas="on" (the reference in Pallas interpret mode, the port through
+its kernels' CPU twins) and 20 steps with "off" (both operator chains),
+from the same initial arrays handed across by state_from_numpy; u, v, w
+and p agree to atol 1e-11.
+"""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import cfdnn_tpu as R
+import cfdnn_tpu_torch as T
+from cfdnn_tpu_torch.solver import KernelPlan
+
+ATOL = 1e-11
+
+TGV = dict(Nx=16, Ny=16, Nz=16, bc_x="periodic", bc_y="periodic",
+           bc_z="periodic", y_min=0.0, y_max=2 * np.pi, z_max=2 * np.pi,
+           nu=1e-3, nu_specified=True, dp_dx=0.0, dp_dx_specified=True,
+           dt=1e-3, adaptive_dt=False, dtype="float64",
+           convective_scheme="skew")
+CHANNEL = dict(Nx=16, Ny=24, Nz=8, stretch_y=True, z_max=1.0, nu=1e-3,
+               nu_specified=True, dp_dx=-1e-3, dp_dx_specified=True, dt=1e-3,
+               adaptive_dt=False, dtype="float64")
+
+
+def _cfg(pkg, base, **kw):
+    k = dict(base, **kw)
+    for name in ("bc_x", "bc_y", "bc_z"):
+        if name in k:
+            k[name] = pkg.BCType(k[name])
+    if "convective_scheme" in k:
+        k["convective_scheme"] = pkg.ConvectiveScheme(k["convective_scheme"])
+    return pkg.Config(**k)
+
+
+def _init(case, sim):
+    if case == "tgv":
+        return R.init_taylor_green(sim.cfg, sim.mesh)
+    return R.perturbed_channel(sim.cfg, sim.mesh, amp=0.05)
+
+
+def _to_port(state, sim):
+    return T.state_from_numpy(
+        {k: np.asarray(getattr(state, k)) for k in
+         ("u", "v", "w", "p", "t", "step", "dt_prev", "t_comp")},
+        "cpu", sim.dtype)
+
+
+@pytest.mark.parametrize("case", ["tgv", "channel"])
+@pytest.mark.parametrize("mode,steps", [("on", 5), ("off", 20)])
+def test_trajectory_matches_reference(case, mode, steps):
+    base = TGV if case == "tgv" else CHANNEL
+    rsim = R.Simulation(_cfg(R, base, use_pallas=mode))
+    tsim = T.Simulation(_cfg(T, base, use_pallas=mode), device="cpu")
+    if mode == "on":
+        assert rsim._pallas_predictor_ok == "slab"
+        assert tsim.kernels == KernelPlan(
+            "periodic" if case == "tgv" else "channel", True)
+    else:
+        assert tsim.kernels == KernelPlan(None, False)
+    rs = _init(case, rsim)
+    ts = _to_port(rs, tsim)
+    for _ in range(steps):
+        rs, rd = rsim.step(rs)
+        ts, td = tsim.step(ts)
+    out = T.state_to_numpy(ts)
+    for k in ("u", "v", "w", "p"):
+        np.testing.assert_allclose(out[k], np.asarray(getattr(rs, k)),
+                                   rtol=0, atol=ATOL, err_msg=k)
+    np.testing.assert_allclose(out["t"], np.asarray(rs.t), rtol=0, atol=0)
+    assert int(out["step"]) == int(rs.step) == steps
+    for f in ("ke", "div_linf", "residual"):
+        np.testing.assert_allclose(float(getattr(td, f)),
+                                   float(getattr(rd, f)), rtol=0, atol=ATOL)
+    assert float(td.div_linf) < 1e-10
+
+
+@pytest.mark.parametrize("case", ["tgv", "channel"])
+def test_benchmark_mode_run_matches_reference(case):
+    """run(n) in benchmark mode: n-1 steps without diagnostics, then one
+    with them (the reference's _nsteps_impl)."""
+    base = dict(TGV if case == "tgv" else CHANNEL, benchmark=True)
+    rsim = R.Simulation(_cfg(R, base, use_pallas="off"))
+    tsim = T.Simulation(_cfg(T, base, use_pallas="off"), device="cpu")
+    rs = _init(case, rsim)
+    rs2, rd = rsim.run(rs, 6)
+    ts2, td = tsim.run(_to_port(rs, tsim), 6)
+    np.testing.assert_allclose(T.state_to_numpy(ts2)["u"], np.asarray(rs2.u),
+                               rtol=0, atol=ATOL)
+    for f in ("ke", "div_linf", "residual"):
+        np.testing.assert_allclose(float(getattr(td, f)),
+                                   float(getattr(rd, f)), rtol=0, atol=ATOL)
+    assert float(td.ke) > 0.0
+
+
+def test_kahan_time_float32():
+    """t carries a Kahan compensation: 3000 float32 steps of 1e-3 land on
+    3.0 to float32 roundoff, where plain summation drifts."""
+    cfg = _cfg(T, TGV, Nx=4, Ny=4, Nz=4, dtype="float32")
+    sim = T.Simulation(cfg, device="cpu")
+    st = sim.initial_state()
+    t, comp = st.t, st.t_comp
+    dt = sim._dt
+    naive = torch.zeros((), dtype=torch.float32)
+    for _ in range(3000):
+        y = dt - comp
+        t_new = t + y
+        comp = (t_new - t) - y
+        t = t_new
+        naive = naive + dt
+    assert abs(float(t) - 3.0) <= 2.5e-7
+    assert abs(float(naive) - 3.0) > abs(float(t) - 3.0)
+    st2, _ = sim.run(st, 3)
+    assert abs(float(st2.t) - 3e-3) <= 1e-9 and int(st2.step) == 3
+
+
+@pytest.mark.parametrize("kw,item", [
+    (dict(time_integrator="rk3"), "A.8"),
+    (dict(adaptive_dt=True), "A.8"),
+    (dict(implicit_y_diffusion=True), "A.8"),
+    (dict(space_order=4), "A.2"),
+    (dict(convective_scheme="upwind"), "A.2"),
+    (dict(convective_scheme="upwind2"), "A.2"),
+    (dict(turb_model="smagorinsky"), "A.9"),
+    (dict(trip_enabled=True), "A.14"),
+    (dict(recycling_inflow=True), "A.14"),
+    (dict(filter_strength=0.1), "A.14"),
+    (dict(force_ramp_time=1.0), "A.8"),
+    (dict(bulk_velocity_target=1.0), "A.8"),
+    (dict(bc_x="inflow"), "A.8"),
+    (dict(bc_y="outflow"), "A.8"),
+    (dict(mesh_shape=(4,)), "A.17"),
+    (dict(poisson_solver="mg"), "A.13"),
+    (dict(poisson_transform="fht"), "A.13"),
+    (dict(poisson_transform="pallas_fft"), "B.11"),
+    (dict(stretch_z=True), "A.13"),
+])
+def test_outside_the_slice_raises(kw, item):
+    k = dict(CHANNEL, **kw)
+    enums = {"time_integrator": T.TimeIntegrator,
+             "convective_scheme": T.ConvectiveScheme,
+             "turb_model": T.TurbulenceModel, "bc_x": T.BCType,
+             "bc_y": T.BCType, "poisson_solver": T.PoissonSolverType}
+    for name, enum_ in enums.items():
+        if name in k:
+            k[name] = enum_(k[name])
+    with pytest.raises(NotImplementedError, match=item):
+        T.Simulation(T.Config(**k), device="cpu")
+
+
+def test_use_pallas_on_without_a_kernel_raises():
+    """'on' with a predictor no ported kernel serves (the reference would
+    run fused_predictor_general) raises; 'auto' runs the eager path."""
+    kw = dict(TGV, convective_scheme="central")
+    with pytest.raises(NotImplementedError, match="B.6"):
+        T.Simulation(_cfg(T, kw, use_pallas="on"), device="cpu")
+    assert T.Simulation(_cfg(T, kw), device="cpu").kernels == \
+        KernelPlan(None, False)
+    with pytest.raises(ValueError):
+        T.Simulation(_cfg(T, TGV, use_pallas="yes"), device="cpu")
+
+
+def test_lid_driven_wall_runs_eagerly():
+    """A moving top wall is in the operator library (AxisGeom.tang) but
+    not in the channel kernel's gate: 'on' raises, 'off' matches the
+    reference."""
+    kw = dict(CHANNEL, lid_velocity=0.5)
+    with pytest.raises(NotImplementedError, match="B.6"):
+        T.Simulation(_cfg(T, kw, use_pallas="on"), device="cpu")
+    rsim = R.Simulation(_cfg(R, kw, use_pallas="off"))
+    tsim = T.Simulation(_cfg(T, kw, use_pallas="off"), device="cpu")
+    rs = R.init_poiseuille(rsim.cfg, rsim.mesh, fraction=0.5)
+    ts = _to_port(rs, tsim)
+    for _ in range(3):
+        rs, _ = rsim.step(rs)
+        ts, _ = tsim.step(ts)
+    np.testing.assert_allclose(ts.u.numpy(), np.asarray(rs.u), rtol=0,
+                               atol=ATOL)
+
+
+def test_state_round_trip_and_fields():
+    sim = T.Simulation(_cfg(T, CHANNEL), device="cpu")
+    gen = torch.Generator().manual_seed(7)
+    st = T.perturbed_channel(sim.cfg, sim.mesh, gen, amp=0.05, device="cpu")
+    assert [tuple(c.shape) for c in st.velocity] == \
+        list(T.velocity_shapes(sim.cfg))
+    assert float(st.v[:, 0].abs().max()) == float(st.v[:, -1].abs().max()) \
+        == 0.0
+    again = T.perturbed_channel(sim.cfg, sim.mesh,
+                                torch.Generator().manual_seed(7), amp=0.05,
+                                device="cpu")
+    assert torch.equal(st.u, again.u)
+    back = T.state_from_numpy(T.state_to_numpy(st), "cpu", torch.float64)
+    for k in ("u", "v", "w", "p", "t", "step", "dt_prev", "t_comp"):
+        assert torch.equal(getattr(back, k), getattr(st, k)), k
+    assert back.step.dtype == torch.int32
+    with pytest.raises(NotImplementedError, match="turbulence"):
+        T.state_from_numpy({"u": np.zeros(3), "k": np.zeros(3)}, "cpu",
+                           torch.float64)
+    # the port's Poiseuille and TGV ICs equal the reference's
+    rsim = R.Simulation(_cfg(R, CHANNEL))
+    np.testing.assert_array_equal(
+        T.init_poiseuille(sim.cfg, sim.mesh, 1.0, device="cpu").u.numpy(),
+        np.asarray(R.init_poiseuille(rsim.cfg, rsim.mesh, 1.0).u))
+    tsim = T.Simulation(_cfg(T, TGV), device="cpu")
+    rtsim = R.Simulation(_cfg(R, TGV))
+    rt = R.init_taylor_green(rtsim.cfg, rtsim.mesh)
+    tt = T.init_taylor_green(tsim.cfg, tsim.mesh, device="cpu")
+    for k in ("u", "v", "w", "p"):
+        np.testing.assert_array_equal(getattr(tt, k).numpy(),
+                                      np.asarray(getattr(rt, k)))
+
+
+def test_import_loads_no_jax():
+    code = ("import sys, cfdnn_tpu_torch, cfdnn_tpu_torch.bench; "
+            "assert not any(m == 'jax' or m.startswith('jax.') "
+            "for m in sys.modules), 'jax imported'")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    subprocess.run([sys.executable, "-c", code], check=True, cwd=root)
