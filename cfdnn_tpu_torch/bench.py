@@ -1,14 +1,15 @@
 """Headline benchmark of the PyTorch port on one CUDA card.
 
 Runs the exact configurations of the reference's `bench.py` `bench_tgv`
-(128^3 all-periodic Taylor-Green, skew, dt 1e-3) and `bench_channel`
-(128^3 channel, stretched no-slip y, central, dt 2e-4), forward Euler in
-float32 and benchmark mode, and prints one JSON line with bench.py's
-headline keys: ms/step and Mcells/s of each grid, the channel's float32
-post-projection divergence, and the card.
+(128^3 all-periodic Taylor-Green, skew, dt 1e-3), `bench_channel` (128^3
+channel, stretched no-slip y, central, dt 2e-4) and `bench_les_channel`
+(the same channel at 128x64x128 with the static Smagorinsky closure),
+forward Euler in float32 and benchmark mode, and prints one JSON line with
+bench.py's headline keys: ms/step and Mcells/s of each grid, the channels'
+float32 post-projection divergence, and the card.
 
 The `*_vs_baseline` ratios of bench.py are left out: they divide by
-published H200 figures, not by a measurement on this card.
+published H200 and RTX 6000 figures, not by a measurement on this card.
 
     python -m cfdnn_tpu_torch.bench
 
@@ -25,7 +26,7 @@ import numpy as np
 import torch
 
 from . import (BCType, Config, ConvectiveScheme, Simulation, TimeIntegrator,
-               init_taylor_green, perturbed_channel)
+               TurbulenceModel, init_taylor_green, perturbed_channel)
 from .utils.timing import marginal_step_seconds
 
 
@@ -51,6 +52,19 @@ def channel_config(n: int = 128, dtype: str = "float32", **kw) -> Config:
         benchmark=True, dtype=dtype, **kw)
 
 
+def les_channel_config(n: int = 128, dtype: str = "float32", **kw) -> Config:
+    """bench.py bench_les_channel's configuration: Nx = Nz = n, Ny = n/2
+    (128x64x128), the channel's physics with static Smagorinsky. `kw`
+    overrides any field (another closure, another Ny)."""
+    base = dict(
+        Nx=n, Ny=n // 2, Nz=n, stretch_y=True,
+        nu=1e-4, nu_specified=True, dp_dx=-1e-3, dp_dx_specified=True,
+        dt=2e-4, adaptive_dt=False, benchmark=True, dtype=dtype,
+        turb_model=TurbulenceModel.SMAGORINSKY)
+    base.update(kw)
+    return Config(**base)
+
+
 def tgv_case(n=128, device="cuda", dtype="float32", **kw):
     """(Simulation, initial State) of the TGV benchmark."""
     sim = Simulation(tgv_config(n, dtype, **kw), device=device)
@@ -62,6 +76,16 @@ def channel_case(n=128, device="cuda", dtype="float32", **kw):
     comes from a torch.Generator seeded with `seed` (default 0)."""
     seed = kw.pop("seed", 0)
     sim = Simulation(channel_config(n, dtype, **kw), device=device)
+    gen = torch.Generator(device=sim.device).manual_seed(seed)
+    return sim, perturbed_channel(sim.cfg, sim.mesh, gen, amp=0.05,
+                                  device=device)
+
+
+def les_channel_case(n=128, device="cuda", dtype="float32", **kw):
+    """(Simulation, initial State) of the LES channel benchmark, noise as
+    in channel_case."""
+    seed = kw.pop("seed", 0)
+    sim = Simulation(les_channel_config(n, dtype, **kw), device=device)
     gen = torch.Generator(device=sim.device).manual_seed(seed)
     return sim, perturbed_channel(sim.cfg, sim.mesh, gen, amp=0.05,
                                   device=device)
@@ -130,13 +154,19 @@ def main():
                          "benchmark measures the card and has no CPU path")
     s_tgv, _ = time_steps(*tgv_case())
     s_ch, d_ch = time_steps(*channel_case())
+    # the reference times its LES row over 400 steps
+    s_les, d_les = time_steps(*les_channel_case(), steps=400)
     cells = 128 ** 3
+    les_cells = 128 * 64 * 128
     print(json.dumps({
         "tgv_ms_per_step": s_tgv * 1e3,
         "tgv_mcells_per_s": cells / s_tgv / 1e6,
         "channel_ms_per_step": s_ch * 1e3,
         "channel_mcells_per_s": cells / s_ch / 1e6,
         "channel_div_linf_f32": float(d_ch.div_linf),
+        "les_channel_ms_per_step": s_les * 1e3,
+        "les_channel_mcells_per_s": les_cells / s_les / 1e6,
+        "les_channel_div_linf_f32": float(d_les.div_linf),
         "device": torch.cuda.get_device_name(0),
     }), flush=True)
 

@@ -1,29 +1,39 @@
 // predictor_channel: the fused Euler momentum predictor of the wall-y
 // channel (periodic uniform x and z, no-slip walls in y at any stretching,
-// O2 skew or central convection, scalar nu). The channel main path.
+// O2 skew or central convection, scalar nu or nu + a cell eddy viscosity
+// nu_t). The main path of the channel and of the LES channel.
 //
 // Replaces cfdnn_tpu/ops/pallas_kernels.py fused_predictor_channel (body
-// _channel_kernel, math predictor_slab_math_channel with nut_e=None,
-// y-metrics _channel_y_arrays). The plain PyTorch twin is ops/kernels.py
-// predictor_channel_twin. The cell nu_t operand of the TPU kernel waits
-// for the LES slice.
+// _channel_kernel, math predictor_slab_math_channel, y-metrics
+// _channel_y_arrays), both of its branches: nut_e=None (nut == nullptr
+// here) and the cell nu_t operand of the LES closures. The plain PyTorch
+// twin is ops/kernels.py predictor_channel_twin.
 //
-// Shapes: u, w (nx, ny, nz); v (nx, ny+1, nz) with the wall faces stored.
-// y-metrics (device vectors): inv_dy (ny), inv_dyc (ny+1), inv_dgy (ny+1),
-// inv2_cy (ny), inv2_fy (ny+1).
+// Shapes: u, w, nut (nx, ny, nz); v (nx, ny+1, nz) with the wall faces
+// stored. y-metrics (device vectors): inv_dy (ny), inv_dyc (ny+1),
+// inv_dgy (ny+1), inv2_cy (ny), inv2_fy (ny+1).
 // Wall ghosts, each as the twin builds them:
 //   u, w tangential  -> -interior (odd reflection to 0 at the wall)
 //   v normal         -> 2 v_wall - v_next (linear extrapolation)
-//   cell quantities  -> mirror copy (phi_c of skew v, the v diffusion flux)
+//   cell quantities  -> mirror copy (phi_c of skew v, the v diffusion flux,
+//                       nu + nu_t)
+// With nu_t, the viscosity is taken at the cells along each component's
+// own axis and averaged to the transverse faces flux direction first, then
+// the component's axis, in the order of ops.operators.diffusive: the face
+// values below are spelled out in that order.
 // Star v is computed at the wall faces too, exactly as the twin computes
 // it; the solver's BC pass zeroes those faces afterwards.
 //
 // Bound on the H100: device-memory bandwidth (three fields in, three out,
-// ~200 flops a cell). Design: one thread per (i, j_face, k) point of the
-// v grid, z fastest within a warp; threads with j < ny also produce u and
-// w at (i, j, k). Periodic x/z wrap by index arithmetic; the wall ghosts
-// are formed in registers from the interior values, so no padded copy is
-// ever written.
+// ~200 flops a cell; with nu_t one more field in and ~150 more flops).
+// Design: one thread per (i, j_face, k) point of the v grid, z fastest
+// within a warp; threads with j < ny also produce u and w at (i, j, k).
+// Periodic x/z wrap by index arithmetic; the wall ghosts are formed in
+// registers from the interior values, so no padded copy is ever written.
+// nu_t is read at i-1, k-1 and j+-1 (mirrored at the walls) besides the
+// point itself: the same rows the velocity stencils touch, so L1/L2 serve
+// them. Whether nu_t is there is a template parameter, so the scalar-nu
+// instantiation is the kernel of before, instruction for instruction.
 #include "common.cuh"
 
 namespace {
@@ -41,13 +51,22 @@ __device__ __forceinline__ T wall_t(const T* __restrict__ f, int i, int jj,
     return f[at3(i, jj, k, ny, nz)];
 }
 
+// nu + nu_t at cell (i, jj, k), jj in [-1, ny]: mirrored beyond the walls
+// (pad_center neumann).
 template <typename T>
+__device__ __forceinline__ T nu_e(const T* __restrict__ nut, T nu, int i,
+                                  int jj, int k, int ny, int nz) {
+    const int j = jj < 0 ? 0 : (jj >= ny ? ny - 1 : jj);
+    return nu + nut[at3(i, j, k, ny, nz)];
+}
+
+template <typename T, bool NUT>
 __global__ void predictor_channel_kernel(
         const T* __restrict__ u, const T* __restrict__ v,
         const T* __restrict__ w, const T* __restrict__ dt_ptr,
         const T* __restrict__ inv_dy, const T* __restrict__ inv_dyc,
         const T* __restrict__ inv_dgy, const T* __restrict__ inv2_cy,
-        const T* __restrict__ inv2_fy,
+        const T* __restrict__ inv2_fy, const T* __restrict__ nut,
         T* __restrict__ su, T* __restrict__ sv, T* __restrict__ sw,
         int nx, int ny, int nz, T ihx, T ihz, T nu, T fx, int skew) {
     const int nyv = ny + 1;
@@ -65,6 +84,7 @@ __global__ void predictor_channel_kernel(
 #define U(I, J, K) u[at3(I, J, K, ny, nz)]
 #define W(I, J, K) w[at3(I, J, K, ny, nz)]
 #define V(I, J, K) v[at3(I, J, K, nyv, nz)]
+#define NE(I, J, K) nu_e(nut, nu, I, J, K, ny, nz)
 
     if (j < ny) {
         // ---- u (x-face, y-center, z-center) ---------------------------
@@ -88,11 +108,34 @@ __global__ void predictor_channel_kernel(
             conv += (h * (ve_lo + ve_hi)) * (yp - ym) * inv2_cy[j];
             conv += (h * (we_lo + we_hi)) * (zp - zm) * (h * ihz);
         }
-        const T f_lo = nu * ((c - ym) * inv_dgy[j]);
-        const T f_hi = nu * ((yp - c) * inv_dgy[j + 1]);
-        const T lap = nu * (xp - two * c + xm) * ihx * ihx
-                    + (f_hi - f_lo) * inv_dy[j]
-                    + nu * (zp - two * c + zm) * ihz * ihz;
+        T lap;
+        if (!NUT) {
+            const T f_lo = nu * ((c - ym) * inv_dgy[j]);
+            const T f_hi = nu * ((yp - c) * inv_dgy[j + 1]);
+            lap = nu * (xp - two * c + xm) * ihx * ihx
+                + (f_hi - f_lo) * inv_dy[j]
+                + nu * (zp - two * c + zm) * ihz * ihz;
+        } else {
+            // x (own axis): the cells on either side of face i
+            const T fx_hi = NE(i, j, k) * (xp - c) * ihx;
+            const T fx_lo = NE(im, j, k) * (c - xm) * ihx;
+            // y faces j, j+1: y mirror-average, then x-average
+            const T ny_lo = h * (h * (NE(im, j - 1, k) + NE(im, j, k))
+                               + h * (NE(i, j - 1, k) + NE(i, j, k)));
+            const T ny_hi = h * (h * (NE(im, j, k) + NE(im, j + 1, k))
+                               + h * (NE(i, j, k) + NE(i, j + 1, k)));
+            const T fy_lo = ny_lo * ((c - ym) * inv_dgy[j]);
+            const T fy_hi = ny_hi * ((yp - c) * inv_dgy[j + 1]);
+            // z faces k, k+1: z-average, then x-average
+            const T nz_lo = h * (h * (NE(im, j, km) + NE(im, j, k))
+                               + h * (NE(i, j, km) + NE(i, j, k)));
+            const T nz_hi = h * (h * (NE(im, j, k) + NE(im, j, kp))
+                               + h * (NE(i, j, k) + NE(i, j, kp)));
+            const T fz_lo = nz_lo * (c - zm) * ihz;
+            const T fz_hi = nz_hi * (zp - c) * ihz;
+            lap = (fx_hi - fx_lo) * ihx + (fy_hi - fy_lo) * inv_dy[j]
+                + (fz_hi - fz_lo) * ihz;
+        }
         su[at3(i, j, k, ny, nz)] = c + dt * (-conv + lap + fx);
 
         // ---- w (z-face, y-center) --------------------------------------
@@ -116,11 +159,34 @@ __global__ void predictor_channel_kernel(
             convw += (h * (ue_lo + ue_hi)) * (wxp - wxm) * (h * ihx);
             convw += (h * (vw_lo + vw_hi)) * (wyp - wym) * inv2_cy[j];
         }
-        const T g_lo = nu * ((cw - wym) * inv_dgy[j]);
-        const T g_hi = nu * ((wyp - cw) * inv_dgy[j + 1]);
-        const T lapw = nu * (wxp - two * cw + wxm) * ihx * ihx
-                     + (g_hi - g_lo) * inv_dy[j]
-                     + nu * (wzp - two * cw + wzm) * ihz * ihz;
+        T lapw;
+        if (!NUT) {
+            const T g_lo = nu * ((cw - wym) * inv_dgy[j]);
+            const T g_hi = nu * ((wyp - cw) * inv_dgy[j + 1]);
+            lapw = nu * (wxp - two * cw + wxm) * ihx * ihx
+                 + (g_hi - g_lo) * inv_dy[j]
+                 + nu * (wzp - two * cw + wzm) * ihz * ihz;
+        } else {
+            // z (own axis): the cells on either side of face k
+            const T fz_hi = NE(i, j, k) * (wzp - cw) * ihz;
+            const T fz_lo = NE(i, j, km) * (cw - wzm) * ihz;
+            // x faces i, i+1: x-average, then z-average
+            const T nx_lo = h * (h * (NE(im, j, km) + NE(i, j, km))
+                               + h * (NE(im, j, k) + NE(i, j, k)));
+            const T nx_hi = h * (h * (NE(i, j, km) + NE(ip, j, km))
+                               + h * (NE(i, j, k) + NE(ip, j, k)));
+            const T fx_lo = nx_lo * ((cw - wxm) * ihx);
+            const T fx_hi = nx_hi * ((wxp - cw) * ihx);
+            // y faces j, j+1: y mirror-average, then z-average
+            const T ny_lo = h * (h * (NE(i, j - 1, km) + NE(i, j, km))
+                               + h * (NE(i, j - 1, k) + NE(i, j, k)));
+            const T ny_hi = h * (h * (NE(i, j, km) + NE(i, j + 1, km))
+                               + h * (NE(i, j, k) + NE(i, j + 1, k)));
+            const T fy_lo = ny_lo * ((cw - wym) * inv_dgy[j]);
+            const T fy_hi = ny_hi * ((wyp - cw) * inv_dgy[j + 1]);
+            lapw = (fx_hi - fx_lo) * ihx + (fy_hi - fy_lo) * inv_dy[j]
+                 + (fz_hi - fz_lo) * ihz;
+        }
         sw[at3(i, j, k, ny, nz)] = cw + dt * (-convw + lapw);
     }
 
@@ -151,34 +217,75 @@ __global__ void predictor_channel_kernel(
         conv += (h * (ue_lo + ue_hi)) * (xp - xm) * (h * ihx);
         conv += (h * (wy_lo + wy_hi)) * (zp - zm) * (h * ihz);
     }
-    const T f_hi = nu * ((V(i, jc_hi + 1, k) - V(i, jc_hi, k)) * inv_dy[jc_hi]);
-    const T f_lo = nu * ((V(i, jc_lo + 1, k) - V(i, jc_lo, k)) * inv_dy[jc_lo]);
-    const T lap = nu * (xp - two * c + xm) * ihx * ihx
-                + (f_hi - f_lo) * inv_dyc[j]
-                + nu * (zp - two * c + zm) * ihz * ihz;
+    T lap;
+    if (!NUT) {
+        const T f_hi = nu * ((V(i, jc_hi + 1, k) - V(i, jc_hi, k)) * inv_dy[jc_hi]);
+        const T f_lo = nu * ((V(i, jc_lo + 1, k) - V(i, jc_lo, k)) * inv_dy[jc_lo]);
+        lap = nu * (xp - two * c + xm) * ihx * ihx
+            + (f_hi - f_lo) * inv_dyc[j]
+            + nu * (zp - two * c + zm) * ihz * ihz;
+    } else {
+        // y (own axis): the mirrored cell fluxes above and below face j
+        const T f_hi = NE(i, jc_hi, k) * ((V(i, jc_hi + 1, k) - V(i, jc_hi, k)) * inv_dy[jc_hi]);
+        const T f_lo = NE(i, jc_lo, k) * ((V(i, jc_lo + 1, k) - V(i, jc_lo, k)) * inv_dy[jc_lo]);
+        // x faces i, i+1: x-average, then y mirror-average
+        const T nx_lo = h * (h * (NE(im, j - 1, k) + NE(i, j - 1, k))
+                           + h * (NE(im, j, k) + NE(i, j, k)));
+        const T nx_hi = h * (h * (NE(i, j - 1, k) + NE(ip, j - 1, k))
+                           + h * (NE(i, j, k) + NE(ip, j, k)));
+        const T fx_lo = nx_lo * ((c - xm) * ihx);
+        const T fx_hi = nx_hi * ((xp - c) * ihx);
+        // z faces k, k+1: z-average, then y mirror-average
+        const T nz_lo = h * (h * (NE(i, j - 1, km) + NE(i, j - 1, k))
+                           + h * (NE(i, j, km) + NE(i, j, k)));
+        const T nz_hi = h * (h * (NE(i, j - 1, k) + NE(i, j - 1, kp))
+                           + h * (NE(i, j, k) + NE(i, j, kp)));
+        const T fz_lo = nz_lo * (c - zm) * ihz;
+        const T fz_hi = nz_hi * (zp - c) * ihz;
+        lap = (fx_hi - fx_lo) * ihx + (f_hi - f_lo) * inv_dyc[j]
+            + (fz_hi - fz_lo) * ihz;
+    }
     sv[at3(i, j, k, nyv, nz)] = c + dt * (-conv + lap);
 #undef U
 #undef W
 #undef V
+#undef NE
+}
+
+template <typename T, bool NUT>
+void launch_kernel(const void* u, const void* v, const void* w,
+                   const void* dt, const void* inv_dy, const void* inv_dyc,
+                   const void* inv_dgy, const void* inv2_cy,
+                   const void* inv2_fy, const void* nut, void* su, void* sv,
+                   void* sw, int nx, int ny, int nz, double ihx, double ihz,
+                   double nu, double fx, int skew, void* stream) {
+    const long long n = static_cast<long long>(nx) * (ny + 1) * nz;
+    predictor_channel_kernel<T, NUT><<<cfdnn::blocks_for(n), cfdnn::kBlock, 0,
+                                       static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const T*>(u), static_cast<const T*>(v),
+        static_cast<const T*>(w), static_cast<const T*>(dt),
+        static_cast<const T*>(inv_dy), static_cast<const T*>(inv_dyc),
+        static_cast<const T*>(inv_dgy), static_cast<const T*>(inv2_cy),
+        static_cast<const T*>(inv2_fy), static_cast<const T*>(nut),
+        static_cast<T*>(su), static_cast<T*>(sv), static_cast<T*>(sw),
+        nx, ny, nz, T(ihx), T(ihz), T(nu), T(fx), skew);
 }
 
 template <typename T>
 int launch(const void* u, const void* v, const void* w, const void* dt,
            const void* inv_dy, const void* inv_dyc, const void* inv_dgy,
-           const void* inv2_cy, const void* inv2_fy,
+           const void* inv2_cy, const void* inv2_fy, const void* nut,
            void* su, void* sv, void* sw, int nx, int ny, int nz,
            double ihx, double ihz, double nu, double fx, int skew,
            void* stream) {
-    const long long n = static_cast<long long>(nx) * (ny + 1) * nz;
-    predictor_channel_kernel<T><<<cfdnn::blocks_for(n), cfdnn::kBlock, 0,
-                                  static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const T*>(u), static_cast<const T*>(v),
-        static_cast<const T*>(w), static_cast<const T*>(dt),
-        static_cast<const T*>(inv_dy), static_cast<const T*>(inv_dyc),
-        static_cast<const T*>(inv_dgy), static_cast<const T*>(inv2_cy),
-        static_cast<const T*>(inv2_fy),
-        static_cast<T*>(su), static_cast<T*>(sv), static_cast<T*>(sw),
-        nx, ny, nz, T(ihx), T(ihz), T(nu), T(fx), skew);
+    if (nut)
+        launch_kernel<T, true>(u, v, w, dt, inv_dy, inv_dyc, inv_dgy, inv2_cy,
+                               inv2_fy, nut, su, sv, sw, nx, ny, nz, ihx, ihz,
+                               nu, fx, skew, stream);
+    else
+        launch_kernel<T, false>(u, v, w, dt, inv_dy, inv_dyc, inv_dgy, inv2_cy,
+                                inv2_fy, nut, su, sv, sw, nx, ny, nz, ihx, ihz,
+                                nu, fx, skew, stream);
     return static_cast<int>(cudaGetLastError());
 }
 
@@ -187,23 +294,23 @@ int launch(const void* u, const void* v, const void* w, const void* dt,
 extern "C" int cfdnn_predictor_channel_f32(
         const void* u, const void* v, const void* w, const void* dt,
         const void* inv_dy, const void* inv_dyc, const void* inv_dgy,
-        const void* inv2_cy, const void* inv2_fy,
+        const void* inv2_cy, const void* inv2_fy, const void* nut,
         void* su, void* sv, void* sw, int nx, int ny, int nz,
         double ihx, double ihz, double nu, double fx, int skew,
         void* stream) {
     return launch<float>(u, v, w, dt, inv_dy, inv_dyc, inv_dgy, inv2_cy,
-                         inv2_fy, su, sv, sw, nx, ny, nz, ihx, ihz, nu, fx,
+                         inv2_fy, nut, su, sv, sw, nx, ny, nz, ihx, ihz, nu, fx,
                          skew, stream);
 }
 
 extern "C" int cfdnn_predictor_channel_f64(
         const void* u, const void* v, const void* w, const void* dt,
         const void* inv_dy, const void* inv_dyc, const void* inv_dgy,
-        const void* inv2_cy, const void* inv2_fy,
+        const void* inv2_cy, const void* inv2_fy, const void* nut,
         void* su, void* sv, void* sw, int nx, int ny, int nz,
         double ihx, double ihz, double nu, double fx, int skew,
         void* stream) {
     return launch<double>(u, v, w, dt, inv_dy, inv_dyc, inv_dgy, inv2_cy,
-                          inv2_fy, su, sv, sw, nx, ny, nz, ihx, ihz, nu, fx,
+                          inv2_fy, nut, su, sv, sw, nx, ny, nz, ihx, ihz, nu, fx,
                           skew, stream);
 }

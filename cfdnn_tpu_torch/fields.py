@@ -16,7 +16,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from .config import BCType, Config
+from .config import BCType, Config, TurbulenceModel
 from .mesh import Mesh
 
 
@@ -39,9 +39,10 @@ class State:
 
     `t`, `t_comp` and `dt_prev` are 0-d tensors of the working dtype and
     `step` a 0-d int32 tensor, all on the state's device, so a step never
-    waits for the host. The reference's turbulence (k, omega, nu_t) and
-    recycling (inlet_*) members are not carried: their slices (ROADMAP
-    A.9-A.14) are not ported.
+    waits for the host. `nu_t` is the cell eddy viscosity of the last
+    step, present whenever a turbulence closure is on. The reference's
+    k-omega transport (k, omega) and recycling (inlet_*) members are not
+    carried: their slices (ROADMAP A.11, A.14) are not ported.
     """
 
     u: torch.Tensor
@@ -54,6 +55,7 @@ class State:
     # Kahan carry for t: in float32, plain t += dt loses the low bits of
     # dt once t/dt > ~2^24; the compensated sum keeps t exact to O(eps).
     t_comp: Optional[torch.Tensor] = None
+    nu_t: Optional[torch.Tensor] = None   # (Nx, Ny, Nz) eddy viscosity
 
     def replace(self, **kw) -> "State":
         return dataclasses.replace(self, **kw)
@@ -63,8 +65,8 @@ class State:
         return self.u, self.v, self.w
 
 
-_STATE_KEYS = ("u", "v", "w", "p", "t", "step", "dt_prev", "t_comp")
-_NOT_CARRIED = ("k", "omega", "nu_t", "inlet_u", "inlet_v", "inlet_w")
+_STATE_KEYS = ("u", "v", "w", "p", "t", "step", "dt_prev", "t_comp", "nu_t")
+_NOT_CARRIED = ("k", "omega", "inlet_u", "inlet_v", "inlet_w")
 
 
 def state_from_numpy(d, device, dtype) -> State:
@@ -72,14 +74,16 @@ def state_from_numpy(d, device, dtype) -> State:
     taken as `np.asarray(...)`. No reshape: the layouts are the same.
 
     Float members take `dtype`; `step` stays an int32 counter. A missing
-    `t_comp` (older reference states) starts at zero. Turbulence and
-    recycling members must be absent or None: the port does not carry them.
+    `t_comp` (older reference states) starts at zero; a missing or None
+    `nu_t` stays None. The k-omega transport and recycling members must be
+    absent or None: the port does not carry them.
     """
     for name in _NOT_CARRIED:
         if d.get(name) is not None:
             raise NotImplementedError(
-                f"state member {name!r}: the port carries no turbulence or "
-                "recycling state yet (ROADMAP A.9-A.14)")
+                f"state member {name!r}: the port carries no turbulence "
+                "transport (k, omega; ROADMAP A.11) or recycling (inlet_*; "
+                "A.14) state yet")
     out = {}
     for name in _STATE_KEYS:
         a = d.get(name)
@@ -112,6 +116,7 @@ def zero_state(cfg: Config, *, device) -> State:
         t=z(()), t_comp=z(()),
         step=torch.zeros((), dtype=torch.int32, device=device),
         dt_prev=torch.full((), cfg.dt, dtype=dtype, device=device),
+        nu_t=z(sc) if cfg.turb_model != TurbulenceModel.NONE else None,
     )
 
 

@@ -1,26 +1,32 @@
 """The port's hand-written Hopper kernels, their plain twins and launch counts
 (counterpart of `cfdnn_tpu/ops/pallas_kernels.py`).
 
-Four CUDA C++ kernels, in `cfdnn_tpu_torch/csrc/`, carry the main-path
-step of both benchmark grids:
+Six CUDA C++ kernels, in `cfdnn_tpu_torch/csrc/`, carry the main-path
+steps of the benchmark grids:
 
   predictor_periodic  <- pallas_kernels.fused_predictor (all-periodic TGV)
-  predictor_channel   <- pallas_kernels.fused_predictor_channel (wall-y)
+  predictor_channel   <- pallas_kernels.fused_predictor_channel (wall-y,
+                         scalar nu or the cell nu_t of an LES closure)
   divergence          <- pallas_kernels.fused_divergence
   correct             <- pallas_kernels.fused_correct
+  nu_sgs              <- pallas_kernels.fused_nu_sgs (Smagorinsky, WALE,
+                         Vreman)
+  germano_pass1       <- pallas_kernels.fused_germano_pass1 (dynamic
+                         Smagorinsky)
 
-Each source file's head says what bounds the kernel on the H100 (all four
-are bandwidth-bound stencils) and what its design does about it. Each
-kernel computes what its TPU kernel computes, not the TPU kernel's x-slab
-structure: one thread per output point, z fastest within a warp, periodic
-wrap by index arithmetic, float and double instantiations.
+Each source file's head says what bounds the kernel on the H100 and what
+its design does about it. Each kernel computes what its TPU kernel
+computes, not the TPU kernel's x-slab structure: one thread per output
+point, z fastest within a warp, periodic wrap by index arithmetic, float
+and double instantiations.
 
 Beside each kernel stand:
   - its plain PyTorch twin (`*_twin`), the eager form of the same math.
     For the predictors that is the reference's slab math on whole arrays
     (torch.roll in place of the x halo); for divergence and correct it is
-    the operator library itself (`ops.operators`), the single source of
-    truth the TPU kernels also ran;
+    the operator library itself (`ops.operators`), and for the LES
+    kernels the turbulence algebra (`turbulence/base.py`, `les.py`): the
+    single sources of truth the TPU kernels also ran;
   - a launch count, the integer attribute `launches` of the public
     wrapper, raised by one where the CUDA kernel is launched and nowhere
     else.
@@ -56,6 +62,7 @@ from typing import Optional, Tuple
 import torch
 
 from ..config import BCType, ConvectiveScheme
+from ..turbulence import base as turb_base
 from . import operators as ops
 from .grid import Geometry
 
@@ -133,9 +140,11 @@ def build_library() -> Tuple[Path, float]:
 _P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
 _SIGNATURES = {
     "predictor_periodic": [_P] * 7 + [_I] * 3 + [_D] * 5 + [_P],
-    "predictor_channel": [_P] * 12 + [_I] * 3 + [_D] * 4 + [_I, _P],
+    "predictor_channel": [_P] * 13 + [_I] * 3 + [_D] * 4 + [_I, _P],
     "divergence": [_P] * 7 + [_I] * 6 + [_P],
     "correct": [_P] * 11 + [_I] * 6 + [_P],
+    "nu_sgs": [_P] * 11 + [_I] * 5 + [_D, _P],
+    "germano_pass1": [_P] * 14 + [_I] * 5 + [_P],
 }
 _lib: Optional[ctypes.CDLL] = None
 
@@ -151,6 +160,8 @@ def _bind(path) -> ctypes.CDLL:
             fn.restype = ctypes.c_int
     lib.cfdnn_error_string.argtypes = [ctypes.c_int]
     lib.cfdnn_error_string.restype = ctypes.c_char_p
+    lib.cfdnn_germano_pass1_blocks.argtypes = [_I, _I]
+    lib.cfdnn_germano_pass1_blocks.restype = ctypes.c_int
     return lib
 
 
@@ -392,14 +403,17 @@ def _scheme_is_skew(scheme) -> bool:
 
 
 def predictor_channel_twin(u, v, w, dt, inv_dy, inv_dyc, inv_dgy, inv2_cy,
-                           inv2_fy, *, hx, hz, nu, fx, scheme):
+                           inv2_fy, nu_t=None, *, hx, hz, nu, fx, scheme):
     """Plain twin of `predictor_channel`: the reference's
-    predictor_slab_math_channel (scalar nu) on whole arrays.
+    predictor_slab_math_channel on whole arrays.
 
     u, w: (Nx, Ny, Nz); v: (Nx, Ny+1, Nz) with the wall faces stored;
-    the y vectors as `channel_y_arrays` gives them. Math identical to
-    ops._conv_skew / _conv_advective(CENTRAL) + ops.diffusive for this BC
-    set.
+    the y vectors as `channel_y_arrays` gives them; nu_t: None (scalar nu)
+    or the cell eddy viscosity (Nx, Ny, Nz), added to nu. Math identical
+    to ops._conv_skew / _conv_advective(CENTRAL) + ops.diffusive for this
+    BC set: with nu_t, nu + nu_t is taken at the cells along each
+    component's own axis and averaged to the transverse faces, flux
+    direction first, as ops.diffusive averages it.
     """
     skew = _scheme_is_skew(scheme)
     ihx, ihz = 1.0 / hx, 1.0 / hz
@@ -432,10 +446,26 @@ def predictor_channel_twin(u, v, w, dt, inv_dy, inv_dyc, inv_dgy, inv2_cy,
         W_at_u = 0.5 * (We + _Rz(We, 1))
         conv_u = conv_u + W_at_u * (_Rz(u, 1) - _Rz(u, -1)) * (0.5 * ihz)
     g_uy = (up[:, 1:] - up[:, :-1]) * inv_dgy    # (Nx, Ny+1, Nz) faces
-    F = nu * g_uy
-    lap_u = (nu * (_X(u, 1) - 2.0 * u + _X(u, -1)) * ihx * ihx
-             + (F[:, 1:] - F[:, :-1]) * inv_dy
-             + nu * (_Rz(u, 1) - 2.0 * u + _Rz(u, -1)) * ihz * ihz)
+    if nu_t is None:
+        F = nu * g_uy
+        lap_u = (nu * (_X(u, 1) - 2.0 * u + _X(u, -1)) * ihx * ihx
+                 + (F[:, 1:] - F[:, :-1]) * inv_dy
+                 + nu * (_Rz(u, 1) - 2.0 * u + _Rz(u, -1)) * ihz * ihz)
+    else:
+        ne = nu + nu_t                           # (Nx, Ny, Nz) cells
+        # x (own axis): the two neighbour cells of face i
+        Fx_hi = ne * (_X(u, 1) - u) * ihx
+        Fx_lo = _X(ne, -1) * (u - _X(u, -1)) * ihx
+        # y: nu at (x-face, y-face): y mirror-average, then x-average
+        nmp = mirror_pad_c(ne)
+        n_yf = 0.5 * (nmp[:, :-1] + nmp[:, 1:])  # (Nx, Ny+1, Nz)
+        Fy = 0.5 * (_X(n_yf, -1) + n_yf) * g_uy
+        # z: nu at (x-face, z-face): z-average, then x-average
+        n_zf = 0.5 * (_Rz(ne, -1) + ne)
+        Fz = 0.5 * (_X(n_zf, -1) + n_zf) * (u - _Rz(u, -1)) * ihz
+        lap_u = ((Fx_hi - Fx_lo) * ihx
+                 + (Fy[:, 1:] - Fy[:, :-1]) * inv_dy
+                 + (_Rz(Fz, 1) - Fz) * ihz)
     star_u = u + dt * (-conv_u + lap_u + fx)
 
     # ---- v component (y-face staggered: Ny+1 values incl. walls) ------
@@ -460,10 +490,25 @@ def predictor_channel_twin(u, v, w, dt, inv_dy, inv_dyc, inv_dgy, inv2_cy,
         W_at_v = 0.5 * (w_yf + _Rz(w_yf, 1))
         conv_v = conv_v + W_at_v * (_Rz(v, 1) - _Rz(v, -1)) * (0.5 * ihz)
     g_vy = (v[:, 1:] - v[:, :-1]) * inv_dy       # (Nx, Ny, Nz) cells
-    Fp = mirror_pad_c(nu * g_vy)
-    lap_v = (nu * (_X(v, 1) - 2.0 * v + _X(v, -1)) * ihx * ihx
-             + (Fp[:, 1:] - Fp[:, :-1]) * inv_dyc
-             + nu * (_Rz(v, 1) - 2.0 * v + _Rz(v, -1)) * ihz * ihz)
+    if nu_t is None:
+        Fp = mirror_pad_c(nu * g_vy)
+        lap_v = (nu * (_X(v, 1) - 2.0 * v + _X(v, -1)) * ihx * ihx
+                 + (Fp[:, 1:] - Fp[:, :-1]) * inv_dyc
+                 + nu * (_Rz(v, 1) - 2.0 * v + _Rz(v, -1)) * ihz * ihz)
+    else:
+        ne = nu + nu_t
+        Fp = mirror_pad_c(ne * g_vy)
+        # x: nu at (x-face, y-face): x-average, then y mirror-average
+        nxm = mirror_pad_c(0.5 * (_X(ne, -1) + ne))
+        n_vx = 0.5 * (nxm[:, :-1] + nxm[:, 1:])  # x-face i, (Nx, Ny+1, Nz)
+        Fx = n_vx * ((v - _X(v, -1)) * ihx)
+        # z: nu at (y-face, z-face): z-average, then y mirror-average
+        nzm = mirror_pad_c(0.5 * (_Rz(ne, -1) + ne))
+        n_vz = 0.5 * (nzm[:, :-1] + nzm[:, 1:])
+        Fz = n_vz * (v - _Rz(v, -1)) * ihz
+        lap_v = ((_X(Fx, 1) - Fx) * ihx
+                 + (Fp[:, 1:] - Fp[:, :-1]) * inv_dyc
+                 + (_Rz(Fz, 1) - Fz) * ihz)
     star_v = v + dt * (-conv_v + lap_v)
 
     # ---- w component (z-face staggered; y-center like u) --------------
@@ -485,49 +530,73 @@ def predictor_channel_twin(u, v, w, dt, inv_dy, inv_dyc, inv_dgy, inv2_cy,
         V_at_w = 0.5 * (Ve_w[:, :-1] + Ve_w[:, 1:])
         conv_w = conv_w + V_at_w * (wp[:, 2:] - wp[:, :-2]) * inv2_cy
     g_wy = (wp[:, 1:] - wp[:, :-1]) * inv_dgy
-    Fw = nu * g_wy
-    lap_w = (nu * (_X(w, 1) - 2.0 * w + _X(w, -1)) * ihx * ihx
-             + (Fw[:, 1:] - Fw[:, :-1]) * inv_dy
-             + nu * (_Rz(w, 1) - 2.0 * w + _Rz(w, -1)) * ihz * ihz)
+    if nu_t is None:
+        Fw = nu * g_wy
+        lap_w = (nu * (_X(w, 1) - 2.0 * w + _X(w, -1)) * ihx * ihx
+                 + (Fw[:, 1:] - Fw[:, :-1]) * inv_dy
+                 + nu * (_Rz(w, 1) - 2.0 * w + _Rz(w, -1)) * ihz * ihz)
+    else:
+        ne = nu + nu_t
+        # z (own axis): cell nu on the cell fluxes; Fz_c of cell k
+        Fz_c = ne * (_Rz(w, 1) - w) * ihz
+        # x: nu at (x-face, z-face): x-average, then z-average
+        nxf = 0.5 * (_X(ne, -1) + ne)
+        Fx = 0.5 * (_Rz(nxf, -1) + nxf) * ((w - _X(w, -1)) * ihx)
+        # y: nu at (y-face, z-face): y mirror-average, then z-average
+        nmp = mirror_pad_c(ne)
+        n_yf = 0.5 * (nmp[:, :-1] + nmp[:, 1:])
+        Fy = 0.5 * (_Rz(n_yf, -1) + n_yf) * g_wy
+        lap_w = ((_X(Fx, 1) - Fx) * ihx
+                 + (Fy[:, 1:] - Fy[:, :-1]) * inv_dy
+                 + (Fz_c - _Rz(Fz_c, -1)) * ihz)
     star_w = w + dt * (-conv_w + lap_w)
 
     return star_u, star_v, star_w
 
 
-def _predictor_channel_launch(u, v, w, dt, *ys, hx, hz, nu, fx, scheme):
+def _predictor_channel_launch(u, v, w, dt, inv_dy, inv_dyc, inv_dgy,
+                              inv2_cy, inv2_fy, nu_t=None, *, hx, hz, nu, fx,
+                              scheme):
+    ys = (inv_dy, inv_dyc, inv_dgy, inv2_cy, inv2_fy)
     if u.device.type == "cpu":
-        return predictor_channel_twin(u, v, w, dt, *ys, hx=hx, hz=hz,
+        return predictor_channel_twin(u, v, w, dt, *ys, nu_t, hx=hx, hz=hz,
                                       nu=nu, fx=fx, scheme=scheme)
-    return _predictor_channel_cuda(u, v, w, dt, *ys, hx=hx, hz=hz, nu=nu,
+    return _predictor_channel_cuda(u, v, w, dt, ys, nu_t, hx=hx, hz=hz, nu=nu,
                                    fx=fx, scheme=scheme)
 
 
-def _predictor_channel_cuda(u, v, w, dt, *ys, hx, hz, nu, fx, scheme):
+def _predictor_channel_cuda(u, v, w, dt, ys, nu_t, *, hx, hz, nu, fx,
+                            scheme):
     skew = _scheme_is_skew(scheme)
     su, sv, sw = (torch.empty_like(a) for a in (u, v, w))
     nx, ny, nz = u.shape
     _launch("predictor_channel", u,
-            *(t.data_ptr() for t in (u, v, w, dt, *ys, su, sv, sw)),
+            *(t.data_ptr() for t in (u, v, w, dt, *ys)),
+            None if nu_t is None else nu_t.data_ptr(),
+            *(t.data_ptr() for t in (su, sv, sw)),
             nx, ny, nz, 1.0 / hx, 1.0 / hz, float(nu), float(fx), int(skew))
     predictor_channel.launches += 1
     return su, sv, sw
 
 
-def predictor_channel(u, v, w, dt, ys, *, hx, hz, nu, fx, scheme):
+def predictor_channel(u, v, w, dt, ys, *, hx, hz, nu, fx, scheme, nu_t=None):
     """Euler star (u*, v*, w*) of the wall-y channel predictor (periodic
-    uniform x/z, stretched no-slip y, O2 skew or central, scalar nu, body
-    force fx on u). `ys` = channel_y_arrays(geom). Star v is produced at
+    uniform x/z, stretched no-slip y, O2 skew or central, body force fx on
+    u). `ys` = channel_y_arrays(geom). The viscosity is the scalar nu, or
+    nu + nu_t with `nu_t` a cell field (Nx, Ny, Nz). Star v is produced at
     the wall faces too; the caller's BC pass zeroes them."""
     nx, ny, nz = u.shape
     if ny < 2:
         raise ValueError("predictor_channel: needs Ny >= 2")
-    _check("predictor_channel", (u, v, w, dt, *ys),
+    extra = () if nu_t is None else (nu_t,)
+    _check("predictor_channel", (u, v, w, dt, *ys, *extra),
            ((nx, ny, nz), (nx, ny + 1, nz), (nx, ny, nz), (),
             (1, ny, 1), (1, ny + 1, 1), (1, ny + 1, 1), (1, ny, 1),
-            (1, ny + 1, 1)))
+            (1, ny + 1, 1), (nx, ny, nz)))
     kw = dict(hx=hx, hz=hz, nu=nu, fx=fx, scheme=scheme)
+    # launch and twin take nu_t in its own parameter, after the five ys
     return _ViaTwin.apply(_predictor_channel_launch, predictor_channel_twin,
-                          kw, u, v, w, dt, *ys)
+                          kw, u, v, w, dt, *ys, *extra)
 
 
 predictor_channel.launches = 0
@@ -631,7 +700,151 @@ def correct(u, v, w, p, dt, *, geom: Geometry):
 correct.launches = 0
 
 
-KERNELS = (predictor_periodic, predictor_channel, divergence, correct)
+# ---------------------------------------------------------------------------
+# nu_sgs         <-  pallas_kernels.fused_nu_sgs
+# germano_pass1  <-  pallas_kernels.fused_germano_pass1
+# ---------------------------------------------------------------------------
+
+
+def les_kernel_eligible(geom: Geometry) -> bool:
+    """Structural gate of the nu_sgs and germano_pass1 kernels: periodic
+    uniform x and z (z.n > 1), y periodic uniform or a stationary no-slip
+    wall at any stretching, O2."""
+    x, y, z = geom.axes
+    return (x.periodic and x.uniform and x.n > 1
+            and z.periodic and z.uniform and z.n > 1 and y.n > 1
+            and ((y.periodic and y.uniform) or y.bc == BCType.WALL)
+            # the wall ghosts hardcode stationary no-slip
+            and all(t == (0.0, 0.0) for t in y.tang)
+            and geom.space_order == 2)
+
+
+def les_arrays(geom: Geometry):
+    """The seven 1-D geometry vectors of the LES kernels: inv_d per axis
+    (Nx, Ny, Nz), the 2-apart ghost-aware center distance per axis (the
+    denominators ops.cc_central divides by) and the filter width Delta
+    (Ny)."""
+    def den(ax):
+        p = ax.pos_c_pad.reshape(-1)
+        return (p[2:] - p[:-2]).contiguous()
+
+    return (*(ax.inv_d.reshape(-1).contiguous() for ax in geom.axes),
+            *(den(ax) for ax in geom.axes),
+            turb_base.filter_width(geom).reshape(-1).contiguous())
+
+
+def _closure_id(closure: str) -> int:
+    """The nu_sgs kernel's CLOSURE template id: the closure's place in
+    turbulence.les.CLOSURES."""
+    from ..turbulence import les   # les imports this module
+    if closure not in les.CLOSURES:
+        raise ValueError(f"nu_sgs: closure {closure!r}; one of "
+                         f"{sorted(les.CLOSURES)}")
+    return list(les.CLOSURES).index(closure)
+
+
+def _check_les(name, u, v, w, gs, geom):
+    if not les_kernel_eligible(geom):
+        raise NotImplementedError(
+            f"{name}: the kernel serves periodic uniform x/z with a "
+            "periodic or stationary-wall y; other geometries are ROADMAP "
+            "B.5/B.7 (the reference's general slab kernels)")
+    x, y, z = geom.axes
+    _check(name, (u, v, w, *gs),
+           _face_shapes(geom) + ((x.n,), (y.n,), (z.n,), (x.n,), (y.n,),
+                                 (z.n,), (y.n,)))
+
+
+def nu_sgs_twin(u, v, w, *gs, geom, closure, coeff):
+    """Plain twin of `nu_sgs`: strain_rotation, filter_width and the
+    closure's algebra (turbulence/les.py), as the reference's
+    fused_nu_sgs runs its model_fn."""
+    from ..turbulence import les   # les imports this module
+    sr = turb_base.strain_rotation((u, v, w), geom)
+    return les.CLOSURES[closure](sr, turb_base.filter_width(geom), coeff)
+
+
+def _nu_sgs_launch(u, v, w, *gs, geom, closure, coeff):
+    if u.device.type == "cpu":
+        return nu_sgs_twin(u, v, w, geom=geom, closure=closure, coeff=coeff)
+    return _nu_sgs_cuda(u, v, w, *gs, geom=geom, closure=closure,
+                        coeff=coeff)
+
+
+def _nu_sgs_cuda(u, v, w, *gs, geom, closure, coeff):
+    x, y, z = geom.axes
+    out = torch.empty((x.n, y.n, z.n), dtype=u.dtype, device=u.device)
+    _launch("nu_sgs", u, *(t.data_ptr() for t in (u, v, w, *gs, out)),
+            x.n, y.n, z.n, int(y.bc == BCType.WALL), _closure_id(closure),
+            float(coeff))
+    nu_sgs.launches += 1
+    return out
+
+
+def nu_sgs(u, v, w, gs, *, geom: Geometry, closure: str, coeff: float):
+    """Cell nu_sgs (Nx, Ny, Nz) of an algebraic LES closure from the
+    nine-component velocity gradient, in one pass over u, v, w.
+    `closure`: "smagorinsky" | "wale" | "vreman", with its constant
+    `coeff`; `gs` = les_arrays(geom)."""
+    _closure_id(closure)   # raises on an unknown closure
+    _check_les("nu_sgs", u, v, w, gs, geom)
+    kw = dict(geom=geom, closure=closure, coeff=coeff)
+    return _ViaTwin.apply(_nu_sgs_launch, nu_sgs_twin, kw, u, v, w, *gs)
+
+
+nu_sgs.launches = 0
+
+
+def germano_pass1_twin(u, v, w, *gs, geom):
+    """Plain twin of `germano_pass1`: the Germano products of
+    turbulence/les.py, then the (x, z)-plane sums taken in float64 and
+    cast to the field dtype, as the kernel takes them."""
+    from ..turbulence import les   # les imports this module
+    smag, LM, MM = les.germano_products((u, v, w), geom)
+    lm = LM.double().sum(dim=(0, 2), keepdim=True).to(LM.dtype)
+    mm = MM.double().sum(dim=(0, 2), keepdim=True).to(MM.dtype)
+    return smag, lm, mm
+
+
+def _germano_pass1_launch(u, v, w, *gs, geom):
+    if u.device.type == "cpu":
+        return germano_pass1_twin(u, v, w, geom=geom)
+    return _germano_pass1_cuda(u, v, w, *gs, geom=geom)
+
+
+def _germano_pass1_cuda(u, v, w, *gs, geom):
+    x, y, z = geom.axes
+    smag = torch.empty((x.n, y.n, z.n), dtype=u.dtype, device=u.device)
+    lm, mm = (torch.empty((1, y.n, 1), dtype=u.dtype, device=u.device)
+              for _ in range(2))
+    # per-block float64 partial plane sums of L:M and M:M; the kernel's
+    # source decides the block count and checks the buffer against it
+    blocks = library().cfdnn_germano_pass1_blocks(x.n, z.n)
+    partial = torch.empty((2, y.n, blocks), dtype=torch.float64,
+                          device=u.device)
+    _launch("germano_pass1", u,
+            *(t.data_ptr() for t in (u, v, w, *gs, smag, partial, lm, mm)),
+            x.n, y.n, z.n, int(y.bc == BCType.WALL), blocks)
+    germano_pass1.launches += 1
+    return smag, lm, mm
+
+
+def germano_pass1(u, v, w, gs, *, geom: Geometry):
+    """Pass 1 of the dynamic Smagorinsky model: (|S| (Nx, Ny, Nz), the
+    (x, z)-plane sums of L:M and M:M (1, Ny, 1)) with L_ij the
+    test-filtered Leonard stress and M_ij = 3 Delta^2 |S| S_ij. The plane
+    sums are taken in float64 in a fixed order, so a run repeats bit for
+    bit. `gs` = les_arrays(geom)."""
+    _check_les("germano_pass1", u, v, w, gs, geom)
+    return _ViaTwin.apply(_germano_pass1_launch, germano_pass1_twin,
+                          dict(geom=geom), u, v, w, *gs)
+
+
+germano_pass1.launches = 0
+
+
+KERNELS = (predictor_periodic, predictor_channel, divergence, correct,
+           nu_sgs, germano_pass1)
 
 
 def reset_launch_counts() -> None:

@@ -7,8 +7,7 @@ in `ops/kernels.py` are tested against them. `tests/test_torch_ops.py`
 holds each one to the reference at float64 roundoff.
 
 Not ported yet, and raising where reached: the O4 stencils (ROADMAP A.2,
-refused by `Geometry.make`), the upwind and upwind2 schemes (A.2) and a
-cell-varying viscosity in `diffusive` (the LES slice, A.9).
+refused by `Geometry.make`) and the upwind and upwind2 schemes (A.2).
 
 Component/axis convention: comps = (u, v, w); component c is staggered along
 axis c ("s" below); "d" ranges over the three derivative directions.
@@ -235,18 +234,20 @@ def convective(comps: Vel, geom: Geometry,
 
 
 # ---------------------------------------------------------------------------
-# Diffusive term (Laplacian form, scalar viscosity)
+# Diffusive term (Laplacian form, variable viscosity)
 # ---------------------------------------------------------------------------
 
 
-def diffusive(comps: Vel, nu, geom: Geometry, skip_y: bool = False) -> Vel:
-    """div(nu grad(phi)) per component for a scalar nu (a Python float or
-    a 0-d tensor). `skip_y` omits the y-direction term (implicit
-    y-diffusion)."""
-    if torch.is_tensor(nu) and nu.ndim != 0:
-        raise NotImplementedError(
-            "diffusive() with a cell-varying viscosity: the corner-averaged "
-            "nu_t path comes with the LES slice, ROADMAP A.9")
+def diffusive(comps: Vel, nu_center, geom: Geometry, skip_y: bool = False) -> Vel:
+    """div(nu grad(phi)) per component with corner-averaged viscosity.
+
+    `nu_center` is a scalar (a Python float or a 0-d tensor) or a cell
+    field (Nx, Ny, Nz). A cell field is taken directly at the cells along
+    phi's own axis and averaged to the transverse faces, flux direction
+    first, then phi's axis. `skip_y` omits the y-direction term (implicit
+    y-diffusion).
+    """
+    scalar_nu = not torch.is_tensor(nu_center) or nu_center.ndim == 0
     out = []
     for s in range(3):
         phi = comps[s]
@@ -257,10 +258,16 @@ def diffusive(comps: Vel, nu, geom: Geometry, skip_y: bool = False) -> Vel:
             if ax.n == 1 or (skip_y and d == 1):
                 continue
             if d == s:
-                F = nu * f2c_diff(phi, s, axs)
+                F = nu_center * f2c_diff(phi, s, axs)
                 term = term + _bdiff_stored(F, s, axs)
             else:
-                F = nu * c2f_diff(phi, d, ax, kind="vel", wall=ax.tang[s])
+                g_f = c2f_diff(phi, d, ax, kind="vel", wall=ax.tang[s])
+                if scalar_nu:
+                    nu_e = nu_center
+                else:
+                    nu_e = c2f_mean(c2f_mean(nu_center, d, ax, kind="scalar"),
+                                    s, axs, kind="scalar")
+                F = nu_e * g_f
                 lo, hi = face_pair(F, d, ax.bc)
                 term = term + (hi - lo) * ax.inv_d
         out.append(term)
@@ -325,3 +332,31 @@ def laplacian(p: Tensor, geom: Geometry) -> Tensor:
         t = (hi - lo) * ax.inv_d
         lap = t if lap is None else lap + t
     return lap
+
+
+# ---------------------------------------------------------------------------
+# Velocity gradient tensor (for turbulence closures)
+# ---------------------------------------------------------------------------
+
+
+def velocity_gradient(comps: Vel, geom: Geometry):
+    """9-component grad(u) at cell centers: G[i][j] = d u_i / d x_j, each
+    (Nx, Ny, Nz). The diagonal is the staggered difference; off the
+    diagonal, the central difference at phi's own points, then the mean
+    to the cell along phi's staggered axis."""
+    shape = tuple(ax.n for ax in geom.axes)
+    G = [[None] * 3 for _ in range(3)]
+    for i in range(3):
+        phi = comps[i]
+        axi = geom.axes[i]
+        for j in range(3):
+            ax = geom.axes[j]
+            if ax.n == 1:
+                G[i][j] = torch.zeros(shape, dtype=phi.dtype,
+                                      device=phi.device)
+            elif i == j:
+                G[i][j] = f2c_diff(phi, i, axi)
+            else:
+                d = cc_central(phi, j, ax, wall=ax.tang[i])
+                G[i][j] = f2c_mean(d, i, axi)
+    return G

@@ -1,23 +1,29 @@
 """Fractional-step incompressible Navier-Stokes solver, the Euler slice
 (port of `cfdnn_tpu/solver.py`).
 
-One step is predictor -> BC -> divergence -> direct FDM Poisson solve ->
-pressure correction -> BC, with forward Euler at a fixed dt. Where the
-reference jits the step and scans n of them, the port runs the same
-functions eagerly in a plain Python loop; the per-step work on CUDA goes
-through the hand-written kernels of `ops/kernels.py`.
+One step is the turbulence closure's nu_t (LES) -> predictor -> BC ->
+divergence -> direct FDM Poisson solve -> pressure correction -> BC, with
+forward Euler at a fixed dt. Where the reference jits the step and scans
+n of them, the port runs the same functions eagerly in a plain Python
+loop; the per-step work on CUDA goes through the hand-written kernels of
+`ops/kernels.py`.
 
 Kernel dispatch is explicit (`Simulation.kernels`): on CUDA with
 use_pallas "auto" or "on",
   - predictor_periodic when the grid is all-periodic uniform, 3-D, O2
-    skew with no turbulence closure (the reference's fused_predictor);
-  - predictor_channel when `channel_slab_eligible` holds;
-  - divergence and correct whenever x is periodic and uniform.
+    skew with no turbulence closure (the reference's fused_predictor; an
+    all-periodic LES run takes its fused_predictor_general, ROADMAP B.6);
+  - predictor_channel when `channel_slab_eligible` holds, with the
+    closure's nu_t as its cell-viscosity operand;
+  - divergence and correct whenever x is periodic and uniform;
+  - nu_sgs for Smagorinsky, WALE and Vreman, germano_pass1 for dynamic
+    Smagorinsky, when `les_kernel_eligible` holds (Sigma runs plain, as
+    in the reference).
 use_pallas="off" runs the eager operator chain, "auto" off CUDA too (the
 reference's "auto" resolves to its operators off an accelerator), and
 "on" runs the kernels' wrappers on any device (on the CPU they take the
 plain twins, as the reference's "on" runs Pallas in interpret mode). "on"
-raises when no ported kernel serves the config's predictor.
+raises when no ported kernel serves the config's predictor or closure.
 
 Everything outside the slice raises NotImplementedError naming the ROADMAP
 item that brings it (`_check_supported`); no Config field is ignored.
@@ -39,6 +45,7 @@ from .ops import operators as ops
 from .ops.bc import apply_velocity_bc
 from .ops.grid import Geometry
 from .poisson.fdm import FDMPoissonSolver
+from .turbulence import create_turbulence_model
 
 
 @dataclasses.dataclass(frozen=True)
@@ -60,6 +67,7 @@ class KernelPlan:
 
     predictor: Optional[str]   # "periodic" | "channel" | None (eager)
     projection: bool           # divergence + correct kernels
+    closure: Optional[str] = None   # "nu_sgs" | "germano_pass1" | None
 
 
 def _check_supported(cfg: Config) -> None:
@@ -81,9 +89,6 @@ def _check_supported(cfg: Config) -> None:
                                    ConvectiveScheme.UPWIND2),
          f"convective_scheme={cfg.convective_scheme.value}",
          "A.2 (upwind schemes)"),
-        (cfg.turb_model != TurbulenceModel.NONE,
-         f"turb_model={cfg.turb_model.value}",
-         "A.9, A.11, A.12 (turbulence closures)"),
         (cfg.trip_enabled, "trip_enabled=True", "A.14 (trip forcing)"),
         (cfg.recycling_inflow, "recycling_inflow=True",
          "A.14 (recycling inflow)"),
@@ -123,12 +128,16 @@ class Simulation:
         self.geom = Geometry.make(self.mesh, cfg, self.device)
         self.dtype = self.geom.dtype
         self.poisson = self._make_poisson()
+        self.turb = create_turbulence_model(cfg, self.mesh, self.geom)
         self._dt = torch.full((), cfg.dt, dtype=self.dtype, device=self.device)
         self._zero = torch.zeros((), dtype=self.dtype, device=self.device)
         self._fx = float(-cfg.dp_dx / cfg.rho)
         self.kernels = self._select_kernels()
         self._channel_ys = (kernels.channel_y_arrays(self.geom)
                             if self.kernels.predictor == "channel" else None)
+        # the LES kernels' geometry vectors (ops.kernels.les_arrays)
+        self.les_arrays = (kernels.les_arrays(self.geom)
+                           if self.kernels.closure else None)
 
     def _make_poisson(self):
         cfg = self.cfg
@@ -148,9 +157,12 @@ class Simulation:
                                        and self.device.type != "cuda"):
             return KernelPlan(None, False)
         x, y, z = geom.axes
+        laminar = cfg.turb_model == TurbulenceModel.NONE
         predictor = None
-        if (all(ax.periodic and ax.uniform for ax in geom.axes) and z.n > 1
-                and cfg.convective_scheme == ConvectiveScheme.SKEW):
+        # the periodic kernel has no nu_t operand (nor has the reference's
+        # fused_predictor): an LES run never takes it
+        if (laminar and all(ax.periodic and ax.uniform for ax in geom.axes)
+                and z.n > 1 and cfg.convective_scheme == ConvectiveScheme.SKEW):
             predictor = "periodic"
         elif kernels.channel_slab_eligible(geom, cfg):
             predictor = "channel"
@@ -161,7 +173,15 @@ class Simulation:
                 "predictor (the reference runs fused_predictor_general, "
                 "ROADMAP B.6) or its projection (non-periodic x); use "
                 "'auto' or 'off'")
-        return KernelPlan(predictor, projection)
+        closure = self.turb.kernel
+        if closure is not None and not kernels.les_kernel_eligible(geom):
+            if cfg.use_pallas == "on":
+                raise NotImplementedError(
+                    f"use_pallas='on': the {closure} kernel does not serve "
+                    "this geometry (the reference runs its general slab "
+                    "kernel, ROADMAP B.5/B.7); use 'auto' or 'off'")
+            closure = None
+        return KernelPlan(predictor, projection, closure)
 
     def initial_state(self) -> State:
         return zero_state(self.cfg, device=self.device)
@@ -173,16 +193,17 @@ class Simulation:
     def _apply_bc(self, comps):
         return apply_velocity_bc(*comps, self.geom)
 
-    def _momentum_rhs(self, comps):
+    def _momentum_rhs(self, comps, nu_t):
         cfg, geom = self.cfg, self.geom
         conv = ops.convective(comps, geom, cfg.convective_scheme)
-        diff = ops.diffusive(comps, cfg.nu, geom)
+        nu_eff = cfg.nu if nu_t is None else cfg.nu + nu_t
+        diff = ops.diffusive(comps, nu_eff, geom)
         ru = -conv[0] + diff[0] + self._fx
         rv = -conv[1] + diff[1]
         rw = -conv[2] + diff[2]
         return ru, rv, rw
 
-    def _euler_substep(self, comps, dt):
+    def _euler_substep(self, comps, nu_t, dt):
         cfg, geom = self.cfg, self.geom
         if self.kernels.predictor == "periodic":
             star = kernels.predictor_periodic(
@@ -191,9 +212,10 @@ class Simulation:
         elif self.kernels.predictor == "channel":
             star = kernels.predictor_channel(
                 *comps, dt, self._channel_ys, hx=geom.x.h, hz=geom.z.h,
-                nu=float(cfg.nu), fx=self._fx, scheme=cfg.convective_scheme)
+                nu=float(cfg.nu), fx=self._fx, scheme=cfg.convective_scheme,
+                nu_t=nu_t)
         else:
-            rhs = self._momentum_rhs(comps)
+            rhs = self._momentum_rhs(comps, nu_t)
             star = tuple(c + dt * r for c, r in zip(comps, rhs))
         return self._apply_bc(star)
 
@@ -211,11 +233,11 @@ class Simulation:
             comps = ops.correct_velocity(comps, p_corr, dt, geom)
         return self._apply_bc(comps), p_corr
 
-    def _advance_velocity(self, comps, dt):
+    def _advance_velocity(self, comps, nu_t, dt):
         """One Euler step of the velocity with its projection. The
         predictor is pressure-free, so the projection correction IS the
         pressure: it replaces p, never accumulates into it."""
-        star = self._euler_substep(comps, dt)
+        star = self._euler_substep(comps, nu_t, dt)
         return self._project(star, dt)
 
     # ------------------------------------------------------------------
@@ -225,8 +247,11 @@ class Simulation:
     def _step_impl(self, state: State,
                    with_diags: bool = True) -> Tuple[State, StepDiagnostics]:
         comps = (state.u, state.v, state.w)
+        # the closure's nu_t from the pre-step velocity (LES: no transport
+        # advance)
+        state, nu_t = self.turb.advance_and_nu_t(state, self, state.dt_prev)
         dt = self._dt
-        new_comps, p = self._advance_velocity(comps, dt)
+        new_comps, p = self._advance_velocity(comps, nu_t, dt)
         zero = self._zero
         if with_diags:
             div = ops.divergence(new_comps, self.geom)
@@ -251,6 +276,7 @@ class Simulation:
             u=new_comps[0], v=new_comps[1], w=new_comps[2], p=p,
             t=t_new, t_comp=(t_new - state.t) - y,
             step=state.step + 1, dt_prev=dt,
+            nu_t=nu_t if state.nu_t is not None else None,
         )
         diags = StepDiagnostics(residual=res, div_linf=div_linf, dt=dt,
                                 ke=ke, nan_flag=nan_flag)

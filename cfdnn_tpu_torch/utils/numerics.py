@@ -1,0 +1,18 @@
+"""Overflow-safe numerics helpers (port of `cfdnn_tpu/utils/numerics.py`)."""
+
+from __future__ import annotations
+
+import torch
+
+
+def safe_sqrt(x: torch.Tensor) -> torch.Tensor:
+    """sqrt(max(x, 0)) whose gradient is 0 (not inf/NaN) at x <= 0.
+
+    d/dx sqrt(x) = 1/(2 sqrt(x)) blows up at x = 0, so autograd through a
+    strain magnitude NaNs wherever the flow is locally at rest. The
+    double-where form keeps the forward value exact and pins the
+    subgradient to zero there.
+    """
+    pos = x > 0
+    return torch.where(pos, torch.sqrt(torch.where(pos, x, torch.ones_like(x))),
+                       torch.zeros_like(x))

@@ -4,23 +4,37 @@
     python3 chip_smoke.py
 
 Phases, each of which raises on failure (nothing is caught):
-  1. the card's name and power limit (nvidia-smi); build the four CUDA
+  1. the card's name and power limit (nvidia-smi); build the six CUDA
      kernels from cfdnn_tpu_torch/csrc and report the build seconds;
   2. each kernel against its plain PyTorch twin on the card, float64 at
-     32^3 (channel 32x48x32, stretched) to 1e-12 * max(1, max|twin|), and
-     float32 at the 128^3 main-path shapes to 1e-5 * max|twin|;
+     32^3 (channel and LES channel 32x48x32, stretched) to
+     1e-12 * max(1, max|twin|), and float32 at the main-path shapes (128^3,
+     the LES channel 128x64x128) to 1e-5 * max|twin|: the channel
+     predictor with and without a random nu_t >= 0, nu_sgs for each of its
+     three closures, germano_pass1's |S| and plane sums; each output of a
+     kernel is held to its own twin output's scale;
   3. the main path: Simulation.run of the 128^3 Taylor-Green and channel
-     benchmark configurations (float32, 200 steps, use_pallas="auto"),
-     each with the launch counts set to 0 just before and read just after;
-     every kernel of the path must have launched once per step, the fields
-     must be finite and of their shapes, the TGV's kinetic energy must have
-     decayed and the channel's post-projection divergence be <= 1e-3;
-  4. the same configurations at 32^3 in float64 for 20 steps, kernels on
-     against use_pallas="off" on the card and against the eager operators
-     on the CPU (which the CPU tests hold to the JAX reference), <= 1e-11;
-  5. timing: ms/step and Mcells/s of both 128^3 steps (marginal step time,
-     as the port's bench.py) and each kernel against its twin at the 128^3
-     shapes with CUDA events.
+     benchmark configurations and of the 128x64x128 LES channel with
+     static and with dynamic Smagorinsky (float32, 200 steps,
+     use_pallas="auto"), each with the launch counts set to 0 just before
+     and read just after; every kernel of the path must have launched once
+     per step, the fields must be finite and of their shapes, the TGV's
+     kinetic energy must have decayed, the channels' post-projection
+     divergence be <= 1e-3, and the LES nu_t be finite and >= 0. Before
+     each LES run, the closure's nu_t on the initial state at 128x64x128
+     through the kernel plan must be finite, >= 0 and not 0 everywhere, and
+     in float64 (the same grid and initial state) agree with the plain
+     twins' to 1e-12 * max|twin|; after the Smagorinsky run nu_t must not
+     be 0 everywhere, after the dynamic one (whose clip may zero it)
+     |S| > 0, <M:M> > 0 and <L:M> finite;
+  4. the same configurations at 32^3 (the LES channel 32x24x32) in float64
+     for 20 steps, kernels on against use_pallas="off" on the card and
+     against the eager operators on the CPU (which the CPU tests hold to
+     the JAX reference), <= 1e-11;
+  5. timing: ms/step and Mcells/s of each main-path step (marginal step
+     time, as the port's bench.py) with a torch.profiler breakdown, and
+     each kernel against its twin at the main-path shapes with CUDA events
+     and with the profiler's device time.
 It prints the `kernels` JSON line, the nvidia-smi line, and as its last
 line {"ok": true, "device": {...}}. Without a CUDA device it exits nonzero
 before printing any result.
@@ -43,6 +57,8 @@ KERNEL_REPLACES = {
     "predictor_channel": "cfdnn_tpu/ops/pallas_kernels.py:1330",
     "divergence": "cfdnn_tpu/ops/pallas_kernels.py:707",
     "correct": "cfdnn_tpu/ops/pallas_kernels.py:717",
+    "nu_sgs": "cfdnn_tpu/ops/pallas_kernels.py:412",
+    "germano_pass1": "cfdnn_tpu/ops/pallas_kernels.py:485",
 }
 
 
@@ -64,15 +80,17 @@ def phase_build():
     path, seconds = kernels.build_library()
     kernels.library()
     print(f"[build] {path} in {seconds:.1f} s")
+    # ptxas -v: each entry function (mangled), then its registers
     for line in (path.parent / "build.log").read_text().splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"[build] {line.strip()}")
+        if "Compiling entry" in line or "registers" in line:
+            print(f"[build] {line.strip()[:120]}")
 
 
 def _cases(n, dtype, device, seed):
-    """(name, kernel call, twin call) for the four kernels on random fields
-    at the main path's shapes: n^3, the channel stretched with Ny = n
-    (3n/2 for the float64 check)."""
+    """(label, kernel name, kernel call, twin call) for the six kernels on
+    random fields at the main path's shapes: n^3, the channel stretched
+    with Ny = n, the LES channel n x n/2 x n (both with Ny = 3n/2 for the
+    float64 check). The first case of each label is the main path's."""
     from cfdnn_tpu_torch import bench
     from cfdnn_tpu_torch.ops import kernels as K
     gen = torch.Generator(device=device).manual_seed(seed)
@@ -88,9 +106,15 @@ def _cases(n, dtype, device, seed):
     from cfdnn_tpu_torch.ops.grid import Geometry
     g_t = Geometry.make(Mesh.from_config(tgv), tgv, device)
     g_c = Geometry.make(Mesh.from_config(ch), ch, device)
+    les = bench.les_channel_config(n, dts).with_(
+        Ny=n // 2 if dtype == torch.float32 else 3 * n // 2).finalize()
+    g_l = Geometry.make(Mesh.from_config(les), les, device)
     from cfdnn_tpu_torch.fields import velocity_shapes
     ut, vt, wt = (rnd(s) for s in velocity_shapes(tgv))
     uc, vc, wc = (rnd(s) for s in velocity_shapes(ch))
+    ul, vl, wl = (rnd(s) for s in velocity_shapes(les))
+    # an eddy viscosity >= 0 of the size Smagorinsky gives these fields
+    nut = rnd((les.Nx, les.Ny, les.Nz)).abs() * 1e-3
     pc, pt = rnd((ch.Nx, ch.Ny, ch.Nz)), rnd((tgv.Nx, tgv.Ny, tgv.Nz))
     dt_t = torch.full((), tgv.dt, dtype=dtype, device=device)
     dt_c = torch.full((), ch.dt, dtype=dtype, device=device)
@@ -98,61 +122,88 @@ def _cases(n, dtype, device, seed):
     kp = dict(hx=g_t.x.h, hy=g_t.y.h, hz=g_t.z.h, nu=tgv.nu, fx=0.0)
     kc = dict(hx=g_c.x.h, hz=g_c.z.h, nu=ch.nu, fx=-ch.dp_dx,
               scheme=ch.convective_scheme)
-    return [
-        ("predictor_periodic",
+    yl, gs = K.channel_y_arrays(g_l), K.les_arrays(g_l)
+    kl = dict(hx=g_l.x.h, hz=g_l.z.h, nu=les.nu, fx=-les.dp_dx,
+              scheme=les.convective_scheme)
+    cases = [
+        ("predictor_periodic", "predictor_periodic",
          lambda: K.predictor_periodic(ut, vt, wt, dt_t, **kp),
          lambda: K.predictor_periodic_twin(ut, vt, wt, dt_t, **kp)),
-        ("predictor_channel",
+        ("predictor_channel", "predictor_channel",
          lambda: K.predictor_channel(uc, vc, wc, dt_c, ys, **kc),
          lambda: K.predictor_channel_twin(uc, vc, wc, dt_c, *ys, **kc)),
-        ("divergence",
+        ("divergence", "divergence",
          lambda: K.divergence(uc, vc, wc, geom=g_c),
          lambda: K.divergence_twin(uc, vc, wc, geom=g_c)),
-        ("correct",
+        ("correct", "correct",
          lambda: K.correct(uc, vc, wc, pc, dt_c, geom=g_c),
          lambda: K.correct_twin(uc, vc, wc, pc, dt_c, geom=g_c)),
         # the all-periodic grid of the TGV path (no bounded axis)
-        ("divergence",
+        ("divergence", "divergence",
          lambda: K.divergence(ut, vt, wt, geom=g_t),
          lambda: K.divergence_twin(ut, vt, wt, geom=g_t)),
-        ("correct",
+        ("correct", "correct",
          lambda: K.correct(ut, vt, wt, pt, dt_t, geom=g_t),
          lambda: K.correct_twin(ut, vt, wt, pt, dt_t, geom=g_t)),
+        # the LES channel path
+        ("predictor_channel+nu_t", "predictor_channel",
+         lambda: K.predictor_channel(ul, vl, wl, dt_c, yl, nu_t=nut, **kl),
+         lambda: K.predictor_channel_twin(ul, vl, wl, dt_c, *yl, nut, **kl)),
+        ("germano_pass1", "germano_pass1",
+         lambda: K.germano_pass1(ul, vl, wl, gs, geom=g_l),
+         lambda: K.germano_pass1_twin(ul, vl, wl, geom=g_l)),
     ]
+    from cfdnn_tpu_torch.turbulence import les as L
+    for model in (L.SmagorinskyModel, L.WALEModel, L.VremanModel):
+        closure = model.closure
+        kw = dict(geom=g_l, closure=closure, coeff=model.coeff)
+        cases.append((f"nu_sgs {closure}", "nu_sgs",
+                      lambda kw=kw: K.nu_sgs(ul, vl, wl, gs, **kw),
+                      lambda kw=kw: K.nu_sgs_twin(ul, vl, wl, **kw)))
+    return cases
 
 
 def _as_tuple(x):
     return x if isinstance(x, tuple) else (x,)
 
 
-def _max_err(a, b):
-    return max(float((x - y).abs().max()) for x, y in
-               zip(_as_tuple(a), _as_tuple(b)))
+# the outputs of each kernel, in the order its wrapper returns them
+OUTPUTS = {"germano_pass1": ("|S|", "<L:M>", "<M:M>"),
+           "divergence": ("div",), "nu_sgs": ("nu_t",)}
 
 
-def _max_abs(a):
-    return max(float(x.abs().max()) for x in _as_tuple(a))
+def compare(name, got, ref, dtype):
+    """[(output, max|kernel - twin|, limit, max|twin|)], one row for each
+    output of a kernel, each held to its own twin output's scale: float64
+    to 1e-12 * max(1, max|twin|), float32 to 1e-5 * max|twin|."""
+    rows = []
+    for out, g, r in zip(OUTPUTS.get(name, ("u*", "v*", "w*")),
+                         _as_tuple(got), _as_tuple(ref)):
+        scale = float(r.abs().max())
+        lim = (F64_TOL * max(1.0, scale) if dtype == torch.float64
+               else F32_TOL * scale)
+        rows.append((out, float((g - r).abs().max()), lim, scale))
+    return rows
 
 
 def phase_kernels(device):
     """Each kernel against its twin on each grid of the main path; returns
     {name: [largest float64 error, largest float32 error]}."""
     errs = {}
-    for dtype, n, rel in ((torch.float64, 32, F64_TOL),
-                          (torch.float32, 128, F32_TOL)):
-        for name, kern, twin in _cases(n, dtype, device, seed=1):
+    for dtype, n in ((torch.float64, 32), (torch.float32, 128)):
+        for label, name, kern, twin in _cases(n, dtype, device, seed=1):
             got = kern()
             torch.cuda.synchronize()
             ref = twin()
-            err, scale = _max_err(got, ref), _max_abs(ref)
-            lim = rel * (max(1.0, scale) if dtype == torch.float64 else scale)
-            shape = tuple(_as_tuple(ref)[-1].shape)
-            print(f"[kernels] {name} {str(dtype)[6:]} {shape}: max|d|={err:.3e}"
-                  f" (limit {lim:.3e}, max|twin|={scale:.3e})")
-            check(err <= lim, f"{name} {dtype}: {err} > {lim}")
+            shape = tuple(_as_tuple(ref)[0].shape)
             pair = errs.setdefault(name, [0.0, 0.0])
             k = 0 if dtype == torch.float64 else 1
-            pair[k] = max(pair[k], err)
+            for out, err, lim, scale in compare(name, got, ref, dtype):
+                print(f"[kernels] {label} {out} {str(dtype)[6:]} {shape}: "
+                      f"max|d|={err:.3e} (limit {lim:.3e}, "
+                      f"max|twin|={scale:.3e})")
+                check(err <= lim, f"{label} {out} {dtype}: {err} > {lim}")
+                pair[k] = max(pair[k], err)
     return errs
 
 
@@ -160,30 +211,102 @@ def _ke(st):
     return 0.5 * sum(float(torch.mean(c.double() ** 2)) for c in st.velocity)
 
 
+def _paths():
+    """(name, case, extra config, (predictor, closure) of the kernel plan)
+    of each main-path step: the port's bench.py rows."""
+    from cfdnn_tpu_torch import TurbulenceModel, bench
+    dyn = dict(turb_model=TurbulenceModel.DYNAMIC_SMAGORINSKY)
+    return (("tgv", bench.tgv_case, {}, ("periodic", None)),
+            ("channel", bench.channel_case, {}, ("channel", None)),
+            ("les_channel", bench.les_channel_case, {}, ("channel", "nu_sgs")),
+            ("les_channel_dynamic", bench.les_channel_case, dyn,
+             ("channel", "germano_pass1")))
+
+
+def _path_kernels(plan):
+    """{kernel name: launches per step} of a KernelPlan."""
+    want = {}
+    if plan.predictor:
+        want[f"predictor_{plan.predictor}"] = 1
+    if plan.projection:
+        want["divergence"] = want["correct"] = 1
+    if plan.closure:
+        want[plan.closure] = 1
+    return want
+
+
+def _cells(sim):
+    return sim.cfg.Nx * sim.cfg.Ny * sim.cfg.Nz
+
+
+def _plain_nu_t(sim, st):
+    """The closure's nu_t by the plain twins: nu_sgs_twin, or
+    germano_pass1_twin (plane sums in float64, as the kernel's) and the
+    dynamic model's epilogue."""
+    from cfdnn_tpu_torch.ops import kernels as K
+    from cfdnn_tpu_torch.turbulence import base, les
+    comps, geom, turb = st.velocity, sim.geom, sim.turb
+    if sim.kernels.closure == "nu_sgs":
+        return K.nu_sgs_twin(*comps, geom=geom, closure=turb.closure,
+                             coeff=turb.coeff)
+    return les.germano_nu_t(*K.germano_pass1_twin(*comps, geom=geom),
+                            base.filter_width(geom))
+
+
+def check_initial_nu_t(name, case, kw, sim, st):
+    """The closure's nu_t on the initial state at full width through the
+    kernel plan (check launches, made before the counted run): finite,
+    >= 0 and not 0 everywhere; and, on the same grid and initial state in
+    float64, equal to the plain twins' to 1e-12 * max|twin|. Float64,
+    because the dynamic model's Cs^2 is ill-conditioned: each cell's
+    L = box(uu) - box(u)^2 cancels the mean flow, and the plane sums of
+    L:M cancel between cells, so float32 rounding (FMA-contracted in the
+    kernel, not in the twin) reaches ~1e-5 of max|nu_t|."""
+    got = sim.turb.nu_t(st, sim)
+    lo, hi = float(got.min()), float(got.max())
+    print(f"[main] {name} initial nu_t float32: kernel plan in [{lo:.3e}, "
+          f"{hi:.3e}], nonzero cells {int((got > 0).sum())} of "
+          f"{got.numel()}")
+    check(bool(torch.isfinite(got).all()) and lo >= 0.0 and hi > 0.0,
+          f"{name}: initial nu_t in [{lo}, {hi}]")
+    sim64, st64 = case(128, device=sim.device, dtype="float64", **kw)
+    check(sim64.kernels == sim.kernels, f"{name}: float64 plan "
+          f"{sim64.kernels}")
+    got, ref = sim64.turb.nu_t(st64, sim64), _plain_nu_t(sim64, st64)
+    err, scale = float((got - ref).abs().max()), float(ref.abs().max())
+    lim = F64_TOL * scale
+    print(f"[main] {name} initial nu_t float64: kernel plan vs plain "
+          f"max|d| {err:.3e} (limit {lim:.3e}, max|twin| {scale:.3e}), "
+          f"nonzero cells {int((got > 0).sum())} of {got.numel()}")
+    check(scale > 0.0 and err <= lim,
+          f"{name}: float64 initial nu_t {err} > {lim} (max {scale})")
+
+
 def phase_main_path(device):
-    """Drive both 128^3 benchmark steps through Simulation.run; returns
-    the launch counts of the kernels summed over both runs and the
-    channel's divergence."""
-    from cfdnn_tpu_torch import bench, velocity_shapes
+    """Drive each main-path step at its benchmark size through
+    Simulation.run; returns the launch counts of the kernels summed over
+    the runs and each channel's divergence."""
+    from cfdnn_tpu_torch import velocity_shapes
     from cfdnn_tpu_torch.ops import kernels as K
     total = {k.__name__: 0 for k in K.KERNELS}
     out = {}
-    for name, case, predictor in (("tgv", bench.tgv_case, "periodic"),
-                                  ("channel", bench.channel_case, "channel")):
-        sim, st = case(128, device=device)
-        check(sim.kernels.predictor == predictor and sim.kernels.projection,
+    for name, case, kw, (predictor, closure) in _paths():
+        sim, st = case(128, device=device, **kw)
+        check(sim.kernels.predictor == predictor and sim.kernels.projection
+              and sim.kernels.closure == closure,
               f"{name}: kernel plan {sim.kernels}")
         ke0 = _ke(st)
+        if closure:
+            check_initial_nu_t(name, case, kw, sim, st)
         K.reset_launch_counts()
         t0 = time.perf_counter()
         st, d = sim.run(st, MAIN_STEPS)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = K.launch_counts()
-        want = {f"predictor_{predictor}": MAIN_STEPS,
-                "divergence": MAIN_STEPS, "correct": MAIN_STEPS}
+        want = _path_kernels(sim.kernels)
         for k, c in counts.items():
-            check(c == want.get(k, 0),
+            check(c == MAIN_STEPS * want.get(k, 0),
                   f"{name}: {k} launched {c} times in {MAIN_STEPS} steps")
             total[k] += c
         for comp, shape in zip(st.velocity, velocity_shapes(sim.cfg)):
@@ -194,42 +317,75 @@ def phase_main_path(device):
         check(div <= 1e-3, f"{name}: div_linf {div} > 1e-3")
         if name == "tgv":
             check(ke < ke0, f"tgv: KE {ke} did not decay from {ke0}")
-        print(f"[main] {name} 128^3 float32 {MAIN_STEPS} steps in "
+        extra = ""
+        if closure:
+            nut = st.nu_t
+            check(bool(torch.isfinite(nut).all()), f"{name}: nu_t non-finite")
+            lo, hi = float(nut.min()), float(nut.max())
+            check(lo >= 0.0, f"{name}: nu_t in [{lo}, {hi}]")
+            extra = f", nu_t in [{lo:.3e}, {hi:.3e}]"
+        if closure == "nu_sgs":
+            check(hi > 0.0, f"{name}: nu_t is 0 everywhere")
+        elif closure == "germano_pass1":
+            # Cs^2 = clip(<L:M>/<M:M>, 0, 0.5) is 0 in every plane whose
+            # <L:M> < 0, which from this random start is most planes (all
+            # of them at times): nu_t may be 0 everywhere. What must hold
+            # is the model's input: |S| > 0 somewhere, <M:M> > 0 and
+            # <L:M> finite in every plane (a check launch, not counted).
+            smag, lm, mm = K.germano_pass1(*st.velocity, sim.les_arrays,
+                                           geom=sim.geom)
+            check(float(smag.max()) > 0.0 and bool((mm > 0).all())
+                  and bool(torch.isfinite(lm).all()),
+                  f"{name}: |S| max {float(smag.max())}, <M:M> min "
+                  f"{float(mm.min())}, <L:M> finite "
+                  f"{bool(torch.isfinite(lm).all())}")
+            extra += (f", planes with <L:M> > 0: {int((lm > 0).sum())} of "
+                      f"{lm.numel()}")
+        grid = "x".join(str(a) for a in (sim.cfg.Nx, sim.cfg.Ny, sim.cfg.Nz))
+        print(f"[main] {name} {grid} float32 {MAIN_STEPS} steps in "
               f"{wall:.2f} s: launches {counts}, KE {ke0:.6e} -> {ke:.6e}, "
-              f"div_linf {div:.3e}, t {float(st.t):.6f}")
+              f"div_linf {div:.3e}{extra}, t {float(st.t):.6f}")
         out[name] = div
-    return total, out["channel"]
+    return total, out
 
 
 def phase_trajectories(device):
-    """32^3 float64, 20 steps from one initial state: kernels on the card
-    vs the eager operators on the card and on the CPU."""
+    """32^3 (the LES channel 32x24x32) float64, 20 steps from one initial
+    state: kernels on the card vs the eager operators on the card and on
+    the CPU."""
     import numpy as np
-    from cfdnn_tpu_torch import State, bench, state_to_numpy
+    from cfdnn_tpu_torch import State, state_to_numpy
     from cfdnn_tpu_torch.ops import kernels as K
-    for name, case in (("tgv", bench.tgv_case),
-                       ("channel", bench.channel_case)):
-        sim_k, st0 = case(32, device=device, dtype="float64")
+    for name, case, kw, _ in _paths():
+        if case.__name__ == "les_channel_case":
+            kw = dict(kw, Ny=24)
+        sim_k, st0 = case(32, device=device, dtype="float64", **kw)
         check(sim_k.kernels.predictor is not None, f"{name}: no kernels")
+        per_step = sum(_path_kernels(sim_k.kernels).values())
         finals = {}
         for label, dev, mode in (("kernels", device, "auto"),
                                  ("off", device, "off"),
                                  ("cpu", "cpu", "off")):
             sim = sim_k if label == "kernels" else case(
-                32, device=dev, dtype="float64", use_pallas=mode)[0]
-            st = State(**{k: v.to(dev) for k, v in vars(st0).items()})
+                32, device=dev, dtype="float64", use_pallas=mode, **kw)[0]
+            st = State(**{k: (None if v is None else v.to(dev))
+                          for k, v in vars(st0).items()})
             K.reset_launch_counts()
             fin, _ = sim.run(st, 20)
             n = sum(K.launch_counts().values())
-            check(n == (60 if label == "kernels" else 0),
+            check(n == (20 * per_step if label == "kernels" else 0),
                   f"{name} {label}: launches {K.launch_counts()}")
             finals[label] = state_to_numpy(fin)
+        keys = [k for k in ("u", "v", "w", "p", "nu_t")
+                if k in finals["kernels"]]
         for label in ("off", "cpu"):
             err = max(float(np.max(np.abs(finals["kernels"][k]
                                           - finals[label][k])))
-                      for k in ("u", "v", "w", "p"))
-            print(f"[traj] {name} 32^3 float64 20 steps, kernels vs {label}:"
-                  f" max|d| = {err:.3e}")
+                      for k in keys)
+            grid = "x".join(str(a) for a in (sim_k.cfg.Nx, sim_k.cfg.Ny,
+                                             sim_k.cfg.Nz))
+            print(f"[traj] {name} {grid} float64 20 steps, kernels vs {label}"
+                  f" ({', '.join(keys)}): max|d| = {err:.3e}")
             check(err <= TRAJ_TOL, f"{name} vs {label}: {err}")
 
 
@@ -268,18 +424,19 @@ def _device_ms(fn, reps=20):
 def phase_timing(device):
     from cfdnn_tpu_torch import bench
     rows = {}
-    for name, case in (("tgv", bench.tgv_case),
-                       ("channel", bench.channel_case)):
-        sim, st = case(128, device=device)
-        s, d = bench.time_steps(sim, st)
+    for name, case, kw, _ in _paths():
+        sim, st = case(128, device=device, **kw)
+        # the reference times its LES row over 400 steps
+        s, d = bench.time_steps(sim, st, steps=1000 if name in (
+            "tgv", "channel") else 400)
         rows[f"{name}_ms_per_step"] = s * 1e3
-        rows[f"{name}_mcells_per_s"] = 128 ** 3 / s / 1e6
-        if name == "channel":
-            rows["channel_div_linf_f32"] = float(d.div_linf)
+        rows[f"{name}_mcells_per_s"] = _cells(sim) / s / 1e6
+        if name != "tgv":
+            rows[f"{name}_div_linf_f32"] = float(d.div_linf)
         prof = bench.profile_steps(sim, st)
         busy = prof["device_ms_per_step"]
         check(busy > 0, f"{name}: the profiler recorded no device time")
-        print(f"[profile] {name} 128^3: device {busy:.4f} ms/step of "
+        print(f"[profile] {name}: device {busy:.4f} ms/step of "
               f"{s * 1e3:.4f} ms/step (idle share {1 - busy / (s * 1e3):.3f};"
               f" profiled window {prof['wall_ms_per_step']:.4f} ms/step)")
         for kname, ms, count in prof["kernels"][:12]:
@@ -288,15 +445,16 @@ def phase_timing(device):
     print(json.dumps(rows))
     times = {}
     with torch.no_grad():
-        for name, kern, twin in _cases(128, torch.float32, device, seed=2):
-            if name in times:   # timed on the channel grid, the larger
+        for label, name, kern, twin in _cases(128, torch.float32, device,
+                                              seed=2):
+            if label in times:   # timed on the first (main-path) grid
                 continue
-            times[name] = (_event_ms(kern), _event_ms(twin),
-                           _device_ms(kern), _device_ms(twin))
-            print(f"[timing] {name} 128^3 float32: per call kernel "
-                  f"{times[name][0]:.4f} ms, twin {times[name][1]:.4f} ms; "
-                  f"device kernel {times[name][2]:.4f} ms, twin "
-                  f"{times[name][3]:.4f} ms")
+            times[label] = (name, _event_ms(kern), _event_ms(twin),
+                            _device_ms(kern), _device_ms(twin))
+            print(f"[timing] {label} float32: per call kernel "
+                  f"{times[label][1]:.4f} ms, twin {times[label][2]:.4f} ms; "
+                  f"device kernel {times[label][3]:.4f} ms, twin "
+                  f"{times[label][4]:.4f} ms")
     return rows, times
 
 
@@ -313,13 +471,19 @@ def main():
     print(card)
     phase_build()
     errs = phase_kernels(device)
-    launches, div = phase_main_path(device)
+    launches, divs = phase_main_path(device)
     phase_trajectories(device)
     rows, times = phase_timing(device)
     from cfdnn_tpu_torch.ops import kernels as K
     entries = []
     for k in K.KERNELS:
         name = k.__name__
+        # ms and plain_ms: the kernel's first (main-path) case; every case
+        # of the kernel under "variants"
+        variants = {label: dict(zip(("ms", "plain_ms", "device_ms",
+                                     "plain_device_ms"), t[1:]))
+                    for label, t in times.items() if t[0] == name}
+        main_case = next(iter(variants.values()))
         entries.append({
             "name": name, "route": "cuda",
             "source": f"cfdnn_tpu_torch/csrc/{name}.cu",
@@ -327,10 +491,11 @@ def main():
             "launches": launches[name],
             "max_abs_err": errs[name][1],
             "max_abs_err_f64": errs[name][0],
-            "ms": times[name][0], "plain_ms": times[name][1],
-            "device_ms": times[name][2], "plain_device_ms": times[name][3],
+            **main_case, "variants": variants,
         })
-    print(f"[main] channel_div_linf_f32 (200 steps) = {div:.3e}")
+    for name, div in divs.items():
+        if name != "tgv":
+            print(f"[main] {name}_div_linf_f32 (200 steps) = {div:.3e}")
     print(json.dumps({"kernels": entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -16,6 +16,7 @@ import cfdnn_tpu as R
 import cfdnn_tpu_torch as T
 from cfdnn_tpu.ops import pallas_kernels as PK
 from cfdnn_tpu_torch.ops import kernels as K
+from cfdnn_tpu_torch.ops import operators as tops
 
 ATOL = 1e-12
 
@@ -90,6 +91,49 @@ def test_predictor_channel_twin_matches_pallas(scheme, stretch):
     _close(K.predictor_channel(*_t(arrs), dt, ys, **kw), want)
 
 
+@pytest.mark.parametrize("scheme", ["skew", "central"])
+@pytest.mark.parametrize("stretch", [False, True])
+def test_predictor_channel_nu_t_twin_matches_pallas(scheme, stretch):
+    """The cell nu_t operand (LES): the twin against the reference's
+    fused_predictor_channel(nu_t=...) in interpret mode and against the
+    port's operator chain with nu + nu_t, to 1e-13 (the reference's limit,
+    tests/test_pallas_kernels.py:349-361)."""
+    rs, ts = _sims(**CHANNEL, stretch_y=stretch, convective_scheme=scheme)
+    arrs = _fields(ts, 6)
+    rng = np.random.default_rng(7)
+    nut = np.abs(rng.standard_normal((ts.cfg.Nx, ts.cfg.Ny, ts.cfg.Nz))) * 1e-2
+    fx = float(-rs.cfg.dp_dx / rs.cfg.rho)
+    want = PK.fused_predictor_channel(
+        *(jnp.asarray(a) for a in arrs), 1e-3, geom=rs.geom, nu=rs.cfg.nu,
+        fx=fx, scheme=rs.cfg.convective_scheme, nu_t=jnp.asarray(nut),
+        interpret=True)
+    ys = K.channel_y_arrays(ts.geom)
+    dt = torch.tensor(1e-3, dtype=torch.float64)
+    kw = dict(hx=ts.geom.x.h, hz=ts.geom.z.h, nu=ts.cfg.nu, fx=fx,
+              scheme=ts.cfg.convective_scheme)
+    nut_t = torch.from_numpy(nut)
+    got = K.predictor_channel_twin(*_t(arrs), dt, *ys, nut_t, **kw)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=0,
+                                   atol=1e-13)
+    got = K.predictor_channel(*_t(arrs), dt, ys, nu_t=nut_t, **kw)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=0,
+                                   atol=1e-13)
+    comps = _t(arrs)
+    conv = tops.convective(comps, ts.geom,
+                                      ts.cfg.convective_scheme)
+    diff = tops.diffusive(comps, ts.cfg.nu + nut_t, ts.geom)
+    chain = (comps[0] + 1e-3 * (-conv[0] + diff[0] + fx),
+             comps[1] + 1e-3 * (-conv[1] + diff[1]),
+             comps[2] + 1e-3 * (-conv[2] + diff[2]))
+    # the twin's star v carries the wall faces the BC pass zeroes
+    for c, (g, w) in enumerate(zip(got, chain)):
+        if c == 1:
+            g, w = g[:, 1:-1], w[:, 1:-1]
+        np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=0, atol=1e-13)
+
+
 @pytest.mark.parametrize("grid", ["periodic", "channel"])
 def test_divergence_and_correct_twins_match_pallas(grid):
     rs, ts = _sims(**(PERIODIC if grid == "periodic" else
@@ -123,7 +167,11 @@ def test_cpu_wrappers_launch_nothing():
     K.correct(u, v, w, state.p, dt, geom=ts.geom)
     K.predictor_channel(u, v, w, dt, K.channel_y_arrays(ts.geom),
                         hx=ts.geom.x.h, hz=ts.geom.z.h, nu=1e-3, fx=0.0,
-                        scheme=T.ConvectiveScheme.CENTRAL)
+                        scheme=T.ConvectiveScheme.CENTRAL,
+                        nu_t=torch.zeros_like(state.p))
+    gs = K.les_arrays(ts.geom)
+    K.nu_sgs(u, v, w, gs, geom=ts.geom, closure="wale", coeff=0.325)
+    K.germano_pass1(u, v, w, gs, geom=ts.geom)
     assert K.launch_counts() == {k.__name__: 0 for k in K.KERNELS}
 
 
@@ -174,13 +222,16 @@ def test_wrappers_check_inputs():
 
 @pytest.mark.cuda
 def test_kernels_match_twins_float32_on_cuda():
-    """Each CUDA kernel against its twin on the card, float32, to
-    1e-5 * max|twin| (the kernels sum in another order than the twins)."""
+    """Each CUDA kernel against its twin on the card, float32, each output
+    to 1e-5 * max|twin output| (the kernels sum in another order than the
+    twins)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
     import chip_smoke
     dev = torch.device("cuda", 0)
-    for name, kern, twin in chip_smoke._cases(32, torch.float32, dev, 0):
+    for label, name, kern, twin in chip_smoke._cases(32, torch.float32, dev,
+                                                     0):
         got, ref = kern(), twin()
-        err = chip_smoke._max_err(got, ref)
-        assert err <= 1e-5 * chip_smoke._max_abs(ref), name
+        for out, err, lim, _ in chip_smoke.compare(name, got, ref,
+                                                   torch.float32):
+            assert err <= lim, f"{label} {out}: {err} > {lim}"

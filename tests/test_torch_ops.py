@@ -156,5 +156,5 @@ def test_o4_and_upwind_raise():
     (_, _, _, _), (to, _, tg, tA) = _setup("periodic16")
     with pytest.raises(NotImplementedError, match="A.2"):
         to.convective(_vel(tA), tg, T.ConvectiveScheme.UPWIND)
-    with pytest.raises(NotImplementedError, match="A.9"):
-        to.diffusive(_vel(tA), 1e-3 + torch.zeros(tA["c"].shape), tg)
+    with pytest.raises(NotImplementedError, match="A.2"):
+        to.convective(_vel(tA), tg, T.ConvectiveScheme.UPWIND2)

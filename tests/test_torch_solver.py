@@ -131,7 +131,7 @@ def test_kahan_time_float32():
     (dict(space_order=4), "A.2"),
     (dict(convective_scheme="upwind"), "A.2"),
     (dict(convective_scheme="upwind2"), "A.2"),
-    (dict(turb_model="smagorinsky"), "A.9"),
+    (dict(turb_model="sst"), "A.11"),
     (dict(trip_enabled=True), "A.14"),
     (dict(recycling_inflow=True), "A.14"),
     (dict(filter_strength=0.1), "A.14"),
@@ -144,6 +144,8 @@ def test_kahan_time_float32():
     (dict(poisson_transform="fht"), "A.13"),
     (dict(poisson_transform="pallas_fft"), "B.11"),
     (dict(stretch_z=True), "A.13"),
+    (dict(turb_model="earsm_wj"), "A.11"),
+    (dict(turb_model="nn_tbnn"), "A.12"),
 ])
 def test_outside_the_slice_raises(kw, item):
     k = dict(CHANNEL, **kw)
