@@ -3,10 +3,14 @@
 Runs the exact configurations of the reference's `bench.py` `bench_tgv`
 (128^3 all-periodic Taylor-Green, skew, dt 1e-3), `bench_channel` (128^3
 channel, stretched no-slip y, central, dt 2e-4) and `bench_les_channel`
-(the same channel at 128x64x128 with the static Smagorinsky closure),
-forward Euler in float32 and benchmark mode, and prints one JSON line with
-bench.py's headline keys: ms/step and Mcells/s of each grid, the channels'
-float32 post-projection divergence, and the card.
+(the same channel at 128x64x128 with the static Smagorinsky closure), and
+two LES grids of the port's own: `les_tgv` (bench_tgv with static
+Smagorinsky) and `les_duct` (the square duct of the reference's
+apps/duct.py, stretched walls in y and z, at 128x96x96 with WALE and the
+LES channel's physics). Forward Euler in float32 and benchmark mode; it
+prints one JSON line with bench.py's headline keys: ms/step and Mcells/s
+of each grid, the wall-bounded grids' float32 post-projection divergence,
+and the card.
 
 The `*_vs_baseline` ratios of bench.py are left out: they divide by
 published H200 and RTX 6000 figures, not by a measurement on this card.
@@ -65,30 +69,70 @@ def les_channel_config(n: int = 128, dtype: str = "float32", **kw) -> Config:
     return Config(**base)
 
 
+def les_tgv_config(n: int = 128, dtype: str = "float32", **kw) -> Config:
+    """bench_tgv's configuration with the static Smagorinsky closure (Cs
+    0.17): the reference's LES Taylor-Green (tests/test_les_validation.py
+    :15-26) at the width of examples/09_taylor_green_3d/tgv_re1600.cfg, on
+    bench.py's integrator (Euler, fixed dt). `kw` overrides any field."""
+    return tgv_config(n, dtype, **{"turb_model": TurbulenceModel.SMAGORINSKY,
+                                   **kw})
+
+
+def les_duct_config(n: int = 128, dtype: str = "float32", **kw) -> Config:
+    """The square duct of the reference's apps/duct.py (x in [0, 4]
+    periodic; y, z in [-1, 1], no-slip walls on both; central) at the LES
+    channel's density, Nx = n and Ny = Nz = 3n/4 (128x96x96), both walls
+    stretched (beta 2), with bench_les_channel's physics (nu 1e-4, dp_dx
+    -1e-3, dt 2e-4) and the WALE closure, which needs no wall damping.
+    `kw` overrides any field."""
+    base = dict(
+        Nx=n, Ny=3 * n // 4, Nz=3 * n // 4,
+        x_min=0.0, x_max=4.0, y_min=-1.0, y_max=1.0, z_min=-1.0, z_max=1.0,
+        bc_x=BCType.PERIODIC, bc_y=BCType.WALL, bc_z=BCType.WALL,
+        stretch_y=True, stretch_z=True,
+        nu=1e-4, nu_specified=True, dp_dx=-1e-3, dp_dx_specified=True,
+        dt=2e-4, adaptive_dt=False, benchmark=True, dtype=dtype,
+        turb_model=TurbulenceModel.WALE)
+    base.update(kw)
+    return Config(**base)
+
+
 def tgv_case(n=128, device="cuda", dtype="float32", **kw):
     """(Simulation, initial State) of the TGV benchmark."""
     sim = Simulation(tgv_config(n, dtype, **kw), device=device)
     return sim, init_taylor_green(sim.cfg, sim.mesh, device=device)
 
 
-def channel_case(n=128, device="cuda", dtype="float32", **kw):
-    """(Simulation, initial State) of the channel benchmark; the noise
-    comes from a torch.Generator seeded with `seed` (default 0)."""
+def les_tgv_case(n=128, device="cuda", dtype="float32", **kw):
+    """(Simulation, initial State) of the LES Taylor-Green."""
+    sim = Simulation(les_tgv_config(n, dtype, **kw), device=device)
+    return sim, init_taylor_green(sim.cfg, sim.mesh, device=device)
+
+
+def _noisy_case(config, n, device, dtype, kw):
+    """A wall-bounded grid started from perturbed_channel(amp=0.05), the
+    noise from a torch.Generator seeded with kw's `seed` (default 0)."""
     seed = kw.pop("seed", 0)
-    sim = Simulation(channel_config(n, dtype, **kw), device=device)
+    sim = Simulation(config(n, dtype, **kw), device=device)
     gen = torch.Generator(device=sim.device).manual_seed(seed)
     return sim, perturbed_channel(sim.cfg, sim.mesh, gen, amp=0.05,
                                   device=device)
+
+
+def channel_case(n=128, device="cuda", dtype="float32", **kw):
+    """(Simulation, initial State) of the channel benchmark."""
+    return _noisy_case(channel_config, n, device, dtype, kw)
 
 
 def les_channel_case(n=128, device="cuda", dtype="float32", **kw):
-    """(Simulation, initial State) of the LES channel benchmark, noise as
-    in channel_case."""
-    seed = kw.pop("seed", 0)
-    sim = Simulation(les_channel_config(n, dtype, **kw), device=device)
-    gen = torch.Generator(device=sim.device).manual_seed(seed)
-    return sim, perturbed_channel(sim.cfg, sim.mesh, gen, amp=0.05,
-                                  device=device)
+    """(Simulation, initial State) of the LES channel benchmark."""
+    return _noisy_case(les_channel_config, n, device, dtype, kw)
+
+
+def les_duct_case(n=128, device="cuda", dtype="float32", **kw):
+    """(Simulation, initial State) of the LES duct; the first step's BC
+    pass zeroes the noise on w's z-wall faces."""
+    return _noisy_case(les_duct_config, n, device, dtype, kw)
 
 
 def _sync(device):
@@ -125,24 +169,40 @@ def device_events(prof):
             and e.self_device_time_total > 0]
 
 
+def profiled(fn, windows=3):
+    """(device events, host seconds) of `fn()` under torch.profiler (CPU
+    and CUDA activities, ended by a synchronize), from the window of
+    `windows` that recorded the most device events: the profiler has been
+    seen to drop part of a window's events (a kernel read 0 ms), and a
+    window that drops events records fewer."""
+    from torch.profiler import ProfilerActivity, profile
+    best = None
+    for _ in range(windows):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        events = device_events(prof)
+        count = sum(e.count for e in events)
+        if best is None or count > best[0]:
+            best = (count, events, wall)
+    return best[1], best[2]
+
+
 def profile_steps(sim, state, steps=20):
     """Device time of a window of `steps` steps, by kernel, from
-    torch.profiler (CUPTI): {"device_ms_per_step": total kernel time per
-    step, "wall_ms_per_step": the profiled window's host time per step,
-    "kernels": [(name, ms per step, launches per step), ...] longest
+    torch.profiler (CUPTI, `profiled`): {"device_ms_per_step": total kernel
+    time per step, "wall_ms_per_step": the profiled window's host time per
+    step, "kernels": [(name, ms per step, launches per step), ...] longest
     first}. The window is one `sim.run`, so its last step carries the
     diagnostics reductions."""
-    from torch.profiler import ProfilerActivity, profile
     sim.run(state, steps)
     _sync(sim.device)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        sim.run(state, steps)
-        _sync(sim.device)
-        wall = time.perf_counter() - t0
+    events, wall = profiled(lambda: sim.run(state, steps))
     rows = sorted(((e.key, e.self_device_time_total / steps / 1e3,
-                    e.count / steps) for e in device_events(prof)),
+                    e.count / steps) for e in events),
                   key=lambda r: -r[1])
     return {"device_ms_per_step": sum(r[1] for r in rows),
             "wall_ms_per_step": wall * 1e3 / steps, "kernels": rows}
@@ -154,10 +214,14 @@ def main():
                          "benchmark measures the card and has no CPU path")
     s_tgv, _ = time_steps(*tgv_case())
     s_ch, d_ch = time_steps(*channel_case())
-    # the reference times its LES row over 400 steps
+    # the reference times its LES row over 400 steps, and so are the
+    # port's LES rows
     s_les, d_les = time_steps(*les_channel_case(), steps=400)
+    s_ltgv, _ = time_steps(*les_tgv_case(), steps=400)
+    s_duct, d_duct = time_steps(*les_duct_case(), steps=400)
     cells = 128 ** 3
     les_cells = 128 * 64 * 128
+    duct_cells = 128 * 96 * 96
     print(json.dumps({
         "tgv_ms_per_step": s_tgv * 1e3,
         "tgv_mcells_per_s": cells / s_tgv / 1e6,
@@ -167,6 +231,11 @@ def main():
         "les_channel_ms_per_step": s_les * 1e3,
         "les_channel_mcells_per_s": les_cells / s_les / 1e6,
         "les_channel_div_linf_f32": float(d_les.div_linf),
+        "les_tgv_ms_per_step": s_ltgv * 1e3,
+        "les_tgv_mcells_per_s": cells / s_ltgv / 1e6,
+        "les_duct_ms_per_step": s_duct * 1e3,
+        "les_duct_mcells_per_s": duct_cells / s_duct / 1e6,
+        "les_duct_div_linf_f32": float(d_duct.div_linf),
         "device": torch.cuda.get_device_name(0),
     }), flush=True)
 

@@ -51,7 +51,8 @@ __global__ void germano_cells_kernel(LesGrid<T> g, const T* __restrict__ delta,
         g.gradient(i, j, k, G);
         const T sm = cfdnn::strain(G, S);
         smag[cfdnn::at3(i, j, k, ny, nz)] = sm;
-        const T fac = T(3) * delta[j] * delta[j] * sm;
+        const T dl = delta[static_cast<long long>(j) * nz + k];
+        const T fac = T(3) * dl * dl * sm;
         // box filter of (u, v, w, uu, uv, uw, vv, vw, ww) at the cell
         // centres, summed x-innermost as the separable filter sums
         T fz[9];
@@ -154,7 +155,8 @@ int launch(const void* u, const void* v, const void* w, const void* inv_dx,
                        static_cast<const T*>(w), static_cast<const T*>(inv_dx),
                        static_cast<const T*>(inv_dy), static_cast<const T*>(inv_dz),
                        static_cast<const T*>(den_x), static_cast<const T*>(den_y),
-                       static_cast<const T*>(den_z), nx, ny, nz, wall_y};
+                       static_cast<const T*>(den_z), nx, ny, nz, wall_y,
+                       /*wall_z=*/0};
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
     // `partial` is (2, ny, n_partial), sized by cfdnn_germano_pass1_blocks
     const int nb = row_blocks(nx, nz);

@@ -9,12 +9,13 @@
 //   0 Smagorinsky  (Cs Delta)^2 |S|
 //   1 WALE         (Cw Delta)^2 (Sd:Sd)^(3/2) / ((S:S)^(5/2) + (Sd:Sd)^(5/4) + 1e-30)
 //   2 Vreman       Cv sqrt(max(B_beta, 0) / max(a:a, 1e-30))
-// with its constant `coeff` and the filter width Delta per y row
-// ((hx dy_j hz)^(1/3), filter_width). Sigma is not here: the reference
-// runs it plain too (les.py SigmaModel).
+// with its constant `coeff` and the filter width Delta of the cell's
+// (y, z) column ((hx dy_j dz_k)^(1/3), filter_width). Sigma is not here:
+// the reference runs it plain too (les.py SigmaModel).
 //
-// Grid and ghost rules: les.cuh (periodic uniform x and z; y periodic
-// uniform or no-slip walls at any stretching).
+// Grid and ghost rules: les.cuh (periodic uniform x; y and z each
+// periodic uniform or no-slip walls at any stretching: the channel and
+// the square duct).
 //
 // Bound on the H100: device-memory bandwidth (three fields in, one out;
 // ~100 flops a cell for Smagorinsky, ~250 for WALE and Vreman, against
@@ -40,7 +41,8 @@ __global__ void nu_sgs_kernel(LesGrid<T> g, const T* __restrict__ delta,
     T G[3][3], S[3][3];
     g.gradient(i, j, k, G);
     const T smag = cfdnn::strain(G, S);
-    const T cd = coeff * delta[j];
+    const T dl = delta[static_cast<long long>(j) * g.nz + k];
+    const T cd = coeff * dl;
     T nu;
     if (CLOSURE == 0) {
         nu = cd * cd * smag;
@@ -72,7 +74,7 @@ __global__ void nu_sgs_kernel(LesGrid<T> g, const T* __restrict__ delta,
         for (int a = 0; a < 3; ++a)
 #pragma unroll
             for (int b = 0; b < 3; ++b) aa = aa + G[b][a] * G[b][a];
-        const T d2 = delta[j] * delta[j];
+        const T d2 = dl * dl;
         T bb[3][3];
 #pragma unroll
         for (int a = 0; a < 3; ++a)
@@ -100,13 +102,14 @@ template <typename T>
 int launch(const void* u, const void* v, const void* w, const void* inv_dx,
            const void* inv_dy, const void* inv_dz, const void* den_x,
            const void* den_y, const void* den_z, const void* delta, void* out,
-           int nx, int ny, int nz, int wall_y, int closure, double coeff,
-           void* stream) {
+           int nx, int ny, int nz, int wall_y, int wall_z, int closure,
+           double coeff, void* stream) {
     const LesGrid<T> g{static_cast<const T*>(u), static_cast<const T*>(v),
                        static_cast<const T*>(w), static_cast<const T*>(inv_dx),
                        static_cast<const T*>(inv_dy), static_cast<const T*>(inv_dz),
                        static_cast<const T*>(den_x), static_cast<const T*>(den_y),
-                       static_cast<const T*>(den_z), nx, ny, nz, wall_y};
+                       static_cast<const T*>(den_z), nx, ny, nz, wall_y,
+                       wall_z};
     const T* d = static_cast<const T*>(delta);
     T* o = static_cast<T*>(out);
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -125,18 +128,20 @@ extern "C" int cfdnn_nu_sgs_f32(
         const void* u, const void* v, const void* w, const void* inv_dx,
         const void* inv_dy, const void* inv_dz, const void* den_x,
         const void* den_y, const void* den_z, const void* delta, void* out,
-        int nx, int ny, int nz, int wall_y, int closure, double coeff,
-        void* stream) {
+        int nx, int ny, int nz, int wall_y, int wall_z, int closure,
+        double coeff, void* stream) {
     return launch<float>(u, v, w, inv_dx, inv_dy, inv_dz, den_x, den_y, den_z,
-                         delta, out, nx, ny, nz, wall_y, closure, coeff, stream);
+                         delta, out, nx, ny, nz, wall_y, wall_z, closure, coeff,
+                         stream);
 }
 
 extern "C" int cfdnn_nu_sgs_f64(
         const void* u, const void* v, const void* w, const void* inv_dx,
         const void* inv_dy, const void* inv_dz, const void* den_x,
         const void* den_y, const void* den_z, const void* delta, void* out,
-        int nx, int ny, int nz, int wall_y, int closure, double coeff,
-        void* stream) {
+        int nx, int ny, int nz, int wall_y, int wall_z, int closure,
+        double coeff, void* stream) {
     return launch<double>(u, v, w, inv_dx, inv_dy, inv_dz, den_x, den_y, den_z,
-                          delta, out, nx, ny, nz, wall_y, closure, coeff, stream);
+                          delta, out, nx, ny, nz, wall_y, wall_z, closure, coeff,
+                          stream);
 }

@@ -1,12 +1,16 @@
 """The port's hand-written Hopper kernels, their plain twins and launch counts
 (counterpart of `cfdnn_tpu/ops/pallas_kernels.py`).
 
-Six CUDA C++ kernels, in `cfdnn_tpu_torch/csrc/`, carry the main-path
+Seven CUDA C++ kernels, in `cfdnn_tpu_torch/csrc/`, carry the main-path
 steps of the benchmark grids:
 
   predictor_periodic  <- pallas_kernels.fused_predictor (all-periodic TGV)
   predictor_channel   <- pallas_kernels.fused_predictor_channel (wall-y,
                          scalar nu or the cell nu_t of an LES closure)
+  predictor_general   <- pallas_kernels.fused_predictor_general (periodic
+                         x, periodic or wall y and z, moving walls, scalar
+                         nu or nu_t); `predictor_xpad` wraps it for a wall
+                         x, as fused_predictor_xpad wraps the reference's
   divergence          <- pallas_kernels.fused_divergence
   correct             <- pallas_kernels.fused_correct
   nu_sgs              <- pallas_kernels.fused_nu_sgs (Smagorinsky, WALE,
@@ -22,9 +26,10 @@ and double instantiations.
 
 Beside each kernel stand:
   - its plain PyTorch twin (`*_twin`), the eager form of the same math.
-    For the predictors that is the reference's slab math on whole arrays
-    (torch.roll in place of the x halo); for divergence and correct it is
-    the operator library itself (`ops.operators`), and for the LES
+    For the periodic and channel predictors that is the reference's slab
+    math on whole arrays (torch.roll in place of the x halo); for the
+    general predictor, divergence and correct it is the operator library
+    itself (`ops.operators`), and for the LES
     kernels the turbulence algebra (`turbulence/base.py`, `les.py`): the
     single sources of truth the TPU kernels also ran;
   - a launch count, the integer attribute `launches` of the public
@@ -50,6 +55,7 @@ Nothing is compiled or imported from CUDA when this module is imported.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import hashlib
 import os
 import shutil
@@ -62,9 +68,10 @@ from typing import Optional, Tuple
 import torch
 
 from ..config import BCType, ConvectiveScheme
+from ..mesh import Axis1D
 from ..turbulence import base as turb_base
 from . import operators as ops
-from .grid import Geometry
+from .grid import AxisGeom, Geometry
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "cfdnn_tpu_torch"
@@ -141,9 +148,10 @@ _P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
 _SIGNATURES = {
     "predictor_periodic": [_P] * 7 + [_I] * 3 + [_D] * 5 + [_P],
     "predictor_channel": [_P] * 13 + [_I] * 3 + [_D] * 4 + [_I, _P],
+    "predictor_general": [_P] * 10 + [_I] * 5 + [_D] * 2 + [_I, _P],
     "divergence": [_P] * 7 + [_I] * 6 + [_P],
     "correct": [_P] * 11 + [_I] * 6 + [_P],
-    "nu_sgs": [_P] * 11 + [_I] * 5 + [_D, _P],
+    "nu_sgs": [_P] * 11 + [_I] * 6 + [_D, _P],
     "germano_pass1": [_P] * 14 + [_I] * 5 + [_P],
 }
 _lib: Optional[ctypes.CDLL] = None
@@ -398,7 +406,8 @@ def channel_y_arrays(geom: Geometry):
 def _scheme_is_skew(scheme) -> bool:
     if scheme not in (ConvectiveScheme.SKEW, ConvectiveScheme.CENTRAL):
         raise NotImplementedError(
-            f"predictor_channel: scheme {scheme}; skew and central only")
+            f"scheme {scheme}: the predictor kernels take skew and central "
+            "only (upwind and upwind2 are ROADMAP A.2)")
     return scheme == ConvectiveScheme.SKEW
 
 
@@ -603,6 +612,206 @@ predictor_channel.launches = 0
 
 
 # ---------------------------------------------------------------------------
+# predictor_general  <-  pallas_kernels.fused_predictor_general
+# predictor_xpad     <-  pallas_kernels.fused_predictor_xpad (a wrapper)
+# ---------------------------------------------------------------------------
+
+
+def _yz_ok(ax) -> bool:
+    """A y or z axis the general and LES kernels serve: more than one
+    cell, periodic uniform or WALL at any stretching."""
+    return ax.n > 1 and ((ax.periodic and ax.uniform)
+                         or ax.bc == BCType.WALL)
+
+
+def _general_geom_ok(geom: Geometry, x_wall: bool = False) -> bool:
+    """The grids the general predictor kernel serves: periodic uniform x
+    (or, through predictor_xpad, a uniform no-slip x) with x.n >= 8, y and
+    z as `_yz_ok`, O2."""
+    x, y, z = geom.axes
+    x_ok = x.bc == BCType.WALL if x_wall else x.periodic
+    return (x_ok and x.uniform and x.n >= 8 and _yz_ok(y) and _yz_ok(z)
+            and geom.space_order == 2)
+
+
+def _general_cfg_ok(cfg) -> bool:
+    return (cfg.convective_scheme in (ConvectiveScheme.SKEW,
+                                      ConvectiveScheme.CENTRAL)
+            and not cfg.implicit_y_diffusion)
+
+
+def general_eligible(geom: Geometry, cfg) -> bool:
+    """Gate of the general predictor: the reference's shared gate
+    (cfdnn_tpu/solver.py:335-347) less its TPU memory fits, for what the
+    port's operators express (O2, skew or central, no implicit
+    y-diffusion). Moving walls are served."""
+    return _general_geom_ok(geom) and _general_cfg_ok(cfg)
+
+
+def xpad_eligible(geom: Geometry, cfg) -> bool:
+    """Gate of predictor_xpad: the general gate with a uniform no-slip x
+    in place of the periodic one (INFLOW/OUTFLOW x wait for ROADMAP
+    A.8)."""
+    return _general_geom_ok(geom, x_wall=True) and _general_cfg_ok(cfg)
+
+
+def general_arrays(geom: Geometry):
+    """The fifteen 1-D metric vectors of the general predictor, five per
+    axis (x, y, z), as the operator library forms them:
+      inv_d  (n)    1/cell width
+      inv_dc (n+1)  1/centre distance at the faces (periodic wrap, half
+                    cell at a wall): the own-axis skew width and
+                    _bdiff_stored's spacing
+      inv_dg (n+1)  1/ghost-aware centre spacing (operators._inv_dpos_c)
+      den_c  (n)    2-apart centre distance, mirror ghosts (cc_central)
+      den_f  (nf)   2-apart face distance, odd ghosts (ff_central)
+    """
+    out = []
+    for ax in geom.axes:
+        pc = ax.pos_c_pad.reshape(-1)
+        pf = ax.pos_f_pad.reshape(-1)
+        out += [ax.inv_d.reshape(-1), ax.inv_dc.reshape(-1),
+                1.0 / (pc[1:] - pc[:-1]), pc[2:] - pc[:-2], pf[2:] - pf[:-2]]
+    return tuple(t.contiguous() for t in out)
+
+
+def _general_array_shapes(geom: Geometry):
+    return tuple(s for ax in geom.axes
+                 for s in ((ax.n,), (ax.n + 1,), (ax.n + 1,), (ax.n,),
+                           (_nfaces(ax),)))
+
+
+def predictor_general_twin(u, v, w, dt, nu_t=None, *, geom, nu, fx, scheme):
+    """Plain twin of `predictor_general`: the operator library itself,
+    ops.convective + ops.diffusive (scalar nu or nu + nu_t) + fx on u,
+    then the Euler star: the body of the reference's _general_kernel
+    (pallas_kernels.py:276-307)."""
+    comps = (u, v, w)
+    conv = ops.convective(comps, geom, scheme)
+    diff = ops.diffusive(comps, nu if nu_t is None else nu + nu_t, geom)
+    return (u + dt * (-conv[0] + diff[0] + fx),
+            v + dt * (-conv[1] + diff[1]),
+            w + dt * (-conv[2] + diff[2]))
+
+
+def _predictor_general_twin_gs(u, v, w, dt, nu_t=None, *, gs, **kw):
+    # the twin as _ViaTwin's backward calls it: the metric vectors are the
+    # kernel's, the twin reads `geom`
+    return predictor_general_twin(u, v, w, dt, nu_t, **kw)
+
+
+def _predictor_general_launch(u, v, w, dt, nu_t=None, *, gs, geom, nu, fx,
+                              scheme):
+    if u.device.type == "cpu":
+        return predictor_general_twin(u, v, w, dt, nu_t, geom=geom, nu=nu,
+                                      fx=fx, scheme=scheme)
+    return _predictor_general_cuda(u, v, w, dt, nu_t, gs=gs, geom=geom,
+                                   nu=nu, fx=fx, scheme=scheme)
+
+
+def _predictor_general_cuda(u, v, w, dt, nu_t, *, gs, geom, nu, fx, scheme):
+    skew = _scheme_is_skew(scheme)
+    su, sv, sw = (torch.empty_like(a) for a in (u, v, w))
+    x, y, z = geom.axes
+    # host arrays, read by the launcher: the fifteen metric pointers and
+    # the (lo, hi) tangential wall velocities of u, v, w on y, then on z
+    metrics = (ctypes.c_void_p * 15)(*(t.data_ptr() for t in gs))
+    tang = (ctypes.c_double * 12)(*(float(t) for ax in (y, z)
+                                    for pair in ax.tang for t in pair))
+    _launch("predictor_general", u,
+            *(t.data_ptr() for t in (u, v, w, dt)),
+            None if nu_t is None else nu_t.data_ptr(),
+            *(t.data_ptr() for t in (su, sv, sw)),
+            ctypes.cast(metrics, ctypes.c_void_p),
+            ctypes.cast(tang, ctypes.c_void_p),
+            x.n, y.n, z.n, int(y.bc == BCType.WALL), int(z.bc == BCType.WALL),
+            float(nu), float(fx), int(skew))
+    predictor_general.launches += 1
+    return su, sv, sw
+
+
+def predictor_general(u, v, w, dt, gs, *, geom: Geometry, nu, fx, scheme,
+                      nu_t=None):
+    """Euler star (u*, v*, w*) of the predictor on a periodic uniform x
+    with periodic or no-slip (moving or not) y and z at any stretching,
+    O2 skew or central, body force fx on u. `gs` = general_arrays(geom).
+    The viscosity is the scalar nu, or nu + nu_t with `nu_t` a cell field.
+    Star values at the wall faces are produced as the operators produce
+    them; the caller's BC pass overwrites them."""
+    if not _general_geom_ok(geom):
+        raise NotImplementedError(
+            "predictor_general: the kernel serves a periodic uniform x "
+            "(x.n >= 8) with y and z periodic uniform or walls, O2; a wall "
+            "x goes through predictor_xpad, other geometries are ROADMAP "
+            "A.8/A.13")
+    x, y, z = geom.axes
+    extra = () if nu_t is None else (nu_t,)
+    _check("predictor_general", (u, v, w, dt, *extra, *gs),
+           _face_shapes(geom) + ((),) + ((x.n, y.n, z.n),) * len(extra)
+           + _general_array_shapes(geom))
+    _check_geom("predictor_general", geom, (u,))
+    _scheme_is_skew(scheme)
+    kw = dict(gs=gs, geom=geom, nu=nu, fx=fx, scheme=scheme)
+    return _ViaTwin.apply(_predictor_general_launch,
+                          _predictor_general_twin_gs, kw, u, v, w, dt, *extra)
+
+
+predictor_general.launches = 0
+
+
+def xpad_geometry(geom: Geometry) -> Geometry:
+    """Periodic uniform clone of a uniform non-periodic x with one ghost
+    cell per side (Nx+2 cells), the reference's _xpad_geometry: the ghost
+    planes carry the bc.py pad values, so the periodic kernel reproduces
+    the operators on the kept interior."""
+    x = geom.axes[0]
+    ax = Axis1D.make(x.n + 2, 0.0, (x.n + 2) * x.h)
+    xs = AxisGeom.make(ax, BCType.PERIODIC, 0, geom.dtype, x.inv_d.device)
+    return dataclasses.replace(geom, axes=(xs,) + tuple(geom.axes[1:]))
+
+
+def _xpad_fields(u, v, w, nu_t, geom):
+    """u, v, w (and nu_t) padded by one ghost plane per side of a uniform
+    no-slip x with the bc.py values: u the odd reflection 2 u_0 - u_1 (no
+    ghost above face Nx: the wrap feeds only u's face Nx, which the BC
+    pass overwrites), v and w the no-slip sign flip, nu_t the mirror."""
+    x = geom.axes[0]
+    if x.bc != BCType.WALL or not x.uniform:
+        raise NotImplementedError(
+            f"predictor_xpad: x is {x.bc.value}; the port pads a uniform "
+            "no-slip x (inflow and outflow x are ROADMAP A.8)")
+    u_pad = torch.cat([2.0 * u[:1] - u[1:2], u])
+    v_pad, w_pad = (torch.cat([-f[:1], f, -f[-1:]]) for f in (v, w))
+    nut_pad = (None if nu_t is None
+               else torch.cat([nu_t[:1], nu_t, nu_t[-1:]]))
+    return u_pad, v_pad, w_pad, nut_pad
+
+
+def predictor_xpad_twin(u, v, w, dt, nu_t=None, *, geom, xgeom, nu, fx,
+                        scheme):
+    """Plain twin of `predictor_xpad`: the same padding around
+    predictor_general_twin."""
+    u_pad, v_pad, w_pad, nut_pad = _xpad_fields(u, v, w, nu_t, geom)
+    su, sv, sw = predictor_general_twin(u_pad, v_pad, w_pad, dt, nut_pad,
+                                        geom=xgeom, nu=nu, fx=fx,
+                                        scheme=scheme)
+    return su[1:], sv[1:-1], sw[1:-1]
+
+
+def predictor_xpad(u, v, w, dt, gs, *, geom: Geometry, xgeom: Geometry, nu,
+                   fx, scheme, nu_t=None):
+    """The general predictor on a uniform no-slip x (the reference's
+    fused_predictor_xpad, a wrapper, not a kernel): pad x by one ghost
+    plane per side (`_xpad_fields`), run predictor_general on the
+    fake-periodic (Nx+2)-cell axis `xgeom` = xpad_geometry(geom) (`gs` =
+    general_arrays(xgeom)), and keep the interior."""
+    u_pad, v_pad, w_pad, nut_pad = _xpad_fields(u, v, w, nu_t, geom)
+    su, sv, sw = predictor_general(u_pad, v_pad, w_pad, dt, gs, geom=xgeom,
+                                   nu=nu, fx=fx, scheme=scheme, nu_t=nut_pad)
+    return su[1:], sv[1:-1], sw[1:-1]
+
+
+# ---------------------------------------------------------------------------
 # divergence  <-  pallas_kernels.fused_divergence
 # correct     <-  pallas_kernels.fused_correct
 # ---------------------------------------------------------------------------
@@ -706,31 +915,45 @@ correct.launches = 0
 # ---------------------------------------------------------------------------
 
 
-def les_kernel_eligible(geom: Geometry) -> bool:
-    """Structural gate of the nu_sgs and germano_pass1 kernels: periodic
-    uniform x and z (z.n > 1), y periodic uniform or a stationary no-slip
-    wall at any stretching, O2."""
+def nu_sgs_eligible(geom: Geometry) -> bool:
+    """Structural gate of the nu_sgs kernel (the reference's LES gate,
+    cfdnn_tpu/turbulence/les.py:37-39): periodic uniform x, y and z each
+    periodic uniform or a stationary no-slip wall at any stretching
+    (y.n, z.n > 1), O2."""
     x, y, z = geom.axes
-    return (x.periodic and x.uniform and x.n > 1
-            and z.periodic and z.uniform and z.n > 1 and y.n > 1
-            and ((y.periodic and y.uniform) or y.bc == BCType.WALL)
+    return (x.periodic and x.uniform and x.n > 1 and _yz_ok(y) and _yz_ok(z)
             # the wall ghosts hardcode stationary no-slip
-            and all(t == (0.0, 0.0) for t in y.tang)
+            and all(t == (0.0, 0.0) for ax in (y, z) for t in ax.tang)
             and geom.space_order == 2)
 
 
+def germano_pass1_eligible(geom: Geometry) -> bool:
+    """Structural gate of the germano_pass1 kernel: nu_sgs's with a
+    periodic uniform z (its box filter's wall-z truncation is ROADMAP
+    B.7)."""
+    z = geom.axes[2]
+    return nu_sgs_eligible(geom) and z.periodic and z.uniform
+
+
+LES_GATES = {"nu_sgs": nu_sgs_eligible,
+             "germano_pass1": germano_pass1_eligible}
+
+
 def les_arrays(geom: Geometry):
-    """The seven 1-D geometry vectors of the LES kernels: inv_d per axis
-    (Nx, Ny, Nz), the 2-apart ghost-aware center distance per axis (the
+    """The seven geometry vectors of the LES kernels: inv_d per axis (Nx,
+    Ny, Nz), the 2-apart ghost-aware center distance per axis (the
     denominators ops.cc_central divides by) and the filter width Delta
-    (Ny)."""
+    over the (y, z) plane (Ny * Nz, z fastest; it varies in z on a
+    stretched z)."""
     def den(ax):
         p = ax.pos_c_pad.reshape(-1)
         return (p[2:] - p[:-2]).contiguous()
 
+    y, z = geom.axes[1:]
+    delta = turb_base.filter_width(geom).expand(1, y.n, z.n)
     return (*(ax.inv_d.reshape(-1).contiguous() for ax in geom.axes),
             *(den(ax) for ax in geom.axes),
-            turb_base.filter_width(geom).reshape(-1).contiguous())
+            delta.reshape(-1).contiguous())
 
 
 def _closure_id(closure: str) -> int:
@@ -744,15 +967,17 @@ def _closure_id(closure: str) -> int:
 
 
 def _check_les(name, u, v, w, gs, geom):
-    if not les_kernel_eligible(geom):
+    if not LES_GATES[name](geom):
+        z_rule = ("a periodic uniform z (a walled z is ROADMAP B.7)"
+                  if name == "germano_pass1"
+                  else "y and z periodic uniform or stationary walls")
         raise NotImplementedError(
-            f"{name}: the kernel serves periodic uniform x/z with a "
-            "periodic or stationary-wall y; other geometries are ROADMAP "
-            "B.5/B.7 (the reference's general slab kernels)")
+            f"{name}: the kernel serves a periodic uniform x with {z_rule}; "
+            "other geometries are ROADMAP B.5/B.7")
     x, y, z = geom.axes
     _check(name, (u, v, w, *gs),
            _face_shapes(geom) + ((x.n,), (y.n,), (z.n,), (x.n,), (y.n,),
-                                 (z.n,), (y.n,)))
+                                 (z.n,), (y.n * z.n,)))
 
 
 def nu_sgs_twin(u, v, w, *gs, geom, closure, coeff):
@@ -775,8 +1000,8 @@ def _nu_sgs_cuda(u, v, w, *gs, geom, closure, coeff):
     x, y, z = geom.axes
     out = torch.empty((x.n, y.n, z.n), dtype=u.dtype, device=u.device)
     _launch("nu_sgs", u, *(t.data_ptr() for t in (u, v, w, *gs, out)),
-            x.n, y.n, z.n, int(y.bc == BCType.WALL), _closure_id(closure),
-            float(coeff))
+            x.n, y.n, z.n, int(y.bc == BCType.WALL), int(z.bc == BCType.WALL),
+            _closure_id(closure), float(coeff))
     nu_sgs.launches += 1
     return out
 
@@ -843,8 +1068,8 @@ def germano_pass1(u, v, w, gs, *, geom: Geometry):
 germano_pass1.launches = 0
 
 
-KERNELS = (predictor_periodic, predictor_channel, divergence, correct,
-           nu_sgs, germano_pass1)
+KERNELS = (predictor_periodic, predictor_channel, predictor_general,
+           divergence, correct, nu_sgs, germano_pass1)
 
 
 def reset_launch_counts() -> None:

@@ -9,21 +9,26 @@ loop; the per-step work on CUDA goes through the hand-written kernels of
 `ops/kernels.py`.
 
 Kernel dispatch is explicit (`Simulation.kernels`): on CUDA with
-use_pallas "auto" or "on",
+use_pallas "auto" or "on", in the reference's order (cfdnn_tpu/solver.py
+:783-827),
   - predictor_periodic when the grid is all-periodic uniform, 3-D, O2
-    skew with no turbulence closure (the reference's fused_predictor; an
-    all-periodic LES run takes its fused_predictor_general, ROADMAP B.6);
-  - predictor_channel when `channel_slab_eligible` holds, with the
+    skew with no turbulence closure (the reference's fused_predictor);
+  - else predictor_channel when `channel_slab_eligible` holds, with the
     closure's nu_t as its cell-viscosity operand;
+  - else predictor_general when `general_eligible` holds: any periodic or
+    wall y and z, moving walls, the closure's nu_t (an all-periodic LES
+    run, the duct, the lid channel); predictor_xpad, the same kernel on a
+    ghost-padded axis, for a uniform no-slip x (`xpad_eligible`);
   - divergence and correct whenever x is periodic and uniform;
   - nu_sgs for Smagorinsky, WALE and Vreman, germano_pass1 for dynamic
-    Smagorinsky, when `les_kernel_eligible` holds (Sigma runs plain, as
-    in the reference).
+    Smagorinsky, each where its own gate (`ops.kernels.LES_GATES`) holds
+    (Sigma runs plain, as in the reference).
 use_pallas="off" runs the eager operator chain, "auto" off CUDA too (the
 reference's "auto" resolves to its operators off an accelerator), and
 "on" runs the kernels' wrappers on any device (on the CPU they take the
 plain twins, as the reference's "on" runs Pallas in interpret mode). "on"
-raises when no ported kernel serves the config's predictor or closure.
+raises when no ported kernel serves the config's predictor (a 2-D grid,
+for one) or closure.
 
 Everything outside the slice raises NotImplementedError naming the ROADMAP
 item that brings it (`_check_supported`); no Config field is ignored.
@@ -65,7 +70,8 @@ class StepDiagnostics:
 class KernelPlan:
     """Which hand-written kernels a Simulation's step launches."""
 
-    predictor: Optional[str]   # "periodic" | "channel" | None (eager)
+    # "periodic" | "channel" | "general" | "xpad" | None (eager)
+    predictor: Optional[str]
     projection: bool           # divergence + correct kernels
     closure: Optional[str] = None   # "nu_sgs" | "germano_pass1" | None
 
@@ -133,8 +139,16 @@ class Simulation:
         self._zero = torch.zeros((), dtype=self.dtype, device=self.device)
         self._fx = float(-cfg.dp_dx / cfg.rho)
         self.kernels = self._select_kernels()
+        pred = self.kernels.predictor
         self._channel_ys = (kernels.channel_y_arrays(self.geom)
-                            if self.kernels.predictor == "channel" else None)
+                            if pred == "channel" else None)
+        # the general kernel's grid (xpad: the ghost-padded periodic x)
+        # and its metric vectors
+        self._gen_geom = self._gen_arrays = None
+        if pred in ("general", "xpad"):
+            self._gen_geom = (kernels.xpad_geometry(self.geom)
+                              if pred == "xpad" else self.geom)
+            self._gen_arrays = kernels.general_arrays(self._gen_geom)
         # the LES kernels' geometry vectors (ops.kernels.les_arrays)
         self.les_arrays = (kernels.les_arrays(self.geom)
                            if self.kernels.closure else None)
@@ -166,20 +180,25 @@ class Simulation:
             predictor = "periodic"
         elif kernels.channel_slab_eligible(geom, cfg):
             predictor = "channel"
+        elif kernels.general_eligible(geom, cfg):
+            predictor = "general"
+        elif kernels.xpad_eligible(geom, cfg):
+            predictor = "xpad"
+        # a wall x runs the eager projection, as the reference's xpad mode
         projection = x.periodic and x.uniform
-        if cfg.use_pallas == "on" and (predictor is None or not projection):
+        if cfg.use_pallas == "on" and predictor is None:
             raise NotImplementedError(
                 "use_pallas='on': no ported kernel serves this config's "
-                "predictor (the reference runs fused_predictor_general, "
-                "ROADMAP B.6) or its projection (non-periodic x); use "
+                "predictor (the kernels need a 3-D grid with a periodic or "
+                "no-slip uniform x and periodic or no-slip y and z); use "
                 "'auto' or 'off'")
         closure = self.turb.kernel
-        if closure is not None and not kernels.les_kernel_eligible(geom):
+        if closure is not None and not kernels.LES_GATES[closure](geom):
             if cfg.use_pallas == "on":
                 raise NotImplementedError(
                     f"use_pallas='on': the {closure} kernel does not serve "
-                    "this geometry (the reference runs its general slab "
-                    "kernel, ROADMAP B.5/B.7); use 'auto' or 'off'")
+                    "this geometry (ROADMAP B.5/B.7: germano_pass1 takes a "
+                    "periodic z only); use 'auto' or 'off'")
             closure = None
         return KernelPlan(predictor, projection, closure)
 
@@ -212,6 +231,15 @@ class Simulation:
         elif self.kernels.predictor == "channel":
             star = kernels.predictor_channel(
                 *comps, dt, self._channel_ys, hx=geom.x.h, hz=geom.z.h,
+                nu=float(cfg.nu), fx=self._fx, scheme=cfg.convective_scheme,
+                nu_t=nu_t)
+        elif self.kernels.predictor == "general":
+            star = kernels.predictor_general(
+                *comps, dt, self._gen_arrays, geom=geom, nu=float(cfg.nu),
+                fx=self._fx, scheme=cfg.convective_scheme, nu_t=nu_t)
+        elif self.kernels.predictor == "xpad":
+            star = kernels.predictor_xpad(
+                *comps, dt, self._gen_arrays, geom=geom, xgeom=self._gen_geom,
                 nu=float(cfg.nu), fx=self._fx, scheme=cfg.convective_scheme,
                 nu_t=nu_t)
         else:

@@ -274,8 +274,9 @@ class DynamicSmagorinskyModel(LESModelBase):
         if sim.kernels.closure == "germano_pass1":
             smag, lm, mm = kernels.germano_pass1(*comps, sim.les_arrays,
                                                  geom=sim.geom)
-            # Delta: the kernels' own copy (les_arrays' last vector)
-            delta = sim.les_arrays[-1].view(1, -1, 1)
+            # Delta: the kernels' own copy (les_arrays' last vector, the
+            # (y, z) plane)
+            delta = sim.les_arrays[-1].view(1, sim.geom.y.n, sim.geom.z.n)
             return germano_nu_t(smag, lm, mm, delta)
         return self._germano_nu_t_plain(comps, sim.geom)
 

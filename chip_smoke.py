@@ -4,39 +4,47 @@
     python3 chip_smoke.py
 
 Phases, each of which raises on failure (nothing is caught):
-  1. the card's name and power limit (nvidia-smi); build the six CUDA
+  1. the card's name and power limit (nvidia-smi); build the seven CUDA
      kernels from cfdnn_tpu_torch/csrc and report the build seconds;
   2. each kernel against its plain PyTorch twin on the card, float64 at
-     32^3 (channel and LES channel 32x48x32, stretched) to
-     1e-12 * max(1, max|twin|), and float32 at the main-path shapes (128^3,
-     the LES channel 128x64x128) to 1e-5 * max|twin|: the channel
-     predictor with and without a random nu_t >= 0, nu_sgs for each of its
-     three closures, germano_pass1's |S| and plane sums; each output of a
+     32^3 (channel and LES channel 32x48x32, stretched; the duct 32x24x24)
+     to 1e-12 * max(1, max|twin|), and float32 at the main-path shapes
+     (128^3, the LES channel 128x64x128, the duct 128x96x96) to
+     1e-5 * max|twin|: the channel predictor with and without a random
+     nu_t >= 0, the general predictor with nu_t on the TGV grid and the
+     duct, nu_sgs for each of its three closures on the channel and the
+     duct, germano_pass1's |S| and plane sums; in float64 also the general
+     predictor on the other grids it serves (`_general_cases`: the
+     stretched channel, the skew duct, a moving lid, a periodic y with
+     walled z, and the xpad wrapper on a no-slip x); each output of a
      kernel is held to its own twin output's scale;
   3. the main path: Simulation.run of the 128^3 Taylor-Green and channel
-     benchmark configurations and of the 128x64x128 LES channel with
-     static and with dynamic Smagorinsky (float32, 200 steps,
+     benchmark configurations, of the 128x64x128 LES channel with static
+     and with dynamic Smagorinsky, of the 128^3 LES Taylor-Green (static
+     Smagorinsky) and of the 128x96x96 LES duct (WALE) (float32, 200 steps,
      use_pallas="auto"), each with the launch counts set to 0 just before
      and read just after; every kernel of the path must have launched once
-     per step, the fields must be finite and of their shapes, the TGV's
-     kinetic energy must have decayed, the channels' post-projection
-     divergence be <= 1e-3, and the LES nu_t be finite and >= 0. Before
-     each LES run, the closure's nu_t on the initial state at 128x64x128
-     through the kernel plan must be finite, >= 0 and not 0 everywhere, and
-     in float64 (the same grid and initial state) agree with the plain
-     twins' to 1e-12 * max|twin|; after the Smagorinsky run nu_t must not
-     be 0 everywhere, after the dynamic one (whose clip may zero it)
-     |S| > 0, <M:M> > 0 and <L:M> finite;
-  4. the same configurations at 32^3 (the LES channel 32x24x32) in float64
-     for 20 steps, kernels on against use_pallas="off" on the card and
-     against the eager operators on the CPU (which the CPU tests hold to
-     the JAX reference), <= 1e-11;
+     per step, the fields must be finite and of their shapes, the TGVs'
+     kinetic energy must have decayed, the post-projection divergence be
+     <= 1e-3, and the LES nu_t be finite and >= 0. Before each LES run,
+     the closure's nu_t on the initial state at full width through the
+     kernel plan must be finite, >= 0 and not 0 everywhere, and in float64
+     (the same grid and initial state) agree with the plain twins' to
+     1e-12 * max|twin|; after the static runs nu_t must not be 0
+     everywhere, after the dynamic one (whose clip may zero it) |S| > 0,
+     <M:M> > 0 and <L:M> finite;
+  4. the same configurations at 32^3 (the LES channel 32x24x32, the duct
+     32x24x24) in float64 for 20 steps, kernels on against
+     use_pallas="off" on the card and against the eager operators on the
+     CPU (which the CPU tests hold to the JAX reference), <= 1e-11;
   5. timing: ms/step and Mcells/s of each main-path step (marginal step
      time, as the port's bench.py) with a torch.profiler breakdown, and
      each kernel against its twin at the main-path shapes with CUDA events
      and with the profiler's device time.
-It prints the `kernels` JSON line, the nvidia-smi line, and as its last
-line {"ok": true, "device": {...}}. Without a CUDA device it exits nonzero
+It prints the `kernels` JSON line (each kernel's bound: the larger of its
+main case's bytes over 3.35 TB/s and its operations over 67 TFLOP/s,
+float32), the nvidia-smi line, and as its last line
+{"ok": true, "device": {...}}. Without a CUDA device it exits nonzero
 before printing any result.
 """
 
@@ -45,6 +53,7 @@ import math
 import subprocess
 import sys
 import time
+from typing import Callable, NamedTuple, Tuple
 
 import torch
 
@@ -55,11 +64,32 @@ MAIN_STEPS = 200
 KERNEL_REPLACES = {
     "predictor_periodic": "cfdnn_tpu/ops/pallas_kernels.py:1373",
     "predictor_channel": "cfdnn_tpu/ops/pallas_kernels.py:1330",
+    "predictor_general": "cfdnn_tpu/ops/pallas_kernels.py:318",
     "divergence": "cfdnn_tpu/ops/pallas_kernels.py:707",
     "correct": "cfdnn_tpu/ops/pallas_kernels.py:717",
     "nu_sgs": "cfdnn_tpu/ops/pallas_kernels.py:412",
     "germano_pass1": "cfdnn_tpu/ops/pallas_kernels.py:485",
 }
+# The H100 SXM's published peaks (NVIDIA data sheet): HBM bandwidth and
+# float32 outside the tensor cores.
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+# Operations a cell of each kernel's main case (adds, multiplies,
+# divisions and square roots, one each), counted by hand from its source
+# (the head of each csrc/*.cu file); correct: three faces a cell.
+OPS_PER_CELL = {"predictor_periodic": 150, "predictor_channel": 200,
+                "predictor_general": 300, "divergence": 6, "correct": 9,
+                "nu_sgs": 100, "germano_pass1": 600}
+
+
+class Case(NamedTuple):
+    """One kernel call held against its twin: `inputs` are the tensors it
+    reads (for the bytes of its bound)."""
+    label: str
+    name: str
+    kern: Callable
+    twin: Callable
+    inputs: Tuple[torch.Tensor, ...]
 
 
 def check(cond, msg):
@@ -87,37 +117,47 @@ def phase_build():
 
 
 def _cases(n, dtype, device, seed):
-    """(label, kernel name, kernel call, twin call) for the six kernels on
-    random fields at the main path's shapes: n^3, the channel stretched
-    with Ny = n, the LES channel n x n/2 x n (both with Ny = 3n/2 for the
-    float64 check). The first case of each label is the main path's."""
+    """A Case for each of the seven kernels on random fields at the main
+    path's shapes: n^3, the channel stretched with Ny = n, the LES channel
+    n x n/2 x n (both with Ny = 3n/2 for the float64 check), the LES duct
+    n x 3n/4 x 3n/4. The first case of each label is the main path's."""
     from cfdnn_tpu_torch import bench
+    from cfdnn_tpu_torch.fields import velocity_shapes
+    from cfdnn_tpu_torch.mesh import Mesh
     from cfdnn_tpu_torch.ops import kernels as K
+    from cfdnn_tpu_torch.ops.grid import Geometry
+    from cfdnn_tpu_torch.turbulence import les as L
     gen = torch.Generator(device=device).manual_seed(seed)
 
     def rnd(shape):
         return torch.randn(shape, generator=gen, dtype=dtype, device=device)
 
+    def geom(cfg):
+        return Geometry.make(Mesh.from_config(cfg), cfg, device)
+
+    def dt_of(cfg):
+        return torch.full((), cfg.dt, dtype=dtype, device=device)
+
     dts = "float64" if dtype == torch.float64 else "float32"
-    tgv = bench.tgv_config(n, dts).finalize()
+    tgv = bench.les_tgv_config(n, dts).finalize()
     ch = bench.channel_config(n, dts).with_(
         Ny=n if dtype == torch.float32 else 3 * n // 2).finalize()
-    from cfdnn_tpu_torch.mesh import Mesh
-    from cfdnn_tpu_torch.ops.grid import Geometry
-    g_t = Geometry.make(Mesh.from_config(tgv), tgv, device)
-    g_c = Geometry.make(Mesh.from_config(ch), ch, device)
     les = bench.les_channel_config(n, dts).with_(
         Ny=n // 2 if dtype == torch.float32 else 3 * n // 2).finalize()
-    g_l = Geometry.make(Mesh.from_config(les), les, device)
-    from cfdnn_tpu_torch.fields import velocity_shapes
+    duct = bench.les_duct_config(n, dts).finalize()
+    g_t, g_c, g_l, g_d = geom(tgv), geom(ch), geom(les), geom(duct)
     ut, vt, wt = (rnd(s) for s in velocity_shapes(tgv))
     uc, vc, wc = (rnd(s) for s in velocity_shapes(ch))
     ul, vl, wl = (rnd(s) for s in velocity_shapes(les))
+    ud, vd, wd = (rnd(s) for s in velocity_shapes(duct))
+
     # an eddy viscosity >= 0 of the size Smagorinsky gives these fields
-    nut = rnd((les.Nx, les.Ny, les.Nz)).abs() * 1e-3
+    def nut_of(cfg):
+        return rnd((cfg.Nx, cfg.Ny, cfg.Nz)).abs() * 1e-3
+
+    nut, nut_t, nut_d = nut_of(les), nut_of(tgv), nut_of(duct)
     pc, pt = rnd((ch.Nx, ch.Ny, ch.Nz)), rnd((tgv.Nx, tgv.Ny, tgv.Nz))
-    dt_t = torch.full((), tgv.dt, dtype=dtype, device=device)
-    dt_c = torch.full((), ch.dt, dtype=dtype, device=device)
+    dt_t, dt_c, dt_d = dt_of(tgv), dt_of(ch), dt_of(duct)
     ys = K.channel_y_arrays(g_c)
     kp = dict(hx=g_t.x.h, hy=g_t.y.h, hz=g_t.z.h, nu=tgv.nu, fx=0.0)
     kc = dict(hx=g_c.x.h, hz=g_c.z.h, nu=ch.nu, fx=-ch.dp_dx,
@@ -125,41 +165,144 @@ def _cases(n, dtype, device, seed):
     yl, gs = K.channel_y_arrays(g_l), K.les_arrays(g_l)
     kl = dict(hx=g_l.x.h, hz=g_l.z.h, nu=les.nu, fx=-les.dp_dx,
               scheme=les.convective_scheme)
+    gen_t, gen_d = K.general_arrays(g_t), K.general_arrays(g_d)
+    kg_t = dict(geom=g_t, nu=tgv.nu, fx=0.0, scheme=tgv.convective_scheme)
+    kg_d = dict(geom=g_d, nu=duct.nu, fx=-duct.dp_dx,
+                scheme=duct.convective_scheme)
     cases = [
-        ("predictor_periodic", "predictor_periodic",
-         lambda: K.predictor_periodic(ut, vt, wt, dt_t, **kp),
-         lambda: K.predictor_periodic_twin(ut, vt, wt, dt_t, **kp)),
-        ("predictor_channel", "predictor_channel",
-         lambda: K.predictor_channel(uc, vc, wc, dt_c, ys, **kc),
-         lambda: K.predictor_channel_twin(uc, vc, wc, dt_c, *ys, **kc)),
-        ("divergence", "divergence",
-         lambda: K.divergence(uc, vc, wc, geom=g_c),
-         lambda: K.divergence_twin(uc, vc, wc, geom=g_c)),
-        ("correct", "correct",
-         lambda: K.correct(uc, vc, wc, pc, dt_c, geom=g_c),
-         lambda: K.correct_twin(uc, vc, wc, pc, dt_c, geom=g_c)),
-        # the all-periodic grid of the TGV path (no bounded axis)
-        ("divergence", "divergence",
-         lambda: K.divergence(ut, vt, wt, geom=g_t),
-         lambda: K.divergence_twin(ut, vt, wt, geom=g_t)),
-        ("correct", "correct",
-         lambda: K.correct(ut, vt, wt, pt, dt_t, geom=g_t),
-         lambda: K.correct_twin(ut, vt, wt, pt, dt_t, geom=g_t)),
+        Case("predictor_periodic", "predictor_periodic",
+             lambda: K.predictor_periodic(ut, vt, wt, dt_t, **kp),
+             lambda: K.predictor_periodic_twin(ut, vt, wt, dt_t, **kp),
+             (ut, vt, wt, dt_t)),
+        Case("predictor_channel", "predictor_channel",
+             lambda: K.predictor_channel(uc, vc, wc, dt_c, ys, **kc),
+             lambda: K.predictor_channel_twin(uc, vc, wc, dt_c, *ys, **kc),
+             (uc, vc, wc, dt_c, *ys)),
+        Case("divergence", "divergence",
+             lambda: K.divergence(uc, vc, wc, geom=g_c),
+             lambda: K.divergence_twin(uc, vc, wc, geom=g_c),
+             (uc, vc, wc, g_c.x.inv_d, g_c.y.inv_d, g_c.z.inv_d)),
+        Case("correct", "correct",
+             lambda: K.correct(uc, vc, wc, pc, dt_c, geom=g_c),
+             lambda: K.correct_twin(uc, vc, wc, pc, dt_c, geom=g_c),
+             (uc, vc, wc, pc, dt_c, g_c.x.inv_dc, g_c.y.inv_dc,
+              g_c.z.inv_dc)),
+        # the all-periodic grid of the TGV paths (no bounded axis)
+        Case("divergence", "divergence",
+             lambda: K.divergence(ut, vt, wt, geom=g_t),
+             lambda: K.divergence_twin(ut, vt, wt, geom=g_t), (ut, vt, wt)),
+        Case("correct", "correct",
+             lambda: K.correct(ut, vt, wt, pt, dt_t, geom=g_t),
+             lambda: K.correct_twin(ut, vt, wt, pt, dt_t, geom=g_t),
+             (ut, vt, wt, pt, dt_t)),
         # the LES channel path
-        ("predictor_channel+nu_t", "predictor_channel",
-         lambda: K.predictor_channel(ul, vl, wl, dt_c, yl, nu_t=nut, **kl),
-         lambda: K.predictor_channel_twin(ul, vl, wl, dt_c, *yl, nut, **kl)),
-        ("germano_pass1", "germano_pass1",
-         lambda: K.germano_pass1(ul, vl, wl, gs, geom=g_l),
-         lambda: K.germano_pass1_twin(ul, vl, wl, geom=g_l)),
+        Case("predictor_channel+nu_t", "predictor_channel",
+             lambda: K.predictor_channel(ul, vl, wl, dt_c, yl, nu_t=nut, **kl),
+             lambda: K.predictor_channel_twin(ul, vl, wl, dt_c, *yl, nut,
+                                              **kl),
+             (ul, vl, wl, dt_c, *yl, nut)),
+        Case("germano_pass1", "germano_pass1",
+             lambda: K.germano_pass1(ul, vl, wl, gs, geom=g_l),
+             lambda: K.germano_pass1_twin(ul, vl, wl, geom=g_l),
+             (ul, vl, wl, *gs)),
+        # the LES Taylor-Green path, then the LES duct (central, walled z)
+        Case("predictor_general+nu_t", "predictor_general",
+             lambda: K.predictor_general(ut, vt, wt, dt_t, gen_t, nu_t=nut_t,
+                                         **kg_t),
+             lambda: K.predictor_general_twin(ut, vt, wt, dt_t, nut_t,
+                                              **kg_t),
+             (ut, vt, wt, dt_t, nut_t, *gen_t)),
+        Case("predictor_general duct+nu_t", "predictor_general",
+             lambda: K.predictor_general(ud, vd, wd, dt_d, gen_d, nu_t=nut_d,
+                                         **kg_d),
+             lambda: K.predictor_general_twin(ud, vd, wd, dt_d, nut_d,
+                                              **kg_d),
+             (ud, vd, wd, dt_d, nut_d, *gen_d)),
     ]
-    from cfdnn_tpu_torch.turbulence import les as L
-    for model in (L.SmagorinskyModel, L.WALEModel, L.VremanModel):
-        closure = model.closure
-        kw = dict(geom=g_l, closure=closure, coeff=model.coeff)
-        cases.append((f"nu_sgs {closure}", "nu_sgs",
-                      lambda kw=kw: K.nu_sgs(ul, vl, wl, gs, **kw),
-                      lambda kw=kw: K.nu_sgs_twin(ul, vl, wl, **kw)))
+    gs_d = K.les_arrays(g_d)
+    for grid, g, fields, arrays in (("", g_l, (ul, vl, wl), gs),
+                                    (" duct", g_d, (ud, vd, wd), gs_d)):
+        for model in (L.SmagorinskyModel, L.WALEModel, L.VremanModel):
+            kw = dict(geom=g, closure=model.closure, coeff=model.coeff)
+            cases.append(Case(
+                f"nu_sgs{grid} {model.closure}", "nu_sgs",
+                lambda kw=kw, f=fields, a=arrays: K.nu_sgs(*f, a, **kw),
+                lambda kw=kw, f=fields: K.nu_sgs_twin(*f, **kw),
+                (*fields, *arrays)))
+    return cases
+
+
+def _general_cases(device, seed):
+    """predictor_general on the other grids it serves, float64 at small
+    shapes: the stretched wall-y channel (central, nu_t), the stretched
+    duct (skew, nu_t), a moving lid (lid_velocity 1.3, skew, scalar nu), a
+    periodic y with a stretched walled z (skew, nu_t), and the xpad
+    wrapper on a no-slip x (skew, nu_t)."""
+    from cfdnn_tpu_torch import BCType, Config
+    from cfdnn_tpu_torch import ConvectiveScheme as CS
+    from cfdnn_tpu_torch.fields import velocity_shapes
+    from cfdnn_tpu_torch.mesh import Mesh
+    from cfdnn_tpu_torch.ops import kernels as K
+    from cfdnn_tpu_torch.ops.grid import Geometry
+    gen = torch.Generator(device=device).manual_seed(seed)
+    dtype = torch.float64
+
+    def rnd(shape):
+        return torch.randn(shape, generator=gen, dtype=dtype, device=device)
+
+    base = dict(nu=3e-3, nu_specified=True, dp_dx=-0.4, dp_dx_specified=True,
+                dt=1e-3, adaptive_dt=False, dtype="float64")
+    walls = dict(y_min=-1.0, y_max=1.0, z_min=-1.0, z_max=1.0)
+    grids = (
+        ("channel central+nu_t", dict(Nx=16, Ny=24, Nz=8, z_max=1.0,
+                                      stretch_y=True,
+                                      convective_scheme=CS.CENTRAL), True),
+        ("duct skew+nu_t", dict(walls, Nx=16, Ny=12, Nz=10, x_max=4.0,
+                                bc_z=BCType.WALL, stretch_y=True,
+                                stretch_z=True, convective_scheme=CS.SKEW),
+         True),
+        ("lid skew", dict(Nx=16, Ny=12, Nz=8, y_min=0.0, y_max=1.0,
+                          x_max=2.0, z_max=1.0, lid_velocity=1.3,
+                          convective_scheme=CS.SKEW), False),
+        ("periodic-y walled-z+nu_t", dict(walls, Nx=16, Ny=10, Nz=12,
+                                          bc_y=BCType.PERIODIC, y_min=0.0,
+                                          y_max=1.0, bc_z=BCType.WALL,
+                                          stretch_z=True,
+                                          convective_scheme=CS.SKEW), True),
+        ("xpad wall-x+nu_t", dict(Nx=12, Ny=12, Nz=12, bc_x=BCType.WALL,
+                                  bc_y=BCType.PERIODIC, y_min=0.0, y_max=1.0,
+                                  x_max=1.5, z_max=2.0,
+                                  convective_scheme=CS.SKEW), True),
+    )
+    cases = []
+    for label, kw, with_nut in grids:
+        cfg = Config(**base, **kw).finalize()
+        g = Geometry.make(Mesh.from_config(cfg), cfg, device)
+        u, v, w = (rnd(s) for s in velocity_shapes(cfg))
+        nu_t = (rnd((cfg.Nx, cfg.Ny, cfg.Nz)).abs() * 1e-2 if with_nut
+                else None)
+        dt = torch.full((), 1e-2, dtype=dtype, device=device)
+        kg = dict(nu=cfg.nu, fx=0.7, scheme=cfg.convective_scheme)
+        if cfg.bc_x == BCType.WALL:
+            check(K.xpad_eligible(g, cfg), f"{label}: not an xpad grid")
+            xg = K.xpad_geometry(g)
+            arrays = K.general_arrays(xg)
+            kern = (lambda u=u, v=v, w=w, dt=dt, n=nu_t, a=arrays, g=g, kg=kg,
+                    xg=xg: K.predictor_xpad(u, v, w, dt, a, geom=g, xgeom=xg,
+                                            nu_t=n, **kg))
+            twin = (lambda u=u, v=v, w=w, dt=dt, n=nu_t, g=g, kg=kg, xg=xg:
+                    K.predictor_xpad_twin(u, v, w, dt, n, geom=g, xgeom=xg,
+                                          **kg))
+        else:
+            check(K.general_eligible(g, cfg), f"{label}: not a general grid")
+            arrays = K.general_arrays(g)
+            kern = (lambda u=u, v=v, w=w, dt=dt, n=nu_t, a=arrays, g=g, kg=kg:
+                    K.predictor_general(u, v, w, dt, a, geom=g, nu_t=n, **kg))
+            twin = (lambda u=u, v=v, w=w, dt=dt, n=nu_t, g=g, kg=kg:
+                    K.predictor_general_twin(u, v, w, dt, n, geom=g, **kg))
+        inputs = (u, v, w, dt, *arrays) + (() if nu_t is None else (nu_t,))
+        cases.append(Case(f"predictor_general {label}", "predictor_general",
+                          kern, twin, inputs))
     return cases
 
 
@@ -191,7 +334,10 @@ def phase_kernels(device):
     {name: [largest float64 error, largest float32 error]}."""
     errs = {}
     for dtype, n in ((torch.float64, 32), (torch.float32, 128)):
-        for label, name, kern, twin in _cases(n, dtype, device, seed=1):
+        cases = _cases(n, dtype, device, seed=1)
+        if dtype == torch.float64:
+            cases += _general_cases(device, seed=1)
+        for label, name, kern, twin, _ in cases:
             got = kern()
             torch.cuda.synchronize()
             ref = twin()
@@ -220,7 +366,9 @@ def _paths():
             ("channel", bench.channel_case, {}, ("channel", None)),
             ("les_channel", bench.les_channel_case, {}, ("channel", "nu_sgs")),
             ("les_channel_dynamic", bench.les_channel_case, dyn,
-             ("channel", "germano_pass1")))
+             ("channel", "germano_pass1")),
+            ("les_tgv", bench.les_tgv_case, {}, ("general", "nu_sgs")),
+            ("les_duct", bench.les_duct_case, {}, ("general", "nu_sgs")))
 
 
 def _path_kernels(plan):
@@ -315,8 +463,8 @@ def phase_main_path(device):
         ke, div = float(d.ke), float(d.div_linf)
         check(math.isfinite(ke), f"{name}: KE {ke}")
         check(div <= 1e-3, f"{name}: div_linf {div} > 1e-3")
-        if name == "tgv":
-            check(ke < ke0, f"tgv: KE {ke} did not decay from {ke0}")
+        if name in ("tgv", "les_tgv"):
+            check(ke < ke0, f"{name}: KE {ke} did not decay from {ke0}")
         extra = ""
         if closure:
             nut = st.nu_t
@@ -408,17 +556,27 @@ def _event_ms(fn, reps=50):
 
 def _device_ms(fn, reps=20):
     """Device milliseconds per call: the kernels' own time, summed over
-    every kernel the call launches, from torch.profiler."""
-    from torch.profiler import ProfilerActivity, profile
+    every kernel the call launches, from torch.profiler (bench.profiled)."""
+    from cfdnn_tpu_torch.bench import profiled
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    from cfdnn_tpu_torch.bench import device_events
-    return sum(e.self_device_time_total for e in device_events(prof)) \
-        / reps / 1e3
+    events, _ = profiled(lambda: [fn() for _ in range(reps)])
+    return sum(e.self_device_time_total for e in events) / reps / 1e3
+
+
+def _bound(name, inputs, outputs):
+    """(ms, "bytes" | "operations"): the least time the card could take
+    for the call, the larger of its bytes (each input read once, each
+    output written once) over the HBM rate and its operations
+    (OPS_PER_CELL times the cells of its first output) over the float32
+    peak."""
+    outs = _as_tuple(outputs)
+    nbytes = sum(t.numel() * t.element_size()
+                 for t in (*inputs, *outs))
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = OPS_PER_CELL[name] * outs[0].numel() / F32_OPS_PER_S * 1e3
+    return ((by_bytes, "bytes") if by_bytes >= by_ops
+            else (by_ops, "operations"))
 
 
 def phase_timing(device):
@@ -445,17 +603,46 @@ def phase_timing(device):
     print(json.dumps(rows))
     times = {}
     with torch.no_grad():
-        for label, name, kern, twin in _cases(128, torch.float32, device,
-                                              seed=2):
+        for label, name, kern, twin, inputs in _cases(128, torch.float32,
+                                                      device, seed=2):
             if label in times:   # timed on the first (main-path) grid
                 continue
             times[label] = (name, _event_ms(kern), _event_ms(twin),
-                            _device_ms(kern), _device_ms(twin))
+                            _device_ms(kern), _device_ms(twin),
+                            _bound(name, inputs, twin()))
+            bound_ms, bound_by = times[label][5]
             print(f"[timing] {label} float32: per call kernel "
                   f"{times[label][1]:.4f} ms, twin {times[label][2]:.4f} ms; "
                   f"device kernel {times[label][3]:.4f} ms, twin "
-                  f"{times[label][4]:.4f} ms")
+                  f"{times[label][4]:.4f} ms; bound {bound_ms:.4f} ms "
+                  f"({bound_by})")
     return rows, times
+
+
+def kernel_entries(errs, launches, times):
+    """The `kernels` JSON line's entries, one for each kernel of
+    ops.kernels: ms and plain_ms (and the bound) of its first, main-path
+    case, every case of the kernel under "variants"."""
+    from cfdnn_tpu_torch.ops import kernels as K
+    entries = []
+    for k in K.KERNELS:
+        name = k.__name__
+        variants = {label: dict(zip(("ms", "plain_ms", "device_ms",
+                                     "plain_device_ms", "bound_ms",
+                                     "bound_by"), t[1:5] + t[5]))
+                    for label, t in times.items() if t[0] == name}
+        main_case = next(iter(variants.values()))
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": f"cfdnn_tpu_torch/csrc/{name}.cu",
+            "replaces": KERNEL_REPLACES[name],
+            "launches": launches[name],
+            "max_abs_err": errs[name][1],
+            "max_abs_err_f64": errs[name][0],
+            # no single PyTorch call computes any of these stencils
+            **main_case, "library_ms": None, "variants": variants,
+        })
+    return entries
 
 
 def main():
@@ -474,25 +661,7 @@ def main():
     launches, divs = phase_main_path(device)
     phase_trajectories(device)
     rows, times = phase_timing(device)
-    from cfdnn_tpu_torch.ops import kernels as K
-    entries = []
-    for k in K.KERNELS:
-        name = k.__name__
-        # ms and plain_ms: the kernel's first (main-path) case; every case
-        # of the kernel under "variants"
-        variants = {label: dict(zip(("ms", "plain_ms", "device_ms",
-                                     "plain_device_ms"), t[1:]))
-                    for label, t in times.items() if t[0] == name}
-        main_case = next(iter(variants.values()))
-        entries.append({
-            "name": name, "route": "cuda",
-            "source": f"cfdnn_tpu_torch/csrc/{name}.cu",
-            "replaces": KERNEL_REPLACES[name],
-            "launches": launches[name],
-            "max_abs_err": errs[name][1],
-            "max_abs_err_f64": errs[name][0],
-            **main_case, "variants": variants,
-        })
+    entries = kernel_entries(errs, launches, times)
     for name, div in divs.items():
         if name != "tgv":
             print(f"[main] {name}_div_linf_f32 (200 steps) = {div:.3e}")

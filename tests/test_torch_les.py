@@ -231,44 +231,57 @@ PERIODIC = dict(Nx=16, Ny=16, Nz=16, bc_x="periodic", bc_y="periodic",
 def test_periodic_les_takes_no_periodic_predictor():
     """The all-periodic predictor has no nu_t operand (nor has the
     reference's fused_predictor): an LES run on an all-periodic skew grid
-    plans no predictor kernel, 'on' raises naming B.6, and 'off' matches
-    the reference's LES Taylor-Green."""
-    with pytest.raises(NotImplementedError, match="B.6"):
-        _sims(PERIODIC, use_pallas="on")
+    plans the general predictor, never the periodic one, under 'on' and on
+    a CUDA device, and matches the reference's LES Taylor-Green under 'on'
+    and 'off'."""
+    _, on = _sims(PERIODIC, use_pallas="on")
+    assert on.kernels == KernelPlan("general", True, "nu_sgs")
     # the plans a CUDA device would get under "auto" (a plan allocates
-    # nothing): LES keeps the projection and closure kernels only
-    for model, plan in (("smagorinsky", KernelPlan(None, True, "nu_sgs")),
+    # nothing): only a laminar run takes the periodic kernel
+    for model, plan in (("smagorinsky", KernelPlan("general", True,
+                                                   "nu_sgs")),
                         ("none", KernelPlan("periodic", True, None))):
         _, auto = _sims(dict(PERIODIC, turb_model=model))
         auto.device = torch.device("cuda", 0)
         assert auto._select_kernels() == plan, model
-    rs, ts = _sims(PERIODIC, use_pallas="off")
-    r = R.init_taylor_green(rs.cfg, rs.mesh)
-    t = _to_port(r, ts)
-    for _ in range(3):
-        r, _ = rs.step(r)
-        t, _ = ts.step(t)
-    for k in ("u", "v", "w", "p", "nu_t"):
-        _close(getattr(t, k), getattr(r, k), 1e-11, what=k)
+    for mode in ("on", "off"):
+        rs, ts = _sims(PERIODIC, use_pallas="off")
+        if mode == "on":
+            ts = on
+        r = R.init_taylor_green(rs.cfg, rs.mesh)
+        t = _to_port(r, ts)
+        for _ in range(3):
+            r, _ = rs.step(r)
+            t, _ = ts.step(t)
+        for k in ("u", "v", "w", "p", "nu_t"):
+            _close(getattr(t, k), getattr(r, k), 1e-11, what=f"{mode} {k}")
 
 
 def test_les_kernels_refuse_other_geometries():
-    """A walled-z duct is outside the LES kernels' gate: the wrappers raise
-    naming B.5/B.7, and the plan a CUDA device would get runs the closure
-    plain."""
+    """nu_sgs serves a walled-z duct (its own gate, the reference's LES
+    gate); germano_pass1 keeps a periodic z and raises naming B.7 there,
+    so the plan a CUDA device would get runs the dynamic closure plain."""
     duct = dict(Nx=16, Ny=12, Nz=8, bc_z="wall", z_min=-1.0, z_max=1.0)
     _, ts = _sims(duct, turb_model="smagorinsky")
-    assert not K.les_kernel_eligible(ts.geom)
+    assert K.nu_sgs_eligible(ts.geom) and not K.germano_pass1_eligible(
+        ts.geom)
     u, v, w = _t(_velocity(ts, 5))
-    with pytest.raises(NotImplementedError, match="B.5"):
-        K.nu_sgs(u, v, w, (), geom=ts.geom, closure="smagorinsky",
-                 coeff=0.17)
+    gs = K.les_arrays(ts.geom)
+    nut = K.nu_sgs(u, v, w, gs, geom=ts.geom, closure="smagorinsky",
+                   coeff=0.17)
+    _close(nut, K.nu_sgs_twin(u, v, w, geom=ts.geom, closure="smagorinsky",
+                              coeff=0.17), 0.0)
     with pytest.raises(NotImplementedError, match="B.7"):
-        K.germano_pass1(u, v, w, (), geom=ts.geom)
+        K.germano_pass1(u, v, w, gs, geom=ts.geom)
     ts.device = torch.device("cuda", 0)
-    assert ts._select_kernels().closure is None
+    assert ts._select_kernels().closure == "nu_sgs"
+    _, dyn = _sims(duct, turb_model="dynamic_smagorinsky")
+    dyn.device = torch.device("cuda", 0)
+    assert dyn._select_kernels().closure is None
+    with pytest.raises(NotImplementedError, match="B.7"):
+        _sims(duct, turb_model="dynamic_smagorinsky", use_pallas="on")
     with pytest.raises(ValueError, match="closure"):
-        K.nu_sgs(u, v, w, (), geom=ts.geom, closure="sigma", coeff=1.35)
+        K.nu_sgs(u, v, w, gs, geom=ts.geom, closure="sigma", coeff=1.35)
 
 
 def test_les_wrapper_gradients_match_twin():

@@ -161,33 +161,48 @@ def test_outside_the_slice_raises(kw, item):
 
 
 def test_use_pallas_on_without_a_kernel_raises():
-    """'on' with a predictor no ported kernel serves (the reference would
-    run fused_predictor_general) raises; 'auto' runs the eager path."""
+    """'on' with a predictor no ported kernel serves raises: a 2-D grid
+    (Nz = 1, which the reference's kernel gate refuses too). The central
+    Taylor-Green, which had none before, now plans the general predictor;
+    'auto' on the CPU runs the eager path."""
+    with pytest.raises(NotImplementedError, match="no ported kernel"):
+        T.Simulation(_cfg(T, TGV, Nz=1, use_pallas="on"), device="cpu")
     kw = dict(TGV, convective_scheme="central")
-    with pytest.raises(NotImplementedError, match="B.6"):
-        T.Simulation(_cfg(T, kw, use_pallas="on"), device="cpu")
+    assert T.Simulation(_cfg(T, kw, use_pallas="on"), device="cpu").kernels \
+        == KernelPlan("general", True)
     assert T.Simulation(_cfg(T, kw), device="cpu").kernels == \
         KernelPlan(None, False)
     with pytest.raises(ValueError):
         T.Simulation(_cfg(T, TGV, use_pallas="yes"), device="cpu")
 
 
-def test_lid_driven_wall_runs_eagerly():
-    """A moving top wall is in the operator library (AxisGeom.tang) but
-    not in the channel kernel's gate: 'on' raises, 'off' matches the
-    reference."""
+def _lid_steps(mode):
     kw = dict(CHANNEL, lid_velocity=0.5)
-    with pytest.raises(NotImplementedError, match="B.6"):
-        T.Simulation(_cfg(T, kw, use_pallas="on"), device="cpu")
     rsim = R.Simulation(_cfg(R, kw, use_pallas="off"))
-    tsim = T.Simulation(_cfg(T, kw, use_pallas="off"), device="cpu")
+    tsim = T.Simulation(_cfg(T, kw, use_pallas=mode), device="cpu")
     rs = R.init_poiseuille(rsim.cfg, rsim.mesh, fraction=0.5)
     ts = _to_port(rs, tsim)
     for _ in range(3):
         rs, _ = rsim.step(rs)
         ts, _ = tsim.step(ts)
-    np.testing.assert_allclose(ts.u.numpy(), np.asarray(rs.u), rtol=0,
-                               atol=ATOL)
+    for k in ("u", "v", "w", "p"):
+        np.testing.assert_allclose(getattr(ts, k).numpy(),
+                                   np.asarray(getattr(rs, k)), rtol=0,
+                                   atol=ATOL, err_msg=k)
+    return tsim
+
+
+def test_lid_driven_wall_runs_eagerly():
+    """A moving top wall under 'off' runs the eager operators, which honour
+    AxisGeom.tang, and matches the reference."""
+    assert _lid_steps("off").kernels == KernelPlan(None, False)
+
+
+def test_lid_driven_wall_takes_the_general_kernel():
+    """A moving top wall is outside the channel kernel's gate (it hardcodes
+    no-slip) but inside the general predictor's: 'on' plans it and matches
+    the reference."""
+    assert _lid_steps("on").kernels == KernelPlan("general", True)
 
 
 def test_state_round_trip_and_fields():
