@@ -2,9 +2,10 @@
 
 A second package beside the JAX reference `cfdnn_tpu`, with the same
 module names, array layouts and Config. It imports torch and NumPy, never
-JAX. This first slice is the forward-Euler, fixed-dt step of the 128^3
-Taylor-Green and channel benchmarks (bench.py), carried on the GPU by four
-hand-written CUDA kernels (ops/kernels.py).
+JAX. It runs the forward-Euler, fixed-dt step of the reference's
+benchmark grids, laminar or with an LES, RANS (k-omega transport, EARSM)
+or algebraic closure, carried on the GPU by hand-written CUDA kernels
+(ops/kernels.py).
 """
 
 from .config import (BCType, Config, ConvectiveScheme, PoissonSolverType,

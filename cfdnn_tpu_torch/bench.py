@@ -3,14 +3,17 @@
 Runs the exact configurations of the reference's `bench.py` `bench_tgv`
 (128^3 all-periodic Taylor-Green, skew, dt 1e-3), `bench_channel` (128^3
 channel, stretched no-slip y, central, dt 2e-4) and `bench_les_channel`
-(the same channel at 128x64x128 with the static Smagorinsky closure), and
+(the same channel at 128x64x128 with the static Smagorinsky closure),
 two LES grids of the port's own: `les_tgv` (bench_tgv with static
 Smagorinsky) and `les_duct` (the square duct of the reference's
 apps/duct.py, stretched walls in y and z, at 128x96x96 with WALE and the
-LES channel's physics). Forward Euler in float32 and benchmark mode; it
-prints one JSON line with bench.py's headline keys: ms/step and Mcells/s
-of each grid, the wall-bounded grids' float32 post-projection divergence,
-and the card.
+LES channel's physics), and `rans_channel`, bench_channel with the SST
+closure started from the closure's k/omega estimate: the RANS
+configuration the reference measured its transport kernel on
+(scripts/measure_upwind.py:58-68). Forward Euler in float32 and benchmark
+mode; it prints one JSON line with bench.py's headline keys: ms/step and
+Mcells/s of each grid, the wall-bounded grids' float32 post-projection
+divergence, and the card.
 
 The `*_vs_baseline` ratios of bench.py are left out: they divide by
 published H200 and RTX 6000 figures, not by a measurement on this card.
@@ -97,6 +100,15 @@ def les_duct_config(n: int = 128, dtype: str = "float32", **kw) -> Config:
     return Config(**base)
 
 
+def rans_channel_config(n: int = 128, dtype: str = "float32",
+                        **kw) -> Config:
+    """bench.py bench_channel's configuration with the SST k-omega closure
+    (scripts/measure_upwind.py:58-68). `kw` overrides any field (another
+    RANS closure, another Ny)."""
+    return channel_config(n, dtype).with_(
+        **{"turb_model": TurbulenceModel.SST, **kw})
+
+
 def tgv_case(n=128, device="cuda", dtype="float32", **kw):
     """(Simulation, initial State) of the TGV benchmark."""
     sim = Simulation(tgv_config(n, dtype, **kw), device=device)
@@ -133,6 +145,14 @@ def les_duct_case(n=128, device="cuda", dtype="float32", **kw):
     """(Simulation, initial State) of the LES duct; the first step's BC
     pass zeroes the noise on w's z-wall faces."""
     return _noisy_case(les_duct_config, n, device, dtype, kw)
+
+
+def rans_channel_case(n=128, device="cuda", dtype="float32", **kw):
+    """(Simulation, initial State) of the RANS channel: perturbed_channel
+    (amp 0.05) through `Simulation.initialize`, which sets k and omega to
+    the closure's channel estimate (scripts/measure_upwind.py:43)."""
+    sim, st = _noisy_case(rans_channel_config, n, device, dtype, kw)
+    return sim, sim.initialize(st)
 
 
 def _sync(device):
@@ -219,6 +239,8 @@ def main():
     s_les, d_les = time_steps(*les_channel_case(), steps=400)
     s_ltgv, _ = time_steps(*les_tgv_case(), steps=400)
     s_duct, d_duct = time_steps(*les_duct_case(), steps=400)
+    # 400/80 steps, as scripts/measure_upwind.py:37 times its RANS row
+    s_rans, d_rans = time_steps(*rans_channel_case(), steps=400)
     cells = 128 ** 3
     les_cells = 128 * 64 * 128
     duct_cells = 128 * 96 * 96
@@ -236,6 +258,9 @@ def main():
         "les_duct_ms_per_step": s_duct * 1e3,
         "les_duct_mcells_per_s": duct_cells / s_duct / 1e6,
         "les_duct_div_linf_f32": float(d_duct.div_linf),
+        "rans_channel_ms_per_step": s_rans * 1e3,
+        "rans_channel_mcells_per_s": cells / s_rans / 1e6,
+        "rans_channel_div_linf_f32": float(d_rans.div_linf),
         "device": torch.cuda.get_device_name(0),
     }), flush=True)
 

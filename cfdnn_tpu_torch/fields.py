@@ -40,9 +40,10 @@ class State:
     `t`, `t_comp` and `dt_prev` are 0-d tensors of the working dtype and
     `step` a 0-d int32 tensor, all on the state's device, so a step never
     waits for the host. `nu_t` is the cell eddy viscosity of the last
-    step, present whenever a turbulence closure is on. The reference's
-    k-omega transport (k, omega) and recycling (inlet_*) members are not
-    carried: their slices (ROADMAP A.11, A.14) are not ported.
+    step, present whenever a turbulence closure is on; `k` and `omega`
+    are the two-equation transport variables, present for the k-omega
+    family (`needs_transport`). The reference's recycling members
+    (inlet_*) are not carried: their slice (ROADMAP A.14) is not ported.
     """
 
     u: torch.Tensor
@@ -55,6 +56,9 @@ class State:
     # Kahan carry for t: in float32, plain t += dt loses the low bits of
     # dt once t/dt > ~2^24; the compensated sum keeps t exact to O(eps).
     t_comp: Optional[torch.Tensor] = None
+    # turbulence transport variables, (Nx, Ny, Nz) each
+    k: Optional[torch.Tensor] = None
+    omega: Optional[torch.Tensor] = None
     nu_t: Optional[torch.Tensor] = None   # (Nx, Ny, Nz) eddy viscosity
 
     def replace(self, **kw) -> "State":
@@ -65,8 +69,9 @@ class State:
         return self.u, self.v, self.w
 
 
-_STATE_KEYS = ("u", "v", "w", "p", "t", "step", "dt_prev", "t_comp", "nu_t")
-_NOT_CARRIED = ("k", "omega", "inlet_u", "inlet_v", "inlet_w")
+_STATE_KEYS = ("u", "v", "w", "p", "t", "step", "dt_prev", "t_comp", "k",
+               "omega", "nu_t")
+_NOT_CARRIED = ("inlet_u", "inlet_v", "inlet_w")
 
 
 def state_from_numpy(d, device, dtype) -> State:
@@ -75,15 +80,14 @@ def state_from_numpy(d, device, dtype) -> State:
 
     Float members take `dtype`; `step` stays an int32 counter. A missing
     `t_comp` (older reference states) starts at zero; a missing or None
-    `nu_t` stays None. The k-omega transport and recycling members must be
+    `k`, `omega` or `nu_t` stays None. The recycling members must be
     absent or None: the port does not carry them.
     """
     for name in _NOT_CARRIED:
         if d.get(name) is not None:
             raise NotImplementedError(
-                f"state member {name!r}: the port carries no turbulence "
-                "transport (k, omega; ROADMAP A.11) or recycling (inlet_*; "
-                "A.14) state yet")
+                f"state member {name!r}: the port carries no recycling "
+                "(inlet_*; ROADMAP A.14) state yet")
     out = {}
     for name in _STATE_KEYS:
         a = d.get(name)
@@ -103,6 +107,20 @@ def state_to_numpy(state: State) -> dict:
             for name in _STATE_KEYS if getattr(state, name) is not None}
 
 
+def needs_transport(model: TurbulenceModel) -> bool:
+    """Models whose state carries (k, omega): the two-equation transport
+    family, and TBNN, which keeps an algebraic k/omega estimate for its
+    time scale."""
+    return model in (
+        TurbulenceModel.SST,
+        TurbulenceModel.KOMEGA,
+        TurbulenceModel.EARSM_WJ,
+        TurbulenceModel.EARSM_GS,
+        TurbulenceModel.EARSM_POPE,
+        TurbulenceModel.NN_TBNN,
+    )
+
+
 def zero_state(cfg: Config, *, device) -> State:
     dtype = getattr(torch, cfg.dtype)
     su, sv, sw = velocity_shapes(cfg)
@@ -111,11 +129,17 @@ def zero_state(cfg: Config, *, device) -> State:
     def z(s):
         return torch.zeros(s, dtype=dtype, device=device)
 
+    def full(value):
+        return torch.full(sc, value, dtype=dtype, device=device)
+
+    transport = needs_transport(cfg.turb_model)
     return State(
         u=z(su), v=z(sv), w=z(sw), p=z(sc),
         t=z(()), t_comp=z(()),
         step=torch.zeros((), dtype=torch.int32, device=device),
         dt_prev=torch.full((), cfg.dt, dtype=dtype, device=device),
+        k=full(1e-4) if transport else None,
+        omega=full(1.0) if transport else None,
         nu_t=z(sc) if cfg.turb_model != TurbulenceModel.NONE else None,
     )
 

@@ -126,7 +126,9 @@ class Geometry:
     space_order: int = 2
 
     @classmethod
-    def make(cls, mesh: Mesh, cfg: Config, device="cpu") -> "Geometry":
+    def make(cls, mesh: Mesh, cfg: Config, *, device) -> "Geometry":
+        """The geometry of `mesh` under `cfg`, as tensors on `device`
+        (required: there is no default device)."""
         if cfg.space_order != 2:
             raise NotImplementedError(
                 f"space_order={cfg.space_order}: the port has the O2 "

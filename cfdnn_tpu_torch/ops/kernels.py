@@ -1,7 +1,7 @@
 """The port's hand-written Hopper kernels, their plain twins and launch counts
 (counterpart of `cfdnn_tpu/ops/pallas_kernels.py`).
 
-Seven CUDA C++ kernels, in `cfdnn_tpu_torch/csrc/`, carry the main-path
+Eight CUDA C++ kernels, in `cfdnn_tpu_torch/csrc/`, carry the main-path
 steps of the benchmark grids:
 
   predictor_periodic  <- pallas_kernels.fused_predictor (all-periodic TGV)
@@ -17,6 +17,9 @@ steps of the benchmark grids:
                          Vreman)
   germano_pass1       <- pallas_kernels.fused_germano_pass1 (dynamic
                          Smagorinsky)
+  transport           <- pallas_kernels.fused_transport_advance (the
+                         k-omega advance of SST, with or without its nu_t,
+                         and of Wilcox)
 
 Each source file's head says what bounds the kernel on the H100 and what
 its design does about it. Each kernel computes what its TPU kernel
@@ -30,8 +33,8 @@ Beside each kernel stand:
     math on whole arrays (torch.roll in place of the x halo); for the
     general predictor, divergence and correct it is the operator library
     itself (`ops.operators`), and for the LES
-    kernels the turbulence algebra (`turbulence/base.py`, `les.py`): the
-    single sources of truth the TPU kernels also ran;
+    kernels the turbulence algebra (`turbulence/base.py`, `les.py`,
+    `transport.py`): the single sources of truth the TPU kernels also ran;
   - a launch count, the integer attribute `launches` of the public
     wrapper, raised by one where the CUDA kernel is launched and nowhere
     else.
@@ -153,6 +156,7 @@ _SIGNATURES = {
     "correct": [_P] * 11 + [_I] * 6 + [_P],
     "nu_sgs": [_P] * 11 + [_I] * 6 + [_D, _P],
     "germano_pass1": [_P] * 14 + [_I] * 5 + [_P],
+    "transport": [_P] * 15 + [_I] * 6 + [_P],
 }
 _lib: Optional[ctypes.CDLL] = None
 
@@ -1068,8 +1072,151 @@ def germano_pass1(u, v, w, gs, *, geom: Geometry):
 germano_pass1.launches = 0
 
 
+# ---------------------------------------------------------------------------
+# transport  <-  pallas_kernels.fused_transport_advance
+# ---------------------------------------------------------------------------
+
+# The kernel's three instantiations, by its MODEL template id
+# (csrc/transport.cu): the SST advance (k_new, om_new), the same with the
+# SST nu_t as a third output, and the Wilcox advance.
+TRANSPORT_MODELS = {"sst": 0, "sst_nut": 1, "komega": 2}
+# The kernel's structural gate is nu_sgs_eligible: both take the strain of
+# csrc/les.cuh, whose wall ghosts hardcode stationary no-slip walls.
+
+
+def transport_arrays(geom: Geometry):
+    """The twelve 1-D metric vectors of the transport kernel, four per
+    axis (x, y, z), as transport.py forms them from pos_c_pad:
+      inv_d    (n)    1/cell width
+      den_c    (n)    2-apart centre distance (central gradient, strain)
+      dpos     (n+1)  centre spacing, ghost-aware (the upwind den_b and
+                      den_f)
+      inv_dpos (n+1)  1/dpos (operators._inv_dpos_c: the diffusion)
+    """
+    out = []
+    for ax in geom.axes:
+        pc = ax.pos_c_pad.reshape(-1)
+        dpos = pc[1:] - pc[:-1]
+        out += [ax.inv_d.reshape(-1), pc[2:] - pc[:-2], dpos, 1.0 / dpos]
+    return tuple(t.contiguous() for t in out)
+
+
+def _transport_array_shapes(geom: Geometry):
+    return tuple(s for ax in geom.axes
+                 for s in ((ax.n,), (ax.n,), (ax.n + 1,), (ax.n + 1,)))
+
+
+def _transport_params(model, c, nu, om_wall):
+    """The kernel's constants (csrc/transport.cu, enum P_*), each product
+    formed here in double as the twin forms it in Python. Wilcox's
+    constants take the SST slots of the first set (sigma_k1, sigma_omega1,
+    alpha1, beta1)."""
+    two_om_wall = 0.0 if om_wall is None else 2.0 * om_wall
+    if model == "komega":
+        blend = (0.0, c.beta_star, 0.0, 0.0, 0.0, c.beta, 0.0, c.alpha, 0.0,
+                 c.sigma_k, 0.0, c.sigma_omega, 0.0)
+        closure = (0.0, 0.0)
+    else:
+        blend = (c.CD_omega_min, c.beta_star, 2.0 * c.sigma_omega2,
+                 500.0 * nu, 4.0 * c.sigma_omega2, c.beta1, c.beta2,
+                 c.alpha1, c.alpha2, c.sigma_k1, c.sigma_k2, c.sigma_omega1,
+                 c.sigma_omega2)
+        closure = (c.a1, 1000.0 * nu)
+    return ((nu, two_om_wall, c.k_min, c.omega_min) + blend
+            + (10.0 * c.beta_star, c.k_max, c.omega_max) + closure)
+
+
+def transport_twin(u, v, w, k, om, nu_t, dt, *consts, geom, model, c, nu,
+                   om_wall):
+    """Plain twin of `transport`: the port's turbulence/transport.py math
+    on whole arrays (sst_advance_math, sst_with_nut_math,
+    komega_advance_math), the constants as the kernel takes them, (1, Ny,
+    Nz): y_wall [, pin mask, om_visc]."""
+    from ..turbulence import transport as tr   # transport imports this module
+    comps, y_wall = (u, v, w), consts[0]
+    if model == "komega":
+        return tr.komega_advance_math(comps, k, om, nu_t, geom, nu, c,
+                                      y_wall, om_wall, dt)[:2]
+    if model == "sst":
+        return tr.sst_advance_math(comps, k, om, nu_t, geom, nu, c, y_wall,
+                                   om_wall, dt)[:2]
+    pin, om_visc = consts[1:] if len(consts) == 3 else (None, None)
+    return tr.sst_with_nut_math(comps, k, om, nu_t, geom, nu, c, y_wall,
+                                om_wall, dt, pin, om_visc)
+
+
+def _transport_twin_gs(*tensors, gs, **kw):
+    # the twin as _ViaTwin's backward calls it: the metric vectors are the
+    # kernel's, the twin reads `geom`
+    return transport_twin(*tensors, **kw)
+
+
+def _transport_launch(u, v, w, k, om, nu_t, dt, *consts, gs, **kw):
+    if u.device.type == "cpu":
+        return transport_twin(u, v, w, k, om, nu_t, dt, *consts, **kw)
+    return _transport_cuda(u, v, w, k, om, nu_t, dt, *consts, gs=gs, **kw)
+
+
+def _transport_cuda(u, v, w, k, om, nu_t, dt, *consts, gs, geom, model, c,
+                    nu, om_wall):
+    outs = [torch.empty_like(k) for _ in range(3 if model == "sst_nut"
+                                               else 2)]
+    pin, om_visc = consts[1:] if len(consts) == 3 else (None, None)
+    x, y, z = geom.axes
+    # host arrays, read by the launcher: the twelve metric pointers and the
+    # constants
+    metrics = (ctypes.c_void_p * 12)(*(t.data_ptr() for t in gs))
+    vals = _transport_params(model, c, nu, om_wall)
+    params = (ctypes.c_double * len(vals))(*vals)
+    nut_out = outs[2] if len(outs) == 3 else None
+    _launch("transport", k,
+            *(t.data_ptr() for t in (u, v, w, k, om, nu_t, dt, consts[0])),
+            *(None if t is None else t.data_ptr()
+              for t in (pin, om_visc, outs[0], outs[1], nut_out)),
+            ctypes.cast(metrics, ctypes.c_void_p),
+            ctypes.cast(params, ctypes.c_void_p),
+            x.n, y.n, z.n, int(y.bc == BCType.WALL), int(z.bc == BCType.WALL),
+            TRANSPORT_MODELS[model])
+    transport.launches += 1
+    return tuple(outs)
+
+
+def transport(u, v, w, k, om, nu_t, dt, consts, gs, *, geom: Geometry,
+              model: str, c, nu: float, om_wall: Optional[float]):
+    """The k-omega point-implicit advance (k_new, om_new), before the clip
+    and pin epilogue, of SST (`model` "sst"), of SST with its eddy
+    viscosity as a third output ("sst_nut": nu_t of the clipped and
+    pinned values) or of Wilcox ("komega"), from the cell fields k, om,
+    nu_t (Nx, Ny, Nz) and the velocity. `consts`: the per-cell constants
+    (1, Ny, Nz), y_wall, and with a wall the pin mask and om_visc; `c`:
+    SSTConstants or KOmegaConstants; `om_wall`: omega's wall value (None
+    without a wall); dt: a 0-d tensor; `gs` = transport_arrays(geom)."""
+    if model not in TRANSPORT_MODELS:
+        raise ValueError(f"transport: model {model!r}; one of "
+                         f"{sorted(TRANSPORT_MODELS)}")
+    if not nu_sgs_eligible(geom):
+        raise NotImplementedError(
+            "transport: the kernel serves a periodic uniform x with y and z "
+            "periodic uniform or stationary walls, 3-D (a moving wall and a "
+            "2-D grid are queued under ROADMAP B.8)")
+    if len(consts) not in (1, 3):
+        raise ValueError(f"transport: {len(consts)} constants; y_wall, or "
+                         "y_wall, the pin mask and om_visc")
+    x, y, z = geom.axes
+    cell, plane = (x.n, y.n, z.n), (1, y.n, z.n)
+    _check("transport", (u, v, w, k, om, nu_t, dt, *consts, *gs),
+           _face_shapes(geom) + (cell,) * 3 + ((),) + (plane,) * len(consts)
+           + _transport_array_shapes(geom))
+    kw = dict(gs=gs, geom=geom, model=model, c=c, nu=nu, om_wall=om_wall)
+    return _ViaTwin.apply(_transport_launch, _transport_twin_gs, kw,
+                          u, v, w, k, om, nu_t, dt, *consts)
+
+
+transport.launches = 0
+
+
 KERNELS = (predictor_periodic, predictor_channel, predictor_general,
-           divergence, correct, nu_sgs, germano_pass1)
+           divergence, correct, nu_sgs, germano_pass1, transport)
 
 
 def reset_launch_counts() -> None:

@@ -89,8 +89,10 @@ class FDMPoissonSolver:
     """Direct tensor-product Poisson solver; `solve(rhs)` on tensors."""
 
     def __init__(self, mesh: Mesh, cfg: Config, dtype=None,
-                 transform: str = None, geom=None, device="cpu"):
-        """transform: 'fft' | 'matmul' | 'auto' for the periodic axes;
+                 transform: str = None, geom=None, *, device):
+        """`device`: the torch device of the operator and of the
+        tensors `solve` takes (required: there is no default device).
+        transform: 'fft' | 'matmul' | 'auto' for the periodic axes;
         None reads `cfg.poisson_transform`. 'auto' is 'fft': the
         reference picks the dense matmul only on a TPU. `geom`
         (ops.grid.Geometry) enables iterative refinement

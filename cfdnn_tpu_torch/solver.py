@@ -1,9 +1,10 @@
 """Fractional-step incompressible Navier-Stokes solver, the Euler slice
 (port of `cfdnn_tpu/solver.py`).
 
-One step is the turbulence closure's nu_t (LES) -> predictor -> BC ->
-divergence -> direct FDM Poisson solve -> pressure correction -> BC, with
-forward Euler at a fixed dt. Where the reference jits the step and scans
+One step is the turbulence closure's advance (the k-omega transport of
+the RANS closures) and nu_t -> predictor -> BC -> divergence -> direct FDM
+Poisson solve -> pressure correction -> BC, with forward Euler at a fixed
+dt. Where the reference jits the step and scans
 n of them, the port runs the same functions eagerly in a plain Python
 loop; the per-step work on CUDA goes through the hand-written kernels of
 `ops/kernels.py`.
@@ -22,7 +23,11 @@ use_pallas "auto" or "on", in the reference's order (cfdnn_tpu/solver.py
   - divergence and correct whenever x is periodic and uniform;
   - nu_sgs for Smagorinsky, WALE and Vreman, germano_pass1 for dynamic
     Smagorinsky, each where its own gate (`ops.kernels.LES_GATES`) holds
-    (Sigma runs plain, as in the reference).
+    (Sigma runs plain, as in the reference);
+  - transport for the k-omega advance of SST (with its nu_t), Wilcox and
+    the EARSM trio, where `nu_sgs_eligible` holds and the predictor is
+    "channel" or "general" (the reference's single-device slab mode: never
+    with "xpad"). The mixing-length and GEP closures run plain.
 use_pallas="off" runs the eager operator chain, "auto" off CUDA too (the
 reference's "auto" resolves to its operators off an accelerator), and
 "on" runs the kernels' wrappers on any device (on the CPU they take the
@@ -73,7 +78,8 @@ class KernelPlan:
     # "periodic" | "channel" | "general" | "xpad" | None (eager)
     predictor: Optional[str]
     projection: bool           # divergence + correct kernels
-    closure: Optional[str] = None   # "nu_sgs" | "germano_pass1" | None
+    # "nu_sgs" | "germano_pass1" | "transport" | None
+    closure: Optional[str] = None
 
 
 def _check_supported(cfg: Config) -> None:
@@ -131,7 +137,7 @@ class Simulation:
         self.cfg = cfg
         self.device = torch.device(device)
         self.mesh = mesh or Mesh.from_config(cfg)
-        self.geom = Geometry.make(self.mesh, cfg, self.device)
+        self.geom = Geometry.make(self.mesh, cfg, device=self.device)
         self.dtype = self.geom.dtype
         self.poisson = self._make_poisson()
         self.turb = create_turbulence_model(cfg, self.mesh, self.geom)
@@ -149,9 +155,13 @@ class Simulation:
             self._gen_geom = (kernels.xpad_geometry(self.geom)
                               if pred == "xpad" else self.geom)
             self._gen_arrays = kernels.general_arrays(self._gen_geom)
-        # the LES kernels' geometry vectors (ops.kernels.les_arrays)
+        # the closure kernel's geometry vectors (ops.kernels.les_arrays,
+        # transport_arrays)
+        closure = self.kernels.closure
         self.les_arrays = (kernels.les_arrays(self.geom)
-                           if self.kernels.closure else None)
+                           if closure in kernels.LES_GATES else None)
+        self.transport_arrays = (kernels.transport_arrays(self.geom)
+                                 if closure == "transport" else None)
 
     def _make_poisson(self):
         cfg = self.cfg
@@ -193,17 +203,32 @@ class Simulation:
                 "no-slip uniform x and periodic or no-slip y and z); use "
                 "'auto' or 'off'")
         closure = self.turb.kernel
-        if closure is not None and not kernels.LES_GATES[closure](geom):
+        if closure == "transport":
+            # the strain stencil is nu_sgs's (implicit y-diffusion, which
+            # the reference never fuses, is refused by _check_supported)
+            ok = (predictor in ("channel", "general")
+                  and kernels.nu_sgs_eligible(geom))
+            why = ("the transport kernel serves a channel or general "
+                   "predictor's grid with stationary walls (ROADMAP B.8)")
+        else:
+            ok = closure is None or kernels.LES_GATES[closure](geom)
+            why = (f"the {closure} kernel does not serve this geometry "
+                   "(ROADMAP B.5/B.7: germano_pass1 takes a periodic z "
+                   "only)")
+        if not ok:
             if cfg.use_pallas == "on":
                 raise NotImplementedError(
-                    f"use_pallas='on': the {closure} kernel does not serve "
-                    "this geometry (ROADMAP B.5/B.7: germano_pass1 takes a "
-                    "periodic z only); use 'auto' or 'off'")
+                    f"use_pallas='on': {why}; use 'auto' or 'off'")
             closure = None
         return KernelPlan(predictor, projection, closure)
 
     def initial_state(self) -> State:
         return zero_state(self.cfg, device=self.device)
+
+    def initialize(self, state: State) -> State:
+        """The closure's initialisation of a state (the k and omega
+        estimates of the transport models; the identity otherwise)."""
+        return self.turb.initialize(state, self)
 
     # ------------------------------------------------------------------
     # Physics pieces
@@ -275,8 +300,8 @@ class Simulation:
     def _step_impl(self, state: State,
                    with_diags: bool = True) -> Tuple[State, StepDiagnostics]:
         comps = (state.u, state.v, state.w)
-        # the closure's nu_t from the pre-step velocity (LES: no transport
-        # advance)
+        # the closure's advance (k, omega) and nu_t from the pre-step
+        # velocity; SST emits both from one transport kernel launch
         state, nu_t = self.turb.advance_and_nu_t(state, self, state.dt_prev)
         dt = self._dt
         new_comps, p = self._advance_velocity(comps, nu_t, dt)

@@ -1,8 +1,9 @@
 """Turbulence closures (port of `cfdnn_tpu/turbulence/__init__.py`).
 
-The LES family is ported (les.py); the RANS, EARSM and NN closures raise
-NotImplementedError naming the ROADMAP item that brings them
-(registry.py).
+The LES family (les.py), the k-omega transport models SST and Wilcox
+(transport.py), the EARSM trio on SST transport (earsm.py) and the
+algebraic mixing-length and GEP closures (algebraic.py) are ported; the NN
+closures raise NotImplementedError naming ROADMAP A.12 (registry.py).
 """
 
 from __future__ import annotations
@@ -14,7 +15,6 @@ class NoModel:
     """Laminar: nu_t = None (treated as zero everywhere)."""
 
     name = "none"
-    uses_transport = False
     provides_reynolds_stresses = False
     kernel = None
 

@@ -8,9 +8,8 @@ Each closure is a small object with two methods the step calls:
 The tensor algebra operates on the 9-component cell-centered velocity
 gradient of `ops.operators.velocity_gradient` in plain PyTorch; the LES
 closures' hand-written kernels (`ops/kernels.py` nu_sgs, germano_pass1)
-are held to it. Not ported yet: `wall_distance`, `u_tau_wall` and
-`k_omega_channel_estimate`, which come with the RANS closures (ROADMAP
-A.11).
+are held to it. The wall helpers (`wall_distance`, `u_tau_wall`,
+`k_omega_channel_estimate`) serve the RANS closures.
 """
 
 from __future__ import annotations
@@ -18,8 +17,11 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
+from ..config import BCType, Config
+from ..mesh import Mesh
 from ..ops import operators as ops
 from ..utils.numerics import safe_sqrt
 
@@ -30,7 +32,6 @@ class TurbulenceModelBase:
     """Protocol/base for all closures."""
 
     name = "base"
-    uses_transport = False
     provides_reynolds_stresses = False
     # the hand-written kernel that computes nu_t, where one serves the
     # model: "nu_sgs" | "germano_pass1" (solver.KernelPlan.closure)
@@ -108,6 +109,77 @@ def cell_center_velocity(comps, geom):
         return c.expand(tuple(geom.axes[a].n for a in range(3)))
 
     return tuple(center(i) for i in range(3))
+
+
+# ---------------------------------------------------------------------------
+# Wall geometry helpers
+# ---------------------------------------------------------------------------
+
+
+def wall_distance_host(mesh: Mesh, cfg: Config, dtype) -> np.ndarray:
+    """Distance to the nearest wall on the host, in the working dtype
+    (`dtype`, a torch dtype) so that a scalar derived from it on the host
+    (the omega wall value, the y+ pin mask) is the one the device values
+    give. Broadcastable: (1, Ny, 1) with y walls, (1, 1, Nz) with z walls
+    only, (1, Ny, Nz) with both (the min over the walls: ducts); with no
+    wall, the channel half-height everywhere (1, 1, 1)."""
+    np_dtype = torch.empty((), dtype=dtype).numpy().dtype
+    dists = []
+    if cfg.bc_y == BCType.WALL:
+        dists.append(mesh.wall_distance_y().reshape(1, -1, 1))
+    if cfg.bc_z == BCType.WALL and mesh.Nz > 1:
+        zc = mesh.z.centers
+        dz = np.minimum(zc - mesh.z.lo, mesh.z.hi - zc)
+        dists.append(dz.reshape(1, 1, -1))
+    if not dists:
+        return np.full((1, 1, 1), 0.5 * cfg.Ly, np_dtype)
+    d = dists[0]
+    for extra in dists[1:]:
+        d = np.minimum(d, extra)
+    return np.maximum(d, 1e-10).astype(np_dtype)
+
+
+def wall_distance(mesh: Mesh, cfg: Config, dtype, *, device) -> Tensor:
+    """`wall_distance_host` as a tensor on `device`."""
+    return torch.as_tensor(wall_distance_host(mesh, cfg, dtype),
+                           device=device)
+
+
+def u_tau_wall(comps, geom, nu: float) -> Tensor:
+    """Friction velocity estimate from the mean wall velocity gradient
+    (u_tau = sqrt(nu <|du/dy|>_wall)), from the first interior u value
+    and the wall distance of the first cell. The shear is taken relative
+    to the wall's own tangential velocity (AxisGeom.tang: a moving lid),
+    so a lid wall reports no phantom O(U_lid / d) shear."""
+    u = comps[0]
+    y = geom.axes[1]
+    d_lo = y.centers.reshape(-1)[0] - y.faces.reshape(-1)[0]
+    d_hi = y.faces.reshape(-1)[-1] - y.centers.reshape(-1)[-1]
+    wall_lo, wall_hi = y.tang[0]
+    dudy_lo = torch.mean(torch.abs(u[:, 0, :] - wall_lo)) / d_lo
+    dudy_hi = torch.mean(torch.abs(wall_hi - u[:, -1, :])) / d_hi
+    dudy = 0.5 * (dudy_lo + dudy_hi)
+    return torch.clamp(torch.sqrt(nu * dudy), min=1e-6)
+
+
+def k_omega_channel_estimate(comps, geom, y_wall: Tensor, nu: float,
+                             C_mu: float = 0.09):
+    """Algebraic (k, omega) initial estimate for wall-bounded flows: k =
+    u_tau^2 / sqrt(C_mu) f_mu^2 with a van-Driest-like f_mu, omega from
+    the log-layer relation sqrt(k) / (C_mu^0.25 kappa y). Cell fields
+    (Nx, Ny, Nz), contiguous, in the velocity's dtype."""
+    kappa = 0.41
+    u_tau = u_tau_wall(comps, geom, nu)
+    y_plus = y_wall * u_tau / (nu + 1e-20)
+    f_mu = 1.0 - torch.exp(-torch.clamp(y_plus / 26.0, max=20.0))
+    k = (u_tau ** 2 / np.sqrt(C_mu)) * f_mu ** 2
+    k = torch.minimum(torch.clamp(k, min=1e-10), 10.0 * u_tau ** 2)
+    omega = torch.sqrt(k) / (C_mu ** 0.25 * kappa
+                             * torch.clamp(y_wall, min=1e-10))
+    shape = tuple(geom.axes[a].n for a in range(3))
+    dtype = comps[0].dtype
+    return (k.expand(shape).to(dtype).contiguous(),
+            omega.expand(shape).to(dtype).contiguous())
 
 
 # ---------------------------------------------------------------------------

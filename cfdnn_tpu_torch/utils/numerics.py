@@ -16,3 +16,11 @@ def safe_sqrt(x: torch.Tensor) -> torch.Tensor:
     pos = x > 0
     return torch.where(pos, torch.sqrt(torch.where(pos, x, torch.ones_like(x))),
                        torch.zeros_like(x))
+
+
+def safe_tanh(x: torch.Tensor, cap: float = 30.0) -> torch.Tensor:
+    """tanh with the argument clamped to +-cap (tanh(30) == 1.0 to 26
+    digits). The SST and EARSM blending functions feed tanh arguments as
+    large as 1e18, and inf where a float32 power overflows; the clamp
+    maps +-inf to +-cap and lets a NaN through (torch.clamp)."""
+    return torch.tanh(torch.clamp(x, -cap, cap))

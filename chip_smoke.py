@@ -4,11 +4,11 @@
     python3 chip_smoke.py
 
 Phases, each of which raises on failure (nothing is caught):
-  1. the card's name and power limit (nvidia-smi); build the seven CUDA
+  1. the card's name and power limit (nvidia-smi); build the eight CUDA
      kernels from cfdnn_tpu_torch/csrc and report the build seconds;
   2. each kernel against its plain PyTorch twin on the card, float64 at
      32^3 (channel and LES channel 32x48x32, stretched; the duct 32x24x24)
-     to 1e-12 * max(1, max|twin|), and float32 at the main-path shapes
+     to 1e-12 * max|twin|, and float32 at the main-path shapes
      (128^3, the LES channel 128x64x128, the duct 128x96x96) to
      1e-5 * max|twin|: the channel predictor with and without a random
      nu_t >= 0, the general predictor with nu_t on the TGV grid and the
@@ -16,12 +16,19 @@ Phases, each of which raises on failure (nothing is caught):
      duct, germano_pass1's |S| and plane sums; in float64 also the general
      predictor on the other grids it serves (`_general_cases`: the
      stretched channel, the skew duct, a moving lid, a periodic y with
-     walled z, and the xpad wrapper on a no-slip x); each output of a
-     kernel is held to its own twin output's scale;
+     walled z, and the xpad wrapper on a no-slip x); the transport
+     kernel (`_transport_cases`) in float64 on the stretched channel
+     32x48x32 (all three instantiations, the y+ pin active), the same
+     channel with dp/dx = 0 (the pin on the wall cells only), the
+     stretched duct 32x24x24 (SST with nu_t) and the periodic box 32^3
+     (SST, Wilcox) to 1e-12 * max|twin|, and in float32 at 128^3 (each
+     instantiation) to 1e-5 * max|twin|; each output of a kernel is held
+     to its own twin output's scale;
   3. the main path: Simulation.run of the 128^3 Taylor-Green and channel
      benchmark configurations, of the 128x64x128 LES channel with static
      and with dynamic Smagorinsky, of the 128^3 LES Taylor-Green (static
-     Smagorinsky) and of the 128x96x96 LES duct (WALE) (float32, 200 steps,
+     Smagorinsky), of the 128x96x96 LES duct (WALE) and of the 128^3 RANS
+     channel with SST, Wilcox k-omega and EARSM-WJ (float32, 200 steps,
      use_pallas="auto"), each with the launch counts set to 0 just before
      and read just after; every kernel of the path must have launched once
      per step, the fields must be finite and of their shapes, the TGVs'
@@ -32,9 +39,14 @@ Phases, each of which raises on failure (nothing is caught):
      (the same grid and initial state) agree with the plain twins' to
      1e-12 * max|twin|; after the static runs nu_t must not be 0
      everywhere, after the dynamic one (whose clip may zero it) |S| > 0,
-     <M:M> > 0 and <L:M> finite;
-  4. the same configurations at 32^3 (the LES channel 32x24x32, the duct
-     32x24x24) in float64 for 20 steps, kernels on against
+     <M:M> > 0 and <L:M> finite. Before the SST run, the first step's
+     (k, omega, nu_t) through the kernel plan must equal the plain math's
+     (use_pallas="off" on the card) at float64 on the same grid and state
+     to 1e-12 * max|plain|; after each RANS run k, omega > 0 and nu_t >= 0,
+     finite and not 0 everywhere;
+  4. the same configurations at 32^3 (the LES and RANS channels
+     32x24x32, the duct 32x24x24) in float64 for 20 steps, kernels on
+     against
      use_pallas="off" on the card and against the eager operators on the
      CPU (which the CPU tests hold to the JAX reference), <= 1e-11;
   5. timing: ms/step and Mcells/s of each main-path step (marginal step
@@ -69,17 +81,29 @@ KERNEL_REPLACES = {
     "correct": "cfdnn_tpu/ops/pallas_kernels.py:717",
     "nu_sgs": "cfdnn_tpu/ops/pallas_kernels.py:412",
     "germano_pass1": "cfdnn_tpu/ops/pallas_kernels.py:485",
+    "transport": "cfdnn_tpu/ops/pallas_kernels.py:543",
 }
 # The H100 SXM's published peaks (NVIDIA data sheet): HBM bandwidth and
 # float32 outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
-# Operations a cell of each kernel's main case (adds, multiplies,
-# divisions and square roots, one each), counted by hand from its source
-# (the head of each csrc/*.cu file); correct: three faces a cell.
+# Operations a cell of each kernel (adds, multiplies, divisions and square
+# roots, one each), counted by hand from its source (the head of each
+# csrc/*.cu file), keyed by the case's label where its instantiations
+# differ, else by the kernel's name; correct: three faces a cell;
+# transport (tanh one, pow(x, 4) two multiplies, clamps none): the
+# gradient, strain and centre velocity 69, the upwind advection of k and
+# omega 34, k's production, source and both updates 17; SST's F1 blend 33
+# at the cell, and at each of its six neighbours with their diffusivities
+# (45 each), the diffusion 76, the blended coefficients and omega's
+# source 31 (MODEL 0, "transport sst": 530), with nu_t of the clipped
+# values 14 more (MODEL 1, the main case: 544); Wilcox's constant
+# diffusivities 4 at the cell and at each neighbour, its diffusion 76 and
+# omega's source 5 (MODEL 2: 229).
 OPS_PER_CELL = {"predictor_periodic": 150, "predictor_channel": 200,
                 "predictor_general": 300, "divergence": 6, "correct": 9,
-                "nu_sgs": 100, "germano_pass1": 600}
+                "nu_sgs": 100, "germano_pass1": 600, "transport": 544,
+                "transport sst": 530, "transport komega": 229}
 
 
 class Case(NamedTuple):
@@ -133,7 +157,7 @@ def _cases(n, dtype, device, seed):
         return torch.randn(shape, generator=gen, dtype=dtype, device=device)
 
     def geom(cfg):
-        return Geometry.make(Mesh.from_config(cfg), cfg, device)
+        return Geometry.make(Mesh.from_config(cfg), cfg, device=device)
 
     def dt_of(cfg):
         return torch.full((), cfg.dt, dtype=dtype, device=device)
@@ -229,6 +253,68 @@ def _cases(n, dtype, device, seed):
                 lambda kw=kw, f=fields, a=arrays: K.nu_sgs(*f, a, **kw),
                 lambda kw=kw, f=fields: K.nu_sgs_twin(*f, **kw),
                 (*fields, *arrays)))
+    return cases + _transport_cases(n, dtype, device, seed)
+
+
+def _transport_cases(n, dtype, device, seed):
+    """A Case for each instantiation of the transport kernel on random
+    fields (u, v, w normal; k > 0, omega > 0, nu_t >= 0) with the model's
+    own constants: float32 on the RANS channel n^3, whose first case (SST
+    with nu_t) is the main path's; float64 on the stretched channel
+    n x 3n/2 x n (the y+ pin active), the same channel with dp/dx = 0 (the
+    pin on the wall cells only), the stretched duct n x 3n/4 x 3n/4 and
+    the periodic box n^3."""
+    from cfdnn_tpu_torch import TurbulenceModel, bench, velocity_shapes
+    from cfdnn_tpu_torch.mesh import Mesh
+    from cfdnn_tpu_torch.ops import kernels as K
+    from cfdnn_tpu_torch.ops.grid import Geometry
+    from cfdnn_tpu_torch.turbulence import transport as tr
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def rnd(shape):
+        return torch.randn(shape, generator=gen, dtype=dtype, device=device)
+
+    dts = "float64" if dtype == torch.float64 else "float32"
+    sst = dict(turb_model=TurbulenceModel.SST)
+    every = ("sst_nut", "sst", "komega")
+    channel = bench.rans_channel_config(n, dts)
+    if dtype == torch.float32:
+        grids = (("", channel, every),)
+    else:
+        channel = channel.with_(Ny=3 * n // 2)
+        grids = (("", channel, every),
+                 (" walls-pin", channel.with_(dp_dx=0.0), ("sst_nut",)),
+                 (" duct", bench.les_duct_config(n, dts, **sst),
+                  ("sst_nut",)),
+                 (" box", bench.tgv_config(n, dts, **sst), every))
+    cases = []
+    for grid, cfg, models in grids:
+        cfg = cfg.finalize()
+        mesh = Mesh.from_config(cfg)
+        g = Geometry.make(mesh, cfg, device=device)
+        gs = K.transport_arrays(g)
+        cell = (cfg.Nx, cfg.Ny, cfg.Nz)
+        u, v, w = (rnd(sh) for sh in velocity_shapes(cfg))
+        k = rnd(cell).abs() * 1e-2 + 1e-4
+        om = rnd(cell).abs() * 10.0 + 1.0
+        nu_t = rnd(cell).abs() * 1e-3
+        dt = torch.full((), cfg.dt, dtype=dtype, device=device)
+        for model in models:
+            turb = (tr.KOmegaTransport if model == "komega"
+                    else tr.SSTTransport)(cfg, mesh, g)
+            consts = turb.kernel_consts
+            kw = dict(geom=g, model=model, c=turb.c, nu=cfg.nu,
+                      om_wall=turb.om_wall)
+            fields = (u, v, w, k, om, nu_t, dt)
+            label = "transport" + grid + ("" if model == "sst_nut"
+                                          else f" {model}")
+            cases.append(Case(
+                label, "transport",
+                lambda f=fields, c=consts, a=gs, kw=kw: K.transport(
+                    *f, c, a, **kw),
+                lambda f=fields, c=consts, kw=kw: K.transport_twin(
+                    *f, *c, **kw),
+                (*fields, *consts, *gs)))
     return cases
 
 
@@ -277,7 +363,7 @@ def _general_cases(device, seed):
     cases = []
     for label, kw, with_nut in grids:
         cfg = Config(**base, **kw).finalize()
-        g = Geometry.make(Mesh.from_config(cfg), cfg, device)
+        g = Geometry.make(Mesh.from_config(cfg), cfg, device=device)
         u, v, w = (rnd(s) for s in velocity_shapes(cfg))
         nu_t = (rnd((cfg.Nx, cfg.Ny, cfg.Nz)).abs() * 1e-2 if with_nut
                 else None)
@@ -312,19 +398,19 @@ def _as_tuple(x):
 
 # the outputs of each kernel, in the order its wrapper returns them
 OUTPUTS = {"germano_pass1": ("|S|", "<L:M>", "<M:M>"),
-           "divergence": ("div",), "nu_sgs": ("nu_t",)}
+           "divergence": ("div",), "nu_sgs": ("nu_t",),
+           "transport": ("k", "omega", "nu_t")}
 
 
 def compare(name, got, ref, dtype):
     """[(output, max|kernel - twin|, limit, max|twin|)], one row for each
     output of a kernel, each held to its own twin output's scale: float64
-    to 1e-12 * max(1, max|twin|), float32 to 1e-5 * max|twin|."""
+    to 1e-12 * max|twin|, float32 to 1e-5 * max|twin|."""
     rows = []
     for out, g, r in zip(OUTPUTS.get(name, ("u*", "v*", "w*")),
                          _as_tuple(got), _as_tuple(ref)):
         scale = float(r.abs().max())
-        lim = (F64_TOL * max(1.0, scale) if dtype == torch.float64
-               else F32_TOL * scale)
+        lim = (F64_TOL if dtype == torch.float64 else F32_TOL) * scale
         rows.append((out, float((g - r).abs().max()), lim, scale))
     return rows
 
@@ -362,13 +448,19 @@ def _paths():
     of each main-path step: the port's bench.py rows."""
     from cfdnn_tpu_torch import TurbulenceModel, bench
     dyn = dict(turb_model=TurbulenceModel.DYNAMIC_SMAGORINSKY)
+    rans = ("channel", "transport")
     return (("tgv", bench.tgv_case, {}, ("periodic", None)),
             ("channel", bench.channel_case, {}, ("channel", None)),
             ("les_channel", bench.les_channel_case, {}, ("channel", "nu_sgs")),
             ("les_channel_dynamic", bench.les_channel_case, dyn,
              ("channel", "germano_pass1")),
             ("les_tgv", bench.les_tgv_case, {}, ("general", "nu_sgs")),
-            ("les_duct", bench.les_duct_case, {}, ("general", "nu_sgs")))
+            ("les_duct", bench.les_duct_case, {}, ("general", "nu_sgs")),
+            ("rans_channel", bench.rans_channel_case, {}, rans),
+            ("rans_channel_komega", bench.rans_channel_case,
+             dict(turb_model=TurbulenceModel.KOMEGA), rans),
+            ("rans_channel_earsm_wj", bench.rans_channel_case,
+             dict(turb_model=TurbulenceModel.EARSM_WJ), rans))
 
 
 def _path_kernels(plan):
@@ -430,13 +522,38 @@ def check_initial_nu_t(name, case, kw, sim, st):
           f"{name}: float64 initial nu_t {err} > {lim} (max {scale})")
 
 
+def check_first_transport_step(name, case, kw, sim):
+    """The first step's (k, omega, nu_t) of a RANS path through the kernel
+    plan (check launches, made before the counted run) against the plain
+    math's (use_pallas="off" on the card), float64 at full width from the
+    same initial state, each to 1e-12 * max|plain|."""
+    from cfdnn_tpu_torch import Simulation
+    sim64, st = case(128, device=sim.device, dtype="float64", **kw)
+    check(sim64.kernels == sim.kernels, f"{name}: float64 plan "
+          f"{sim64.kernels}")
+    off = Simulation(sim64.cfg.with_(use_pallas="off"), device=sim.device)
+    got, got_nut = sim64.turb.advance_and_nu_t(st, sim64, st.dt_prev)
+    ref, ref_nut = off.turb.advance_and_nu_t(st, off, st.dt_prev)
+    for out, g, r in (("k", got.k, ref.k), ("omega", got.omega, ref.omega),
+                      ("nu_t", got_nut, ref_nut)):
+        err, scale = float((g - r).abs().max()), float(r.abs().max())
+        lim = F64_TOL * scale
+        print(f"[main] {name} first step {out} float64: kernel plan vs "
+              f"plain max|d| {err:.3e} (limit {lim:.3e}, max|plain| "
+              f"{scale:.3e})")
+        check(scale > 0.0 and err <= lim,
+              f"{name}: first-step {out} {err} > {lim} (max {scale})")
+
+
 def phase_main_path(device):
     """Drive each main-path step at its benchmark size through
     Simulation.run; returns the launch counts of the kernels summed over
-    the runs and each channel's divergence."""
+    the runs, each channel's divergence and {kernel: {path: launches per
+    step}}."""
     from cfdnn_tpu_torch import velocity_shapes
     from cfdnn_tpu_torch.ops import kernels as K
     total = {k.__name__: 0 for k in K.KERNELS}
+    per_step = {k.__name__: {} for k in K.KERNELS}
     out = {}
     for name, case, kw, (predictor, closure) in _paths():
         sim, st = case(128, device=device, **kw)
@@ -444,7 +561,9 @@ def phase_main_path(device):
               and sim.kernels.closure == closure,
               f"{name}: kernel plan {sim.kernels}")
         ke0 = _ke(st)
-        if closure:
+        if closure == "transport":
+            check_first_transport_step(name, case, kw, sim)
+        elif closure:
             check_initial_nu_t(name, case, kw, sim, st)
         K.reset_launch_counts()
         t0 = time.perf_counter()
@@ -457,6 +576,8 @@ def phase_main_path(device):
             check(c == MAIN_STEPS * want.get(k, 0),
                   f"{name}: {k} launched {c} times in {MAIN_STEPS} steps")
             total[k] += c
+            if c:
+                per_step[k][name] = c / MAIN_STEPS
         for comp, shape in zip(st.velocity, velocity_shapes(sim.cfg)):
             check(tuple(comp.shape) == shape, f"{name}: shape {comp.shape}")
             check(bool(torch.isfinite(comp).all()), f"{name}: non-finite")
@@ -472,8 +593,14 @@ def phase_main_path(device):
             lo, hi = float(nut.min()), float(nut.max())
             check(lo >= 0.0, f"{name}: nu_t in [{lo}, {hi}]")
             extra = f", nu_t in [{lo:.3e}, {hi:.3e}]"
-        if closure == "nu_sgs":
+        if closure in ("nu_sgs", "transport"):
             check(hi > 0.0, f"{name}: nu_t is 0 everywhere")
+        if closure == "transport":
+            for field, f in (("k", st.k), ("omega", st.omega)):
+                lo_f, hi_f = float(f.min()), float(f.max())
+                check(bool(torch.isfinite(f).all()) and lo_f > 0.0,
+                      f"{name}: {field} in [{lo_f}, {hi_f}]")
+                extra += f", {field} in [{lo_f:.3e}, {hi_f:.3e}]"
         elif closure == "germano_pass1":
             # Cs^2 = clip(<L:M>/<M:M>, 0, 0.5) is 0 in every plane whose
             # <L:M> < 0, which from this random start is most planes (all
@@ -494,7 +621,7 @@ def phase_main_path(device):
               f"{wall:.2f} s: launches {counts}, KE {ke0:.6e} -> {ke:.6e}, "
               f"div_linf {div:.3e}{extra}, t {float(st.t):.6f}")
         out[name] = div
-    return total, out
+    return total, out, per_step
 
 
 def phase_trajectories(device):
@@ -505,7 +632,7 @@ def phase_trajectories(device):
     from cfdnn_tpu_torch import State, state_to_numpy
     from cfdnn_tpu_torch.ops import kernels as K
     for name, case, kw, _ in _paths():
-        if case.__name__ == "les_channel_case":
+        if case.__name__ in ("les_channel_case", "rans_channel_case"):
             kw = dict(kw, Ny=24)
         sim_k, st0 = case(32, device=device, dtype="float64", **kw)
         check(sim_k.kernels.predictor is not None, f"{name}: no kernels")
@@ -524,7 +651,7 @@ def phase_trajectories(device):
             check(n == (20 * per_step if label == "kernels" else 0),
                   f"{name} {label}: launches {K.launch_counts()}")
             finals[label] = state_to_numpy(fin)
-        keys = [k for k in ("u", "v", "w", "p", "nu_t")
+        keys = [k for k in ("u", "v", "w", "p", "k", "omega", "nu_t")
                 if k in finals["kernels"]]
         for label in ("off", "cpu"):
             err = max(float(np.max(np.abs(finals["kernels"][k]
@@ -564,17 +691,18 @@ def _device_ms(fn, reps=20):
     return sum(e.self_device_time_total for e in events) / reps / 1e3
 
 
-def _bound(name, inputs, outputs):
+def _bound(label, name, inputs, outputs):
     """(ms, "bytes" | "operations"): the least time the card could take
     for the call, the larger of its bytes (each input read once, each
     output written once) over the HBM rate and its operations
-    (OPS_PER_CELL times the cells of its first output) over the float32
-    peak."""
+    (OPS_PER_CELL of the case's label, else of the kernel, times the cells
+    of its first output) over the float32 peak."""
     outs = _as_tuple(outputs)
     nbytes = sum(t.numel() * t.element_size()
                  for t in (*inputs, *outs))
     by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    by_ops = OPS_PER_CELL[name] * outs[0].numel() / F32_OPS_PER_S * 1e3
+    ops = OPS_PER_CELL.get(label, OPS_PER_CELL[name])
+    by_ops = ops * outs[0].numel() / F32_OPS_PER_S * 1e3
     return ((by_bytes, "bytes") if by_bytes >= by_ops
             else (by_ops, "operations"))
 
@@ -609,7 +737,7 @@ def phase_timing(device):
                 continue
             times[label] = (name, _event_ms(kern), _event_ms(twin),
                             _device_ms(kern), _device_ms(twin),
-                            _bound(name, inputs, twin()))
+                            _bound(label, name, inputs, twin()))
             bound_ms, bound_by = times[label][5]
             print(f"[timing] {label} float32: per call kernel "
                   f"{times[label][1]:.4f} ms, twin {times[label][2]:.4f} ms; "
@@ -619,10 +747,11 @@ def phase_timing(device):
     return rows, times
 
 
-def kernel_entries(errs, launches, times):
+def kernel_entries(errs, launches, per_step, times):
     """The `kernels` JSON line's entries, one for each kernel of
     ops.kernels: ms and plain_ms (and the bound) of its first, main-path
-    case, every case of the kernel under "variants"."""
+    case, every case of the kernel under "variants", and its launches per
+    step on each main path that ran it."""
     from cfdnn_tpu_torch.ops import kernels as K
     entries = []
     for k in K.KERNELS:
@@ -637,6 +766,7 @@ def kernel_entries(errs, launches, times):
             "source": f"cfdnn_tpu_torch/csrc/{name}.cu",
             "replaces": KERNEL_REPLACES[name],
             "launches": launches[name],
+            "launches_per_step": per_step[name],
             "max_abs_err": errs[name][1],
             "max_abs_err_f64": errs[name][0],
             # no single PyTorch call computes any of these stencils
@@ -658,10 +788,10 @@ def main():
     print(card)
     phase_build()
     errs = phase_kernels(device)
-    launches, divs = phase_main_path(device)
+    launches, divs, per_step = phase_main_path(device)
     phase_trajectories(device)
     rows, times = phase_timing(device)
-    entries = kernel_entries(errs, launches, times)
+    entries = kernel_entries(errs, launches, per_step, times)
     for name, div in divs.items():
         if name != "tgv":
             print(f"[main] {name}_div_linf_f32 (200 steps) = {div:.3e}")

@@ -50,7 +50,7 @@ def _cfgs(name):
 def _setup(name, seed=0):
     rcfg, tcfg = _cfgs(name)
     rg = RGeometry.make(RMesh.from_config(rcfg), rcfg)
-    tg = TGeometry.make(TMesh.from_config(tcfg), tcfg, "cpu")
+    tg = TGeometry.make(TMesh.from_config(tcfg), tcfg, device="cpu")
     rng = np.random.default_rng(seed)
     su, sv, sw = R.fields.velocity_shapes(rcfg)
     sc = (rcfg.Nx, rcfg.Ny, rcfg.Nz)
@@ -152,7 +152,8 @@ def test_geometry_matches_reference(grid):
 def test_o4_and_upwind_raise():
     _, tcfg = _cfgs("periodic16")
     with pytest.raises(NotImplementedError, match="A.2"):
-        TGeometry.make(TMesh.from_config(tcfg), tcfg.with_(space_order=4))
+        TGeometry.make(TMesh.from_config(tcfg), tcfg.with_(space_order=4),
+                       device="cpu")
     (_, _, _, _), (to, _, tg, tA) = _setup("periodic16")
     with pytest.raises(NotImplementedError, match="A.2"):
         to.convective(_vel(tA), tg, T.ConvectiveScheme.UPWIND)

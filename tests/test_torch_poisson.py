@@ -44,7 +44,7 @@ def _setup(name, **extra):
         cfg = pkg.Config(**kw).finalize()
         mesh = Mesh.from_config(cfg)
         geom = (Geometry.make(mesh, cfg) if pkg is R
-                else Geometry.make(mesh, cfg, "cpu"))
+                else Geometry.make(mesh, cfg, device="cpu"))
         out.append((cfg, mesh, geom))
     return out
 
@@ -59,7 +59,7 @@ def _rel(a, b):
 def test_fdm_solve_matches_reference(grid, transform):
     (rc, rm, rg), (tc, tm, tg) = _setup(grid)
     rs = RFDM(rm, rc, transform="fft", geom=rg)
-    ts = TFDM(tm, tc, transform=transform, geom=tg)
+    ts = TFDM(tm, tc, transform=transform, geom=tg, device="cpu")
     assert ts.fft_axes == (rs.fft_axes if transform == "fft" else ())
     rhs = np.random.default_rng(3).standard_normal((rc.Nx, rc.Ny, rc.Nz))
     p_r = rs.solve(jnp.asarray(rhs))
@@ -87,7 +87,7 @@ def test_projection_divergence_matches_reference(grid):
     outs = []
     for ops_, solver, g, conv in (
             (rops, RFDM(rm, rc, transform="fft", geom=rg), rg, jnp.asarray),
-            (tops, TFDM(tm, tc, geom=tg), tg,
+            (tops, TFDM(tm, tc, geom=tg, device="cpu"), tg,
              lambda a: torch.from_numpy(a.copy()))):
         comps = tuple(conv(a) for a in vel)
         p = solver.solve(ops_.divergence(comps, g) / dt)
@@ -105,7 +105,8 @@ def test_projection_divergence_matches_reference(grid):
 
 def test_refinement_pass_matches_reference():
     (rc, rm, rg), (tc, tm, tg) = _setup("channel16x24x8", poisson_refine=1)
-    rs, ts = RFDM(rm, rc, transform="fft", geom=rg), TFDM(tm, tc, geom=tg)
+    rs = RFDM(rm, rc, transform="fft", geom=rg)
+    ts = TFDM(tm, tc, geom=tg, device="cpu")
     assert rs.refine == ts.refine == 1
     rhs = np.random.default_rng(5).standard_normal((rc.Nx, rc.Ny, rc.Nz))
     assert _rel(ts.solve(torch.from_numpy(rhs.copy())).numpy(),
@@ -117,7 +118,7 @@ def test_refinement_pass_matches_reference():
 def test_hartley_transforms_raise(transform, item):
     (_, _, _), (tc, tm, tg) = _setup("periodic16")
     with pytest.raises(NotImplementedError, match=item):
-        TFDM(tm, tc, transform=transform, geom=tg)
+        TFDM(tm, tc, transform=transform, geom=tg, device="cpu")
 
 
 def test_mixed_precision_poisson_dtype():
@@ -125,8 +126,20 @@ def test_mixed_precision_poisson_dtype():
     runs in float64 and hands back float32."""
     (_, _, _), (tc, tm, tg) = _setup("channel16x24x8")
     tc32 = tc.with_(dtype="float32", poisson_dtype="float64")
-    ts = TFDM(tm, tc32, geom=tg)
+    ts = TFDM(tm, tc32, geom=tg, device="cpu")
     assert ts.dtype == torch.float64 and ts.mats[1][0].dtype == torch.float64
     rhs = torch.randn((16, 24, 8), dtype=torch.float32,
                       generator=torch.Generator().manual_seed(0))
     assert ts.solve(rhs).dtype == torch.float32
+
+
+def test_no_default_device():
+    """The port has no default device: Geometry.make and FDMPoissonSolver
+    take `device` as a required keyword, as Simulation and zero_state do."""
+    (_, _, _), (tc, tm, tg) = _setup("periodic16")
+    with pytest.raises(TypeError, match="device"):
+        TGeometry.make(tm, tc)
+    with pytest.raises(TypeError, match="device"):
+        TFDM(tm, tc, geom=tg)
+    with pytest.raises(TypeError):
+        TGeometry.make(tm, tc, "cpu")   # keyword-only

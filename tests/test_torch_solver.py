@@ -131,7 +131,7 @@ def test_kahan_time_float32():
     (dict(space_order=4), "A.2"),
     (dict(convective_scheme="upwind"), "A.2"),
     (dict(convective_scheme="upwind2"), "A.2"),
-    (dict(turb_model="sst"), "A.11"),
+    (dict(turb_model="nn_mlp"), "A.12"),
     (dict(trip_enabled=True), "A.14"),
     (dict(recycling_inflow=True), "A.14"),
     (dict(filter_strength=0.1), "A.14"),
@@ -144,7 +144,7 @@ def test_kahan_time_float32():
     (dict(poisson_transform="fht"), "A.13"),
     (dict(poisson_transform="pallas_fft"), "B.11"),
     (dict(stretch_z=True), "A.13"),
-    (dict(turb_model="earsm_wj"), "A.11"),
+    (dict(turb_model="sst", implicit_y_diffusion=True), "A.8"),
     (dict(turb_model="nn_tbnn"), "A.12"),
 ])
 def test_outside_the_slice_raises(kw, item):
@@ -221,9 +221,9 @@ def test_state_round_trip_and_fields():
     for k in ("u", "v", "w", "p", "t", "step", "dt_prev", "t_comp"):
         assert torch.equal(getattr(back, k), getattr(st, k)), k
     assert back.step.dtype == torch.int32
-    with pytest.raises(NotImplementedError, match="turbulence"):
-        T.state_from_numpy({"u": np.zeros(3), "k": np.zeros(3)}, "cpu",
-                           torch.float64)
+    with pytest.raises(NotImplementedError, match="recycling"):
+        T.state_from_numpy({"u": np.zeros(3), "inlet_u": np.zeros(3)},
+                           "cpu", torch.float64)
     # the port's Poiseuille and TGV ICs equal the reference's
     rsim = R.Simulation(_cfg(R, CHANNEL))
     np.testing.assert_array_equal(
@@ -239,8 +239,14 @@ def test_state_round_trip_and_fields():
 
 
 def test_import_loads_no_jax():
-    code = ("import sys, cfdnn_tpu_torch, cfdnn_tpu_torch.bench; "
+    code = ("import sys, cfdnn_tpu_torch, cfdnn_tpu_torch.bench, "
+            "cfdnn_tpu_torch.turbulence.transport, "
+            "cfdnn_tpu_torch.turbulence.earsm, "
+            "cfdnn_tpu_torch.turbulence.algebraic, "
+            "cfdnn_tpu_torch.turbulence.features, "
+            "cfdnn_tpu_torch.turbulence.registry; "
             "assert not any(m == 'jax' or m.startswith('jax.') "
-            "for m in sys.modules), 'jax imported'")
+            "or m == 'cfdnn_tpu' or m.startswith('cfdnn_tpu.') "
+            "for m in sys.modules), 'jax or cfdnn_tpu imported'")
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     subprocess.run([sys.executable, "-c", code], check=True, cwd=root)
