@@ -11,9 +11,15 @@ LES channel's physics), and `rans_channel`, bench_channel with the SST
 closure started from the closure's k/omega estimate: the RANS
 configuration the reference measured its transport kernel on
 (scripts/measure_upwind.py:58-68). Forward Euler in float32 and benchmark
-mode; it prints one JSON line with bench.py's headline keys: ms/step and
-Mcells/s of each grid, the wall-bounded grids' float32 post-projection
-divergence, and the card.
+mode. Two more rows: `tgv_re1600`, the 128^3 Re 1600 Taylor-Green of
+examples/09_taylor_green_3d/tgv_re1600.cfg (RK3, adaptive dt, CFL 0.6,
+float32; in perf mode, since benchmark mode turns adaptive dt off), and
+`les_ibm256`, bench.py's `bench_les_ibm` (bench.py:110-128): the LES
+channel's physics at 256x128x256 with a cylinder (IBM). It prints one
+JSON line with bench.py's headline keys: ms/step and Mcells/s of each
+grid, the wall-bounded grids' float32 post-projection divergence, and the
+card. Every row runs unfused (CFDNN_FUSE_DIV unset), as the reference's
+default.
 
 The `*_vs_baseline` ratios of bench.py are left out: they divide by
 published H200 and RTX 6000 figures, not by a measurement on this card.
@@ -28,12 +34,14 @@ from __future__ import annotations
 import json
 import math
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
 
 from . import (BCType, Config, ConvectiveScheme, Simulation, TimeIntegrator,
                TurbulenceModel, init_taylor_green, perturbed_channel)
+from .ibm import CylinderBody
 from .utils.timing import marginal_step_seconds
 
 
@@ -51,12 +59,15 @@ def tgv_config(n: int = 128, dtype: str = "float32", **kw) -> Config:
 
 
 def channel_config(n: int = 128, dtype: str = "float32", **kw) -> Config:
-    """bench.py bench_channel's configuration."""
-    return Config(
+    """bench.py bench_channel's configuration. `kw` overrides any field
+    (another Ny)."""
+    base = dict(
         Nx=n, Ny=n, Nz=n, stretch_y=True,
         nu=1e-4, nu_specified=True, dp_dx=-1e-3, dp_dx_specified=True,
         dt=2e-4 if n <= 128 else 5e-5, adaptive_dt=False,
-        benchmark=True, dtype=dtype, **kw)
+        benchmark=True, dtype=dtype)
+    base.update(kw)
+    return Config(**base)
 
 
 def les_channel_config(n: int = 128, dtype: str = "float32", **kw) -> Config:
@@ -109,6 +120,35 @@ def rans_channel_config(n: int = 128, dtype: str = "float32",
         **{"turb_model": TurbulenceModel.SST, **kw})
 
 
+TGV_RE1600_CFG = (Path(__file__).resolve().parents[1] / "examples"
+                  / "09_taylor_green_3d" / "tgv_re1600.cfg")
+
+
+def tgv_re1600_config(n: int = 128, dtype: str = "float32", **kw) -> Config:
+    """examples/09_taylor_green_3d/tgv_re1600.cfg (128^3 all-periodic,
+    skew, RK3, adaptive dt at CFL 0.6, nu 6.25e-4, float32) in perf mode:
+    benchmark mode would turn adaptive dt off (Config.finalize). `n`
+    resizes the grid, `kw` overrides any field."""
+    cfg = Config.from_file(str(TGV_RE1600_CFG))
+    return cfg.with_(**{"Nx": n, "Ny": n, "Nz": n, "dtype": dtype,
+                        "perf_mode": True, **kw})
+
+
+def les_ibm_config(n: int = 256, dtype: str = "float32", **kw) -> Config:
+    """bench.py bench_les_ibm's configuration (bench.py:118-123): Nx = Nz
+    = n, Ny = n/2 (256x128x256), x in [0, 4], z in [0, 2], the LES
+    channel's physics (nu 1e-4, dp_dx -1e-3, dt 2e-4, Smagorinsky),
+    float32, benchmark mode; the cylinder is attached by
+    `les_ibm_case`. `kw` overrides any field."""
+    base = dict(
+        Nx=n, Ny=n // 2, Nz=n, x_max=4.0, z_max=2.0,
+        nu=1e-4, nu_specified=True, dp_dx=-1e-3, dp_dx_specified=True,
+        dt=2e-4, adaptive_dt=False, benchmark=True, dtype=dtype,
+        turb_model=TurbulenceModel.SMAGORINSKY)
+    base.update(kw)
+    return Config(**base)
+
+
 def tgv_case(n=128, device="cuda", dtype="float32", **kw):
     """(Simulation, initial State) of the TGV benchmark."""
     sim = Simulation(tgv_config(n, dtype, **kw), device=device)
@@ -118,6 +158,13 @@ def tgv_case(n=128, device="cuda", dtype="float32", **kw):
 def les_tgv_case(n=128, device="cuda", dtype="float32", **kw):
     """(Simulation, initial State) of the LES Taylor-Green."""
     sim = Simulation(les_tgv_config(n, dtype, **kw), device=device)
+    return sim, init_taylor_green(sim.cfg, sim.mesh, device=device)
+
+
+def tgv_re1600_case(n=128, device="cuda", dtype="float32", **kw):
+    """(Simulation, initial State) of the Re 1600 Taylor-Green
+    (init_taylor_green)."""
+    sim = Simulation(tgv_re1600_config(n, dtype, **kw), device=device)
     return sim, init_taylor_green(sim.cfg, sim.mesh, device=device)
 
 
@@ -155,6 +202,15 @@ def rans_channel_case(n=128, device="cuda", dtype="float32", **kw):
     return sim, sim.initialize(st)
 
 
+def les_ibm_case(n=256, device="cuda", dtype="float32", **kw):
+    """(Simulation, initial State) of the LES + IBM row: the cylinder
+    CylinderBody(1.0, 0.0, 0.25) attached (bench.py:124), then
+    perturbed_channel(amp=0.05) from a seeded torch.Generator."""
+    sim, st = _noisy_case(les_ibm_config, n, device, dtype, kw)
+    sim.set_ibm_forcing(CylinderBody(1.0, 0.0, 0.25))
+    return sim, st
+
+
 def _sync(device):
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize(device)
@@ -189,43 +245,131 @@ def device_events(prof):
             and e.self_device_time_total > 0]
 
 
-def profiled(fn, windows=3):
-    """(device events, host seconds) of `fn()` under torch.profiler (CPU
-    and CUDA activities, ended by a synchronize), from the window of
-    `windows` that recorded the most device events: the profiler has been
-    seen to drop part of a window's events (a kernel read 0 ms), and a
-    window that drops events records fewer."""
+def _window(fn, n, spin):
+    """(profile, host seconds, gated, device span in seconds) of `fn(n)`
+    under torch.profiler (CPU and CUDA activities), behind a spin kernel of
+    `spin` cycles when it is nonzero; gated: the spin was still running
+    when the host had enqueued all of fn, so the card ran fn back to back."""
     from torch.profiler import ProfilerActivity, profile
-    best = None
-    for _ in range(windows):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        events = device_events(prof)
-        count = sum(e.count for e in events)
-        if best is None or count > best[0]:
-            best = (count, events, wall)
-    return best[1], best[2]
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        if spin:
+            torch.cuda._sleep(spin)
+        start.record()
+        fn(n)
+        stop.record()
+        host = time.perf_counter() - t0
+        gated = not start.query()
+        torch.cuda.synchronize()
+    return prof, host, gated, start.elapsed_time(stop) / 1e3
+
+
+# Spin-kernel cycles a second (~ the SM's top clock, so a slower clock only
+# spins longer); the least share of a profiler window's device span (less
+# launch gaps) its recorded kernels must fill, and the windows tried.
+SPIN_CYCLES_PER_S = 2e9
+MIN_DEVICE_SHARE = 0.8
+PROFILE_WINDOWS = 3
+
+
+def _spin_for(seconds):
+    """Spin-kernel cycles that outlast `seconds` of host time by half."""
+    return int((1.5 * seconds + 0.01) * SPIN_CYCLES_PER_S)
+
+
+def _recorded(prof):
+    """(device events less the spin kernel, their device seconds, their
+    count) of a window."""
+    events = [e for e in device_events(prof) if "spin_kernel" not in e.key]
+    return (events, sum(e.self_device_time_total for e in events) / 1e6,
+            sum(e.count for e in events))
+
+
+_LAUNCH_GAP = []
+
+
+def launch_gap():
+    """Seconds the card leaves between two back-to-back kernels, measured
+    once: a gated window of 256 one-element launches, its span less their
+    recorded device time, per launch."""
+    if not _LAUNCH_GAP:
+        x = torch.ones(1, device="cuda")
+
+        def fn(n):
+            for _ in range(n):
+                x.add_(1.0)
+
+        fn(8)
+        prof, host, _, _ = _window(fn, 256, 0)
+        prof, _, gated, span = _window(fn, 256, _spin_for(host))
+        _, busy, count = _recorded(prof)
+        if not gated or count != 256:
+            raise RuntimeError(f"launch_gap: gated {gated}, {count} of 256 "
+                               "launches recorded")
+        _LAUNCH_GAP.append(max(span - busy, 0.0) / count)
+    return _LAUNCH_GAP[0]
+
+
+def profiled(fn, reps):
+    """(device events, reps, device span in seconds) of `fn(reps)` under
+    torch.profiler (CPU and CUDA activities).
+
+    Each window starts behind a spin kernel that outlasts the host's
+    enqueueing of fn, so the card then runs fn's work back to back, and
+    CUDA events around it give the window's device span. The card queues
+    only so many launches before the host blocks: where the spin had ended
+    by the time the host finished enqueueing, the window ran at the host's
+    pace and its span says nothing, so it is measured again with half the
+    reps. The span holds the card's gap between back-to-back kernels
+    (`launch_gap`) once per kernel besides the kernels' own time. The
+    profiler has been seen to drop part of a window's events (a kernel read
+    0 ms, another 60% of its time): a window whose recorded device time
+    falls under MIN_DEVICE_SHARE of its span less those gaps is measured
+    again, and after PROFILE_WINDOWS such windows, or with the host ahead
+    even at one rep, this raises."""
+    gap = launch_gap()
+    spin = _spin_for(_window(fn, reps, 0)[1])
+    shares = []
+    while len(shares) < PROFILE_WINDOWS:
+        prof, _, gated, span = _window(fn, reps, spin)
+        if not gated:
+            if reps == 1:
+                raise RuntimeError("profiled: the spin ended before the host "
+                                   "had enqueued one rep")
+            reps //= 2
+            continue
+        events, busy, count = _recorded(prof)
+        share = busy / max(span - count * gap, 1e-12)
+        if share >= MIN_DEVICE_SHARE:
+            return events, reps, span
+        shares.append(share)
+    raise RuntimeError(f"profiled: {PROFILE_WINDOWS} windows each recorded "
+                       f"under {MIN_DEVICE_SHARE} of their device span less "
+                       f"launch gaps (shares {shares})")
 
 
 def profile_steps(sim, state, steps=20):
-    """Device time of a window of `steps` steps, by kernel, from
-    torch.profiler (CUPTI, `profiled`): {"device_ms_per_step": total kernel
-    time per step, "wall_ms_per_step": the profiled window's host time per
-    step, "kernels": [(name, ms per step, launches per step), ...] longest
-    first}. The window is one `sim.run`, so its last step carries the
-    diagnostics reductions."""
+    """Device time of a window of up to `steps` steps (fewer where the
+    host's launches outrun the card's queue, `profiled`), by kernel, from
+    torch.profiler (CUPTI): {"device_ms_per_step": total kernel time per
+    step, "span_ms_per_step": the window's device span per step (its
+    kernels back to back, the gaps between them included), "steps": the
+    window's steps, "kernels": [(name, ms per step, launches per step),
+    ...] longest first}. The window is one `sim.run`, so its last step
+    carries the diagnostics reductions."""
     sim.run(state, steps)
     _sync(sim.device)
-    events, wall = profiled(lambda: sim.run(state, steps))
+    events, steps, span = profiled(lambda n: sim.run(state, n), steps)
     rows = sorted(((e.key, e.self_device_time_total / steps / 1e3,
                     e.count / steps) for e in events),
                   key=lambda r: -r[1])
     return {"device_ms_per_step": sum(r[1] for r in rows),
-            "wall_ms_per_step": wall * 1e3 / steps, "kernels": rows}
+            "span_ms_per_step": span * 1e3 / steps, "steps": steps,
+            "kernels": rows}
 
 
 def main():
@@ -241,7 +385,11 @@ def main():
     s_duct, d_duct = time_steps(*les_duct_case(), steps=400)
     # 400/80 steps, as scripts/measure_upwind.py:37 times its RANS row
     s_rans, d_rans = time_steps(*rans_channel_case(), steps=400)
+    s_re, _ = time_steps(*tgv_re1600_case(), steps=400)
+    # 150/30 steps, as bench.py:110 times its LES + IBM row
+    s_ibm, d_ibm = time_steps(*les_ibm_case(), steps=150)
     cells = 128 ** 3
+    ibm_cells = 256 * 128 * 256
     les_cells = 128 * 64 * 128
     duct_cells = 128 * 96 * 96
     print(json.dumps({
@@ -261,6 +409,11 @@ def main():
         "rans_channel_ms_per_step": s_rans * 1e3,
         "rans_channel_mcells_per_s": cells / s_rans / 1e6,
         "rans_channel_div_linf_f32": float(d_rans.div_linf),
+        "tgv_re1600_ms_per_step": s_re * 1e3,
+        "tgv_re1600_mcells_per_s": cells / s_re / 1e6,
+        "les_ibm256_ms_per_step": s_ibm * 1e3,
+        "les_ibm256_mcells_per_s": ibm_cells / s_ibm / 1e6,
+        "les_ibm256_div_linf_f32": float(d_ibm.div_linf),
         "device": torch.cuda.get_device_name(0),
     }), flush=True)
 

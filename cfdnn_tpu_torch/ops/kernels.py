@@ -1,12 +1,21 @@
 """The port's hand-written Hopper kernels, their plain twins and launch counts
 (counterpart of `cfdnn_tpu/ops/pallas_kernels.py`).
 
-Eight CUDA C++ kernels, in `cfdnn_tpu_torch/csrc/`, carry the main-path
+Ten CUDA C++ kernels, in `cfdnn_tpu_torch/csrc/`, carry the main-path
 steps of the benchmark grids:
 
   predictor_periodic  <- pallas_kernels.fused_predictor (all-periodic TGV)
+  predictor_periodic_div
+                      <- pallas_kernels.fused_predictor_div (the same, plus
+                         the divergence of its star in the same pass; the
+                         DIV instantiation of csrc/predictor_periodic.cu)
   predictor_channel   <- pallas_kernels.fused_predictor_channel (wall-y,
                          scalar nu or the cell nu_t of an LES closure)
+  predictor_channel_div
+                      <- pallas_kernels.fused_predictor_channel_div (the
+                         same with v's wall faces zeroed, plus the
+                         divergence of its star; the DIV instantiation of
+                         csrc/predictor_channel.cu)
   predictor_general   <- pallas_kernels.fused_predictor_general (periodic
                          x, periodic or wall y and z, moving walls, scalar
                          nu or nu_t); `predictor_xpad` wraps it for a wall
@@ -150,7 +159,9 @@ def build_library() -> Tuple[Path, float]:
 _P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
 _SIGNATURES = {
     "predictor_periodic": [_P] * 7 + [_I] * 3 + [_D] * 5 + [_P],
+    "predictor_periodic_div": [_P] * 8 + [_I] * 3 + [_D] * 5 + [_P],
     "predictor_channel": [_P] * 13 + [_I] * 3 + [_D] * 4 + [_I, _P],
+    "predictor_channel_div": [_P] * 14 + [_I] * 3 + [_D] * 4 + [_I, _P],
     "predictor_general": [_P] * 10 + [_I] * 5 + [_D] * 2 + [_I, _P],
     "divergence": [_P] * 7 + [_I] * 6 + [_P],
     "correct": [_P] * 11 + [_I] * 6 + [_P],
@@ -366,6 +377,60 @@ def predictor_periodic(u, v, w, dt, *, hx, hy, hz, nu, fx):
 
 
 predictor_periodic.launches = 0
+
+
+def periodic_eligible(geom: Geometry) -> bool:
+    """All three axes periodic and uniform, 3-D: the periodic predictors'
+    grid."""
+    return geom.axes[2].n > 1 and all(ax.periodic and ax.uniform
+                                      for ax in geom.axes)
+
+
+def predictor_periodic_div_twin(u, v, w, dt, *, geom, nu, fx):
+    """Plain twin of `predictor_periodic_div`: predictor_periodic_twin, then
+    ops.divergence of its star (the all-periodic BC pass is a no-op), as
+    the reference's star_jnp with fuse_div (cfdnn_tpu/solver.py:693-705)."""
+    star = predictor_periodic_twin(u, v, w, dt, hx=geom.x.h, hy=geom.y.h,
+                                   hz=geom.z.h, nu=nu, fx=fx)
+    return star + (ops.divergence(star, geom),)
+
+
+def _predictor_periodic_div_launch(u, v, w, dt, *, geom, nu, fx):
+    if u.device.type == "cpu":
+        return predictor_periodic_div_twin(u, v, w, dt, geom=geom, nu=nu,
+                                           fx=fx)
+    return _predictor_periodic_div_cuda(u, v, w, dt, geom=geom, nu=nu, fx=fx)
+
+
+def _predictor_periodic_div_cuda(u, v, w, dt, *, geom, nu, fx):
+    su, sv, sw, dv = (torch.empty_like(u) for _ in range(4))
+    nx, ny, nz = u.shape
+    _launch("predictor_periodic_div", u,
+            *(t.data_ptr() for t in (u, v, w, dt, su, sv, sw, dv)),
+            nx, ny, nz, 1.0 / geom.x.h, 1.0 / geom.y.h, 1.0 / geom.z.h,
+            float(nu), float(fx))
+    predictor_periodic_div.launches += 1
+    return su, sv, sw, dv
+
+
+def predictor_periodic_div(u, v, w, dt, *, geom: Geometry, nu, fx):
+    """predictor_periodic's star (u*, v*, w*) and, from the same pass, its
+    staggered cell divergence div(u*) (Nx, Ny, Nz), on the all-periodic
+    uniform 3-D `geom`. dt: a 0-d tensor of the fields' device and
+    dtype."""
+    if not periodic_eligible(geom):
+        raise NotImplementedError(
+            "predictor_periodic_div: the kernel serves an all-periodic "
+            "uniform 3-D grid")
+    _check("predictor_periodic_div", (u, v, w, dt),
+           _face_shapes(geom) + ((),))
+    _check_geom("predictor_periodic_div", geom, (u,))
+    return _ViaTwin.apply(_predictor_periodic_div_launch,
+                          predictor_periodic_div_twin,
+                          dict(geom=geom, nu=nu, fx=fx), u, v, w, dt)
+
+
+predictor_periodic_div.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -613,6 +678,78 @@ def predictor_channel(u, v, w, dt, ys, *, hx, hz, nu, fx, scheme, nu_t=None):
 
 
 predictor_channel.launches = 0
+
+
+def predictor_channel_div_twin(u, v, w, dt, inv_dy, inv_dyc, inv_dgy,
+                               inv2_cy, inv2_fy, nu_t=None, *, geom, nu, fx,
+                               scheme):
+    """Plain twin of `predictor_channel_div`: predictor_channel_twin, v's
+    wall faces zeroed (the BC pass), then ops.divergence of that star, as
+    the reference's star_jnp with fuse_div (cfdnn_tpu/solver.py:693-705)."""
+    su, sv, sw = predictor_channel_twin(
+        u, v, w, dt, inv_dy, inv_dyc, inv_dgy, inv2_cy, inv2_fy, nu_t,
+        hx=geom.x.h, hz=geom.z.h, nu=nu, fx=fx, scheme=scheme)
+    wall = torch.zeros_like(sv[:, :1])
+    sv = torch.cat([wall, sv[:, 1:-1], wall], dim=1)
+    return su, sv, sw, ops.divergence((su, sv, sw), geom)
+
+
+def _predictor_channel_div_launch(u, v, w, dt, inv_dy, inv_dyc, inv_dgy,
+                                  inv2_cy, inv2_fy, nu_t=None, *, geom, nu,
+                                  fx, scheme):
+    ys = (inv_dy, inv_dyc, inv_dgy, inv2_cy, inv2_fy)
+    if u.device.type == "cpu":
+        return predictor_channel_div_twin(u, v, w, dt, *ys, nu_t, geom=geom,
+                                          nu=nu, fx=fx, scheme=scheme)
+    return _predictor_channel_div_cuda(u, v, w, dt, ys, nu_t, geom=geom,
+                                       nu=nu, fx=fx, scheme=scheme)
+
+
+def _predictor_channel_div_cuda(u, v, w, dt, ys, nu_t, *, geom, nu, fx,
+                                scheme):
+    skew = _scheme_is_skew(scheme)
+    su, sv, sw = (torch.empty_like(a) for a in (u, v, w))
+    dv = torch.empty_like(u)
+    nx, ny, nz = u.shape
+    _launch("predictor_channel_div", u,
+            *(t.data_ptr() for t in (u, v, w, dt, *ys)),
+            None if nu_t is None else nu_t.data_ptr(),
+            *(t.data_ptr() for t in (su, sv, sw, dv)),
+            nx, ny, nz, 1.0 / geom.x.h, 1.0 / geom.z.h, float(nu), float(fx),
+            int(skew))
+    predictor_channel_div.launches += 1
+    return su, sv, sw, dv
+
+
+def predictor_channel_div(u, v, w, dt, ys, *, geom: Geometry, nu, fx, scheme,
+                          nu_t=None):
+    """predictor_channel's star with v's wall faces set to 0 (what the BC
+    pass gives), and, from the same pass, its staggered cell divergence
+    div(u*) (Nx, Ny, Nz), on the wall-y channel `geom` (periodic uniform x
+    and z). `ys` = channel_y_arrays(geom); nu_t as predictor_channel's."""
+    x, y, z = geom.axes
+    if not (x.periodic and x.uniform and z.periodic and z.uniform
+            and z.n > 1 and y.bc == BCType.WALL):
+        raise NotImplementedError(
+            "predictor_channel_div: the kernel serves periodic uniform x "
+            "and z with no-slip y walls, 3-D")
+    if y.n < 2:
+        raise ValueError("predictor_channel_div: needs Ny >= 2")
+    nx, ny, nz = x.n, y.n, z.n
+    extra = () if nu_t is None else (nu_t,)
+    _check("predictor_channel_div", (u, v, w, dt, *ys, *extra),
+           _face_shapes(geom) + ((), (1, ny, 1), (1, ny + 1, 1),
+                                 (1, ny + 1, 1), (1, ny, 1), (1, ny + 1, 1),
+                                 (nx, ny, nz)))
+    _check_geom("predictor_channel_div", geom, (u,))
+    _scheme_is_skew(scheme)
+    kw = dict(geom=geom, nu=nu, fx=fx, scheme=scheme)
+    return _ViaTwin.apply(_predictor_channel_div_launch,
+                          predictor_channel_div_twin, kw, u, v, w, dt, *ys,
+                          *extra)
+
+
+predictor_channel_div.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -1216,7 +1353,8 @@ transport.launches = 0
 
 
 KERNELS = (predictor_periodic, predictor_channel, predictor_general,
-           divergence, correct, nu_sgs, germano_pass1, transport)
+           divergence, correct, nu_sgs, germano_pass1, transport,
+           predictor_periodic_div, predictor_channel_div)
 
 
 def reset_launch_counts() -> None:

@@ -1,0 +1,88 @@
+"""Compare the machine code (SASS) of the two predictor kernels' DIV = false
+instantiations with the kernels of an earlier copy of their sources.
+
+`csrc/predictor_periodic.cu` and `csrc/predictor_channel.cu` carry a `bool
+DIV` template parameter, last among each kernel's template arguments, whose
+false instantiations must be the kernels of before it, instruction for
+instruction. This compiles each file of both copies to a cubin with the
+library's flags, disassembles it with cuobjdump, and holds every kernel of
+the old copy (`K<T>`, `K<T, NUT>`) to the new copy's `K<T, false>`
+(`K<T, NUT, false>`), instruction for instruction.
+
+Run on a machine with the CUDA toolkit, from the repository's root:
+
+    mkdir -p build/parent
+    git archive <old commit> cfdnn_tpu_torch/csrc | tar -x -C build/parent
+    python -m cfdnn_tpu_torch.sass_compare build/parent/cfdnn_tpu_torch/csrc
+
+It prints SAME or DIFF and the instruction counts for each kernel, writes
+the listings under build/sass, and exits 1 if any kernel differs or is
+missing.
+"""
+
+import difflib
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+from .ops.kernels import NVCC_FLAGS, _CSRC, _nvcc
+
+SOURCES = ("predictor_periodic", "predictor_channel")
+OUT = Path(__file__).resolve().parents[1] / "build" / "sass"
+
+
+def sass(src: Path, tag: str) -> dict:
+    """{demangled kernel name: [instruction, ...]} of `src`'s cubin."""
+    tools = Path(_nvcc()).parent
+    cubin = OUT / f"{tag}.cubin"
+    subprocess.run([str(tools / "nvcc"), *NVCC_FLAGS, "-cubin", "-o",
+                    str(cubin), str(src)], check=True)
+    text = subprocess.run([str(tools / "cuobjdump"), "-sass", str(cubin)],
+                          capture_output=True, text=True, check=True).stdout
+    (OUT / f"{tag}.sass").write_text(text)
+    funcs, cur = {}, None
+    for line in text.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            name = subprocess.run([str(tools / "cu++filt"), m.group(1)],
+                                  capture_output=True, text=True,
+                                  check=True).stdout.strip()
+            name = name.split(">(")[0].replace("void <unnamed>::", "") + ">"
+            cur = funcs.setdefault(name, [])
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s*(.*?);", line)
+        if m and cur is not None:
+            cur.append(m.group(1).strip())
+    return funcs
+
+
+def main(argv) -> int:
+    if len(argv) != 1:
+        print(__doc__, file=sys.stderr)
+        return 2
+    old_dir = Path(argv[0])
+    OUT.mkdir(parents=True, exist_ok=True)
+    ok = True
+    for stem in SOURCES:
+        old = sass(old_dir / f"{stem}.cu", f"{stem}_old")
+        new = sass(_CSRC / f"{stem}.cu", f"{stem}_new")
+        for name, ins in sorted(old.items()):
+            new_name = name[:-1] + ", (bool)0>"
+            new_ins = new.get(new_name)
+            if new_ins is None:
+                print(f"MISSING {new_name} among {sorted(new)}")
+                ok = False
+                continue
+            same = ins == new_ins
+            ok &= same
+            print(f"{'SAME' if same else 'DIFF'} {len(ins)} vs {len(new_ins)} "
+                  f"instructions: {name} / {new_name}")
+            if not same:
+                print("\n".join(list(difflib.unified_diff(
+                    ins, new_ins, lineterm="", n=0))[:40]))
+    return 0 if ok else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

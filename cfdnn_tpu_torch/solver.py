@@ -1,13 +1,17 @@
-"""Fractional-step incompressible Navier-Stokes solver, the Euler slice
-(port of `cfdnn_tpu/solver.py`).
+"""Fractional-step incompressible Navier-Stokes solver (port of
+`cfdnn_tpu/solver.py`).
 
 One step is the turbulence closure's advance (the k-omega transport of
-the RANS closures) and nu_t -> predictor -> BC -> divergence -> direct FDM
-Poisson solve -> pressure correction -> BC, with forward Euler at a fixed
-dt. Where the reference jits the step and scans
-n of them, the port runs the same functions eagerly in a plain Python
-loop; the per-step work on CUDA goes through the hand-written kernels of
-`ops/kernels.py`.
+the RANS closures) and nu_t -> dt (fixed, or the adaptive CFL and
+diffusion limit) -> the time integrator: forward Euler, or RK2/RK3
+(SSP) with a projection after every stage. A stage is predictor -> BC ->
+IBM forcing -> divergence -> direct FDM Poisson solve (rhs masked in the
+solid with IBM) -> pressure correction -> IBM forcing -> BC. Where the
+reference jits the step and scans n of them, the port runs the same
+functions eagerly in a plain Python loop; the per-step work on CUDA goes
+through the hand-written kernels of `ops/kernels.py`. dt is a 0-d tensor
+on the device, the kernels read it through a pointer, and nothing in a
+step reads it (or any other device value) on the host.
 
 Kernel dispatch is explicit (`Simulation.kernels`): on CUDA with
 use_pallas "auto" or "on", in the reference's order (cfdnn_tpu/solver.py
@@ -28,6 +32,12 @@ use_pallas "auto" or "on", in the reference's order (cfdnn_tpu/solver.py
     the EARSM trio, where `nu_sgs_eligible` holds and the predictor is
     "channel" or "general" (the reference's single-device slab mode: never
     with "xpad"). The mixing-length and GEP closures run plain.
+With CFDNN_FUSE_DIV=1 in the environment at construction (the reference's
+opt-in, solver.py:116-159), the first predictor of each step is the
+predictor + divergence kernel of the plan's predictor, predictor_periodic_div
+or predictor_channel_div, and that stage's projection launches no
+divergence (`Simulation._fuse_div`); every other plan, and any plan with an
+immersed body, runs unfused.
 use_pallas="off" runs the eager operator chain, "auto" off CUDA too (the
 reference's "auto" resolves to its operators off an accelerator), and
 "on" runs the kernels' wrappers on any device (on the CPU they take the
@@ -35,15 +45,18 @@ plain twins, as the reference's "on" runs Pallas in interpret mode). "on"
 raises when no ported kernel serves the config's predictor (a 2-D grid,
 for one) or closure.
 
-Everything outside the slice raises NotImplementedError naming the ROADMAP
-item that brings it (`_check_supported`); no Config field is ignored.
+Everything outside the port so far raises NotImplementedError naming the
+ROADMAP item that brings it (`_check_supported`); no Config field is
+ignored.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from .config import (BCType, Config, ConvectiveScheme, PoissonSolverType,
@@ -65,10 +78,13 @@ class StepDiagnostics:
     without diagnostics)."""
 
     residual: torch.Tensor     # max |u - u_old|
-    div_linf: torch.Tensor     # post-projection max |div u|
+    div_linf: torch.Tensor     # post-projection max |div u| (IBM: fluid)
     dt: torch.Tensor
     ke: torch.Tensor           # volume-averaged kinetic energy
     nan_flag: torch.Tensor
+    fx: torch.Tensor           # the immersed body's force sums of the
+    fy: torch.Tensor           # step (IBMForcing.apply, weighted by each
+    fz: torch.Tensor           # stage's share); 0 with no body
 
 
 @dataclasses.dataclass(frozen=True)
@@ -83,16 +99,13 @@ class KernelPlan:
 
 
 def _check_supported(cfg: Config) -> None:
-    """Raise NotImplementedError for every config the Euler slice does not
-    serve, naming the ROADMAP item that brings it."""
+    """Raise NotImplementedError for every config the port does not serve
+    yet, naming the ROADMAP item that brings it."""
     n_dev = 1
     for d in (cfg.mesh_shape or (1,)):
         n_dev *= int(d)
     bcs = (cfg.bc_x, cfg.bc_y, cfg.bc_z)
     unsupported = [
-        (cfg.time_integrator != TimeIntegrator.EULER,
-         f"time_integrator={cfg.time_integrator.value}", "A.8 (RK2/RK3)"),
-        (cfg.adaptive_dt, "adaptive_dt=True", "A.8 (adaptive dt)"),
         (cfg.implicit_y_diffusion, "implicit_y_diffusion=True",
          "A.8 (implicit y-diffusion)"),
         (cfg.space_order != 2, f"space_order={cfg.space_order}",
@@ -121,7 +134,7 @@ def _check_supported(cfg: Config) -> None:
     for bad, what, item in unsupported:
         if bad:
             raise NotImplementedError(
-                f"{what}: not in the port's Euler slice yet; ROADMAP {item}")
+                f"{what}: not in the port yet; ROADMAP {item}")
     if cfg.use_pallas not in ("auto", "on", "off"):
         raise ValueError(f"use_pallas={cfg.use_pallas!r} — expected "
                          "'auto' | 'on' | 'off'")
@@ -144,7 +157,19 @@ class Simulation:
         self._dt = torch.full((), cfg.dt, dtype=self.dtype, device=self.device)
         self._zero = torch.zeros((), dtype=self.dtype, device=self.device)
         self._fx = float(-cfg.dp_dx / cfg.rho)
+        self.ibm = None
+        # the reference reads its fused-divergence opt-in at construction
+        self._fuse_div_requested = os.environ.get("CFDNN_FUSE_DIV") == "1"
+        self._plan()
+        self._dt_limits = self._adaptive_dt_limits() if cfg.adaptive_dt \
+            else None
+
+    def _plan(self) -> None:
+        """Select the kernel plan, the fused-divergence mode and the
+        kernels' geometry vectors (again after an immersed body is
+        attached)."""
         self.kernels = self._select_kernels()
+        self._fuse_div = self._fuse_div_mode()
         pred = self.kernels.predictor
         self._channel_ys = (kernels.channel_y_arrays(self.geom)
                             if pred == "channel" else None)
@@ -163,6 +188,46 @@ class Simulation:
         self.transport_arrays = (kernels.transport_arrays(self.geom)
                                  if closure == "transport" else None)
 
+    def _fuse_div_mode(self):
+        """The reference's _fuse_div_eligible (solver.py:116-159) keyed to
+        this Simulation's own kernel plan: with CFDNN_FUSE_DIV=1 at
+        construction, "periodic" or "channel" where the plan's predictor is
+        that kernel (with or without nu_t), False otherwise and always
+        with an immersed body. Trip, recycling, inflow, the convective
+        outlet and implicit y-diffusion are refused by _check_supported.
+        (The reference's gate also says "periodic" for an all-periodic LES
+        run, whose predictor has no div kernel, and then fails its assert;
+        keyed to the plan, the port runs that case unfused.)"""
+        if not self._fuse_div_requested or self.ibm is not None:
+            return False
+        pred = self.kernels.predictor
+        return pred if pred in ("periodic", "channel") else False
+
+    def _adaptive_dt_limits(self):
+        """The geometric factors of the adaptive dt as host floats, once:
+        CFL times the x spacing and the minimum y and z spacings (the
+        spacings in the working dtype, as the device vectors hold them),
+        the explicit diffusion limit's sum of 1/h^2, and that limit for
+        the scalar nu as a 0-d device tensor."""
+        cfg, mesh = self.cfg, self.mesh
+        np_dtype = torch.empty((), dtype=self.dtype).numpy().dtype
+
+        def d_min(ax):
+            return float(np.min(np.asarray(ax.d).astype(np_dtype)))
+
+        x_h = self.geom.x.h
+        cfl_z = cfg.CFL_xz * d_min(mesh.z) if mesh.Nz > 1 else None
+        inv_h2 = 1.0 / x_h ** 2
+        # (implicit y-diffusion, which would drop y here, is refused)
+        inv_h2 = inv_h2 + 1.0 / d_min(mesh.y) ** 2
+        if mesh.Nz > 1:
+            inv_h2 = inv_h2 + 1.0 / d_min(mesh.z) ** 2
+        # the diffusion limit of scalar nu, a device constant
+        dt_visc = torch.full((), 0.25 / (cfg.nu * inv_h2), dtype=self.dtype,
+                             device=self.device)
+        return (cfg.CFL_xz * x_h, cfg.CFL_max * d_min(mesh.y), cfl_z, inv_h2,
+                dt_visc)
+
     def _make_poisson(self):
         cfg = self.cfg
         try:
@@ -180,13 +245,13 @@ class Simulation:
         if cfg.use_pallas == "off" or (cfg.use_pallas == "auto"
                                        and self.device.type != "cuda"):
             return KernelPlan(None, False)
-        x, y, z = geom.axes
+        x = geom.x
         laminar = cfg.turb_model == TurbulenceModel.NONE
         predictor = None
         # the periodic kernel has no nu_t operand (nor has the reference's
         # fused_predictor): an LES run never takes it
-        if (laminar and all(ax.periodic and ax.uniform for ax in geom.axes)
-                and z.n > 1 and cfg.convective_scheme == ConvectiveScheme.SKEW):
+        if (laminar and kernels.periodic_eligible(geom)
+                and cfg.convective_scheme == ConvectiveScheme.SKEW):
             predictor = "periodic"
         elif kernels.channel_slab_eligible(geom, cfg):
             predictor = "channel"
@@ -222,6 +287,17 @@ class Simulation:
             closure = None
         return KernelPlan(predictor, projection, closure)
 
+    def set_ibm_forcing(self, body) -> None:
+        """Attach an immersed body (the reference's set_ibm_forcing,
+        solver.py:273-291): an IBMBody, wrapped in an IBMForcing on this
+        Simulation's device, or a ready IBMForcing. The kernel plan is
+        selected again; with a body the step takes no fused divergence."""
+        from .ibm import IBMBody, IBMForcing
+        if isinstance(body, IBMBody):
+            body = IBMForcing(self.mesh, body, self.cfg, device=self.device)
+        self.ibm = body
+        self._plan()
+
     def initial_state(self) -> State:
         return zero_state(self.cfg, device=self.device)
 
@@ -247,22 +323,38 @@ class Simulation:
         rw = -conv[2] + diff[2]
         return ru, rv, rw
 
-    def _euler_substep(self, comps, nu_t, dt):
+    def _euler_substep(self, comps, nu_t, dt, forces=None, want_div=False,
+                       fw=1.0):
+        """One Euler predictor substep: predictor -> BC -> IBM forcing
+        (its force sums, weighted by `fw`, appended to `forces`). With
+        want_div, returns (star, div): div is div(u*) where the plan's
+        predictor + divergence kernel produced it (`_fuse_div`), else
+        None and the projection takes it."""
         cfg, geom = self.cfg, self.geom
-        if self.kernels.predictor == "periodic":
+        fuse = self._fuse_div if want_div else False
+        pred = self.kernels.predictor
+        div = None
+        if fuse == "periodic":
+            *star, div = kernels.predictor_periodic_div(
+                *comps, dt, geom=geom, nu=float(cfg.nu), fx=self._fx)
+        elif fuse == "channel":
+            *star, div = kernels.predictor_channel_div(
+                *comps, dt, self._channel_ys, geom=geom, nu=float(cfg.nu),
+                fx=self._fx, scheme=cfg.convective_scheme, nu_t=nu_t)
+        elif pred == "periodic":
             star = kernels.predictor_periodic(
                 *comps, dt, hx=geom.x.h, hy=geom.y.h, hz=geom.z.h,
                 nu=float(cfg.nu), fx=self._fx)
-        elif self.kernels.predictor == "channel":
+        elif pred == "channel":
             star = kernels.predictor_channel(
                 *comps, dt, self._channel_ys, hx=geom.x.h, hz=geom.z.h,
                 nu=float(cfg.nu), fx=self._fx, scheme=cfg.convective_scheme,
                 nu_t=nu_t)
-        elif self.kernels.predictor == "general":
+        elif pred == "general":
             star = kernels.predictor_general(
                 *comps, dt, self._gen_arrays, geom=geom, nu=float(cfg.nu),
                 fx=self._fx, scheme=cfg.convective_scheme, nu_t=nu_t)
-        elif self.kernels.predictor == "xpad":
+        elif pred == "xpad":
             star = kernels.predictor_xpad(
                 *comps, dt, self._gen_arrays, geom=geom, xgeom=self._gen_geom,
                 nu=float(cfg.nu), fx=self._fx, scheme=cfg.convective_scheme,
@@ -270,28 +362,100 @@ class Simulation:
         else:
             rhs = self._momentum_rhs(comps, nu_t)
             star = tuple(c + dt * r for c, r in zip(comps, rhs))
-        return self._apply_bc(star)
+        if fuse and div is None:
+            # the reference asserts here (solver.py:833); keyed to the plan,
+            # the gate makes this unreachable
+            raise RuntimeError(f"fused divergence {fuse!r} requested, but "
+                               f"the {pred!r} predictor produced none")
+        # the div kernels' star is BC-applied already (v's wall faces are
+        # zeroed in the channel kernel): the BC pass is idempotent on it
+        star = self._apply_bc(tuple(star))
+        if self.ibm is not None:
+            star, f = self.ibm.apply(star, dt, accumulate=forces is not None)
+            if forces is not None:
+                forces.append(tuple(fw * c for c in f))
+        return (star, div) if want_div else star
 
-    def _project(self, comps, dt):
-        """Divergence -> Poisson -> correction -> BC."""
+    def _project(self, comps, dt, forces=None, div=None, fw=1.0):
+        """Divergence (unless the predictor produced it) -> Poisson (rhs
+        masked in the solid) -> correction -> IBM forcing -> BC. `fw`
+        weighs this stage's IBM force sums (see _advance_velocity)."""
         geom = self.geom
-        if self.kernels.projection:
-            div = kernels.divergence(*comps, geom=geom)
-        else:
-            div = ops.divergence(comps, geom)
-        p_corr = self.poisson.solve(div / dt)
+        if div is None:
+            div = (kernels.divergence(*comps, geom=geom)
+                   if self.kernels.projection
+                   else ops.divergence(comps, geom))
+        rhs = div / dt
+        if self.ibm is not None:
+            rhs = self.ibm.mask_rhs(rhs)
+        p_corr = self.poisson.solve(rhs)
         if self.kernels.projection:
             comps = kernels.correct(*comps, p_corr, dt, geom=geom)
         else:
             comps = ops.correct_velocity(comps, p_corr, dt, geom)
+        if self.ibm is not None:
+            comps, f = self.ibm.apply(comps, dt,
+                                      accumulate=forces is not None)
+            if forces is not None:
+                forces.append(tuple(fw * c for c in f))
         return self._apply_bc(comps), p_corr
 
-    def _advance_velocity(self, comps, nu_t, dt):
-        """One Euler step of the velocity with its projection. The
-        predictor is pressure-free, so the projection correction IS the
-        pressure: it replaces p, never accumulates into it."""
-        star = self._euler_substep(comps, nu_t, dt)
-        return self._project(star, dt)
+    def _advance_velocity(self, comps, nu_t, dt, forces=None):
+        """One step of the velocity with a projection after each stage:
+        Euler, RK2 or SSP-RK3 (the reference's _advance_velocity,
+        solver.py:860-926). The predictor is pressure-free, so the last
+        projection's correction IS the pressure: it replaces p, rescaled by
+        the last blend's weight (2 for RK2, 1.5 for RK3). Only the first
+        stage may take the fused divergence."""
+        ti = self.cfg.time_integrator
+        if ti == TimeIntegrator.EULER:
+            star, div = self._euler_substep(comps, nu_t, dt, forces,
+                                            want_div=True)
+            return self._project(star, dt, forces, div=div)
+
+        def blend(a, ca, b, cb):
+            return tuple(ca * x + cb * y for x, y in zip(a, b))
+
+        # IBM force weights: each stage's impulse counts with the product of
+        # the blend coefficients between it and the step's output
+        if ti == TimeIntegrator.RK2:
+            s1, d1 = self._euler_substep(comps, nu_t, dt, forces,
+                                         want_div=True, fw=0.5)
+            s1, _ = self._project(s1, dt, forces, div=d1, fw=0.5)
+            s2 = self._euler_substep(s1, nu_t, dt, forces, fw=0.5)
+            s2 = self._apply_bc(blend(comps, 0.5, s2, 0.5))
+            s2, pc2 = self._project(s2, dt, forces)
+            return s2, 2.0 * pc2
+        s1, d1 = self._euler_substep(comps, nu_t, dt, forces, want_div=True,
+                                     fw=1.0 / 6.0)
+        s1, _ = self._project(s1, dt, forces, div=d1, fw=1.0 / 6.0)
+        s2 = self._euler_substep(s1, nu_t, dt, forces, fw=1.0 / 6.0)
+        s2 = self._apply_bc(blend(comps, 0.75, s2, 0.25))
+        s2, _ = self._project(s2, dt, forces, fw=2.0 / 3.0)
+        s3 = self._euler_substep(s2, nu_t, dt, forces, fw=2.0 / 3.0)
+        s3 = self._apply_bc(blend(comps, 1.0 / 3.0, s3, 2.0 / 3.0))
+        s3, pc3 = self._project(s3, dt, forces)
+        return s3, 1.5 * pc3
+
+    def _adaptive_dt(self, comps, nu_t):
+        """Directional CFL and explicit-diffusion limit (the reference's
+        _adaptive_dt, solver.py:928-951) as a 0-d device tensor, from
+        device reductions (max |u|, |v|, |w| and max nu_t) and the host
+        factors of `_adaptive_dt_limits`; no host sync."""
+        cfg = self.cfg
+        cfl_x, cfl_y, cfl_z, inv_h2, dt_visc = self._dt_limits
+        eps = 1e-30
+
+        def vmax(c):
+            return torch.clamp(torch.linalg.vector_norm(c, float("inf")),
+                               min=eps)
+
+        dt = torch.minimum(cfl_x / vmax(comps[0]), cfl_y / vmax(comps[1]))
+        if cfl_z is not None:
+            dt = torch.minimum(dt, cfl_z / vmax(comps[2]))
+        if nu_t is not None:
+            dt_visc = 0.25 / ((cfg.nu + torch.max(nu_t)) * inv_h2)
+        return cfg.dt_safety * torch.minimum(dt, dt_visc)
 
     # ------------------------------------------------------------------
     # The step
@@ -303,11 +467,17 @@ class Simulation:
         # the closure's advance (k, omega) and nu_t from the pre-step
         # velocity; SST emits both from one transport kernel launch
         state, nu_t = self.turb.advance_and_nu_t(state, self, state.dt_prev)
-        dt = self._dt
-        new_comps, p = self._advance_velocity(comps, nu_t, dt)
+        dt = (self._adaptive_dt(comps, nu_t) if self.cfg.adaptive_dt
+              else self._dt)
+        forces = [] if self.ibm is not None else None
+        new_comps, p = self._advance_velocity(comps, nu_t, dt, forces)
         zero = self._zero
         if with_diags:
             div = ops.divergence(new_comps, self.geom)
+            if self.ibm is not None:
+                # direct forcing puts divergence into the forced cells by
+                # design: report the fluid region's
+                div = div * self.ibm.fluid_interior
             res = torch.maximum(
                 torch.max(torch.abs(new_comps[0] - comps[0])),
                 torch.maximum(torch.max(torch.abs(new_comps[1] - comps[1])),
@@ -321,6 +491,9 @@ class Simulation:
             # benchmark/throughput mode: skip the extra reduction passes
             res = ke = div_linf = zero
             nan_flag = torch.zeros((), dtype=torch.bool, device=self.device)
+        fx = fy = fz = zero
+        if forces:
+            fx, fy, fz = (sum(f[i] for f in forces) for i in range(3))
         # Kahan-compensated t += dt (fields.State.t_comp)
         t_comp = state.t_comp if state.t_comp is not None else zero
         y = dt - t_comp
@@ -332,7 +505,8 @@ class Simulation:
             nu_t=nu_t if state.nu_t is not None else None,
         )
         diags = StepDiagnostics(residual=res, div_linf=div_linf, dt=dt,
-                                ke=ke, nan_flag=nan_flag)
+                                ke=ke, nan_flag=nan_flag, fx=fx, fy=fy,
+                                fz=fz)
         return new_state, diags
 
     # ------------------------------------------------------------------

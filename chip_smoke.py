@@ -4,55 +4,64 @@
     python3 chip_smoke.py
 
 Phases, each of which raises on failure (nothing is caught):
-  1. the card's name and power limit (nvidia-smi); build the eight CUDA
-     kernels from cfdnn_tpu_torch/csrc and report the build seconds;
+  1. the card's name and power limit (nvidia-smi); build the CUDA kernels
+     from cfdnn_tpu_torch/csrc and report the build seconds;
   2. each kernel against its plain PyTorch twin on the card, float64 at
-     32^3 (channel and LES channel 32x48x32, stretched; the duct 32x24x24)
-     to 1e-12 * max|twin|, and float32 at the main-path shapes
-     (128^3, the LES channel 128x64x128, the duct 128x96x96) to
-     1e-5 * max|twin|: the channel predictor with and without a random
-     nu_t >= 0, the general predictor with nu_t on the TGV grid and the
-     duct, nu_sgs for each of its three closures on the channel and the
-     duct, germano_pass1's |S| and plane sums; in float64 also the general
-     predictor on the other grids it serves (`_general_cases`: the
-     stretched channel, the skew duct, a moving lid, a periodic y with
-     walled z, and the xpad wrapper on a no-slip x); the transport
-     kernel (`_transport_cases`) in float64 on the stretched channel
-     32x48x32 (all three instantiations, the y+ pin active), the same
-     channel with dp/dx = 0 (the pin on the wall cells only), the
-     stretched duct 32x24x24 (SST with nu_t) and the periodic box 32^3
-     (SST, Wilcox) to 1e-12 * max|twin|, and in float32 at 128^3 (each
-     instantiation) to 1e-5 * max|twin|; each output of a kernel is held
-     to its own twin output's scale;
-  3. the main path: Simulation.run of the 128^3 Taylor-Green and channel
-     benchmark configurations, of the 128x64x128 LES channel with static
-     and with dynamic Smagorinsky, of the 128^3 LES Taylor-Green (static
-     Smagorinsky), of the 128x96x96 LES duct (WALE) and of the 128^3 RANS
-     channel with SST, Wilcox k-omega and EARSM-WJ (float32, 200 steps,
-     use_pallas="auto"), each with the launch counts set to 0 just before
-     and read just after; every kernel of the path must have launched once
-     per step, the fields must be finite and of their shapes, the TGVs'
-     kinetic energy must have decayed, the post-projection divergence be
-     <= 1e-3, and the LES nu_t be finite and >= 0. Before each LES run,
-     the closure's nu_t on the initial state at full width through the
-     kernel plan must be finite, >= 0 and not 0 everywhere, and in float64
-     (the same grid and initial state) agree with the plain twins' to
-     1e-12 * max|twin|; after the static runs nu_t must not be 0
-     everywhere, after the dynamic one (whose clip may zero it) |S| > 0,
-     <M:M> > 0 and <L:M> finite. Before the SST run, the first step's
-     (k, omega, nu_t) through the kernel plan must equal the plain math's
-     (use_pallas="off" on the card) at float64 on the same grid and state
-     to 1e-12 * max|plain|; after each RANS run k, omega > 0 and nu_t >= 0,
-     finite and not 0 everywhere;
-  4. the same configurations at 32^3 (the LES and RANS channels
-     32x24x32, the duct 32x24x24) in float64 for 20 steps, kernels on
-     against
-     use_pallas="off" on the card and against the eager operators on the
-     CPU (which the CPU tests hold to the JAX reference), <= 1e-11;
-  5. timing: ms/step and Mcells/s of each main-path step (marginal step
-     time, as the port's bench.py) with a torch.profiler breakdown, and
-     each kernel against its twin at the main-path shapes with CUDA events
-     and with the profiler's device time.
+     32^3 (channel and LES channel 32x48x32, stretched; the duct 32x24x24;
+     the LES + IBM channel 64x32x64) to 1e-12 * max|twin|, and float32 at
+     the main-path shapes (128^3, the LES channel 128x64x128, the duct
+     128x96x96, the LES + IBM channel 256x128x256) to 1e-5 * max|twin|:
+     the channel predictor with and without a random nu_t >= 0, the
+     general predictor with nu_t on the TGV grid and the duct, nu_sgs for
+     each of its three closures on the channel and the duct (Smagorinsky
+     on the LES + IBM channel), divergence and correct on the channel, the
+     periodic box and the LES + IBM channel, germano_pass1's |S| and plane
+     sums; in float64 also the general predictor on the other grids it
+     serves (`_general_cases`); the
+     transport kernel (`_transport_cases`) in float64 on four grids and in
+     float32 at 128^3; the two predictor + divergence kernels
+     (`_div_cases`): the periodic one at 32^3 and the channel one at
+     32x48x32 (uniform and stretched y, skew and central, scalar nu and
+     nu_t) in float64, at 128^3 and with nu_t at 128x64x128 in float32,
+     each div output also against the divergence kernel of the kernel's
+     own star (1e-12 / 1e-5 of scale); each output of a kernel is held to
+     its own twin output's scale;
+  3. the main paths (`_paths`), each with its launches per step declared:
+     Simulation.run of the port's bench.py rows (the 128^3 Taylor-Green
+     and channel, the 128x64x128 LES channel with static and dynamic
+     Smagorinsky, the 128^3 LES Taylor-Green, the 128x96x96 LES duct, the
+     128^3 RANS channel with SST, Wilcox k-omega and EARSM-WJ), the Re 1600
+     Taylor-Green of examples/09 (RK3, adaptive dt, CFDNN_FUSE_DIV=1), the
+     Taylor-Green, channel and LES channel with CFDNN_FUSE_DIV=1, and the
+     256x128x256 LES + IBM cylinder (with the opt-in set: a body takes no
+     fused divergence); float32, 200 steps, use_pallas="auto", the launch
+     counts set to 0 just before each run and read just after, each
+     kernel's count equal to 200 times its declared launches per step; the
+     fields finite and of their shapes, the Taylor-Greens' kinetic energy
+     decayed, the post-projection divergence (the fluid region's with
+     IBM) <= 1e-3, the LES nu_t finite and >= 0; the adaptive dt within
+     its CFL and diffusion bound and changing from step to step; the IBM
+     forces finite and |u| inside the body < 0.05 max|u|. Before each
+     unfused LES (and the IBM) run, the closure's nu_t on the initial
+     state through the kernel plan finite, >= 0 and not 0 everywhere, and
+     at float64 on the same grid equal to the plain twins' to
+     1e-12 * max|twin|; after the static runs nu_t not 0 everywhere, after
+     the dynamic one |S| > 0, <M:M> > 0 and <L:M> finite. Before each RANS
+     run, the first step's (k, omega, nu_t) through the kernel plan equal
+     to the plain math's at float64 to 1e-12 * max|plain|; after it k,
+     omega > 0 and nu_t >= 0, finite and not 0 everywhere;
+  4. each path at 32^3 (the LES and RANS channels and the fused channel
+     32x24x32, the duct 32x24x24, the LES + IBM channel 32x16x32) in
+     float64 for 20 steps,
+     kernels on against use_pallas="off" on the card and against the eager
+     operators on the CPU (which the CPU tests hold to the JAX reference),
+     <= 1e-11;
+  5. timing: ms/step and Mcells/s of each unfused main-path step
+     (marginal step time, as the port's bench.py) with a torch.profiler
+     breakdown, and each kernel against its twin at the main-path shapes
+     with CUDA events and with the profiler's device time;
+  6. the A/B: tgv, channel and les_channel unfused and fused, in the
+     order off, on, on, off, ms/step and device ms/step of each.
 It prints the `kernels` JSON line (each kernel's bound: the larger of its
 main case's bytes over 3.35 TB/s and its operations over 67 TFLOP/s,
 float32), the nvidia-smi line, and as its last line
@@ -60,8 +69,10 @@ float32), the nvidia-smi line, and as its last line
 before printing any result.
 """
 
+import contextlib
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -82,7 +93,12 @@ KERNEL_REPLACES = {
     "nu_sgs": "cfdnn_tpu/ops/pallas_kernels.py:412",
     "germano_pass1": "cfdnn_tpu/ops/pallas_kernels.py:485",
     "transport": "cfdnn_tpu/ops/pallas_kernels.py:543",
+    "predictor_periodic_div": "cfdnn_tpu/ops/pallas_kernels.py:1448",
+    "predictor_channel_div": "cfdnn_tpu/ops/pallas_kernels.py:1524",
 }
+# the two div kernels are instantiations in their predictor's source
+KERNEL_SOURCE = {"predictor_periodic_div": "predictor_periodic",
+                 "predictor_channel_div": "predictor_channel"}
 # The H100 SXM's published peaks (NVIDIA data sheet): HBM bandwidth and
 # float32 outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
@@ -90,7 +106,13 @@ F32_OPS_PER_S = 67e12
 # Operations a cell of each kernel (adds, multiplies, divisions and square
 # roots, one each), counted by hand from its source (the head of each
 # csrc/*.cu file), keyed by the case's label where its instantiations
-# differ, else by the kernel's name; correct: three faces a cell;
+# differ, else by the kernel's name; correct: three faces a cell; the
+# periodic predictor's star u 52, v and w 51 each, and its DIV
+# instantiation those three again at the +1 neighbours and the
+# divergence's 8 (316); the channel predictor's stars u, w, v, central
+# 52 + 51 + 51 (154, skew 170), nu_t's viscosity averages and fluxes 46 more
+# each (292), and its DIV instantiation twice those plus 8 (central 316,
+# with nu_t 592);
 # transport (tanh one, pow(x, 4) two multiplies, clamps none): the
 # gradient, strain and centre velocity 69, the upwind advection of k and
 # omega 34, k's production, source and both updates 17; SST's F1 blend 33
@@ -100,7 +122,11 @@ F32_OPS_PER_S = 67e12
 # values 14 more (MODEL 1, the main case: 544); Wilcox's constant
 # diffusivities 4 at the cell and at each neighbour, its diffusion 76 and
 # omega's source 5 (MODEL 2: 229).
-OPS_PER_CELL = {"predictor_periodic": 150, "predictor_channel": 200,
+OPS_PER_CELL = {"predictor_periodic": 154, "predictor_channel": 154,
+                "predictor_channel+nu_t": 292,
+                "predictor_channel les_ibm+nu_t": 292,
+                "predictor_periodic_div": 316, "predictor_channel_div": 316,
+                "predictor_channel_div+nu_t": 592,
                 "predictor_general": 300, "divergence": 6, "correct": 9,
                 "nu_sgs": 100, "germano_pass1": 600, "transport": 544,
                 "transport sst": 530, "transport komega": 229}
@@ -108,12 +134,14 @@ OPS_PER_CELL = {"predictor_periodic": 150, "predictor_channel": 200,
 
 class Case(NamedTuple):
     """One kernel call held against its twin: `inputs` are the tensors it
-    reads (for the bytes of its bound)."""
+    reads (for the bytes of its bound); a div kernel's case carries its
+    `geom`, for the divergence kernel of its own star."""
     label: str
     name: str
     kern: Callable
     twin: Callable
     inputs: Tuple[torch.Tensor, ...]
+    geom: object = None
 
 
 def check(cond, msg):
@@ -134,9 +162,12 @@ def phase_build():
     path, seconds = kernels.build_library()
     kernels.library()
     print(f"[build] {path} in {seconds:.1f} s")
-    # ptxas -v: each entry function (mangled), then its registers
+    # ptxas -v: each entry function (mangled, from the kernel's name and
+    # template arguments on), then its registers
     for line in (path.parent / "build.log").read_text().splitlines():
-        if "Compiling entry" in line or "registers" in line:
+        if "Compiling entry" in line:
+            print(f"[build] entry {line.split('_cu_')[-1][:72]}")
+        elif "registers" in line:
             print(f"[build] {line.strip()[:120]}")
 
 
@@ -144,7 +175,9 @@ def _cases(n, dtype, device, seed):
     """A Case for each of the seven kernels on random fields at the main
     path's shapes: n^3, the channel stretched with Ny = n, the LES channel
     n x n/2 x n (both with Ny = 3n/2 for the float64 check), the LES duct
-    n x 3n/4 x 3n/4. The first case of each label is the main path's."""
+    n x 3n/4 x 3n/4, and the LES + IBM channel 2n x n x 2n (its
+    predictor_channel with nu_t, nu_sgs, divergence and correct). The
+    first case of each label is the main path's."""
     from cfdnn_tpu_torch import bench
     from cfdnn_tpu_torch.fields import velocity_shapes
     from cfdnn_tpu_torch.mesh import Mesh
@@ -169,19 +202,23 @@ def _cases(n, dtype, device, seed):
     les = bench.les_channel_config(n, dts).with_(
         Ny=n // 2 if dtype == torch.float32 else 3 * n // 2).finalize()
     duct = bench.les_duct_config(n, dts).finalize()
+    ibm = bench.les_ibm_config(2 * n, dts).finalize()
     g_t, g_c, g_l, g_d = geom(tgv), geom(ch), geom(les), geom(duct)
+    g_i = geom(ibm)
     ut, vt, wt = (rnd(s) for s in velocity_shapes(tgv))
     uc, vc, wc = (rnd(s) for s in velocity_shapes(ch))
     ul, vl, wl = (rnd(s) for s in velocity_shapes(les))
     ud, vd, wd = (rnd(s) for s in velocity_shapes(duct))
+    ui, vi, wi = (rnd(s) for s in velocity_shapes(ibm))
 
     # an eddy viscosity >= 0 of the size Smagorinsky gives these fields
     def nut_of(cfg):
         return rnd((cfg.Nx, cfg.Ny, cfg.Nz)).abs() * 1e-3
 
     nut, nut_t, nut_d = nut_of(les), nut_of(tgv), nut_of(duct)
+    nut_i, p_i = nut_of(ibm), rnd((ibm.Nx, ibm.Ny, ibm.Nz))
     pc, pt = rnd((ch.Nx, ch.Ny, ch.Nz)), rnd((tgv.Nx, tgv.Ny, tgv.Nz))
-    dt_t, dt_c, dt_d = dt_of(tgv), dt_of(ch), dt_of(duct)
+    dt_t, dt_c, dt_d, dt_i = dt_of(tgv), dt_of(ch), dt_of(duct), dt_of(ibm)
     ys = K.channel_y_arrays(g_c)
     kp = dict(hx=g_t.x.h, hy=g_t.y.h, hz=g_t.z.h, nu=tgv.nu, fx=0.0)
     kc = dict(hx=g_c.x.h, hz=g_c.z.h, nu=ch.nu, fx=-ch.dp_dx,
@@ -189,6 +226,9 @@ def _cases(n, dtype, device, seed):
     yl, gs = K.channel_y_arrays(g_l), K.les_arrays(g_l)
     kl = dict(hx=g_l.x.h, hz=g_l.z.h, nu=les.nu, fx=-les.dp_dx,
               scheme=les.convective_scheme)
+    yi, gs_i = K.channel_y_arrays(g_i), K.les_arrays(g_i)
+    ki = dict(hx=g_i.x.h, hz=g_i.z.h, nu=ibm.nu, fx=-ibm.dp_dx,
+              scheme=ibm.convective_scheme)
     gen_t, gen_d = K.general_arrays(g_t), K.general_arrays(g_d)
     kg_t = dict(geom=g_t, nu=tgv.nu, fx=0.0, scheme=tgv.convective_scheme)
     kg_d = dict(geom=g_d, nu=duct.nu, fx=-duct.dp_dx,
@@ -242,6 +282,30 @@ def _cases(n, dtype, device, seed):
              lambda: K.predictor_general_twin(ud, vd, wd, dt_d, nut_d,
                                               **kg_d),
              (ud, vd, wd, dt_d, nut_d, *gen_d)),
+        # the LES + IBM channel path (its IBM forcing is plain torch)
+        Case("predictor_channel les_ibm+nu_t", "predictor_channel",
+             lambda: K.predictor_channel(ui, vi, wi, dt_i, yi, nu_t=nut_i,
+                                         **ki),
+             lambda: K.predictor_channel_twin(ui, vi, wi, dt_i, *yi, nut_i,
+                                              **ki),
+             (ui, vi, wi, dt_i, *yi, nut_i)),
+        Case("nu_sgs les_ibm smagorinsky", "nu_sgs",
+             lambda: K.nu_sgs(ui, vi, wi, gs_i, geom=g_i,
+                              closure=L.SmagorinskyModel.closure,
+                              coeff=L.SmagorinskyModel.coeff),
+             lambda: K.nu_sgs_twin(ui, vi, wi, geom=g_i,
+                                   closure=L.SmagorinskyModel.closure,
+                                   coeff=L.SmagorinskyModel.coeff),
+             (ui, vi, wi, *gs_i)),
+        Case("divergence les_ibm", "divergence",
+             lambda: K.divergence(ui, vi, wi, geom=g_i),
+             lambda: K.divergence_twin(ui, vi, wi, geom=g_i),
+             (ui, vi, wi, g_i.x.inv_d, g_i.y.inv_d, g_i.z.inv_d)),
+        Case("correct les_ibm", "correct",
+             lambda: K.correct(ui, vi, wi, p_i, dt_i, geom=g_i),
+             lambda: K.correct_twin(ui, vi, wi, p_i, dt_i, geom=g_i),
+             (ui, vi, wi, p_i, dt_i, g_i.x.inv_dc, g_i.y.inv_dc,
+              g_i.z.inv_dc)),
     ]
     gs_d = K.les_arrays(g_d)
     for grid, g, fields, arrays in (("", g_l, (ul, vl, wl), gs),
@@ -392,6 +456,76 @@ def _general_cases(device, seed):
     return cases
 
 
+def _div_cases(n, dtype, device, seed):
+    """A Case for each div kernel (predictor + divergence) on random
+    fields: float32 at the main paths' shapes (the periodic box n^3, the
+    channel n^3 and, with a random nu_t >= 0, the LES channel n x n/2 x n,
+    both stretched and central as their paths are), each the first of its
+    label; float64 on the periodic box n^3 and on the channel n x 3n/2 x n,
+    uniform and stretched y, skew and central, scalar nu and nu_t."""
+    from cfdnn_tpu_torch import ConvectiveScheme as CS
+    from cfdnn_tpu_torch import bench, velocity_shapes
+    from cfdnn_tpu_torch.mesh import Mesh
+    from cfdnn_tpu_torch.ops import kernels as K
+    from cfdnn_tpu_torch.ops.grid import Geometry
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def rnd(shape):
+        return torch.randn(shape, generator=gen, dtype=dtype, device=device)
+
+    dts = "float64" if dtype == torch.float64 else "float32"
+    cfg = bench.tgv_config(n, dts).finalize()
+    g = Geometry.make(Mesh.from_config(cfg), cfg, device=device)
+    u, v, w = (rnd(sh) for sh in velocity_shapes(cfg))
+    dt = torch.full((), cfg.dt, dtype=dtype, device=device)
+    kp = dict(geom=g, nu=cfg.nu, fx=0.0)
+    cases = [Case("predictor_periodic_div", "predictor_periodic_div",
+                  lambda u=u, v=v, w=w, dt=dt:
+                      K.predictor_periodic_div(u, v, w, dt, **kp),
+                  lambda u=u, v=v, w=w, dt=dt:
+                      K.predictor_periodic_div_twin(u, v, w, dt, **kp),
+                  (u, v, w, dt), g)]
+    if dtype == torch.float32:
+        grids = (("", n, True, CS.CENTRAL, False),
+                 ("+nu_t", n // 2, True, CS.CENTRAL, True))
+    else:
+        grids = tuple((f" {'stretched' if st else 'uniform'} {sc.value}"
+                       + ("+nu_t" if nut else ""), 3 * n // 2, st, sc, nut)
+                      for st in (False, True) for sc in (CS.SKEW, CS.CENTRAL)
+                      for nut in (False, True))
+    for tag, ny, stretch, scheme, with_nut in grids:
+        cfg = bench.channel_config(n, dts).with_(
+            Ny=ny, stretch_y=stretch, convective_scheme=scheme).finalize()
+        g = Geometry.make(Mesh.from_config(cfg), cfg, device=device)
+        u, v, w = (rnd(sh) for sh in velocity_shapes(cfg))
+        nu_t = (rnd((cfg.Nx, cfg.Ny, cfg.Nz)).abs() * 1e-3 if with_nut
+                else None)
+        dt = torch.full((), cfg.dt, dtype=dtype, device=device)
+        ys = K.channel_y_arrays(g)
+        kc = dict(geom=g, nu=cfg.nu, fx=-cfg.dp_dx, scheme=scheme)
+        cases.append(Case(
+            "predictor_channel_div" + tag, "predictor_channel_div",
+            lambda u=u, v=v, w=w, dt=dt, ys=ys, n=nu_t, kc=kc:
+                K.predictor_channel_div(u, v, w, dt, ys, nu_t=n, **kc),
+            lambda u=u, v=v, w=w, dt=dt, ys=ys, n=nu_t, kc=kc:
+                K.predictor_channel_div_twin(u, v, w, dt, *ys, n, **kc),
+            (u, v, w, dt, *ys) + (() if nu_t is None else (nu_t,)), g))
+    return cases
+
+
+def own_star_div_error(got, geom, dtype):
+    """(max|div - divergence kernel of the kernel's own star|, limit): the
+    div output of a div kernel against the divergence kernel applied to
+    that kernel's own star output, limit 1e-12 (float64) or 1e-5 (float32)
+    of max|div|. The recomputed neighbour stars may contract into FMAs
+    otherwise than the stored ones."""
+    from cfdnn_tpu_torch.ops import kernels as K
+    ref = K.divergence(*got[:3], geom=geom)
+    tol = F64_TOL if dtype == torch.float64 else F32_TOL
+    return (float((got[3] - ref).abs().max()),
+            tol * float(ref.abs().max()))
+
+
 def _as_tuple(x):
     return x if isinstance(x, tuple) else (x,)
 
@@ -399,7 +533,9 @@ def _as_tuple(x):
 # the outputs of each kernel, in the order its wrapper returns them
 OUTPUTS = {"germano_pass1": ("|S|", "<L:M>", "<M:M>"),
            "divergence": ("div",), "nu_sgs": ("nu_t",),
-           "transport": ("k", "omega", "nu_t")}
+           "transport": ("k", "omega", "nu_t"),
+           "predictor_periodic_div": ("u*", "v*", "w*", "div"),
+           "predictor_channel_div": ("u*", "v*", "w*", "div")}
 
 
 def compare(name, got, ref, dtype):
@@ -416,26 +552,36 @@ def compare(name, got, ref, dtype):
 
 
 def phase_kernels(device):
-    """Each kernel against its twin on each grid of the main path; returns
-    {name: [largest float64 error, largest float32 error]}."""
+    """Each kernel against its twin on each grid of the main path, and each
+    div kernel's div against the divergence kernel of its own star;
+    returns {name: [largest float64 error, largest float32 error]}."""
     errs = {}
     for dtype, n in ((torch.float64, 32), (torch.float32, 128)):
         cases = _cases(n, dtype, device, seed=1)
         if dtype == torch.float64:
             cases += _general_cases(device, seed=1)
-        for label, name, kern, twin, _ in cases:
-            got = kern()
+        cases += _div_cases(n, dtype, device, seed=1)
+        for case in cases:
+            got = case.kern()
             torch.cuda.synchronize()
-            ref = twin()
+            ref = case.twin()
             shape = tuple(_as_tuple(ref)[0].shape)
-            pair = errs.setdefault(name, [0.0, 0.0])
+            pair = errs.setdefault(case.name, [0.0, 0.0])
             k = 0 if dtype == torch.float64 else 1
-            for out, err, lim, scale in compare(name, got, ref, dtype):
-                print(f"[kernels] {label} {out} {str(dtype)[6:]} {shape}: "
-                      f"max|d|={err:.3e} (limit {lim:.3e}, "
+            for out, err, lim, scale in compare(case.name, got, ref, dtype):
+                print(f"[kernels] {case.label} {out} {str(dtype)[6:]} "
+                      f"{shape}: max|d|={err:.3e} (limit {lim:.3e}, "
                       f"max|twin|={scale:.3e})")
-                check(err <= lim, f"{label} {out} {dtype}: {err} > {lim}")
+                check(err <= lim,
+                      f"{case.label} {out} {dtype}: {err} > {lim}")
                 pair[k] = max(pair[k], err)
+            if case.geom is not None:
+                err, lim = own_star_div_error(got, case.geom, dtype)
+                print(f"[kernels] {case.label} div vs divergence of its own "
+                      f"star {str(dtype)[6:]}: max|d|={err:.3e} (limit "
+                      f"{lim:.3e})")
+                check(err <= lim, f"{case.label} own-star div {dtype}: "
+                      f"{err} > {lim}")
     return errs
 
 
@@ -443,36 +589,94 @@ def _ke(st):
     return 0.5 * sum(float(torch.mean(c.double() ** 2)) for c in st.velocity)
 
 
+class MainPath(NamedTuple):
+    """One main-path step: its case function of the port's bench.py (and
+    extra config), whether it runs with CFDNN_FUSE_DIV=1, the (predictor,
+    closure) of its kernel plan, the fused-divergence mode it must take,
+    and each kernel's launches per step, which its run must meet exactly;
+    `n` is its main width (32 is the trajectories')."""
+    name: str
+    case: Callable
+    kw: dict
+    fuse_env: bool
+    plan: Tuple
+    fuse: object
+    launches: dict
+    n: int = 128
+
+
 def _paths():
-    """(name, case, extra config, (predictor, closure) of the kernel plan)
-    of each main-path step: the port's bench.py rows."""
+    """The main-path steps: the port's bench.py rows, the Re 1600
+    Taylor-Green (RK3, adaptive dt) and the LES + IBM channel at 256 wide,
+    and the tgv, channel and les_channel rows with the fused divergence
+    (les_ibm256 also runs with the opt-in set, to show that a body takes
+    none)."""
     from cfdnn_tpu_torch import TurbulenceModel, bench
     dyn = dict(turb_model=TurbulenceModel.DYNAMIC_SMAGORINSKY)
     rans = ("channel", "transport")
-    return (("tgv", bench.tgv_case, {}, ("periodic", None)),
-            ("channel", bench.channel_case, {}, ("channel", None)),
-            ("les_channel", bench.les_channel_case, {}, ("channel", "nu_sgs")),
-            ("les_channel_dynamic", bench.les_channel_case, dyn,
-             ("channel", "germano_pass1")),
-            ("les_tgv", bench.les_tgv_case, {}, ("general", "nu_sgs")),
-            ("les_duct", bench.les_duct_case, {}, ("general", "nu_sgs")),
-            ("rans_channel", bench.rans_channel_case, {}, rans),
-            ("rans_channel_komega", bench.rans_channel_case,
-             dict(turb_model=TurbulenceModel.KOMEGA), rans),
-            ("rans_channel_earsm_wj", bench.rans_channel_case,
-             dict(turb_model=TurbulenceModel.EARSM_WJ), rans))
+    proj = {"divergence": 1, "correct": 1}
+    ch_rans = dict(proj, predictor_channel=1, transport=1)
+    return (
+        MainPath("tgv", bench.tgv_case, {}, False, ("periodic", None), False,
+                 dict(proj, predictor_periodic=1)),
+        MainPath("channel", bench.channel_case, {}, False, ("channel", None),
+                 False, dict(proj, predictor_channel=1)),
+        MainPath("les_channel", bench.les_channel_case, {}, False,
+                 ("channel", "nu_sgs"), False,
+                 dict(proj, predictor_channel=1, nu_sgs=1)),
+        MainPath("les_channel_dynamic", bench.les_channel_case, dyn, False,
+                 ("channel", "germano_pass1"), False,
+                 dict(proj, predictor_channel=1, germano_pass1=1)),
+        MainPath("les_tgv", bench.les_tgv_case, {}, False,
+                 ("general", "nu_sgs"), False,
+                 dict(proj, predictor_general=1, nu_sgs=1)),
+        MainPath("les_duct", bench.les_duct_case, {}, False,
+                 ("general", "nu_sgs"), False,
+                 dict(proj, predictor_general=1, nu_sgs=1)),
+        MainPath("rans_channel", bench.rans_channel_case, {}, False, rans,
+                 False, ch_rans),
+        MainPath("rans_channel_komega", bench.rans_channel_case,
+                 dict(turb_model=TurbulenceModel.KOMEGA), False, rans, False,
+                 ch_rans),
+        MainPath("rans_channel_earsm_wj", bench.rans_channel_case,
+                 dict(turb_model=TurbulenceModel.EARSM_WJ), False, rans,
+                 False, ch_rans),
+        # this slice's paths
+        MainPath("tgv_re1600", bench.tgv_re1600_case, {}, True,
+                 ("periodic", None), "periodic",
+                 dict(predictor_periodic_div=1, predictor_periodic=2,
+                      divergence=2, correct=3)),
+        MainPath("tgv_fused", bench.tgv_case, {}, True, ("periodic", None),
+                 "periodic", dict(predictor_periodic_div=1, correct=1)),
+        MainPath("channel_fused", bench.channel_case, {}, True,
+                 ("channel", None), "channel",
+                 dict(predictor_channel_div=1, correct=1)),
+        MainPath("les_channel_fused", bench.les_channel_case, {}, True,
+                 ("channel", "nu_sgs"), "channel",
+                 dict(predictor_channel_div=1, nu_sgs=1, correct=1)),
+        MainPath("les_ibm256", bench.les_ibm_case, {}, True,
+                 ("channel", "nu_sgs"), False,
+                 dict(proj, predictor_channel=1, nu_sgs=1), n=256),
+    )
 
 
-def _path_kernels(plan):
-    """{kernel name: launches per step} of a KernelPlan."""
-    want = {}
-    if plan.predictor:
-        want[f"predictor_{plan.predictor}"] = 1
-    if plan.projection:
-        want["divergence"] = want["correct"] = 1
-    if plan.closure:
-        want[plan.closure] = 1
-    return want
+@contextlib.contextmanager
+def fuse_div_env(on):
+    """CFDNN_FUSE_DIV=1 set around a Simulation's construction (which
+    reads it) when `on`, and unset after."""
+    if on:
+        os.environ["CFDNN_FUSE_DIV"] = "1"
+    try:
+        yield
+    finally:
+        os.environ.pop("CFDNN_FUSE_DIV", None)
+
+
+def build_case(path, n, **kw):
+    """(Simulation, initial State) of a main path at width n, built with its
+    opt-in."""
+    with fuse_div_env(path.fuse_env):
+        return path.case(n, **path.kw, **kw)
 
 
 def _cells(sim):
@@ -493,7 +697,7 @@ def _plain_nu_t(sim, st):
                             base.filter_width(geom))
 
 
-def check_initial_nu_t(name, case, kw, sim, st):
+def check_initial_nu_t(path, sim, st):
     """The closure's nu_t on the initial state at full width through the
     kernel plan (check launches, made before the counted run): finite,
     >= 0 and not 0 everywhere; and, on the same grid and initial state in
@@ -502,6 +706,7 @@ def check_initial_nu_t(name, case, kw, sim, st):
     L = box(uu) - box(u)^2 cancels the mean flow, and the plane sums of
     L:M cancel between cells, so float32 rounding (FMA-contracted in the
     kernel, not in the twin) reaches ~1e-5 of max|nu_t|."""
+    name = path.name
     got = sim.turb.nu_t(st, sim)
     lo, hi = float(got.min()), float(got.max())
     print(f"[main] {name} initial nu_t float32: kernel plan in [{lo:.3e}, "
@@ -509,7 +714,8 @@ def check_initial_nu_t(name, case, kw, sim, st):
           f"{got.numel()}")
     check(bool(torch.isfinite(got).all()) and lo >= 0.0 and hi > 0.0,
           f"{name}: initial nu_t in [{lo}, {hi}]")
-    sim64, st64 = case(128, device=sim.device, dtype="float64", **kw)
+    sim64, st64 = build_case(path, path.n, device=sim.device,
+                             dtype="float64")
     check(sim64.kernels == sim.kernels, f"{name}: float64 plan "
           f"{sim64.kernels}")
     got, ref = sim64.turb.nu_t(st64, sim64), _plain_nu_t(sim64, st64)
@@ -522,13 +728,14 @@ def check_initial_nu_t(name, case, kw, sim, st):
           f"{name}: float64 initial nu_t {err} > {lim} (max {scale})")
 
 
-def check_first_transport_step(name, case, kw, sim):
+def check_first_transport_step(path, sim):
     """The first step's (k, omega, nu_t) of a RANS path through the kernel
     plan (check launches, made before the counted run) against the plain
     math's (use_pallas="off" on the card), float64 at full width from the
     same initial state, each to 1e-12 * max|plain|."""
     from cfdnn_tpu_torch import Simulation
-    sim64, st = case(128, device=sim.device, dtype="float64", **kw)
+    name = path.name
+    sim64, st = build_case(path, path.n, device=sim.device, dtype="float64")
     check(sim64.kernels == sim.kernels, f"{name}: float64 plan "
           f"{sim64.kernels}")
     off = Simulation(sim64.cfg.with_(use_pallas="off"), device=sim.device)
@@ -545,35 +752,76 @@ def check_first_transport_step(name, case, kw, sim):
               f"{name}: first-step {out} {err} > {lim} (max {scale})")
 
 
+def _inside_body_u(sim, st):
+    """max |u| at the u faces inside the cylinder less its forcing band
+    (tests/test_ibm.py:79-93), and max |u| overall."""
+    import numpy as np
+    body, mesh = sim.ibm.body, sim.mesh
+    X = mesh.x.faces[:-1][:, None]
+    Y = mesh.y.centers[None, :]
+    inside = np.sqrt((X - body.cx) ** 2 + (Y - body.cy) ** 2) < (
+        body.radius - sim.ibm.band)
+    check(bool(inside.any()), "les_ibm256: no u face inside the body")
+    mask = torch.as_tensor(inside, device=st.u.device)
+    return float(st.u[mask].abs().max()), float(st.u.abs().max())
+
+
+def check_adaptive_dt(name, sim, st):
+    """Two more steps (after the counted run): each step's dt is within the
+    CFL and diffusion bound of the state it starts from (the reference's
+    _adaptive_dt, solver.py:928-951), and the two differ."""
+    cfg, mesh = sim.cfg, sim.mesh
+    dts = []
+    for _ in range(2):
+        vmax = [float(c.abs().max()) for c in st.velocity]
+        bound = cfg.dt_safety * min(
+            cfg.CFL_xz * mesh.x.d.min() / vmax[0],
+            cfg.CFL_max * mesh.y.d.min() / vmax[1],
+            cfg.CFL_xz * mesh.z.d.min() / vmax[2],
+            0.25 / (cfg.nu * (mesh.x.d.min() ** -2 + mesh.y.d.min() ** -2
+                              + mesh.z.d.min() ** -2)))
+        st, d = sim.step(st)
+        dt = float(d.dt)
+        print(f"[main] {name} adaptive dt {dt:.9e} (bound {bound:.9e})")
+        check(0.0 < dt <= bound * (1.0 + 1e-5),
+              f"{name}: dt {dt} outside (0, {bound}]")
+        dts.append(dt)
+    check(dts[0] != dts[1], f"{name}: dt did not change ({dts})")
+
+
 def phase_main_path(device):
     """Drive each main-path step at its benchmark size through
     Simulation.run; returns the launch counts of the kernels summed over
-    the runs, each channel's divergence and {kernel: {path: launches per
+    the runs, each path's divergence and {kernel: {path: launches per
     step}}."""
     from cfdnn_tpu_torch import velocity_shapes
     from cfdnn_tpu_torch.ops import kernels as K
     total = {k.__name__: 0 for k in K.KERNELS}
     per_step = {k.__name__: {} for k in K.KERNELS}
     out = {}
-    for name, case, kw, (predictor, closure) in _paths():
-        sim, st = case(128, device=device, **kw)
+    for path in _paths():
+        name, (predictor, closure) = path.name, path.plan
+        sim, st = build_case(path, path.n, device=device)
         check(sim.kernels.predictor == predictor and sim.kernels.projection
-              and sim.kernels.closure == closure,
-              f"{name}: kernel plan {sim.kernels}")
+              and sim.kernels.closure == closure
+              and sim._fuse_div == path.fuse,
+              f"{name}: kernel plan {sim.kernels}, fused div "
+              f"{sim._fuse_div}")
         ke0 = _ke(st)
-        if closure == "transport":
-            check_first_transport_step(name, case, kw, sim)
-        elif closure:
-            check_initial_nu_t(name, case, kw, sim, st)
+        if not path.fuse_env or sim.ibm is not None:
+            # (a fused path's closure input is its unfused path's)
+            if closure == "transport":
+                check_first_transport_step(path, sim)
+            elif closure:
+                check_initial_nu_t(path, sim, st)
         K.reset_launch_counts()
         t0 = time.perf_counter()
         st, d = sim.run(st, MAIN_STEPS)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = K.launch_counts()
-        want = _path_kernels(sim.kernels)
         for k, c in counts.items():
-            check(c == MAIN_STEPS * want.get(k, 0),
+            check(c == MAIN_STEPS * path.launches.get(k, 0),
                   f"{name}: {k} launched {c} times in {MAIN_STEPS} steps")
             total[k] += c
             if c:
@@ -584,7 +832,7 @@ def phase_main_path(device):
         ke, div = float(d.ke), float(d.div_linf)
         check(math.isfinite(ke), f"{name}: KE {ke}")
         check(div <= 1e-3, f"{name}: div_linf {div} > 1e-3")
-        if name in ("tgv", "les_tgv"):
+        if name in ("tgv", "les_tgv", "tgv_re1600", "tgv_fused"):
             check(ke < ke0, f"{name}: KE {ke} did not decay from {ke0}")
         extra = ""
         if closure:
@@ -616,40 +864,59 @@ def phase_main_path(device):
                   f"{bool(torch.isfinite(lm).all())}")
             extra += (f", planes with <L:M> > 0: {int((lm > 0).sum())} of "
                       f"{lm.numel()}")
+        if sim.ibm is not None:
+            fx, fy = float(d.fx), float(d.fy)
+            check(math.isfinite(fx) and math.isfinite(fy),
+                  f"{name}: fx {fx}, fy {fy}")
+            u_in, u_max = _inside_body_u(sim, st)
+            check(u_in < 0.05 * u_max,
+                  f"{name}: |u| {u_in} inside the body, max {u_max}")
+            extra += (f", fx {fx:.6e}, fy {fy:.6e}, fz {float(d.fz):.6e}, "
+                      f"max|u| inside the body {u_in:.3e} of {u_max:.3e}")
         grid = "x".join(str(a) for a in (sim.cfg.Nx, sim.cfg.Ny, sim.cfg.Nz))
         print(f"[main] {name} {grid} float32 {MAIN_STEPS} steps in "
               f"{wall:.2f} s: launches {counts}, KE {ke0:.6e} -> {ke:.6e}, "
-              f"div_linf {div:.3e}{extra}, t {float(st.t):.6f}")
+              f"div_linf {div:.3e}{extra}, t {float(st.t):.6f}, "
+              f"dt {float(d.dt):.6e}")
+        if sim.cfg.adaptive_dt:
+            check_adaptive_dt(name, sim, st)
         out[name] = div
     return total, out, per_step
 
 
 def phase_trajectories(device):
-    """32^3 (the LES channel 32x24x32) float64, 20 steps from one initial
-    state: kernels on the card vs the eager operators on the card and on
-    the CPU."""
+    """32^3 (the LES and RANS channels and the fused channel 32x24x32, the
+    LES + IBM channel 32x16x32) float64, 20 steps from one initial state:
+    kernels on the card vs the eager operators on the card and on the
+    CPU."""
     import numpy as np
     from cfdnn_tpu_torch import State, state_to_numpy
     from cfdnn_tpu_torch.ops import kernels as K
-    for name, case, kw, _ in _paths():
-        if case.__name__ in ("les_channel_case", "rans_channel_case"):
-            kw = dict(kw, Ny=24)
-        sim_k, st0 = case(32, device=device, dtype="float64", **kw)
-        check(sim_k.kernels.predictor is not None, f"{name}: no kernels")
-        per_step = sum(_path_kernels(sim_k.kernels).values())
+    for path in _paths():
+        kw = {}
+        if (path.case.__name__ in ("les_channel_case", "rans_channel_case")
+                or path.name == "channel_fused"):
+            kw = dict(Ny=24)
+        sim_k, st0 = build_case(path, 32, device=device, dtype="float64",
+                                **kw)
+        check(sim_k.kernels.predictor is not None
+              and sim_k._fuse_div == path.fuse,
+              f"{path.name}: plan {sim_k.kernels}, {sim_k._fuse_div}")
+        per_step = sum(path.launches.values())
         finals = {}
         for label, dev, mode in (("kernels", device, "auto"),
                                  ("off", device, "off"),
                                  ("cpu", "cpu", "off")):
-            sim = sim_k if label == "kernels" else case(
-                32, device=dev, dtype="float64", use_pallas=mode, **kw)[0]
+            sim = sim_k if label == "kernels" else build_case(
+                path, 32, device=dev, dtype="float64", use_pallas=mode,
+                **kw)[0]
             st = State(**{k: (None if v is None else v.to(dev))
                           for k, v in vars(st0).items()})
             K.reset_launch_counts()
             fin, _ = sim.run(st, 20)
             n = sum(K.launch_counts().values())
             check(n == (20 * per_step if label == "kernels" else 0),
-                  f"{name} {label}: launches {K.launch_counts()}")
+                  f"{path.name} {label}: launches {K.launch_counts()}")
             finals[label] = state_to_numpy(fin)
         keys = [k for k in ("u", "v", "w", "p", "k", "omega", "nu_t")
                 if k in finals["kernels"]]
@@ -659,9 +926,9 @@ def phase_trajectories(device):
                       for k in keys)
             grid = "x".join(str(a) for a in (sim_k.cfg.Nx, sim_k.cfg.Ny,
                                              sim_k.cfg.Nz))
-            print(f"[traj] {name} {grid} float64 20 steps, kernels vs {label}"
-                  f" ({', '.join(keys)}): max|d| = {err:.3e}")
-            check(err <= TRAJ_TOL, f"{name} vs {label}: {err}")
+            print(f"[traj] {path.name} {grid} float64 20 steps, kernels vs "
+                  f"{label} ({', '.join(keys)}): max|d| = {err:.3e}")
+            check(err <= TRAJ_TOL, f"{path.name} vs {label}: {err}")
 
 
 def _event_ms(fn, reps=50):
@@ -687,7 +954,7 @@ def _device_ms(fn, reps=20):
     from cfdnn_tpu_torch.bench import profiled
     fn()
     torch.cuda.synchronize()
-    events, _ = profiled(lambda: [fn() for _ in range(reps)])
+    events, reps, _ = profiled(lambda n: [fn() for _ in range(n)], reps)
     return sum(e.self_device_time_total for e in events) / reps / 1e3
 
 
@@ -707,44 +974,79 @@ def _bound(label, name, inputs, outputs):
             else (by_ops, "operations"))
 
 
-def phase_timing(device):
+# marginal-step timing windows: the reference's bench.py rows over 1000
+# steps, its LES rows (and the port's RANS and Re 1600 rows) over 400, its
+# LES + IBM row over 150 (bench.py:110)
+TIMED_STEPS = {"tgv": 1000, "channel": 1000, "les_ibm256": 150}
+
+
+def _time_path(path, sim, st, rows):
+    """ms/step, Mcells/s (and the div) of a path into `rows`, and its
+    torch.profiler breakdown printed; returns (ms/step, device ms/step)."""
     from cfdnn_tpu_torch import bench
+    name = path.name
+    s, d = bench.time_steps(sim, st, steps=TIMED_STEPS.get(
+        name.replace("_fused", ""), 400))
+    rows[f"{name}_ms_per_step"] = s * 1e3
+    rows[f"{name}_mcells_per_s"] = _cells(sim) / s / 1e6
+    if sim.cfg.bc_y.value == "wall":
+        rows[f"{name}_div_linf_f32"] = float(d.div_linf)
+    prof = bench.profile_steps(sim, st)
+    busy = prof["device_ms_per_step"]
+    check(busy > 0, f"{name}: the profiler recorded no device time")
+    print(f"[profile] {name}: device {busy:.4f} ms/step of "
+          f"{s * 1e3:.4f} ms/step (idle share {1 - busy / (s * 1e3):.3f};"
+          f" device span {prof['span_ms_per_step']:.4f} ms/step over "
+          f"{prof['steps']} steps)")
+    for kname, ms, count in prof["kernels"][:12]:
+        print(f"[profile]   {ms:9.5f} ms/step  x{count:g}  {kname[:110]}")
+    return s * 1e3, busy
+
+
+def phase_timing(device):
+    """Each unfused main path's marginal ms/step with its profile (the
+    fused paths are timed by phase_ab), then each kernel against its twin
+    at the main-path shapes."""
     rows = {}
-    for name, case, kw, _ in _paths():
-        sim, st = case(128, device=device, **kw)
-        # the reference times its LES row over 400 steps
-        s, d = bench.time_steps(sim, st, steps=1000 if name in (
-            "tgv", "channel") else 400)
-        rows[f"{name}_ms_per_step"] = s * 1e3
-        rows[f"{name}_mcells_per_s"] = _cells(sim) / s / 1e6
-        if name != "tgv":
-            rows[f"{name}_div_linf_f32"] = float(d.div_linf)
-        prof = bench.profile_steps(sim, st)
-        busy = prof["device_ms_per_step"]
-        check(busy > 0, f"{name}: the profiler recorded no device time")
-        print(f"[profile] {name}: device {busy:.4f} ms/step of "
-              f"{s * 1e3:.4f} ms/step (idle share {1 - busy / (s * 1e3):.3f};"
-              f" profiled window {prof['wall_ms_per_step']:.4f} ms/step)")
-        for kname, ms, count in prof["kernels"][:12]:
-            print(f"[profile]   {ms:9.5f} ms/step  x{count:g}  {kname[:110]}")
+    for path in _paths():
+        if not path.name.endswith("_fused"):
+            _time_path(path, *build_case(path, path.n, device=device), rows)
     rows["device"] = torch.cuda.get_device_name(0)
     print(json.dumps(rows))
     times = {}
     with torch.no_grad():
-        for label, name, kern, twin, inputs in _cases(128, torch.float32,
-                                                      device, seed=2):
-            if label in times:   # timed on the first (main-path) grid
+        for case in (_cases(128, torch.float32, device, seed=2)
+                     + _div_cases(128, torch.float32, device, seed=2)):
+            if case.label in times:   # timed on the first (main-path) grid
                 continue
-            times[label] = (name, _event_ms(kern), _event_ms(twin),
-                            _device_ms(kern), _device_ms(twin),
-                            _bound(label, name, inputs, twin()))
-            bound_ms, bound_by = times[label][5]
-            print(f"[timing] {label} float32: per call kernel "
-                  f"{times[label][1]:.4f} ms, twin {times[label][2]:.4f} ms; "
-                  f"device kernel {times[label][3]:.4f} ms, twin "
-                  f"{times[label][4]:.4f} ms; bound {bound_ms:.4f} ms "
-                  f"({bound_by})")
+            t = times[case.label] = (
+                case.name, _event_ms(case.kern), _event_ms(case.twin),
+                _device_ms(case.kern), _device_ms(case.twin),
+                _bound(case.label, case.name, case.inputs, case.twin()))
+            print(f"[timing] {case.label} float32: per call kernel "
+                  f"{t[1]:.4f} ms, twin {t[2]:.4f} ms; device kernel "
+                  f"{t[3]:.4f} ms, twin {t[4]:.4f} ms; bound {t[5][0]:.4f} "
+                  f"ms ({t[5][1]})")
     return rows, times
+
+
+def phase_ab(device):
+    """The fused divergence against the unfused step, in one call, in the
+    order off, on, on, off, on tgv, channel and les_channel: ms/step and
+    device ms/step of each (data for PERF.md, not a gate)."""
+    paths = {p.name: p for p in _paths()}
+    rows = {}
+    for base in ("tgv", "channel", "les_channel"):
+        for turn, fused in enumerate((False, True, True, False)):
+            path = paths[base + "_fused" if fused else base]
+            ms, busy = _time_path(path, *build_case(path, path.n,
+                                                     device=device), {})
+            print(f"[ab] {base} turn {turn + 1} "
+                  f"{'fused' if fused else 'unfused'}: {ms:.4f} ms/step, "
+                  f"device {busy:.4f} ms/step")
+            rows.setdefault(f"{base}_{'fused' if fused else 'unfused'}",
+                            []).append([ms, busy])
+    print(json.dumps({"ab": rows}))
 
 
 def kernel_entries(errs, launches, per_step, times):
@@ -763,7 +1065,8 @@ def kernel_entries(errs, launches, per_step, times):
         main_case = next(iter(variants.values()))
         entries.append({
             "name": name, "route": "cuda",
-            "source": f"cfdnn_tpu_torch/csrc/{name}.cu",
+            "source": ("cfdnn_tpu_torch/csrc/"
+                       f"{KERNEL_SOURCE.get(name, name)}.cu"),
             "replaces": KERNEL_REPLACES[name],
             "launches": launches[name],
             "launches_per_step": per_step[name],
@@ -791,10 +1094,10 @@ def main():
     launches, divs, per_step = phase_main_path(device)
     phase_trajectories(device)
     rows, times = phase_timing(device)
+    phase_ab(device)
     entries = kernel_entries(errs, launches, per_step, times)
     for name, div in divs.items():
-        if name != "tgv":
-            print(f"[main] {name}_div_linf_f32 (200 steps) = {div:.3e}")
+        print(f"[main] {name}_div_linf (200 steps) = {div:.3e}")
     print(json.dumps({"kernels": entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -152,6 +152,19 @@ def test_nu_sgs_on_the_duct_matches_pallas(closure):
            "wrapper")
 
 
+@pytest.mark.parametrize("closure", sorted(CLOSURES))
+def test_nu_sgs_twin_repeats_itself_on_the_duct(closure):
+    """nu_sgs_twin called four times on the same duct inputs in one process
+    gives the same bits each time (torch's CPU vector math is set up on one
+    thread at import, utils/numerics.py, so no call races it)."""
+    _, ts = _sims(**DUCT, turb_model=closure, use_pallas="on")
+    u, v, w = (_t(c) for c in _inputs(ts, 5, False)[0])
+    kw = dict(geom=ts.geom, closure=closure, coeff=CLOSURES[closure])
+    first = K.nu_sgs_twin(u, v, w, **kw)
+    for _ in range(3):
+        assert torch.equal(K.nu_sgs_twin(u, v, w, **kw), first)
+
+
 LES_TGV = dict(Nx=16, Ny=16, Nz=16, bc_x="periodic", bc_y="periodic",
                bc_z="periodic", y_min=0.0, y_max=2 * np.pi, z_max=2 * np.pi,
                nu=1.0 / 1600.0, dp_dx=0.0, convective_scheme="skew",

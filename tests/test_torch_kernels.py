@@ -229,9 +229,8 @@ def test_kernels_match_twins_float32_on_cuda():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
     import chip_smoke
     dev = torch.device("cuda", 0)
-    for label, name, kern, twin, _ in chip_smoke._cases(32, torch.float32,
-                                                        dev, 0):
-        got, ref = kern(), twin()
-        for out, err, lim, _ in chip_smoke.compare(name, got, ref,
+    for case in chip_smoke._cases(32, torch.float32, dev, 0):
+        got, ref = case.kern(), case.twin()
+        for out, err, lim, _ in chip_smoke.compare(case.name, got, ref,
                                                    torch.float32):
-            assert err <= lim, f"{label} {out}: {err} > {lim}"
+            assert err <= lim, f"{case.label} {out}: {err} > {lim}"

@@ -125,8 +125,8 @@ def test_kahan_time_float32():
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(time_integrator="rk3"), "A.8"),
-    (dict(adaptive_dt=True), "A.8"),
+    (dict(time_integrator="rk2", force_ramp_time=1.0), "A.8"),
+    (dict(adaptive_dt=True, bulk_velocity_target=1.0), "A.8"),
     (dict(implicit_y_diffusion=True), "A.8"),
     (dict(space_order=4), "A.2"),
     (dict(convective_scheme="upwind"), "A.2"),
@@ -146,6 +146,8 @@ def test_kahan_time_float32():
     (dict(stretch_z=True), "A.13"),
     (dict(turb_model="sst", implicit_y_diffusion=True), "A.8"),
     (dict(turb_model="nn_tbnn"), "A.12"),
+    (dict(time_integrator="rk3", implicit_y_diffusion=True), "A.8"),
+    (dict(adaptive_dt=True, filter_strength=0.1), "A.14"),
 ])
 def test_outside_the_slice_raises(kw, item):
     k = dict(CHANNEL, **kw)
@@ -244,7 +246,9 @@ def test_import_loads_no_jax():
             "cfdnn_tpu_torch.turbulence.earsm, "
             "cfdnn_tpu_torch.turbulence.algebraic, "
             "cfdnn_tpu_torch.turbulence.features, "
-            "cfdnn_tpu_torch.turbulence.registry; "
+            "cfdnn_tpu_torch.turbulence.registry, cfdnn_tpu_torch.ibm, "
+            "cfdnn_tpu_torch.ibm.geometry, cfdnn_tpu_torch.ibm.forcing, "
+            "cfdnn_tpu_torch.sass_compare; "
             "assert not any(m == 'jax' or m.startswith('jax.') "
             "or m == 'cfdnn_tpu' or m.startswith('cfdnn_tpu.') "
             "for m in sys.modules), 'jax or cfdnn_tpu imported'")
