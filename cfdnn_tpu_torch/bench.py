@@ -15,10 +15,16 @@ mode. Two more rows: `tgv_re1600`, the 128^3 Re 1600 Taylor-Green of
 examples/09_taylor_green_3d/tgv_re1600.cfg (RK3, adaptive dt, CFL 0.6,
 float32; in perf mode, since benchmark mode turns adaptive dt off), and
 `les_ibm256`, bench.py's `bench_les_ibm` (bench.py:110-128): the LES
-channel's physics at 256x128x256 with a cylinder (IBM). It prints one
-JSON line with bench.py's headline keys: ms/step and Mcells/s of each
-grid, the wall-bounded grids' float32 post-projection divergence, and the
-card. Every row runs unfused (CFDNN_FUSE_DIV unset), as the reference's
+channel's physics at 256x128x256 with a cylinder (IBM). Four rows at
+bench.py's production width, 512^3 (bench.py:185-186, over 100 steps):
+`tgv512` and `channel512` with the Poisson transform left at "auto"
+(cuFFT on the card, as the reference resolves it off a TPU), and
+`tgv512_pfht` and `channel512_pfht`, the same with
+poisson_transform="pallas_fft", the reference's large-grid transform on
+a TPU: the hand-written Hartley kernels. It prints one JSON line with
+bench.py's headline keys: ms/step and Mcells/s of each grid, the
+wall-bounded grids' float32 post-projection divergence, and the card.
+Every row runs unfused (CFDNN_FUSE_DIV unset), as the reference's
 default.
 
 The `*_vs_baseline` ratios of bench.py are left out: they divide by
@@ -46,8 +52,9 @@ from .utils.timing import marginal_step_seconds
 
 
 def tgv_config(n: int = 128, dtype: str = "float32", **kw) -> Config:
-    """bench.py bench_tgv's configuration."""
-    return Config(
+    """bench.py bench_tgv's configuration. `kw` overrides any field
+    (another grid, another Poisson transform)."""
+    base = dict(
         Nx=n, Ny=n, Nz=n,
         bc_x=BCType.PERIODIC, bc_y=BCType.PERIODIC, bc_z=BCType.PERIODIC,
         y_min=0.0, y_max=2 * np.pi, z_min=0.0, z_max=2 * np.pi,
@@ -55,7 +62,9 @@ def tgv_config(n: int = 128, dtype: str = "float32", **kw) -> Config:
         dt=1e-3 if n <= 128 else 1e-4, adaptive_dt=False,
         time_integrator=TimeIntegrator.EULER,
         convective_scheme=ConvectiveScheme.SKEW,
-        benchmark=True, dtype=dtype, **kw)
+        benchmark=True, dtype=dtype)
+    base.update(kw)
+    return Config(**base)
 
 
 def channel_config(n: int = 128, dtype: str = "float32", **kw) -> Config:
@@ -249,7 +258,12 @@ def _window(fn, n, spin):
     """(profile, host seconds, gated, device span in seconds) of `fn(n)`
     under torch.profiler (CPU and CUDA activities), behind a spin kernel of
     `spin` cycles when it is nonzero; gated: the spin was still running
-    when the host had enqueued all of fn, so the card ran fn back to back."""
+    when the host had enqueued all of fn, so the card ran fn back to back.
+
+    The profiler has been seen to drop the records of the first kernels
+    after the spin (one to five a window), so SPIN_PAD one-cycle spin
+    kernels, which `_recorded` leaves out, run between the spin and the
+    window."""
     from torch.profiler import ProfilerActivity, profile
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
@@ -259,6 +273,8 @@ def _window(fn, n, spin):
         t0 = time.perf_counter()
         if spin:
             torch.cuda._sleep(spin)
+            for _ in range(SPIN_PAD):
+                torch.cuda._sleep(1)
         start.record()
         fn(n)
         stop.record()
@@ -269,9 +285,11 @@ def _window(fn, n, spin):
 
 
 # Spin-kernel cycles a second (~ the SM's top clock, so a slower clock only
-# spins longer); the least share of a profiler window's device span (less
-# launch gaps) its recorded kernels must fill, and the windows tried.
+# spins longer); the short spin kernels after it (`_window`); the least
+# share of a profiler window's device span (less launch gaps) its recorded
+# kernels must fill, and the windows tried.
 SPIN_CYCLES_PER_S = 2e9
+SPIN_PAD = 32
 MIN_DEVICE_SHARE = 0.8
 PROFILE_WINDOWS = 3
 
@@ -346,10 +364,11 @@ def profiled(fn, reps):
         share = busy / max(span - count * gap, 1e-12)
         if share >= MIN_DEVICE_SHARE:
             return events, reps, span
-        shares.append(share)
-    raise RuntimeError(f"profiled: {PROFILE_WINDOWS} windows each recorded "
-                       f"under {MIN_DEVICE_SHARE} of their device span less "
-                       f"launch gaps (shares {shares})")
+        shares.append((round(share, 4), count))
+    raise RuntimeError(f"profiled: {PROFILE_WINDOWS} windows of {reps} reps "
+                       f"each recorded under {MIN_DEVICE_SHARE} of their "
+                       "device span less launch gaps ((share, kernels "
+                       f"recorded) {shares})")
 
 
 def profile_steps(sim, state, steps=20):
@@ -388,6 +407,20 @@ def main():
     s_re, _ = time_steps(*tgv_re1600_case(), steps=400)
     # 150/30 steps, as bench.py:110 times its LES + IBM row
     s_ibm, d_ibm = time_steps(*les_ibm_case(), steps=150)
+    # the 512^3 rows over 100/20 steps, as bench.py:185-186 times them
+    rows_512 = {}
+    for key, case in (("tgv512", lambda: tgv_case(512)),
+                      ("channel512", lambda: channel_case(512)),
+                      ("tgv512_pfht",
+                       lambda: tgv_case(512, poisson_transform="pallas_fft")),
+                      ("channel512_pfht",
+                       lambda: channel_case(512,
+                                            poisson_transform="pallas_fft"))):
+        s, d = time_steps(*case(), steps=100)
+        rows_512[f"{key}_ms_per_step"] = s * 1e3
+        rows_512[f"{key}_mcells_per_s"] = 512 ** 3 / s / 1e6
+        if key.startswith("channel"):
+            rows_512[f"{key}_div_linf_f32"] = float(d.div_linf)
     cells = 128 ** 3
     ibm_cells = 256 * 128 * 256
     les_cells = 128 * 64 * 128
@@ -414,6 +447,7 @@ def main():
         "les_ibm256_ms_per_step": s_ibm * 1e3,
         "les_ibm256_mcells_per_s": ibm_cells / s_ibm / 1e6,
         "les_ibm256_div_linf_f32": float(d_ibm.div_linf),
+        **rows_512,
         "device": torch.cuda.get_device_name(0),
     }), flush=True)
 

@@ -1,7 +1,7 @@
 """The port's hand-written Hopper kernels, their plain twins and launch counts
 (counterpart of `cfdnn_tpu/ops/pallas_kernels.py`).
 
-Ten CUDA C++ kernels, in `cfdnn_tpu_torch/csrc/`, carry the main-path
+Twelve CUDA C++ kernels, in `cfdnn_tpu_torch/csrc/`, carry the main-path
 steps of the benchmark grids:
 
   predictor_periodic  <- pallas_kernels.fused_predictor (all-periodic TGV)
@@ -29,6 +29,11 @@ steps of the benchmark grids:
   transport           <- pallas_kernels.fused_transport_advance (the
                          k-omega advance of SST, with or without its nu_t,
                          and of Wilcox)
+  fht_pass            <- poisson/pallas_fht.fht_pallas (one forward or
+                         inverse four-step Hartley pass along one axis)
+  fht_modal           <- poisson/pallas_fht.fht_pallas_modal (forward,
+                         the Poisson symbol's inverse, inverse, along the
+                         last Hartley axis in one pass)
 
 Each source file's head says what bounds the kernel on the H100 and what
 its design does about it. Each kernel computes what its TPU kernel
@@ -54,7 +59,9 @@ tests run the Pallas kernels in interpret mode) and launch the kernel for
 CUDA tensors, raising on any other device and on any CUDA error. There is
 no fallback from a kernel to its twin. Each call goes through a
 `torch.autograd.Function` whose backward differentiates the twin, as the
-reference's `vjp_via` (solver.py) differentiates the jnp path.
+reference's `vjp_via` (solver.py) differentiates the jnp path; the two
+Hartley kernels' backward raises instead, as the reference has no
+gradient through its Pallas transform.
 
 Build: at first use, `nvcc` compiles every `csrc/*.cu` for sm_90a, one
 process per source, all started together, and links them into one shared
@@ -157,6 +164,7 @@ def build_library() -> Tuple[Path, float]:
 
 
 _P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+_L = ctypes.c_longlong
 _SIGNATURES = {
     "predictor_periodic": [_P] * 7 + [_I] * 3 + [_D] * 5 + [_P],
     "predictor_periodic_div": [_P] * 8 + [_I] * 3 + [_D] * 5 + [_P],
@@ -168,6 +176,8 @@ _SIGNATURES = {
     "nu_sgs": [_P] * 11 + [_I] * 6 + [_D, _P],
     "germano_pass1": [_P] * 14 + [_I] * 5 + [_P],
     "transport": [_P] * 15 + [_I] * 6 + [_P],
+    "fht_pass": [_P] * 3 + [_I] * 2 + [_L] * 2 + [_I, _P],
+    "fht_modal": [_P] * 5 + [_I] * 2 + [_L] * 2 + [_D] * 2 + [_P],
 }
 _lib: Optional[ctypes.CDLL] = None
 
@@ -185,6 +195,8 @@ def _bind(path) -> ctypes.CDLL:
     lib.cfdnn_error_string.restype = ctypes.c_char_p
     lib.cfdnn_germano_pass1_blocks.argtypes = [_I, _I]
     lib.cfdnn_germano_pass1_blocks.restype = ctypes.c_int
+    lib.cfdnn_fht_tile.argtypes = [_I, _I, _I]
+    lib.cfdnn_fht_tile.restype = ctypes.c_int
     return lib
 
 
@@ -1352,9 +1364,132 @@ def transport(u, v, w, k, om, nu_t, dt, consts, gs, *, geom: Geometry,
 transport.launches = 0
 
 
+# ---------------------------------------------------------------------------
+# fht_pass   <-  poisson/pallas_fht.fht_pallas
+# fht_modal  <-  poisson/pallas_fht.fht_pallas_modal
+# ---------------------------------------------------------------------------
+
+
+class _NoGrad(torch.autograd.Function):
+    """Forward: `launch` (the kernel on CUDA, the twin on the CPU).
+    Backward: raises. The reference has no gradient through its Hartley
+    transform (a grad "fails loudly with 'no AD rule for pallas_call'",
+    cfdnn_tpu/ml/adjoint.py:50-53), so neither has the port."""
+
+    @staticmethod
+    def forward(ctx, launch, name, kw, *tensors):
+        ctx.name = name
+        return launch(*tensors, **kw)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise RuntimeError(
+            f"{ctx.name}: no gradient through the Hartley transform (the "
+            "reference has no AD rule for its pallas_call either); solve "
+            "with poisson_transform 'fft' or 'matmul' to differentiate")
+
+
+def _fht_check(name, f, axis, t, extra=(), extra_shapes=()):
+    """Shape, axis, dtype, device and contiguity of a Hartley pass, and on
+    CUDA the kernel's own limits (raising where it refuses the split)."""
+    if axis not in (0, 1, 2) or f.ndim != 3:
+        raise ValueError(f"{name}: axis {axis} of a tensor of shape "
+                         f"{tuple(f.shape)}; a 3-D tensor and axis 0, 1 or 2")
+    if f.shape[axis] != t.N:
+        raise ValueError(f"{name}: axis {axis} has length {f.shape[axis]}, "
+                         f"the transform {t.N}")
+    _check(name, (f, t.table, *extra),
+           (None, (2 * t.N2 + 2 * t.N + 128,), *extra_shapes))
+    if f.device.type == "cuda" and not library().cfdnn_fht_tile(
+            t.N1, t.N2, f.element_size()):
+        raise NotImplementedError(
+            f"{name}: the kernel takes N1 <= 8 and N2 a multiple of 8 that "
+            f"fits its block (N1 = {t.N1}, N2 = {t.N2})")
+
+
+def _fht_lines(f, axis, t):
+    """(inner, nlines): the stride between a line's points and the number
+    of lines of a pass along `axis` of the contiguous `f`."""
+    inner = 1
+    for s in f.shape[axis + 1:]:
+        inner *= s
+    return inner, f.numel() // t.N
+
+
+def _fht_pass_launch(f, *, axis, t, inverse):
+    from ..poisson.pallas_fht import fht_pass_twin
+    if f.device.type == "cpu":
+        return fht_pass_twin(f, axis, t, inverse)
+    return _fht_pass_cuda(f, axis=axis, t=t, inverse=inverse)
+
+
+def _fht_pass_cuda(f, *, axis, t, inverse):
+    out = torch.empty_like(f)
+    inner, nlines = _fht_lines(f, axis, t)
+    _launch("fht_pass", f, f.data_ptr(), out.data_ptr(), t.table.data_ptr(),
+            t.N1, t.N2, inner, nlines, int(inverse))
+    fht_pass.launches += 1
+    return out
+
+
+def fht_pass(f, axis: int, t, *, inverse: bool = False):
+    """One four-step Hartley pass along `axis` of the contiguous 3-D `f`:
+    the forward transform in the digit-permuted order, or the
+    unnormalized inverse (forward then inverse gives N times f). `t`: a
+    poisson.pallas_fht.PFHTAxis of f's length along `axis`, dtype and
+    device."""
+    _fht_check("fht_pass", f, axis, t)
+    return _NoGrad.apply(_fht_pass_launch, "fht_pass",
+                         dict(axis=axis, t=t, inverse=bool(inverse)), f)
+
+
+fht_pass.launches = 0
+
+
+def _fht_modal_launch(f, lam_axis, lam_rest, *, axis, t, thr, norm):
+    from ..poisson.pallas_fht import fht_modal_twin
+    if f.device.type == "cpu":
+        return fht_modal_twin(f, axis, t, lam_axis, lam_rest, thr=thr,
+                              norm=norm)
+    return _fht_modal_cuda(f, lam_axis, lam_rest, axis=axis, t=t, thr=thr,
+                           norm=norm)
+
+
+def _fht_modal_cuda(f, lam_axis, lam_rest, *, axis, t, thr, norm):
+    out = torch.empty_like(f)
+    inner, nlines = _fht_lines(f, axis, t)
+    _launch("fht_modal", f,
+            *(a.data_ptr() for a in (f, out, t.table, lam_axis, lam_rest)),
+            t.N1, t.N2, inner, nlines, float(thr), float(norm))
+    fht_modal.launches += 1
+    return out
+
+
+def fht_modal(f, axis: int, t, lam_axis, lam_rest, *, thr: float,
+              norm: float):
+    """The Poisson solve's modal pass along `axis` (the last Hartley axis)
+    of the contiguous 3-D `f`: the forward pass, each mode times
+    norm / (lam_axis + lam_rest) with |lam_axis + lam_rest| < thr pinned to
+    0, then the unnormalized inverse. lam_axis: (N,) in the
+    digit-permuted order; lam_rest: f's shape without `axis`, the other
+    axes' symbols summed in their own orders; `norm` carries every 1/N of
+    the solve."""
+    rest = tuple(s for a, s in enumerate(f.shape) if a != axis)
+    _fht_check("fht_modal", f, axis, t, (lam_axis, lam_rest),
+               ((t.N,), rest))
+    return _NoGrad.apply(_fht_modal_launch, "fht_modal",
+                         dict(axis=axis, t=t, thr=float(thr),
+                              norm=float(norm)),
+                         f, lam_axis, lam_rest)
+
+
+fht_modal.launches = 0
+
+
 KERNELS = (predictor_periodic, predictor_channel, predictor_general,
            divergence, correct, nu_sgs, germano_pass1, transport,
-           predictor_periodic_div, predictor_channel_div)
+           predictor_periodic_div, predictor_channel_div, fht_pass,
+           fht_modal)
 
 
 def reset_launch_counts() -> None:

@@ -1,25 +1,33 @@
 """Fast-diagonalization pressure-Poisson solver
-(port of `cfdnn_tpu/poisson/fdm.py`, the "fft" and "eig" axis kinds).
+(port of `cfdnn_tpu/poisson/fdm.py`).
 
   L = Lx (+) Ly (+) Lz  (Kronecker sum of 1-D discrete Laplacians)
 
 Per axis the transform that diagonalizes the 1-D operator is
   - periodic + uniform  -> real FFT, eigenvalues (2 cos(2 pi k/N) - 2)/h^2
-    (`torch.fft`, cuFFT on the card); or, with transform="matmul", the
-    dense real eigenbasis of the circulant
+    (`torch.fft`, cuFFT on the card); with transform="matmul", the dense
+    real eigenbasis of the circulant; with "fht", the four-step Hartley
+    transform in plain torch (poisson/fht.py) where N >= 32; with
+    "pallas_fft", the four-step Hartley kernels (poisson/pallas_fht.py,
+    ops.kernels.fht_pass / fht_modal) where `axis_supported`. An axis
+    that the two Hartley transforms do not take gets the dense
+    eigenbasis: the reference's own per-axis policy.
   - wall/inflow/outflow (uniform OR stretched) -> a dense eigenbasis of the
     symmetrized stretched operator, built in float64 NumPy on the host and
     applied as one (N, N) matmul.
 
 The host-side construction (`_periodic_eig`, `_axis_transform`) is the
 reference's NumPy code unchanged. The device apply is: eigenbasis matmuls
-on the real array, rfftn over the periodic axes, scaling by 1/lambda with
-the null mode pinned, irfftn, and the inverse eigenbasis matmuls. It is
+on the real array, the Hartley or rfftn transforms over the periodic axes,
+scaling by 1/lambda with the null mode pinned, the inverses, and the
+inverse eigenbasis matmuls. With "pallas_fft" the forward pass of the last
+Hartley axis, the scaling and its inverse pass are one kernel (the modal
+pass), so an all-periodic solve is five passes over the field. It is
 exactly consistent with `ops.operators.laplacian`, so a projection drives
 the discrete divergence to roundoff.
 
-Not ported: the "fht" (ROADMAP A.13) and "pallas_fft" (ROADMAP B.11)
-periodic transforms, which raise.
+"auto" is "fft" (cuFFT on the card), as the reference resolves it off a
+TPU; "pallas_fft" is the opt-in that runs the hand-written kernels.
 """
 
 from __future__ import annotations
@@ -32,14 +40,28 @@ import torch
 
 from ..config import BCType, Config, pressure_bc_kinds
 from ..mesh import Mesh
+from ..ops import kernels
+from .fht import FHTAxis, fht_forward, fht_inverse
+from .pallas_fht import PFHTAxis, axis_supported
+
+
+@dataclasses.dataclass(frozen=True)
+class PoissonStats:
+    """Per-solve observability (the reference's PoissonStats): cycle
+    count, status string, relative residual."""
+
+    cycles: int
+    status: str                 # DIRECT | FIXED | TOL | MAX_CYCLES
+    rel_residual: float
 
 
 @dataclasses.dataclass
 class _AxisTransform:
-    kind: str                      # 'fft' | 'eig' | 'none'
+    kind: str                      # 'fft' | 'eig' | 'fht' | 'none'
     lam: np.ndarray                # eigenvalues (modal Laplacian symbol)
     V: Optional[np.ndarray] = None     # eig: inverse-transform matrix
     Vinv: Optional[np.ndarray] = None  # eig: forward-transform matrix
+    fht: Optional[object] = None       # fht: FHTAxis or PFHTAxis
 
 
 def _periodic_eig(ax) -> _AxisTransform:
@@ -92,21 +114,18 @@ class FDMPoissonSolver:
                  transform: str = None, geom=None, *, device):
         """`device`: the torch device of the operator and of the
         tensors `solve` takes (required: there is no default device).
-        transform: 'fft' | 'matmul' | 'auto' for the periodic axes;
-        None reads `cfg.poisson_transform`. 'auto' is 'fft': the
-        reference picks the dense matmul only on a TPU. `geom`
-        (ops.grid.Geometry) enables iterative refinement
-        (cfg.poisson_refine) through the consistent stencil Laplacian."""
+        transform: 'fft' | 'matmul' | 'fht' | 'pallas_fft' | 'auto' for
+        the periodic axes; None reads `cfg.poisson_transform`. 'auto' is
+        'fft': the reference picks the dense matmul or its Pallas
+        transform only on a TPU. `geom` (ops.grid.Geometry) enables
+        iterative refinement (cfg.poisson_refine) through the consistent
+        stencil Laplacian."""
         if transform is None:
             transform = getattr(cfg, "poisson_transform", "auto")
-        if transform in ("fht", "pallas_fft"):
-            item = "A.13" if transform == "fht" else "B.11"
-            raise NotImplementedError(
-                f"transform={transform!r}: the Hartley transforms are not "
-                f"ported (ROADMAP {item}); use 'fft' or 'matmul'")
-        if transform not in ("fft", "matmul", "auto"):
+        if transform not in ("fft", "matmul", "fht", "pallas_fft", "auto"):
             raise ValueError(f"transform={transform!r} — expected one of "
-                             "'fft' | 'matmul' | 'auto'")
+                             "'fft' | 'matmul' | 'fht' | 'pallas_fft' | "
+                             "'auto'")
         if transform == "auto":
             transform = "fft"
         self.transform = transform
@@ -145,13 +164,15 @@ class FDMPoissonSolver:
 
         bcs = (cfg.bc_x, cfg.bc_y, cfg.bc_z)
         self.tr = [
-            _axis_transform(axd, bc, pressure_bc_kinds(cfg, a),
-                            periodic_matmul=(transform == "matmul"))
+            self._build_axis(axd, bc, pressure_bc_kinds(cfg, a), transform)
             for a, (axd, bc) in enumerate(zip((mesh.x, mesh.y, mesh.z), bcs))
         ]
         # rfft on the *last* FFT axis for the real-input saving
         self.fft_axes = tuple(i for i, t in enumerate(self.tr) if t.kind == "fft")
         self.eig_axes = tuple(i for i, t in enumerate(self.tr) if t.kind == "eig")
+        self.fht_axes = tuple(i for i, t in enumerate(self.tr) if t.kind == "fht")
+        # the kernels' path: five passes on an all-periodic grid
+        self._pallas = transform == "pallas_fft" and bool(self.fht_axes)
         shape = [mesh.x.n, mesh.y.n, mesh.z.n]
         self.all_neumann = all(
             t.kind != "eig" or pressure_bc_kinds(cfg, a) == ("neumann", "neumann")
@@ -169,15 +190,32 @@ class FDMPoissonSolver:
             s = [1, 1, 1]
             s[i] = len(v)
             lam_vecs.append(self._dev(v.reshape(s)))
-        # 1/L with (near-)null modes pinned to zero => mean-free solve.
-        # The reference assembles it inside every solve so that XLA never
-        # bakes an N^3 constant into the program; eagerly, one stored
-        # tensor is a single read per solve instead of five passes.
-        L = lam_vecs[0] + lam_vecs[1] + lam_vecs[2]
-        null = torch.abs(L) < self._null_thr
-        self._inv_lam = torch.where(
-            null, torch.zeros_like(L),
-            1.0 / torch.where(null, torch.ones_like(L), L))
+        self._lam_vecs = tuple(lam_vecs)
+        self._inv_lam = None
+        if self._pallas:
+            # the modal pass's operands: the last Hartley axis's symbol in
+            # its digit-permuted order, and the other two axes' symbols
+            # summed in the working dtype (as the reference sums them),
+            # each in its own order; every 1/N of the solve in `norm`
+            last = self.fht_axes[-1]
+            rest = [a for a in range(3) if a != last]
+            self._lam_axis = self._dev(self.tr[last].lam)
+            self._lam_rest = (lam_vecs[rest[0]]
+                              + lam_vecs[rest[1]]).squeeze(last).contiguous()
+            self._norm = 1.0
+            for i in self.fht_axes:
+                self._norm /= self.tr[i].fht.N
+        else:
+            # 1/L with (near-)null modes pinned to zero => mean-free
+            # solve. The reference assembles it inside every solve so
+            # that XLA never bakes an N^3 constant into the program;
+            # eagerly, one stored tensor is a single read per solve
+            # instead of five passes.
+            L = self._lam_total()
+            null = torch.abs(L) < self._null_thr
+            self._inv_lam = torch.where(
+                null, torch.zeros_like(L),
+                1.0 / torch.where(null, torch.ones_like(L), L))
         self.mats = {
             i: (self._dev(self.tr[i].Vinv), self._dev(self.tr[i].V))
             for i in self.eig_axes
@@ -185,9 +223,37 @@ class FDMPoissonSolver:
         self.name = "FDM(" + ",".join(
             t.kind for t in self.tr) + f",{self.transform})"
 
+    def _build_axis(self, axd, bc, kinds, transform) -> _AxisTransform:
+        """One axis's transform, by the reference's per-axis policy
+        (cfdnn_tpu/poisson/fdm.py:250-289): with "pallas_fft" a periodic
+        axis takes the Hartley kernels where `axis_supported`, with "fht"
+        the plain four-step where N >= 32, and otherwise the dense
+        periodic eigenbasis."""
+        if transform in ("pallas_fft", "fht") and bc == BCType.PERIODIC \
+                and axd.n > 1:
+            if transform == "pallas_fft":
+                fx = (PFHTAxis.make(axd.n, self.dtype, device=self.device)
+                      if axis_supported(axd.n) else None)
+            else:
+                fx = (FHTAxis.make(axd.n, self.dtype, device=self.device)
+                      if axd.n >= 32 else None)
+            if fx is None:
+                return _axis_transform(axd, bc, kinds, periodic_matmul=True)
+            base = _axis_transform(axd, bc, kinds)
+            return _AxisTransform(kind="fht", lam=fx.lam_permuted(base.lam),
+                                  fht=fx)
+        return _axis_transform(axd, bc, kinds,
+                               periodic_matmul=(transform == "matmul"))
+
     def _dev(self, a: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(np.ascontiguousarray(a),
                                device=self.device).to(self.dtype)
+
+    def _lam_total(self) -> torch.Tensor:
+        """The modal symbol L(kx, ky, kz), the broadcast sum of the three
+        per-axis vectors."""
+        a, b, c = self._lam_vecs
+        return a + b + c
 
     # -- solve ------------------------------------------------------------
 
@@ -217,15 +283,86 @@ class FDMPoissonSolver:
         """Solve L p = rhs; the solution is null-mode-free for singular BCs:
         the pinned zero entries of the inverse symbol annihilate the RHS's
         null-mode coefficient, so no mean subtraction pass is needed."""
+        if self._pallas:
+            return self._solve_once_pallas(rhs)
         f = rhs.to(self.dtype)
         for i in self.eig_axes:
             f = self._apply_mat(self.mats[i][0], f, i)
+        for i in self.fht_axes:
+            f = fht_forward(f, i, self.tr[i].fht)
         if self.fft_axes:
             f = torch.fft.rfftn(f, dim=self.fft_axes)
         f = f * self._inv_lam
         if self.fft_axes:
             sizes = [rhs.shape[a] for a in self.fft_axes]
             f = torch.fft.irfftn(f, s=sizes, dim=self.fft_axes)
+        for i in self.fht_axes:
+            f = fht_inverse(f, i, self.tr[i].fht)
         for i in self.eig_axes:
             f = self._apply_mat(self.mats[i][1], f, i)
         return f.to(rhs.dtype)
+
+    def _solve_once_pallas(self, rhs: torch.Tensor) -> torch.Tensor:
+        """transform="pallas_fft": the eigenbasis matmuls of the wall axes
+        around the Hartley kernels. For an all-periodic grid
+
+            fht_x | fht_y | [fht_z + scale + ifht_z] | ifht_y | ifht_x
+
+        is five passes over the field, the last axis's forward pass, the
+        1/lambda scale and its inverse pass in one kernel (fht_modal);
+        every per-axis 1/N is folded into that scale, so the inverse
+        passes are pure adjoints. The reference picks its bf16
+        compensation depth (3 or 6 products, `passes`) from the precision
+        tier; the kernels compute in the working dtype with FMAs, which
+        meets both tiers, so the tier has nothing to choose here."""
+        f = rhs.to(self.dtype)
+        for i in self.eig_axes:
+            f = self._apply_mat(self.mats[i][0], f, i)
+        f = f.contiguous()
+        last = self.fht_axes[-1]
+        for i in self.fht_axes[:-1]:
+            f = kernels.fht_pass(f, i, self.tr[i].fht)
+        f = kernels.fht_modal(f, last, self.tr[last].fht, self._lam_axis,
+                              self._lam_rest, thr=self._null_thr,
+                              norm=self._norm)
+        for i in reversed(self.fht_axes[:-1]):
+            f = kernels.fht_pass(f, i, self.tr[i].fht, inverse=True)
+        for i in self.eig_axes:
+            f = self._apply_mat(self.mats[i][1], f, i)
+        return f.to(rhs.dtype)
+
+    def solve_with_stats(self, rhs):
+        """solve() and its relative residual (one more forward transform of
+        the solution and of the rhs)."""
+        p = self.solve(rhs)
+        r = self._residual_norm(rhs, p)
+        return p, PoissonStats(cycles=0, status="DIRECT", rel_residual=r)
+
+    def _residual_norm(self, rhs, p) -> float:
+        """|L p - rhs| / |rhs| in modal space over the non-null modes: the
+        solver pins the null modes by design, so rhs's null component is
+        masked too. Hartley-kernel axes go through the dense
+        `reference_forward` in the same digit-permuted order."""
+        from .fht import fht_forward
+        from .pallas_fht import PFHTAxis, reference_forward
+
+        def fwd(f):
+            for i in self.eig_axes:
+                f = self._apply_mat(self.mats[i][0], f, i)
+            for i in self.fht_axes:
+                t = self.tr[i].fht
+                f = (reference_forward(f, i, t) if isinstance(t, PFHTAxis)
+                     else fht_forward(f, i, t))
+            if self.fft_axes:
+                f = torch.fft.rfftn(f, dim=self.fft_axes)
+            return f
+
+        f = fwd(p.to(self.dtype))
+        g = fwd(rhs.to(self.dtype))
+        L = self._lam_total()
+        null = torch.abs(L) < self._null_thr
+        lam = torch.where(null, torch.zeros_like(L), L)
+        g = torch.where(null, torch.zeros_like(g), g)
+        num = torch.linalg.norm((lam * f - g).reshape(-1))
+        den = torch.clamp(torch.linalg.norm(g.reshape(-1)), min=1e-300)
+        return float(num / den)

@@ -160,6 +160,9 @@ class Simulation:
         self.ibm = None
         # the reference reads its fused-divergence opt-in at construction
         self._fuse_div_requested = os.environ.get("CFDNN_FUSE_DIV") == "1"
+        # and its per-solve residual print (cfdnn_tpu/solver.py:632-640)
+        self._poisson_diagnostics = bool(
+            os.environ.get("CFDNN_POISSON_DIAGNOSTICS"))
         self._plan()
         self._dt_limits = self._adaptive_dt_limits() if cfg.adaptive_dt \
             else None
@@ -388,7 +391,13 @@ class Simulation:
         rhs = div / dt
         if self.ibm is not None:
             rhs = self.ibm.mask_rhs(rhs)
-        p_corr = self.poisson.solve(rhs)
+        if self._poisson_diagnostics:
+            # the residual is read on the host, a sync per solve
+            p_corr, stats = self.poisson.solve_with_stats(rhs)
+            print(f"[poisson] {stats.status} "
+                  f"rel_residual={stats.rel_residual}")
+        else:
+            p_corr = self.poisson.solve(rhs)
         if self.kernels.projection:
             comps = kernels.correct(*comps, p_corr, dt, geom=geom)
         else:

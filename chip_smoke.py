@@ -24,17 +24,24 @@ Phases, each of which raises on failure (nothing is caught):
      32x48x32 (uniform and stretched y, skew and central, scalar nu and
      nu_t) in float64, at 128^3 and with nu_t at 128x64x128 in float32,
      each div output also against the divergence kernel of the kernel's
-     own star (1e-12 / 1e-5 of scale); each output of a kernel is held to
-     its own twin output's scale;
+     own star (1e-12 / 1e-5 of scale); the two Hartley kernels
+     (`_fht_cases`): float64 on every axis, forward, inverse and modal,
+     for N1 = 1 ... 8 (N2 = 32) and N2 = 64, 128, 256 (with the round
+     trip = N x and the dense reference_forward), float32 at 512^3 on
+     every axis with the tgv512 and channel512 solvers' symbols; each
+     output of a kernel is held to its own twin output's scale;
   3. the main paths (`_paths`), each with its launches per step declared:
      Simulation.run of the port's bench.py rows (the 128^3 Taylor-Green
      and channel, the 128x64x128 LES channel with static and dynamic
      Smagorinsky, the 128^3 LES Taylor-Green, the 128x96x96 LES duct, the
      128^3 RANS channel with SST, Wilcox k-omega and EARSM-WJ), the Re 1600
      Taylor-Green of examples/09 (RK3, adaptive dt, CFDNN_FUSE_DIV=1), the
-     Taylor-Green, channel and LES channel with CFDNN_FUSE_DIV=1, and the
+     Taylor-Green, channel and LES channel with CFDNN_FUSE_DIV=1, the
      256x128x256 LES + IBM cylinder (with the opt-in set: a body takes no
-     fused divergence); float32, 200 steps, use_pallas="auto", the launch
+     fused divergence), and the 512^3 Taylor-Green and channel with the
+     Poisson transform "pallas_fft" (tgv512_pfht: four fht_pass and one
+     fht_modal a step; channel512_pfht: two and one);
+     float32, 200 steps, use_pallas="auto", the launch
      counts set to 0 just before each run and read just after, each
      kernel's count equal to 200 times its declared launches per step; the
      fields finite and of their shapes, the Taylor-Greens' kinetic energy
@@ -51,20 +58,28 @@ Phases, each of which raises on failure (nothing is caught):
      to the plain math's at float64 to 1e-12 * max|plain|; after it k,
      omega > 0 and nu_t >= 0, finite and not 0 everywhere;
   4. each path at 32^3 (the LES and RANS channels and the fused channel
-     32x24x32, the duct 32x24x24, the LES + IBM channel 32x16x32) in
-     float64 for 20 steps,
-     kernels on against use_pallas="off" on the card and against the eager
-     operators on the CPU (which the CPU tests hold to the JAX reference),
-     <= 1e-11;
+     32x24x32, the duct 32x24x24, the LES + IBM channel 32x16x32; the
+     "pallas_fft" paths 256x16x64 and 256x24x64, N1 = 2 on x) in float64
+     for 20 steps, kernels on against use_pallas="off" on the card (the
+     "pallas_fft" paths with cuFFT there) and against the eager operators
+     on the CPU (the Hartley kernels' twins there; the CPU tests hold both
+     to the JAX reference), <= 1e-11;
   5. timing: ms/step and Mcells/s of each unfused main-path step
-     (marginal step time, as the port's bench.py) with a torch.profiler
-     breakdown, and each kernel against its twin at the main-path shapes
-     with CUDA events and with the profiler's device time;
+     (marginal step time, as the port's bench.py; the 512^3 rows over 100
+     steps) with a torch.profiler breakdown, the 512^3 rows also with the
+     transform "auto" (cuFFT; tgv512, channel512) and each transform's
+     div_linf after the first 100 steps; each kernel against its twin at
+     the main-path shapes with CUDA events and with the profiler's device
+     time, the Hartley kernels beside torch.fft along the same axis
+     (fht_pass beside one rfft or irfft, fht_modal beside rfft + irfft);
+     the 512^3 Poisson solve alone, "fft" against "pallas_fft", on the
+     tgv512 and channel512 solvers;
   6. the A/B: tgv, channel and les_channel unfused and fused, in the
      order off, on, on, off, ms/step and device ms/step of each.
 It prints the `kernels` JSON line (each kernel's bound: the larger of its
 main case's bytes over 3.35 TB/s and its operations over 67 TFLOP/s,
-float32), the nvidia-smi line, and as its last line
+float32; library_ms, the Hartley kernels' torch.fft yardstick, null for
+the stencils), the nvidia-smi line, and as its last line
 {"ok": true, "device": {...}}. Without a CUDA device it exits nonzero
 before printing any result.
 """
@@ -95,10 +110,14 @@ KERNEL_REPLACES = {
     "transport": "cfdnn_tpu/ops/pallas_kernels.py:543",
     "predictor_periodic_div": "cfdnn_tpu/ops/pallas_kernels.py:1448",
     "predictor_channel_div": "cfdnn_tpu/ops/pallas_kernels.py:1524",
+    "fht_pass": "cfdnn_tpu/poisson/pallas_fht.py:423",
+    "fht_modal": "cfdnn_tpu/poisson/pallas_fht.py:450",
 }
-# the two div kernels are instantiations in their predictor's source
+# the two div kernels are instantiations in their predictor's source, the
+# two Hartley kernels share csrc/fht.cu
 KERNEL_SOURCE = {"predictor_periodic_div": "predictor_periodic",
-                 "predictor_channel_div": "predictor_channel"}
+                 "predictor_channel_div": "predictor_channel",
+                 "fht_pass": "fht", "fht_modal": "fht"}
 # The H100 SXM's published peaks (NVIDIA data sheet): HBM bandwidth and
 # float32 outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
@@ -135,13 +154,18 @@ OPS_PER_CELL = {"predictor_periodic": 154, "predictor_channel": 154,
 class Case(NamedTuple):
     """One kernel call held against its twin: `inputs` are the tensors it
     reads (for the bytes of its bound); a div kernel's case carries its
-    `geom`, for the divergence kernel of its own star."""
+    `geom`, for the divergence kernel of its own star; a Hartley case its
+    operations per cell (`ops`, they depend on N) and its yardstick
+    (`library`, torch.fft calls on the same tensor, named by the
+    function's name: rfft, irfft or rfft_irfft)."""
     label: str
     name: str
     kern: Callable
     twin: Callable
     inputs: Tuple[torch.Tensor, ...]
     geom: object = None
+    ops: float = None
+    library: Callable = None
 
 
 def check(cond, msg):
@@ -513,6 +537,131 @@ def _div_cases(n, dtype, device, seed):
     return cases
 
 
+def fht_ops(t, modal):
+    """Operations a cell of a Hartley kernel call along an axis of length
+    t.N: those the function needs, not those of csrc/fht.cu's dense N2
+    contraction (4 N2 + 4 N1 + 6 a cell a direction, 534 at N = 512). A
+    real transform of length N by a fast algorithm takes 2.5 N log2 N
+    flops (half of a complex FFT's 5 N log2 N), 2.5 log2 N a cell a
+    direction; the modal pass does both directions and its scale (an add,
+    a compare, a division and a multiply)."""
+    one = 2.5 * math.log2(t.N)
+    return 2 * one + 4 if modal else one
+
+
+def _fht_cases(dtype, device, seed):
+    """A Case for each Hartley kernel call. Float64 at small shapes, every
+    axis, forward, inverse and modal (random symbols with null modes), for
+    N1 = 1 ... 8 with N2 forced to 32 and for N2 = 64, 128, 256 (N = 64,
+    128, 256 and 2048 = 8 x 256, the largest split the kernels take), the
+    last four also with the round trip inverse(forward(x)) = N x and, but
+    at 2048, against the dense reference_forward. Float32 at 512^3, every
+    axis, random fields; the modal pass with the tgv512 solver's symbols on each axis
+    and the channel512 solver's on its Hartley axes z and x. The first
+    case of each label is the main path's."""
+    from cfdnn_tpu_torch import bench
+    from cfdnn_tpu_torch.mesh import Mesh
+    from cfdnn_tpu_torch.ops import kernels as K
+    from cfdnn_tpu_torch.poisson import pallas_fht as P
+    from cfdnn_tpu_torch.poisson.fdm import FDMPoissonSolver
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def rnd(shape):
+        return torch.randn(shape, generator=gen, dtype=dtype, device=device)
+
+    cases = []
+    ax_name = "xyz"
+
+    def add_pass(tag, t, x, axis, inverse):
+        # the yardstick is one transform in the same direction: rfft, or
+        # irfft of x's spectrum (made on the first, untimed, call)
+        spec = []
+
+        def irfft(x=x, axis=axis):
+            if not spec:
+                spec.append(torch.fft.rfft(x, dim=axis))
+            return torch.fft.irfft(spec[0], n=t.N, dim=axis)
+
+        def rfft(x=x, axis=axis):
+            return torch.fft.rfft(x, dim=axis)
+
+        cases.append(Case(
+            f"fht_pass {'inv' if inverse else 'fwd'} {ax_name[axis]}{tag}",
+            "fht_pass", lambda: K.fht_pass(x, axis, t, inverse=inverse),
+            lambda: P.fht_pass_twin(x, axis, t, inverse), (x, t.table),
+            ops=fht_ops(t, False), library=irfft if inverse else rfft))
+
+    def add_modal(tag, t, x, axis, lam_axis, lam_rest, thr, norm):
+        # the yardstick is the round trip, as the pass is
+        def rfft_irfft(x=x, axis=axis):
+            return torch.fft.irfft(torch.fft.rfft(x, dim=axis), n=t.N,
+                                   dim=axis)
+
+        kw = dict(thr=thr, norm=norm)
+        cases.append(Case(
+            f"fht_modal {ax_name[axis]}{tag}", "fht_modal",
+            lambda: K.fht_modal(x, axis, t, lam_axis, lam_rest, **kw),
+            lambda: P.fht_modal_twin(x, axis, t, lam_axis, lam_rest, **kw),
+            (x, t.table, lam_axis, lam_rest), ops=fht_ops(t, True),
+            library=rfft_irfft))
+
+    if dtype == torch.float64:
+        splits = [(32 * n1, 32) for n1 in range(1, 9)]
+        splits += [(64, 64), (128, 128), (256, 256), (2048, 256)]
+        for N, n2 in splits:
+            t = P.PFHTAxis.make(N, dtype, n2=n2, device=device)
+            tag = f" N1={t.N1} N2={t.N2}"
+            for axis in range(3):
+                shape = [12, 20, 28]
+                shape[axis] = N
+                x = rnd(shape)
+                add_pass(tag, t, x, axis, False)
+                add_pass(tag, t, x, axis, True)
+                lam_axis = -rnd(N).abs()
+                lam_axis[0] = 0.0
+                lam_rest = -rnd([s for a, s in enumerate(shape)
+                                 if a != axis]).abs()
+                lam_rest.view(-1)[0] = 0.0
+                add_modal(tag, t, x, axis, lam_axis, lam_rest, 1e-9,
+                          0.37 / N)
+                if n2 != 32 and N <= 256:
+                    # (at N = 2048 the dense reference's own unreduced
+                    # angles, 2 pi k n / N up to ~1.3e4, cost ~1e-12)
+                    cases.append(Case(
+                        f"fht_pass fwd {ax_name[axis]}{tag} vs "
+                        "reference_forward", "fht_pass",
+                        lambda x=x, a=axis, t=t: K.fht_pass(x, a, t),
+                        lambda x=x, a=axis, t=t: P.reference_forward(x, a, t),
+                        (x, t.table)))
+                if n2 != 32:
+                    cases.append(Case(
+                        f"fht_pass round trip {ax_name[axis]}{tag} vs N x",
+                        "fht_pass",
+                        lambda x=x, a=axis, t=t: K.fht_pass(
+                            K.fht_pass(x, a, t), a, t, inverse=True) / t.N,
+                        lambda x=x: x, (x, t.table)))
+        return cases
+    n = 512
+    t = P.PFHTAxis.make(n, dtype, device=device)
+    x = rnd((n, n, n))
+    # the main path's order: forward x, y; inverse y, x; then z
+    for axis, inverse in ((0, False), (1, False), (1, True), (0, True),
+                          (2, False), (2, True)):
+        add_pass("", t, x, axis, inverse)
+    for tag, config in ((" tgv512", bench.tgv_config),
+                        (" channel512", bench.channel_config)):
+        cfg = config(n, poisson_transform="pallas_fft").finalize()
+        s = FDMPoissonSolver(Mesh.from_config(cfg), cfg, device=device)
+        # the solver's own modal axis (z) first, then its other Hartley axes
+        for axis in sorted(s.fht_axes, key=lambda a: a != s.fht_axes[-1]):
+            rest = [a for a in range(3) if a != axis]
+            lam_rest = (s._lam_vecs[rest[0]]
+                        + s._lam_vecs[rest[1]]).squeeze(axis).contiguous()
+            add_modal(tag, s.tr[axis].fht, x, axis, s._dev(s.tr[axis].lam),
+                      lam_rest, s._null_thr, s._norm)
+    return cases
+
+
 def own_star_div_error(got, geom, dtype):
     """(max|div - divergence kernel of the kernel's own star|, limit): the
     div output of a div kernel against the divergence kernel applied to
@@ -535,7 +684,8 @@ OUTPUTS = {"germano_pass1": ("|S|", "<L:M>", "<M:M>"),
            "divergence": ("div",), "nu_sgs": ("nu_t",),
            "transport": ("k", "omega", "nu_t"),
            "predictor_periodic_div": ("u*", "v*", "w*", "div"),
-           "predictor_channel_div": ("u*", "v*", "w*", "div")}
+           "predictor_channel_div": ("u*", "v*", "w*", "div"),
+           "fht_pass": ("X",), "fht_modal": ("p",)}
 
 
 def compare(name, got, ref, dtype):
@@ -561,6 +711,7 @@ def phase_kernels(device):
         if dtype == torch.float64:
             cases += _general_cases(device, seed=1)
         cases += _div_cases(n, dtype, device, seed=1)
+        cases += _fht_cases(dtype, device, seed=1)
         for case in cases:
             got = case.kern()
             torch.cuda.synchronize()
@@ -594,7 +745,10 @@ class MainPath(NamedTuple):
     extra config), whether it runs with CFDNN_FUSE_DIV=1, the (predictor,
     closure) of its kernel plan, the fused-divergence mode it must take,
     and each kernel's launches per step, which its run must meet exactly;
-    `n` is its main width (32 is the trajectories')."""
+    `n` is its main width (32 is the trajectories'). A `timed_only` path
+    is a yardstick that phase_timing times beside a kernel path: it runs
+    no kernel that another path does not run at another width, so it has
+    no main-path run and no trajectories."""
     name: str
     case: Callable
     kw: dict
@@ -603,6 +757,13 @@ class MainPath(NamedTuple):
     fuse: object
     launches: dict
     n: int = 128
+    # the trajectories' grid (config overrides of the 32-wide case), its
+    # launches per step where they differ, and the config of its "off" run
+    # on the card
+    traj: dict = None
+    traj_launches: dict = None
+    off_kw: dict = None
+    timed_only: bool = False
 
 
 def _paths():
@@ -616,6 +777,7 @@ def _paths():
     rans = ("channel", "transport")
     proj = {"divergence": 1, "correct": 1}
     ch_rans = dict(proj, predictor_channel=1, transport=1)
+    pfht = dict(poisson_transform="pallas_fft")
     return (
         MainPath("tgv", bench.tgv_case, {}, False, ("periodic", None), False,
                  dict(proj, predictor_periodic=1)),
@@ -657,7 +819,38 @@ def _paths():
         MainPath("les_ibm256", bench.les_ibm_case, {}, True,
                  ("channel", "nu_sgs"), False,
                  dict(proj, predictor_channel=1, nu_sgs=1), n=256),
+        # the 512^3 rows: cuFFT ("auto"), timed beside the Hartley kernels
+        # ("pallas_fft"), whose trajectories run Nx = 256 (N1 = 2) with a
+        # 64-wide z and a small y (the dense basis), checked on the card
+        # against the eager operators with cuFFT
+        MainPath("tgv512", bench.tgv_case, {}, False, ("periodic", None),
+                 False, dict(proj, predictor_periodic=1), n=512,
+                 timed_only=True),
+        MainPath("channel512", bench.channel_case, {}, False,
+                 ("channel", None), False, dict(proj, predictor_channel=1),
+                 n=512, timed_only=True),
+        MainPath("tgv512_pfht", bench.tgv_case, pfht, False,
+                 ("periodic", None), False,
+                 dict(proj, predictor_periodic=1, fht_pass=4, fht_modal=1),
+                 n=512, traj=dict(Nx=256, Ny=16, Nz=64),
+                 traj_launches=dict(proj, predictor_periodic=1, fht_pass=2,
+                                    fht_modal=1),
+                 off_kw=dict(poisson_transform="fft")),
+        MainPath("channel512_pfht", bench.channel_case, pfht, False,
+                 ("channel", None), False,
+                 dict(proj, predictor_channel=1, fht_pass=2, fht_modal=1),
+                 n=512, traj=dict(Nx=256, Ny=24, Nz=64),
+                 off_kw=dict(poisson_transform="fft")),
     )
+
+
+@contextlib.contextmanager
+def timed(what):
+    """Prints the wall seconds that `what` (a phase, or a path in one)
+    took, for the script's time budget."""
+    t0 = time.perf_counter()
+    yield
+    print(f"[time] {what}: {time.perf_counter() - t0:.1f} s")
 
 
 @contextlib.contextmanager
@@ -676,7 +869,7 @@ def build_case(path, n, **kw):
     """(Simulation, initial State) of a main path at width n, built with its
     opt-in."""
     with fuse_div_env(path.fuse_env):
-        return path.case(n, **path.kw, **kw)
+        return path.case(n, **{**path.kw, **kw})
 
 
 def _cells(sim):
@@ -800,8 +993,12 @@ def phase_main_path(device):
     per_step = {k.__name__: {} for k in K.KERNELS}
     out = {}
     for path in _paths():
+        if path.timed_only:
+            continue
         name, (predictor, closure) = path.name, path.plan
+        t0 = time.perf_counter()
         sim, st = build_case(path, path.n, device=device)
+        built = time.perf_counter() - t0
         check(sim.kernels.predictor == predictor and sim.kernels.projection
               and sim.kernels.closure == closure
               and sim._fuse_div == path.fuse,
@@ -832,7 +1029,8 @@ def phase_main_path(device):
         ke, div = float(d.ke), float(d.div_linf)
         check(math.isfinite(ke), f"{name}: KE {ke}")
         check(div <= 1e-3, f"{name}: div_linf {div} > 1e-3")
-        if name in ("tgv", "les_tgv", "tgv_re1600", "tgv_fused"):
+        if name in ("tgv", "les_tgv", "tgv_re1600", "tgv_fused",
+                    "tgv512_pfht"):
             check(ke < ke0, f"{name}: KE {ke} did not decay from {ke0}")
         extra = ""
         if closure:
@@ -874,8 +1072,9 @@ def phase_main_path(device):
             extra += (f", fx {fx:.6e}, fy {fy:.6e}, fz {float(d.fz):.6e}, "
                       f"max|u| inside the body {u_in:.3e} of {u_max:.3e}")
         grid = "x".join(str(a) for a in (sim.cfg.Nx, sim.cfg.Ny, sim.cfg.Nz))
-        print(f"[main] {name} {grid} float32 {MAIN_STEPS} steps in "
-              f"{wall:.2f} s: launches {counts}, KE {ke0:.6e} -> {ke:.6e}, "
+        print(f"[main] {name} {grid} float32 (built in {built:.2f} s) "
+              f"{MAIN_STEPS} steps in {wall:.2f} s: launches {counts}, "
+              f"KE {ke0:.6e} -> {ke:.6e}, "
               f"div_linf {div:.3e}{extra}, t {float(st.t):.6f}, "
               f"dt {float(d.dt):.6e}")
         if sim.cfg.adaptive_dt:
@@ -893,7 +1092,9 @@ def phase_trajectories(device):
     from cfdnn_tpu_torch import State, state_to_numpy
     from cfdnn_tpu_torch.ops import kernels as K
     for path in _paths():
-        kw = {}
+        if path.timed_only:
+            continue
+        kw = path.traj or {}
         if (path.case.__name__ in ("les_channel_case", "rans_channel_case")
                 or path.name == "channel_fused"):
             kw = dict(Ny=24)
@@ -902,14 +1103,15 @@ def phase_trajectories(device):
         check(sim_k.kernels.predictor is not None
               and sim_k._fuse_div == path.fuse,
               f"{path.name}: plan {sim_k.kernels}, {sim_k._fuse_div}")
-        per_step = sum(path.launches.values())
+        per_step = sum((path.traj_launches or path.launches).values())
         finals = {}
         for label, dev, mode in (("kernels", device, "auto"),
                                  ("off", device, "off"),
                                  ("cpu", "cpu", "off")):
+            extra = (path.off_kw or {}) if label == "off" else {}
             sim = sim_k if label == "kernels" else build_case(
                 path, 32, device=dev, dtype="float64", use_pallas=mode,
-                **kw)[0]
+                **kw, **extra)[0]
             st = State(**{k: (None if v is None else v.to(dev))
                           for k, v in vars(st0).items()})
             K.reset_launch_counts()
@@ -949,26 +1151,31 @@ def _event_ms(fn, reps=50):
 
 
 def _device_ms(fn, reps=20):
-    """Device milliseconds per call: the kernels' own time, summed over
-    every kernel the call launches, from torch.profiler (bench.profiled)."""
+    """Device milliseconds per call: the kernels' own time, from
+    torch.profiler (bench.profiled), summed over every kernel the call
+    launches as its mean time a launch times its launches a call (its
+    records over reps, rounded): the profiler can drop a record, which
+    read a 4 ms kernel 20% short over 5 reps."""
     from cfdnn_tpu_torch.bench import profiled
     fn()
     torch.cuda.synchronize()
     events, reps, _ = profiled(lambda n: [fn() for _ in range(n)], reps)
-    return sum(e.self_device_time_total for e in events) / reps / 1e3
+    return sum(e.self_device_time_total / e.count * round(e.count / reps)
+               for e in events) / 1e3
 
 
-def _bound(label, name, inputs, outputs):
+def _bound(case, outputs):
     """(ms, "bytes" | "operations"): the least time the card could take
     for the call, the larger of its bytes (each input read once, each
-    output written once) over the HBM rate and its operations
-    (OPS_PER_CELL of the case's label, else of the kernel, times the cells
-    of its first output) over the float32 peak."""
+    output written once) over the HBM rate and its operations (the case's
+    own `ops`, else OPS_PER_CELL of its label, else of the kernel, times
+    the cells of its first output) over the float32 peak."""
     outs = _as_tuple(outputs)
     nbytes = sum(t.numel() * t.element_size()
-                 for t in (*inputs, *outs))
+                 for t in (*case.inputs, *outs))
     by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    ops = OPS_PER_CELL.get(label, OPS_PER_CELL[name])
+    ops = (case.ops if case.ops is not None
+           else OPS_PER_CELL.get(case.label, OPS_PER_CELL[case.name]))
     by_ops = ops * outs[0].numel() / F32_OPS_PER_S * 1e3
     return ((by_bytes, "bytes") if by_bytes >= by_ops
             else (by_ops, "operations"))
@@ -976,13 +1183,17 @@ def _bound(label, name, inputs, outputs):
 
 # marginal-step timing windows: the reference's bench.py rows over 1000
 # steps, its LES rows (and the port's RANS and Re 1600 rows) over 400, its
-# LES + IBM row over 150 (bench.py:110)
-TIMED_STEPS = {"tgv": 1000, "channel": 1000, "les_ibm256": 150}
+# LES + IBM row over 150 (bench.py:110), its 512^3 rows over 100
+# (bench.py:185-186)
+TIMED_STEPS = {"tgv": 1000, "channel": 1000, "les_ibm256": 150,
+               "tgv512": 100, "channel512": 100, "tgv512_pfht": 100,
+               "channel512_pfht": 100}
 
 
 def _time_path(path, sim, st, rows):
     """ms/step, Mcells/s (and the div) of a path into `rows`, and its
-    torch.profiler breakdown printed; returns (ms/step, device ms/step)."""
+    torch.profiler breakdown printed; returns (ms/step, device ms/step,
+    div_linf after the first timed run)."""
     from cfdnn_tpu_torch import bench
     name = path.name
     s, d = bench.time_steps(sim, st, steps=TIMED_STEPS.get(
@@ -1000,34 +1211,78 @@ def _time_path(path, sim, st, rows):
           f"{prof['steps']} steps)")
     for kname, ms, count in prof["kernels"][:12]:
         print(f"[profile]   {ms:9.5f} ms/step  x{count:g}  {kname[:110]}")
-    return s * 1e3, busy
+    return s * 1e3, busy, float(d.div_linf)
 
 
 def phase_timing(device):
     """Each unfused main path's marginal ms/step with its profile (the
     fused paths are timed by phase_ab), then each kernel against its twin
     at the main-path shapes."""
-    rows = {}
+    rows, divs = {}, {}
     for path in _paths():
         if not path.name.endswith("_fused"):
-            _time_path(path, *build_case(path, path.n, device=device), rows)
+            with timed(f"timing {path.name}"):
+                divs[path.name] = _time_path(
+                    path, *build_case(path, path.n, device=device), rows)[2]
+    for name in ("tgv512", "channel512"):
+        steps = TIMED_STEPS[name]
+        print(f"[timing] {name}_pfht div_linf after {steps} steps "
+              f"{divs[name + '_pfht']:.3e} (cuFFT {name}: "
+              f"{divs[name]:.3e})")
     rows["device"] = torch.cuda.get_device_name(0)
     print(json.dumps(rows))
     times = {}
     with torch.no_grad():
         for case in (_cases(128, torch.float32, device, seed=2)
-                     + _div_cases(128, torch.float32, device, seed=2)):
+                     + _div_cases(128, torch.float32, device, seed=2)
+                     + _fht_cases(torch.float32, device, seed=2)):
             if case.label in times:   # timed on the first (main-path) grid
                 continue
+            # the 512^3 Hartley calls take milliseconds: fewer reps
+            reps, dreps = (10, 5) if case.library else (50, 20)
+            lib = _event_ms(case.library, reps) if case.library else None
             t = times[case.label] = (
-                case.name, _event_ms(case.kern), _event_ms(case.twin),
-                _device_ms(case.kern), _device_ms(case.twin),
-                _bound(case.label, case.name, case.inputs, case.twin()))
+                case.name, _event_ms(case.kern, reps),
+                _event_ms(case.twin, reps), _device_ms(case.kern, dreps),
+                _device_ms(case.twin, dreps), _bound(case, case.twin()), lib)
             print(f"[timing] {case.label} float32: per call kernel "
                   f"{t[1]:.4f} ms, twin {t[2]:.4f} ms; device kernel "
                   f"{t[3]:.4f} ms, twin {t[4]:.4f} ms; bound {t[5][0]:.4f} "
-                  f"ms ({t[5][1]})")
+                  f"ms ({t[5][1]})"
+                  + ("" if lib is None else
+                     f"; torch.fft.{case.library.__name__} {lib:.4f} ms"))
     return rows, times
+
+
+def phase_solve(device):
+    """The 512^3 Poisson solve alone, "fft" (cuFFT) against "pallas_fft"
+    (the Hartley kernels), with the tgv512 and channel512 solvers: ms per
+    call by CUDA events on one random rhs, and each solve's relative
+    residual (solve_with_stats)."""
+    from cfdnn_tpu_torch import bench
+    from cfdnn_tpu_torch.mesh import Mesh
+    from cfdnn_tpu_torch.poisson.fdm import FDMPoissonSolver
+    gen = torch.Generator(device=device).manual_seed(3)
+    rhs = torch.randn((512, 512, 512), generator=gen, dtype=torch.float32,
+                      device=device)
+    rows = {}
+    with torch.no_grad():
+        for tag, config in (("tgv512", bench.tgv_config),
+                            ("channel512", bench.channel_config)):
+            for transform in ("fft", "pallas_fft"):
+                cfg = config(512, poisson_transform=transform).finalize()
+                s = FDMPoissonSolver(Mesh.from_config(cfg), cfg,
+                                     device=device)
+                ms = _event_ms(lambda: s.solve(rhs), reps=10)
+                res = s.solve_with_stats(rhs)[1].rel_residual
+                check(math.isfinite(res) and res < 1e-3,
+                      f"{tag} {transform}: residual {res}")
+                rows[f"{tag}_solve_{transform}_ms"] = ms
+                rows[f"{tag}_solve_{transform}_rel_residual"] = res
+                print(f"[solve] {tag} {s.name} float32: {ms:.4f} ms per "
+                      f"call, rel residual {res:.3e}")
+    print(json.dumps(rows))
+    return rows
 
 
 def phase_ab(device):
@@ -1039,8 +1294,8 @@ def phase_ab(device):
     for base in ("tgv", "channel", "les_channel"):
         for turn, fused in enumerate((False, True, True, False)):
             path = paths[base + "_fused" if fused else base]
-            ms, busy = _time_path(path, *build_case(path, path.n,
-                                                     device=device), {})
+            ms, busy, _ = _time_path(
+                path, *build_case(path, path.n, device=device), {})
             print(f"[ab] {base} turn {turn + 1} "
                   f"{'fused' if fused else 'unfused'}: {ms:.4f} ms/step, "
                   f"device {busy:.4f} ms/step")
@@ -1060,7 +1315,8 @@ def kernel_entries(errs, launches, per_step, times):
         name = k.__name__
         variants = {label: dict(zip(("ms", "plain_ms", "device_ms",
                                      "plain_device_ms", "bound_ms",
-                                     "bound_by"), t[1:5] + t[5]))
+                                     "bound_by", "library_ms"),
+                                    t[1:5] + t[5] + t[6:]))
                     for label, t in times.items() if t[0] == name}
         main_case = next(iter(variants.values()))
         entries.append({
@@ -1073,7 +1329,10 @@ def kernel_entries(errs, launches, per_step, times):
             "max_abs_err": errs[name][1],
             "max_abs_err_f64": errs[name][0],
             # no single PyTorch call computes any of these stencils
-            **main_case, "library_ms": None, "variants": variants,
+            # (library_ms None); the Hartley kernels' yardstick is torch.fft
+            # along the same axis of the same tensor: fht_pass's one rfft
+            # (forward) or irfft (inverse), fht_modal's rfft + irfft
+            **main_case, "variants": variants,
         })
     return entries
 
@@ -1089,15 +1348,23 @@ def main():
     device = torch.device("cuda", 0)
     card = card_line()
     print(card)
-    phase_build()
-    errs = phase_kernels(device)
-    launches, divs, per_step = phase_main_path(device)
-    phase_trajectories(device)
-    rows, times = phase_timing(device)
-    phase_ab(device)
+    with timed("build"):
+        phase_build()
+    with timed("kernels"):
+        errs = phase_kernels(device)
+    with timed("main paths"):
+        launches, divs, per_step = phase_main_path(device)
+    with timed("trajectories"):
+        phase_trajectories(device)
+    with timed("timing"):
+        rows, times = phase_timing(device)
+    with timed("solve"):
+        phase_solve(device)
+    with timed("ab"):
+        phase_ab(device)
     entries = kernel_entries(errs, launches, per_step, times)
     for name, div in divs.items():
-        print(f"[main] {name}_div_linf (200 steps) = {div:.3e}")
+        print(f"[main] {name}_div_linf ({MAIN_STEPS} steps) = {div:.3e}")
     print(json.dumps({"kernels": entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {

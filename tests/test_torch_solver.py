@@ -141,8 +141,8 @@ def test_kahan_time_float32():
     (dict(bc_y="outflow"), "A.8"),
     (dict(mesh_shape=(4,)), "A.17"),
     (dict(poisson_solver="mg"), "A.13"),
-    (dict(poisson_transform="fht"), "A.13"),
-    (dict(poisson_transform="pallas_fft"), "B.11"),
+    (dict(poisson_transform="fht", stretch_z=True), "A.13"),
+    (dict(poisson_transform="pallas_fft", poisson_solver="mg"), "A.13"),
     (dict(stretch_z=True), "A.13"),
     (dict(turb_model="sst", implicit_y_diffusion=True), "A.8"),
     (dict(turb_model="nn_tbnn"), "A.12"),
@@ -248,7 +248,9 @@ def test_import_loads_no_jax():
             "cfdnn_tpu_torch.turbulence.features, "
             "cfdnn_tpu_torch.turbulence.registry, cfdnn_tpu_torch.ibm, "
             "cfdnn_tpu_torch.ibm.geometry, cfdnn_tpu_torch.ibm.forcing, "
-            "cfdnn_tpu_torch.sass_compare; "
+            "cfdnn_tpu_torch.sass_compare, "
+            "cfdnn_tpu_torch.poisson.pallas_fht, "
+            "cfdnn_tpu_torch.poisson.fht; "
             "assert not any(m == 'jax' or m.startswith('jax.') "
             "or m == 'cfdnn_tpu' or m.startswith('cfdnn_tpu.') "
             "for m in sys.modules), 'jax or cfdnn_tpu imported'")
