@@ -21,7 +21,12 @@ bench.py's production width, 512^3 (bench.py:185-186, over 100 steps):
 (cuFFT on the card, as the reference resolves it off a TPU), and
 `tgv512_pfht` and `channel512_pfht`, the same with
 poisson_transform="pallas_fft", the reference's large-grid transform on
-a TPU: the hand-written Hartley kernels. It prints one JSON line with
+a TPU: the hand-written Hartley kernels. One row at 640^3, `les_tgv640`
+(les_tgv's configuration, dt 1e-4 as bench_tgv takes it above 128, over
+100 steps as the 512^3 rows): the smallest cube whose y-z plane the
+reference's TPU slab cannot hold (solver.slab_fits) and whose z tiles
+(solver.xz_tileable), so it runs the (x, z)-tiled kernels, as the
+reference's "xz" plan does. It prints one JSON line with
 bench.py's headline keys: ms/step and Mcells/s of each grid, the
 wall-bounded grids' float32 post-projection divergence, and the card.
 Every row runs unfused (CFDNN_FUSE_DIV unset), as the reference's
@@ -421,6 +426,8 @@ def main():
         rows_512[f"{key}_mcells_per_s"] = 512 ** 3 / s / 1e6
         if key.startswith("channel"):
             rows_512[f"{key}_div_linf_f32"] = float(d.div_linf)
+    # 640^3, the "xz" plan, over 100/20 steps as the 512^3 rows
+    s_640, _ = time_steps(*les_tgv_case(640), steps=100)
     cells = 128 ** 3
     ibm_cells = 256 * 128 * 256
     les_cells = 128 * 64 * 128
@@ -448,6 +455,8 @@ def main():
         "les_ibm256_mcells_per_s": ibm_cells / s_ibm / 1e6,
         "les_ibm256_div_linf_f32": float(d_ibm.div_linf),
         **rows_512,
+        "les_tgv640_ms_per_step": s_640 * 1e3,
+        "les_tgv640_mcells_per_s": 640 ** 3 / s_640 / 1e6,
         "device": torch.cuda.get_device_name(0),
     }), flush=True)
 

@@ -10,36 +10,28 @@
 // two boundary faces exactly zero. The plain PyTorch twin is
 // ops.operators.correct_velocity.
 //
-// Per axis a mode: 0 = one cell, the component is copied unchanged (as
-// the operator leaves it), 1 = periodic (N faces), 2 = bounded (N+1).
+// The gradient is projection.cuh face_grad, which correct_xz (xz.cu)
+// shares, with the axis modes described there.
 //
 // Bound on the H100: device-memory bandwidth (four fields in, three out,
 // 3 flops a face). Design: one launch covers the three components as one
 // flat index range [u | v | w], one thread per face, z fastest within a
 // warp; dt is read from device memory so that the launch needs no host
 // value.
-#include "common.cuh"
+#include "projection.cuh"
 
 namespace {
 
+// The pressure in device memory (projection.cuh's reader).
 template <typename T>
-__device__ __forceinline__ T face_grad(const T* __restrict__ p,
-                                       const T* __restrict__ inv_dc,
-                                       int i, int j, int k, int axis, int mode,
-                                       int nx, int ny, int nz) {
-    const int n = axis == 0 ? nx : (axis == 1 ? ny : nz);
-    const int f = axis == 0 ? i : (axis == 1 ? j : k);
-    int lo;
-    if (mode == 1) {
-        lo = cfdnn::wrap_m(f, n);
-    } else {
-        if (f == 0 || f == n) return T(0) * inv_dc[f];
-        lo = f - 1;
+struct Cells {
+    const T* __restrict__ p;
+    int ny, nz;
+
+    __device__ __forceinline__ T operator()(int i, int j, int k) const {
+        return p[cfdnn::at3(i, j, k, ny, nz)];
     }
-    int il = i, jl = j, kl = k;
-    if (axis == 0) il = lo; else if (axis == 1) jl = lo; else kl = lo;
-    return (p[cfdnn::at3(i, j, k, ny, nz)] - p[cfdnn::at3(il, jl, kl, ny, nz)]) * inv_dc[f];
-}
+};
 
 template <typename T>
 __global__ void correct_kernel(
@@ -79,7 +71,8 @@ __global__ void correct_kernel(
     const long long r = idx / s2;
     const int j = static_cast<int>(r % s1);
     const int i = static_cast<int>(r / s1);
-    const T g = face_grad(p, inv_dc, i, j, k, axis, mode, nx, ny, nz);
+    const T g = cfdnn::face_grad(Cells<T>{p, ny, nz}, inv_dc, i, j, k, axis, mode,
+                                 nx, ny, nz);
     o[idx] = f[idx] - *dt_ptr * g;
 }
 

@@ -4,22 +4,34 @@
 // _divergence_kernel, which runs ops.operators.divergence on an x-slab).
 // For cell (i, j, k):
 //     div = sum over axes a of (face_hi - face_lo) * inv_d_a
-// with the reference's order of summation (x, then y, then z). The plain
-// PyTorch twin is ops.operators.divergence.
-//
-// Per axis a mode: 0 = the axis has one cell and is skipped (as the
-// operator skips it), 1 = periodic (N stored faces, face N wraps to 0),
-// 2 = bounded (N+1 stored faces, boundary faces in the array).
+// with the reference's order of summation (x, then y, then z): projection.cuh
+// div_cell, which divergence_xz (xz.cu) shares, with the axis modes
+// described there. The plain PyTorch twin is ops.operators.divergence.
 //
 // Bound on the H100: device-memory bandwidth (three fields in, one out,
 // 6 flops a cell). Design: one thread per cell, z fastest within a warp;
 // the +1 neighbours along x and y are the same warp's rows a plane or a
 // row further, served by L1/L2.
-#include "common.cuh"
+#include "projection.cuh"
 
 namespace {
 
-using cfdnn::wrap_p;
+// The faces in device memory (projection.cuh's reader), with the y and z
+// modes that set v's and w's stored extents.
+template <typename T>
+struct Faces {
+    const T* __restrict__ u;
+    const T* __restrict__ v;
+    const T* __restrict__ w;
+    int ny, nz, my, mz;
+
+    template <int C>
+    __device__ __forceinline__ T at(int i, int j, int k) const {
+        if constexpr (C == 0) return u[cfdnn::at3(i, j, k, ny, nz)];
+        else if constexpr (C == 1) return v[cfdnn::at3(i, j, k, my == 1 ? ny : ny + 1, nz)];
+        else return w[cfdnn::at3(i, j, k, ny, mz == 1 ? nz : nz + 1)];
+    }
+};
 
 template <typename T>
 __global__ void divergence_kernel(
@@ -33,28 +45,9 @@ __global__ void divergence_kernel(
     const long long r = idx / nz;
     const int j = static_cast<int>(r % ny);
     const int i = static_cast<int>(r / ny);
-    T acc = T(0);
-    bool have = false;
-    if (mx) {
-        const int hi = mx == 1 ? wrap_p(i, nx) : i + 1;
-        const T t = (u[cfdnn::at3(hi, j, k, ny, nz)] - u[cfdnn::at3(i, j, k, ny, nz)]) * inv_dx[i];
-        acc = t;
-        have = true;
-    }
-    if (my) {
-        const int nfy = my == 1 ? ny : ny + 1;
-        const int hi = my == 1 ? wrap_p(j, ny) : j + 1;
-        const T t = (v[cfdnn::at3(i, hi, k, nfy, nz)] - v[cfdnn::at3(i, j, k, nfy, nz)]) * inv_dy[j];
-        acc = have ? acc + t : t;
-        have = true;
-    }
-    if (mz) {
-        const int nfz = mz == 1 ? nz : nz + 1;
-        const int hi = mz == 1 ? wrap_p(k, nz) : k + 1;
-        const T t = (w[cfdnn::at3(i, j, hi, ny, nfz)] - w[cfdnn::at3(i, j, k, ny, nfz)]) * inv_dz[k];
-        acc = have ? acc + t : t;
-    }
-    out[idx] = acc;
+    const Faces<T> faces{u, v, w, ny, nz, my, mz};
+    out[idx] = cfdnn::div_cell(faces, inv_dx, inv_dy, inv_dz, i, j, k, nx, ny, nz,
+                               mx, my, mz);
 }
 
 template <typename T>

@@ -1,15 +1,14 @@
 // nu_sgs: the cell eddy viscosity of an algebraic LES closure from the
 // nine-component velocity gradient, in one pass over u, v and w.
+// (nu_sgs_xz, xz.cu, is the same function on an (x, z) tile.)
 //
 // Replaces cfdnn_tpu/ops/pallas_kernels.py fused_nu_sgs (body
 // _nu_sgs_kernel, which runs the closure's model_fn, turbulence/les.py, on
 // an x-slab). The plain PyTorch twin is ops/kernels.py nu_sgs_twin:
 // turbulence/base.py strain_rotation and filter_width, then the closure's
-// algebra in turbulence/les.py. The closure is a compile-time parameter:
-//   0 Smagorinsky  (Cs Delta)^2 |S|
-//   1 WALE         (Cw Delta)^2 (Sd:Sd)^(3/2) / ((S:S)^(5/2) + (Sd:Sd)^(5/4) + 1e-30)
-//   2 Vreman       Cv sqrt(max(B_beta, 0) / max(a:a, 1e-30))
-// with its constant `coeff` and the filter width Delta of the cell's
+// algebra in turbulence/les.py. The closure is a compile-time parameter
+// (les.cuh nu_closure: 0 Smagorinsky, 1 WALE, 2 Vreman) with its constant
+// `coeff` and the filter width Delta of the cell's
 // (y, z) column ((hx dy_j dz_k)^(1/3), filter_width). Sigma is not here:
 // the reference runs it plain too (les.py SigmaModel).
 //
@@ -38,56 +37,10 @@ __global__ void nu_sgs_kernel(LesGrid<T> g, const T* __restrict__ delta,
     const long long r = idx / g.nz;
     const int j = static_cast<int>(r % g.ny);
     const int i = static_cast<int>(r / g.ny);
-    T G[3][3], S[3][3];
+    T G[3][3];
     g.gradient(i, j, k, G);
-    const T smag = cfdnn::strain(G, S);
-    const T dl = delta[static_cast<long long>(j) * g.nz + k];
-    const T cd = coeff * dl;
-    T nu;
-    if (CLOSURE == 0) {
-        nu = cd * cd * smag;
-    } else if (CLOSURE == 1) {
-        // Sd = sym(g.g) - tr(g.g)/3 I
-        T g2[3][3];
-#pragma unroll
-        for (int a = 0; a < 3; ++a)
-#pragma unroll
-            for (int b = 0; b < 3; ++b)
-                g2[a][b] = G[a][0] * G[0][b] + G[a][1] * G[1][b] + G[a][2] * G[2][b];
-        const T tr = g2[0][0] + g2[1][1] + g2[2][2];
-        T sdsd = T(0);
-#pragma unroll
-        for (int a = 0; a < 3; ++a)
-#pragma unroll
-            for (int b = 0; b < 3; ++b) {
-                T sd = T(0.5) * (g2[a][b] + g2[b][a]);
-                if (a == b) sd = sd - tr / T(3);
-                sdsd = sdsd + sd * sd;
-            }
-        const T ss = T(0.5) * (smag * smag);
-        const T denom = pow(ss, T(2.5)) + pow(sdsd, T(1.25)) + T(1e-30);
-        nu = cd * cd * pow(sdsd, T(1.5)) / denom;
-    } else {
-        // a_ab = G[b][a]; beta = Delta^2 a^T a
-        T aa = T(0);
-#pragma unroll
-        for (int a = 0; a < 3; ++a)
-#pragma unroll
-            for (int b = 0; b < 3; ++b) aa = aa + G[b][a] * G[b][a];
-        const T d2 = dl * dl;
-        T bb[3][3];
-#pragma unroll
-        for (int a = 0; a < 3; ++a)
-#pragma unroll
-            for (int b = 0; b < 3; ++b)
-                bb[a][b] = d2 * (G[a][0] * G[b][0] + G[a][1] * G[b][1] + G[a][2] * G[b][2]);
-        T B = bb[0][0] * bb[1][1] - bb[0][1] * bb[0][1]
-            + bb[0][0] * bb[2][2] - bb[0][2] * bb[0][2]
-            + bb[1][1] * bb[2][2] - bb[1][2] * bb[1][2];
-        B = B > T(0) ? B : T(0);
-        nu = coeff * sqrt(B / (aa > T(1e-30) ? aa : T(1e-30)));
-    }
-    out[idx] = nu;
+    out[idx] = cfdnn::nu_closure<T, CLOSURE>(
+        G, delta + (static_cast<long long>(j) * g.nz + k), coeff);
 }
 
 template <typename T, int CLOSURE>

@@ -1,0 +1,12 @@
+// predictor_general_xz, double: the kernel is predictor_general_xz.cuh's.
+#include "predictor_general_xz.cuh"
+
+extern "C" int cfdnn_predictor_general_xz_f64(
+        const void* u, const void* v, const void* w, const void* dt,
+        const void* nut, void* su, void* sv, void* sw,
+        const void* const* metrics, const double* tang, int nx, int ny,
+        int nz, int wall_y, int wall_z, double nu, double fx, int skew,
+        void* stream) {
+    return launch<double>(u, v, w, dt, nut, su, sv, sw, metrics, tang, nx, ny,
+                          nz, wall_y, wall_z, nu, fx, skew, stream);
+}

@@ -1,7 +1,7 @@
 """The port's hand-written Hopper kernels, their plain twins and launch counts
 (counterpart of `cfdnn_tpu/ops/pallas_kernels.py`).
 
-Twelve CUDA C++ kernels, in `cfdnn_tpu_torch/csrc/`, carry the main-path
+Sixteen CUDA C++ kernels, in `cfdnn_tpu_torch/csrc/`, carry the main-path
 steps of the benchmark grids:
 
   predictor_periodic  <- pallas_kernels.fused_predictor (all-periodic TGV)
@@ -34,12 +34,23 @@ steps of the benchmark grids:
   fht_modal           <- poisson/pallas_fht.fht_pallas_modal (forward,
                          the Poisson symbol's inverse, inverse, along the
                          last Hartley axis in one pass)
+  predictor_general_xz, nu_sgs_xz, divergence_xz, correct_xz
+                      <- pallas_kernels.fused_predictor_general_xz,
+                         fused_nu_sgs_xz, fused_divergence_xz,
+                         fused_correct_xz: the functions of
+                         predictor_general, nu_sgs, divergence and correct
+                         on an (x, z) tile staged in shared memory and
+                         walked along y (csrc/xz_tile.cuh), the kernels of
+                         the reference's "xz" plan
 
 Each source file's head says what bounds the kernel on the H100 and what
 its design does about it. Each kernel computes what its TPU kernel
 computes, not the TPU kernel's x-slab structure: one thread per output
 point, z fastest within a warp, periodic wrap by index arithmetic, float
-and double instantiations.
+and double instantiations. The xz kernels share their slab kernels' term
+code through a reader type (csrc/predictor_terms.cuh, les.cuh,
+projection.cuh): the slab kernels read device memory, the xz kernels a
+shared-memory tile.
 
 Beside each kernel stand:
   - its plain PyTorch twin (`*_twin`), the eager form of the same math.
@@ -145,7 +156,10 @@ def build_library() -> Tuple[Path, float]:
         log, failed = [], []
         for src, _, proc in procs:
             out = proc.communicate()[0].decode(errors="replace")
-            log.append(f"== {src.name}\n{out}")
+            # (the sources compile together: a file's seconds are those
+            # until it and the files waited on before it were done)
+            log.append(f"== {src.name} (done {time.perf_counter() - t0:.1f} "
+                       f"s)\n{out}")
             if proc.returncode:
                 failed.append(src.name)
         (out_dir / "build.log").write_text("\n".join(log))
@@ -179,6 +193,9 @@ _SIGNATURES = {
     "fht_pass": [_P] * 3 + [_I] * 2 + [_L] * 2 + [_I, _P],
     "fht_modal": [_P] * 5 + [_I] * 2 + [_L] * 2 + [_D] * 2 + [_P],
 }
+# the xz kernels take their slab kernels' C interfaces
+for _name in ("predictor_general", "nu_sgs", "divergence", "correct"):
+    _SIGNATURES[_name + "_xz"] = _SIGNATURES[_name]
 _lib: Optional[ctypes.CDLL] = None
 
 
@@ -862,7 +879,9 @@ def _predictor_general_launch(u, v, w, dt, nu_t=None, *, gs, geom, nu, fx,
                                    nu=nu, fx=fx, scheme=scheme)
 
 
-def _predictor_general_cuda(u, v, w, dt, nu_t, *, gs, geom, nu, fx, scheme):
+def _general_call(name, u, v, w, dt, nu_t, gs, geom, nu, fx, scheme):
+    """Launch `name` (predictor_general or predictor_general_xz: one C
+    interface) and return its three stars."""
     skew = _scheme_is_skew(scheme)
     su, sv, sw = (torch.empty_like(a) for a in (u, v, w))
     x, y, z = geom.axes
@@ -871,7 +890,7 @@ def _predictor_general_cuda(u, v, w, dt, nu_t, *, gs, geom, nu, fx, scheme):
     metrics = (ctypes.c_void_p * 15)(*(t.data_ptr() for t in gs))
     tang = (ctypes.c_double * 12)(*(float(t) for ax in (y, z)
                                     for pair in ax.tang for t in pair))
-    _launch("predictor_general", u,
+    _launch(name, u,
             *(t.data_ptr() for t in (u, v, w, dt)),
             None if nu_t is None else nu_t.data_ptr(),
             *(t.data_ptr() for t in (su, sv, sw)),
@@ -879,8 +898,14 @@ def _predictor_general_cuda(u, v, w, dt, nu_t, *, gs, geom, nu, fx, scheme):
             ctypes.cast(tang, ctypes.c_void_p),
             x.n, y.n, z.n, int(y.bc == BCType.WALL), int(z.bc == BCType.WALL),
             float(nu), float(fx), int(skew))
-    predictor_general.launches += 1
     return su, sv, sw
+
+
+def _predictor_general_cuda(u, v, w, dt, nu_t, *, gs, geom, nu, fx, scheme):
+    out = _general_call("predictor_general", u, v, w, dt, nu_t, gs, geom, nu,
+                        fx, scheme)
+    predictor_general.launches += 1
+    return out
 
 
 def predictor_general(u, v, w, dt, gs, *, geom: Geometry, nu, fx, scheme,
@@ -999,13 +1024,19 @@ def _divergence_launch(u, v, w, *, geom):
     return _divergence_cuda(u, v, w, geom=geom)
 
 
-def _divergence_cuda(u, v, w, *, geom):
+def _divergence_call(name, u, v, w, geom):
+    """Launch `name` (divergence or divergence_xz: one C interface)."""
     x, y, z = geom.axes
     out = torch.empty((x.n, y.n, z.n), dtype=u.dtype, device=u.device)
-    _launch("divergence", u,
+    _launch(name, u,
             *(t.data_ptr() for t in (u, v, w, x.inv_d, y.inv_d, z.inv_d,
                                      out)), x.n, y.n, z.n,
             *(_axis_mode(ax) for ax in geom.axes))
+    return out
+
+
+def _divergence_cuda(u, v, w, *, geom):
+    out = _divergence_call("divergence", u, v, w, geom)
     divergence.launches += 1
     return out
 
@@ -1032,15 +1063,21 @@ def _correct_launch(u, v, w, p, dt, *, geom):
     return _correct_cuda(u, v, w, p, dt, geom=geom)
 
 
-def _correct_cuda(u, v, w, p, dt, *, geom):
+def _correct_call(name, u, v, w, p, dt, geom):
+    """Launch `name` (correct or correct_xz: one C interface)."""
     ou, ov, ow = (torch.empty_like(a) for a in (u, v, w))
     x, y, z = geom.axes
-    _launch("correct", u,
+    _launch(name, u,
             *(t.data_ptr() for t in (u, v, w, p, dt, x.inv_dc, y.inv_dc,
                                      z.inv_dc, ou, ov, ow)), x.n, y.n, z.n,
             *(_axis_mode(ax) for ax in geom.axes))
-    correct.launches += 1
     return ou, ov, ow
+
+
+def _correct_cuda(u, v, w, p, dt, *, geom):
+    out = _correct_call("correct", u, v, w, p, dt, geom)
+    correct.launches += 1
+    return out
 
 
 def correct(u, v, w, p, dt, *, geom: Geometry):
@@ -1149,12 +1186,18 @@ def _nu_sgs_launch(u, v, w, *gs, geom, closure, coeff):
                         coeff=coeff)
 
 
-def _nu_sgs_cuda(u, v, w, *gs, geom, closure, coeff):
+def _nu_sgs_call(name, u, v, w, gs, geom, closure, coeff):
+    """Launch `name` (nu_sgs or nu_sgs_xz: one C interface)."""
     x, y, z = geom.axes
     out = torch.empty((x.n, y.n, z.n), dtype=u.dtype, device=u.device)
-    _launch("nu_sgs", u, *(t.data_ptr() for t in (u, v, w, *gs, out)),
+    _launch(name, u, *(t.data_ptr() for t in (u, v, w, *gs, out)),
             x.n, y.n, z.n, int(y.bc == BCType.WALL), int(z.bc == BCType.WALL),
             _closure_id(closure), float(coeff))
+    return out
+
+
+def _nu_sgs_cuda(u, v, w, *gs, geom, closure, coeff):
+    out = _nu_sgs_call("nu_sgs", u, v, w, gs, geom, closure, coeff)
     nu_sgs.launches += 1
     return out
 
@@ -1219,6 +1262,142 @@ def germano_pass1(u, v, w, gs, *, geom: Geometry):
 
 
 germano_pass1.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# predictor_general_xz  <-  pallas_kernels.fused_predictor_general_xz
+# nu_sgs_xz             <-  pallas_kernels.fused_nu_sgs_xz
+# divergence_xz         <-  pallas_kernels.fused_divergence_xz
+# correct_xz            <-  pallas_kernels.fused_correct_xz
+# ---------------------------------------------------------------------------
+#
+# The functions of predictor_general, nu_sgs, divergence and correct on an
+# (x, z) tile walked along y (csrc/xz_tile.cuh), for the grids whose y-z
+# planes the reference's TPU slab cannot hold (its "xz" plan; the
+# Simulation's plan routes them as the reference does, solver.py). Their
+# twins are the slab kernels' twins, the same functions. Each shares its
+# slab kernel's C interface and argument builder (`_general_call`,
+# `_nu_sgs_call`, `_divergence_call`, `_correct_call`).
+
+
+def xz_eligible(geom: Geometry) -> bool:
+    """Gate of the xz kernels: the general predictor's grid with a
+    periodic z (periodic uniform x with x.n >= 8 and z, y periodic
+    uniform or no-slip walls at any stretching, O2)."""
+    return _general_geom_ok(geom) and geom.axes[2].periodic
+
+
+def nu_sgs_xz_eligible(geom: Geometry) -> bool:
+    """Gate of nu_sgs_xz: the xz gate with stationary walls (the LES
+    kernels' wall ghosts hardcode stationary no-slip)."""
+    return xz_eligible(geom) and nu_sgs_eligible(geom)
+
+
+LES_GATES["nu_sgs_xz"] = nu_sgs_xz_eligible
+
+
+def _check_xz(name, geom, gate=xz_eligible):
+    if not gate(geom):
+        raise NotImplementedError(
+            f"{name}: the (x, z)-tiled kernel serves a periodic uniform x "
+            "(x.n >= 8) and z with y periodic uniform or walls, O2; other "
+            "grids take the slab kernels or the operators")
+
+
+def _predictor_general_xz_launch(u, v, w, dt, nu_t=None, *, gs, geom, nu, fx,
+                                 scheme):
+    if u.device.type == "cpu":
+        return predictor_general_twin(u, v, w, dt, nu_t, geom=geom, nu=nu,
+                                      fx=fx, scheme=scheme)
+    out = _general_call("predictor_general_xz", u, v, w, dt, nu_t, gs, geom,
+                        nu, fx, scheme)
+    predictor_general_xz.launches += 1
+    return out
+
+
+def predictor_general_xz(u, v, w, dt, gs, *, geom: Geometry, nu, fx, scheme,
+                         nu_t=None):
+    """`predictor_general` (the same function, arguments and twin) on the
+    (x, z) tile: periodic uniform x and z, y periodic or no-slip (moving
+    or not) at any stretching. `gs` = general_arrays(geom)."""
+    _check_xz("predictor_general_xz", geom)
+    x, y, z = geom.axes
+    extra = () if nu_t is None else (nu_t,)
+    _check("predictor_general_xz", (u, v, w, dt, *extra, *gs),
+           _face_shapes(geom) + ((),) + ((x.n, y.n, z.n),) * len(extra)
+           + _general_array_shapes(geom))
+    _check_geom("predictor_general_xz", geom, (u,))
+    _scheme_is_skew(scheme)
+    kw = dict(gs=gs, geom=geom, nu=nu, fx=fx, scheme=scheme)
+    return _ViaTwin.apply(_predictor_general_xz_launch,
+                          _predictor_general_twin_gs, kw, u, v, w, dt, *extra)
+
+
+predictor_general_xz.launches = 0
+
+
+def _nu_sgs_xz_launch(u, v, w, *gs, geom, closure, coeff):
+    if u.device.type == "cpu":
+        return nu_sgs_twin(u, v, w, geom=geom, closure=closure, coeff=coeff)
+    out = _nu_sgs_call("nu_sgs_xz", u, v, w, gs, geom, closure, coeff)
+    nu_sgs_xz.launches += 1
+    return out
+
+
+def nu_sgs_xz(u, v, w, gs, *, geom: Geometry, closure: str, coeff: float):
+    """`nu_sgs` (the same function, arguments and twin) on the (x, z) tile:
+    periodic uniform x and z, y periodic or stationary walls. `gs` =
+    les_arrays(geom)."""
+    _closure_id(closure)   # raises on an unknown closure
+    _check_xz("nu_sgs_xz", geom, nu_sgs_xz_eligible)
+    _check_les("nu_sgs_xz", u, v, w, gs, geom)
+    kw = dict(geom=geom, closure=closure, coeff=coeff)
+    return _ViaTwin.apply(_nu_sgs_xz_launch, nu_sgs_twin, kw, u, v, w, *gs)
+
+
+nu_sgs_xz.launches = 0
+
+
+def _divergence_xz_launch(u, v, w, *, geom):
+    if u.device.type == "cpu":
+        return divergence_twin(u, v, w, geom=geom)
+    out = _divergence_call("divergence_xz", u, v, w, geom)
+    divergence_xz.launches += 1
+    return out
+
+
+def divergence_xz(u, v, w, *, geom: Geometry):
+    """`divergence` (the same function and twin) on the (x, z) tile."""
+    _check_xz("divergence_xz", geom)
+    _check("divergence_xz", (u, v, w), _face_shapes(geom))
+    _check_geom("divergence_xz", geom, (u,))
+    return _ViaTwin.apply(_divergence_xz_launch, divergence_twin,
+                          dict(geom=geom), u, v, w)
+
+
+divergence_xz.launches = 0
+
+
+def _correct_xz_launch(u, v, w, p, dt, *, geom):
+    if u.device.type == "cpu":
+        return correct_twin(u, v, w, p, dt, geom=geom)
+    out = _correct_call("correct_xz", u, v, w, p, dt, geom)
+    correct_xz.launches += 1
+    return out
+
+
+def correct_xz(u, v, w, p, dt, *, geom: Geometry):
+    """`correct` (the same function and twin) on the (x, z) tile."""
+    _check_xz("correct_xz", geom)
+    x, y, z = geom.axes
+    _check("correct_xz", (u, v, w, p, dt),
+           _face_shapes(geom) + ((x.n, y.n, z.n), ()))
+    _check_geom("correct_xz", geom, (u,))
+    return _ViaTwin.apply(_correct_xz_launch, correct_twin, dict(geom=geom),
+                          u, v, w, p, dt)
+
+
+correct_xz.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -1489,7 +1668,8 @@ fht_modal.launches = 0
 KERNELS = (predictor_periodic, predictor_channel, predictor_general,
            divergence, correct, nu_sgs, germano_pass1, transport,
            predictor_periodic_div, predictor_channel_div, fht_pass,
-           fht_modal)
+           fht_modal, predictor_general_xz, nu_sgs_xz, divergence_xz,
+           correct_xz)
 
 
 def reset_launch_counts() -> None:

@@ -1,13 +1,21 @@
-"""Compare the machine code (SASS) of the two predictor kernels' DIV = false
-instantiations with the kernels of an earlier copy of their sources.
+"""Compare the machine code (SASS) of kernels with the kernels of an earlier
+copy of their sources, instruction for instruction.
 
-`csrc/predictor_periodic.cu` and `csrc/predictor_channel.cu` carry a `bool
-DIV` template parameter, last among each kernel's template arguments, whose
-false instantiations must be the kernels of before it, instruction for
-instruction. This compiles each file of both copies to a cubin with the
-library's flags, disassembles it with cuobjdump, and holds every kernel of
-the old copy (`K<T>`, `K<T, NUT>`) to the new copy's `K<T, false>`
-(`K<T, NUT, false>`), instruction for instruction.
+Two kinds of change must leave the kernels of before as they were:
+- `csrc/predictor_periodic.cu` and `csrc/predictor_channel.cu` carry a
+  `bool DIV` template parameter, last among each kernel's template
+  arguments, whose false instantiations are the kernels of before it: the
+  old copy's `K<T>` (`K<T, NUT>`) is held to the new copy's `K<T, false>`
+  (`K<T, NUT, false>`);
+- the slab stencils read their operands through a reader type
+  (`csrc/predictor_terms.cuh`, `les.cuh`, `projection.cuh`), which the
+  (x, z)-tiled kernels share: predictor_general, nu_sgs, germano_pass1,
+  transport, divergence and correct keep their names and must keep their
+  code.
+This compiles each file of both copies to a cubin with the library's
+flags, disassembles it with cuobjdump, and holds every kernel of the old
+copy to the new copy's kernel of the same name, else to its DIV = false
+instantiation.
 
 Run on a machine with the CUDA toolkit, from the repository's root:
 
@@ -28,7 +36,8 @@ from pathlib import Path
 
 from .ops.kernels import NVCC_FLAGS, _CSRC, _nvcc
 
-SOURCES = ("predictor_periodic", "predictor_channel")
+SOURCES = ("predictor_periodic", "predictor_channel", "predictor_general",
+           "nu_sgs", "germano_pass1", "transport", "divergence", "correct")
 OUT = Path(__file__).resolve().parents[1] / "build" / "sass"
 
 
@@ -68,7 +77,9 @@ def main(argv) -> int:
         old = sass(old_dir / f"{stem}.cu", f"{stem}_old")
         new = sass(_CSRC / f"{stem}.cu", f"{stem}_new")
         for name, ins in sorted(old.items()):
-            new_name = name[:-1] + ", (bool)0>"
+            # the same name, else the DIV = false instantiation
+            new_name = (name if name in new
+                        else name[:-1] + ", (bool)0>")
             new_ins = new.get(new_name)
             if new_ins is None:
                 print(f"MISSING {new_name} among {sorted(new)}")

@@ -13,8 +13,16 @@ through the hand-written kernels of `ops/kernels.py`. dt is a 0-d tensor
 on the device, the kernels read it through a pointer, and nothing in a
 step reads it (or any other device value) on the host.
 
-Kernel dispatch is explicit (`Simulation.kernels`): on CUDA with
-use_pallas "auto" or "on", in the reference's order (cfdnn_tpu/solver.py
+Kernel dispatch is explicit (`Simulation.kernels`). On CUDA with
+use_pallas "auto" or "on" the plan first takes the reference's tiling mode
+(`tiling_mode`, its _pallas_eligible): "slab" where its TPU slab block
+holds a y-z plane (`slab_fits`), "xz" above that on a periodic uniform z
+that tiles (`xz_tileable`), and no kernel at all where neither holds or
+where x is not uniform with x.n >= 8 on a 3-D grid. In "xz" the step runs
+predictor_general_xz (laminar or LES, periodic or walled y), divergence_xz
+and correct_xz, and nu_sgs_xz for Smagorinsky, WALE and Vreman; dynamic
+Smagorinsky and the k-omega transport run their plain chains there, as in
+the reference. In "slab", in the reference's order (cfdnn_tpu/solver.py
 :783-827),
   - predictor_periodic when the grid is all-periodic uniform, 3-D, O2
     skew with no turbulence closure (the reference's fused_predictor);
@@ -24,7 +32,8 @@ use_pallas "auto" or "on", in the reference's order (cfdnn_tpu/solver.py
     wall y and z, moving walls, the closure's nu_t (an all-periodic LES
     run, the duct, the lid channel); predictor_xpad, the same kernel on a
     ghost-padded axis, for a uniform no-slip x (`xpad_eligible`);
-  - divergence and correct whenever x is periodic and uniform;
+  - divergence and correct whenever x is periodic and uniform (a no-slip
+    x runs the eager projection);
   - nu_sgs for Smagorinsky, WALE and Vreman, germano_pass1 for dynamic
     Smagorinsky, each where its own gate (`ops.kernels.LES_GATES`) holds
     (Sigma runs plain, as in the reference);
@@ -43,7 +52,8 @@ reference's "auto" resolves to its operators off an accelerator), and
 "on" runs the kernels' wrappers on any device (on the CPU they take the
 plain twins, as the reference's "on" runs Pallas in interpret mode). "on"
 raises when no ported kernel serves the config's predictor (a 2-D grid,
-for one) or closure.
+for one) or closure (but for the plain chains the reference itself takes
+in "xz").
 
 Everything outside the port so far raises NotImplementedError naming the
 ROADMAP item that brings it (`_check_supported`); no Config field is
@@ -91,11 +101,75 @@ class StepDiagnostics:
 class KernelPlan:
     """Which hand-written kernels a Simulation's step launches."""
 
-    # "periodic" | "channel" | "general" | "xpad" | None (eager)
+    # "periodic" | "channel" | "general" | "xpad" | "general_xz" | None
+    # (eager)
     predictor: Optional[str]
-    projection: bool           # divergence + correct kernels
-    # "nu_sgs" | "germano_pass1" | "transport" | None
+    # "slab" (divergence + correct) | "xz" (divergence_xz + correct_xz) |
+    # None (eager)
+    projection: Optional[str]
+    # "nu_sgs" | "nu_sgs_xz" | "germano_pass1" | "transport" | None
     closure: Optional[str] = None
+
+
+# The reference plans its TPU kernels around VMEM: its slab kernels hold
+# whole y-z planes, so above a plane size it tiles x and z instead ("xz"),
+# and where neither fits it runs no kernel. The port's kernels have no
+# such limit (its slab kernels run on any plane), but the port routes as
+# the reference does, so that a config launches the counterparts of the
+# reference's kernels. These copies of the reference's fit and tiling
+# predicates exist only for that routing: no kernel of the port reads a
+# block size, a VMEM budget or a compiler parameter.
+
+# cfdnn_tpu/ops/pallas_kernels.py _SLAB_FIT_CELLS: the cells of the
+# smallest slab block (ng planes) the raised VMEM cap holds
+SLAB_FIT_CELLS = 6 * 256 * 256
+# pallas_kernels.py _XZ_BUDGET_CELLS: the xz block budget of _auto_bxz
+_XZ_BUDGET_CELLS = 2 * 512 * 128
+
+
+def slab_fits(geom) -> bool:
+    """The reference's slab_fits (pallas_kernels.py:229-235): whether its
+    smallest slab block, ng y-z planes (ng = 2 at O4, else 1), fits under
+    SLAB_FIT_CELLS. Read at each call, so a test may lower the cap."""
+    ng = 2 if geom.space_order >= 4 else 1
+    return ng * geom.axes[1].n * geom.axes[2].n <= SLAB_FIT_CELLS
+
+
+def xz_tileable(nx: int, ny: int, nz: int, ng: int = 1) -> bool:
+    """Whether the reference's _auto_bxz (pallas_kernels.py:772-789) finds
+    an (x, z) tiling of an (nx, ny, nz) grid with halo ng: a z block of
+    128, 256, 64, 512 or 32 that divides nz, and an x block between ng and
+    8, within the block budget, that divides nx."""
+    bz = next((b for b in (128, 256, 64, 512, 32) if nz % b == 0 and b <= nz),
+              0)
+    if bz == 0:
+        return False
+    cap = max(ng, _XZ_BUDGET_CELLS // max(ny * bz, 1))
+    bx = min(8, cap)
+    while bx > ng and nx % bx != 0:
+        bx -= 1
+    return nx % bx == 0
+
+
+def tiling_mode(geom: Geometry, cfg: Config) -> Optional[str]:
+    """The reference's single-device tiling mode (its _pallas_eligible,
+    cfdnn_tpu/solver.py:297-411) for what the port serves (O2, skew or
+    central, no implicit y-diffusion: _check_supported): None unless x is
+    uniform with x.n >= 8 and the grid is 3-D; then "slab" where the slab
+    block fits (slab_fits; a no-slip x too, the reference's ghost-padded
+    "xpad" slab), else "xz" where z is periodic uniform and the grid tiles
+    (xz_tileable, halo 1 at O2), else None."""
+    x, y, z = geom.axes
+    if not (x.uniform and z.n > 1 and x.n >= 8):
+        return None
+    if not x.periodic:
+        return "slab" if x.bc == BCType.WALL and slab_fits(geom) else None
+    if slab_fits(geom):
+        return "slab"
+    ng = 2 if cfg.space_order >= 4 else 1
+    if z.periodic and z.uniform and xz_tileable(x.n, y.n, z.n, ng):
+        return "xz"
+    return None
 
 
 def _check_supported(cfg: Config) -> None:
@@ -179,7 +253,7 @@ class Simulation:
         # the general kernel's grid (xpad: the ghost-padded periodic x)
         # and its metric vectors
         self._gen_geom = self._gen_arrays = None
-        if pred in ("general", "xpad"):
+        if pred in ("general", "xpad", "general_xz"):
             self._gen_geom = (kernels.xpad_geometry(self.geom)
                               if pred == "xpad" else self.geom)
             self._gen_arrays = kernels.general_arrays(self._gen_geom)
@@ -247,30 +321,52 @@ class Simulation:
         cfg, geom = self.cfg, self.geom
         if cfg.use_pallas == "off" or (cfg.use_pallas == "auto"
                                        and self.device.type != "cuda"):
-            return KernelPlan(None, False)
+            return KernelPlan(None, None)
+        # The reference's mode gates every kernel. Above SLAB_FIT_CELLS the
+        # port's slab kernels would run as well (they have no plane limit);
+        # the port takes the xz kernels there as the reference does, so
+        # that the launches match it. Should measurements favour the slab
+        # kernels there (PERF.md), this is the one place to change.
+        tiling = tiling_mode(geom, cfg)
         x = geom.x
         laminar = cfg.turb_model == TurbulenceModel.NONE
         predictor = None
-        # the periodic kernel has no nu_t operand (nor has the reference's
-        # fused_predictor): an LES run never takes it
-        if (laminar and kernels.periodic_eligible(geom)
-                and cfg.convective_scheme == ConvectiveScheme.SKEW):
-            predictor = "periodic"
-        elif kernels.channel_slab_eligible(geom, cfg):
-            predictor = "channel"
-        elif kernels.general_eligible(geom, cfg):
-            predictor = "general"
-        elif kernels.xpad_eligible(geom, cfg):
-            predictor = "xpad"
+        if tiling == "xz":
+            # the reference's xz branch comes before its periodic and
+            # channel ones (solver.py:777-782): laminar or not, walled y
+            # or not
+            if kernels.general_eligible(geom, cfg):
+                predictor = "general_xz"
+        elif tiling == "slab":
+            # the periodic kernel has no nu_t operand (nor has the
+            # reference's fused_predictor): an LES run never takes it
+            if (laminar and kernels.periodic_eligible(geom)
+                    and cfg.convective_scheme == ConvectiveScheme.SKEW):
+                predictor = "periodic"
+            elif kernels.channel_slab_eligible(geom, cfg):
+                predictor = "channel"
+            elif kernels.general_eligible(geom, cfg):
+                predictor = "general"
+            elif kernels.xpad_eligible(geom, cfg):
+                predictor = "xpad"
         # a wall x runs the eager projection, as the reference's xpad mode
-        projection = x.periodic and x.uniform
+        projection = tiling if x.periodic else None
         if cfg.use_pallas == "on" and predictor is None:
             raise NotImplementedError(
                 "use_pallas='on': no ported kernel serves this config's "
                 "predictor (the kernels need a 3-D grid with a periodic or "
-                "no-slip uniform x and periodic or no-slip y and z); use "
-                "'auto' or 'off'")
-        closure = self.turb.kernel
+                "no-slip uniform x, x.n >= 8, periodic or no-slip y and z, "
+                "and a y-z plane the reference's slab or (x, z) tiling "
+                "serves); use 'auto' or 'off'")
+        # with no mode the reference fuses no closure either (its
+        # turb._fuse is False, les.py:37-64)
+        closure = self.turb.kernel if tiling is not None else None
+        if tiling == "xz":
+            # the static LES closures take nu_sgs_xz (the reference's
+            # les.py:57-62, :93-96); dynamic Smagorinsky and the k-omega
+            # transport run their plain chains there (les.py:316-324,
+            # transport.py:375-378)
+            closure = "nu_sgs_xz" if closure == "nu_sgs" else None
         if closure == "transport":
             # the strain stencil is nu_sgs's (implicit y-diffusion, which
             # the reference never fuses, is refused by _check_supported)
@@ -357,6 +453,10 @@ class Simulation:
             star = kernels.predictor_general(
                 *comps, dt, self._gen_arrays, geom=geom, nu=float(cfg.nu),
                 fx=self._fx, scheme=cfg.convective_scheme, nu_t=nu_t)
+        elif pred == "general_xz":
+            star = kernels.predictor_general_xz(
+                *comps, dt, self._gen_arrays, geom=geom, nu=float(cfg.nu),
+                fx=self._fx, scheme=cfg.convective_scheme, nu_t=nu_t)
         elif pred == "xpad":
             star = kernels.predictor_xpad(
                 *comps, dt, self._gen_arrays, geom=geom, xgeom=self._gen_geom,
@@ -384,9 +484,11 @@ class Simulation:
         masked in the solid) -> correction -> IBM forcing -> BC. `fw`
         weighs this stage's IBM force sums (see _advance_velocity)."""
         geom = self.geom
+        xz = self.kernels.projection == "xz"
+        div_kernel = kernels.divergence_xz if xz else kernels.divergence
+        correct_kernel = kernels.correct_xz if xz else kernels.correct
         if div is None:
-            div = (kernels.divergence(*comps, geom=geom)
-                   if self.kernels.projection
+            div = (div_kernel(*comps, geom=geom) if self.kernels.projection
                    else ops.divergence(comps, geom))
         rhs = div / dt
         if self.ibm is not None:
@@ -399,7 +501,7 @@ class Simulation:
         else:
             p_corr = self.poisson.solve(rhs)
         if self.kernels.projection:
-            comps = kernels.correct(*comps, p_corr, dt, geom=geom)
+            comps = correct_kernel(*comps, p_corr, dt, geom=geom)
         else:
             comps = ops.correct_velocity(comps, p_corr, dt, geom)
         if self.ibm is not None:

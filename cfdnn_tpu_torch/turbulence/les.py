@@ -6,8 +6,10 @@ Each closure's algebra is a plain PyTorch function of the cell strain
 the reference. Where the Simulation's kernel plan names one
 (`Simulation.kernels.closure`), the step takes the hand-written kernel of
 `ops/kernels.py` instead: `nu_sgs` for Smagorinsky, WALE and Vreman (the
-closure a compile-time parameter of one CUDA kernel), `germano_pass1` for
-the dynamic model's first pass. Sigma runs plain, as in the reference (its
+closure a compile-time parameter of one CUDA kernel; `nu_sgs_xz`, the same
+function on an (x, z) tile, in the plan's "xz" tiling), `germano_pass1`
+for the dynamic model's first pass (in "xz" the plain chain, as the
+reference's). Sigma runs plain, as in the reference (its
 eigensolver needs arccos, which the reference's TPU kernel language
 lacks).
 """
@@ -216,9 +218,11 @@ class LESModelBase(TurbulenceModelBase):
 
     def nu_t(self, state, sim):
         comps = state.velocity
-        if sim.kernels.closure == "nu_sgs":
-            return kernels.nu_sgs(*comps, sim.les_arrays, geom=sim.geom,
-                                  closure=self.closure, coeff=self.coeff)
+        if sim.kernels.closure in ("nu_sgs", "nu_sgs_xz"):
+            kernel = (kernels.nu_sgs_xz if sim.kernels.closure == "nu_sgs_xz"
+                      else kernels.nu_sgs)
+            return kernel(*comps, sim.les_arrays, geom=sim.geom,
+                          closure=self.closure, coeff=self.coeff)
         return self._model_fn(comps, sim.geom)
 
 

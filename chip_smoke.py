@@ -28,7 +28,13 @@ Phases, each of which raises on failure (nothing is caught):
      (`_fht_cases`): float64 on every axis, forward, inverse and modal,
      for N1 = 1 ... 8 (N2 = 32) and N2 = 64, 128, 256 (with the round
      trip = N x and the dense reference_forward), float32 at 512^3 on
-     every axis with the tgv512 and channel512 solvers' symbols; each
+     every axis with the tgv512 and channel512 solvers' symbols; the four
+     xz kernels (`_xz_cases`) on the les_tgv640 plane 32x640x640 (the
+     predictor with and without nu_t, nu_sgs, divergence, correct) and on
+     small grids the xz gate serves (a stretched walled y, a lid, a
+     periodic y; skew and central; Smagorinsky, WALE and Vreman), float64
+     to 1e-13 of scale and float32 to 1e-5, each against its twin and
+     against the slab kernel of its function on the same inputs; each
      output of a kernel is held to its own twin output's scale;
   3. the main paths (`_paths`), each with its launches per step declared:
      Simulation.run of the port's bench.py rows (the 128^3 Taylor-Green
@@ -40,7 +46,9 @@ Phases, each of which raises on failure (nothing is caught):
      256x128x256 LES + IBM cylinder (with the opt-in set: a body takes no
      fused divergence), and the 512^3 Taylor-Green and channel with the
      Poisson transform "pallas_fft" (tgv512_pfht: four fht_pass and one
-     fht_modal a step; channel512_pfht: two and one);
+     fht_modal a step; channel512_pfht: two and one), and the 640^3 LES
+     Taylor-Green (les_tgv640, 20 steps: the "xz" plan, each xz kernel
+     once a step and no other kernel);
      float32, 200 steps, use_pallas="auto", the launch
      counts set to 0 just before each run and read just after, each
      kernel's count equal to 200 times its declared launches per step; the
@@ -63,7 +71,12 @@ Phases, each of which raises on failure (nothing is caught):
      for 20 steps, kernels on against use_pallas="off" on the card (the
      "pallas_fft" paths with cuFFT there) and against the eager operators
      on the CPU (the Hartley kernels' twins there; the CPU tests hold both
-     to the JAX reference), <= 1e-11;
+     to the JAX reference), <= 1e-11; and in forced "xz" (the port's
+     SLAB_FIT_CELLS lowered while the Simulation is built) the LES
+     Taylor-Green 32x32x64 and the stretched channel 32x24x64, 20 float64
+     steps of the xz kernels on the card against the operators on the CPU,
+     u, v, w, nu_t <= 1e-12 of each one's scale, p of the larger of its
+     own and the velocity's;
   5. timing: ms/step and Mcells/s of each unfused main-path step
      (marginal step time, as the port's bench.py; the 512^3 rows over 100
      steps) with a torch.profiler breakdown, the 512^3 rows also with the
@@ -73,7 +86,9 @@ Phases, each of which raises on failure (nothing is caught):
      time, the Hartley kernels beside torch.fft along the same axis
      (fht_pass beside one rfft or irfft, fht_modal beside rfft + irfft);
      the 512^3 Poisson solve alone, "fft" against "pallas_fft", on the
-     tgv512 and channel512 solvers;
+     tgv512 and channel512 solvers; les_tgv640 over 100 steps (one rep)
+     with its profile, and each xz kernel at 640^3 beside its twin and
+     the slab kernel of its function on the same inputs;
   6. the A/B: tgv, channel and les_channel unfused and fused, in the
      order off, on, on, off, ms/step and device ms/step of each.
 It prints the `kernels` JSON line (each kernel's bound: the larger of its
@@ -112,12 +127,23 @@ KERNEL_REPLACES = {
     "predictor_channel_div": "cfdnn_tpu/ops/pallas_kernels.py:1524",
     "fht_pass": "cfdnn_tpu/poisson/pallas_fht.py:423",
     "fht_modal": "cfdnn_tpu/poisson/pallas_fht.py:450",
+    "predictor_general_xz": "cfdnn_tpu/ops/pallas_kernels.py:834",
+    "nu_sgs_xz": "cfdnn_tpu/ops/pallas_kernels.py:900",
+    "divergence_xz": "cfdnn_tpu/ops/pallas_kernels.py:1051",
+    "correct_xz": "cfdnn_tpu/ops/pallas_kernels.py:1060",
 }
 # the two div kernels are instantiations in their predictor's source, the
-# two Hartley kernels share csrc/fht.cu
-KERNEL_SOURCE = {"predictor_periodic_div": "predictor_periodic",
-                 "predictor_channel_div": "predictor_channel",
-                 "fht_pass": "fht", "fht_modal": "fht"}
+# two Hartley kernels share csrc/fht.cu, three xz kernels csrc/xz.cu, and
+# the xz predictor is a header with a source for each dtype
+KERNEL_SOURCE = {"predictor_periodic_div": "predictor_periodic.cu",
+                 "predictor_channel_div": "predictor_channel.cu",
+                 "fht_pass": "fht.cu", "fht_modal": "fht.cu",
+                 "predictor_general_xz": "predictor_general_xz.cuh",
+                 "nu_sgs_xz": "xz.cu", "divergence_xz": "xz.cu",
+                 "correct_xz": "xz.cu"}
+# the xz kernels run their slab kernels' arithmetic on staged operands:
+# float64 to 1e-13 of scale, against their twins and the slab kernels
+XZ_F64_TOL = 1e-13
 # The H100 SXM's published peaks (NVIDIA data sheet): HBM bandwidth and
 # float32 outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
@@ -148,7 +174,10 @@ OPS_PER_CELL = {"predictor_periodic": 154, "predictor_channel": 154,
                 "predictor_channel_div+nu_t": 592,
                 "predictor_general": 300, "divergence": 6, "correct": 9,
                 "nu_sgs": 100, "germano_pass1": 600, "transport": 544,
-                "transport sst": 530, "transport komega": 229}
+                "transport sst": 530, "transport komega": 229,
+                # the xz kernels: their slab kernels' functions
+                "predictor_general_xz": 300, "nu_sgs_xz": 100,
+                "divergence_xz": 6, "correct_xz": 9}
 
 
 class Case(NamedTuple):
@@ -157,7 +186,8 @@ class Case(NamedTuple):
     `geom`, for the divergence kernel of its own star; a Hartley case its
     operations per cell (`ops`, they depend on N) and its yardstick
     (`library`, torch.fft calls on the same tensor, named by the
-    function's name: rfft, irfft or rfft_irfft)."""
+    function's name: rfft, irfft or rfft_irfft); an xz case the slab
+    kernel of the same function on the same inputs (`slab`)."""
     label: str
     name: str
     kern: Callable
@@ -166,6 +196,7 @@ class Case(NamedTuple):
     geom: object = None
     ops: float = None
     library: Callable = None
+    slab: Callable = None
 
 
 def check(cond, msg):
@@ -537,6 +568,96 @@ def _div_cases(n, dtype, device, seed):
     return cases
 
 
+def _xz_cases(dtype, device, seed, nx=32, small=True):
+    """A Case for each xz kernel, each with the slab kernel of the same
+    function on the same inputs (`slab`): first on the les_tgv640 plane,
+    nx x 640 x 640 all periodic (nx = 640: the main path's cube), the
+    predictor with a random nu_t >= 0 (the main path's) and without,
+    nu_sgs (Smagorinsky), divergence and correct, each the first of its
+    label; then, with `small`, on small grids the xz gate serves: the
+    stretched walled-y channel 16x24x32 (central, nu_t; nu_sgs with
+    Smagorinsky, WALE and Vreman; divergence, correct), the lid 16x12x32
+    (skew, lid_velocity 1.3, scalar nu) and a periodic y 16x24x32 (skew,
+    nu_t; nu_sgs with WALE and Vreman)."""
+    import functools
+    from cfdnn_tpu_torch import BCType, Config, bench, velocity_shapes
+    from cfdnn_tpu_torch import ConvectiveScheme as CS
+    from cfdnn_tpu_torch.mesh import Mesh
+    from cfdnn_tpu_torch.ops import kernels as K
+    from cfdnn_tpu_torch.ops.grid import Geometry
+    from cfdnn_tpu_torch.turbulence import les as L
+    gen = torch.Generator(device=device).manual_seed(seed)
+    dts = "float64" if dtype == torch.float64 else "float32"
+    P = functools.partial
+
+    def rnd(shape):
+        return torch.randn(shape, generator=gen, dtype=dtype, device=device)
+
+    coeffs = {m.closure: m.coeff for m in (L.SmagorinskyModel, L.WALEModel,
+                                           L.VremanModel)}
+    base = dict(nu=3e-3, nu_specified=True, dp_dx=-0.4, dp_dx_specified=True,
+                dt=1e-3, adaptive_dt=False, dtype=dts)
+    # (label tag, config, with nu_t, nu_sgs closures, divergence/correct)
+    grids = [("", bench.les_tgv_config(640, dts, Nx=nx), True,
+              ("smagorinsky",), True)]
+    if small:
+        grids += [
+            (" channel central", Config(**base, Nx=16, Ny=24, Nz=32,
+                                        stretch_y=True,
+                                        convective_scheme=CS.CENTRAL),
+             True, ("smagorinsky", "wale", "vreman"), True),
+            (" lid skew", Config(**base, Nx=16, Ny=12, Nz=32, y_min=0.0,
+                                 y_max=1.0, lid_velocity=1.3,
+                                 convective_scheme=CS.SKEW),
+             False, (), True),
+            (" periodic-y skew", Config(**base, Nx=16, Ny=24, Nz=32,
+                                        bc_y=BCType.PERIODIC, y_min=0.0,
+                                        y_max=1.0,
+                                        convective_scheme=CS.SKEW),
+             True, ("wale", "vreman"), False)]
+    cases = []
+    for tag, cfg, with_nut, closures, projection in grids:
+        cfg = cfg.finalize()
+        g = Geometry.make(Mesh.from_config(cfg), cfg, device=device)
+        check(K.xz_eligible(g), f"xz{tag}: not an xz grid")
+        u, v, w = (rnd(sh) for sh in velocity_shapes(cfg))
+        cells = (cfg.Nx, cfg.Ny, cfg.Nz)
+        nut, p = rnd(cells).abs() * 1e-3, rnd(cells)
+        dt = torch.full((), cfg.dt, dtype=dtype, device=device)
+        gs, les = K.general_arrays(g), K.les_arrays(g)
+        kg = dict(geom=g, nu=cfg.nu, fx=-cfg.dp_dx,
+                  scheme=cfg.convective_scheme)
+        for n in ((nut, None) if with_nut else (None,)):
+            cases.append(Case(
+                "predictor_general_xz" + tag + ("" if n is None else "+nu_t"),
+                "predictor_general_xz",
+                P(K.predictor_general_xz, u, v, w, dt, gs, nu_t=n, **kg),
+                P(K.predictor_general_twin, u, v, w, dt, n, **kg),
+                (u, v, w, dt, *gs) + (() if n is None else (n,)),
+                slab=P(K.predictor_general, u, v, w, dt, gs, nu_t=n, **kg)))
+        for closure in closures:
+            kl = dict(geom=g, closure=closure, coeff=coeffs[closure])
+            cases.append(Case(
+                f"nu_sgs_xz{tag} {closure}", "nu_sgs_xz",
+                P(K.nu_sgs_xz, u, v, w, les, **kl),
+                P(K.nu_sgs_twin, u, v, w, **kl), (u, v, w, *les),
+                slab=P(K.nu_sgs, u, v, w, les, **kl)))
+        if projection:
+            cases.append(Case(
+                "divergence_xz" + tag, "divergence_xz",
+                P(K.divergence_xz, u, v, w, geom=g),
+                P(K.divergence_twin, u, v, w, geom=g),
+                (u, v, w, g.x.inv_d, g.y.inv_d, g.z.inv_d),
+                slab=P(K.divergence, u, v, w, geom=g)))
+            cases.append(Case(
+                "correct_xz" + tag, "correct_xz",
+                P(K.correct_xz, u, v, w, p, dt, geom=g),
+                P(K.correct_twin, u, v, w, p, dt, geom=g),
+                (u, v, w, p, dt, g.x.inv_dc, g.y.inv_dc, g.z.inv_dc),
+                slab=P(K.correct, u, v, w, p, dt, geom=g)))
+    return cases
+
+
 def fht_ops(t, modal):
     """Operations a cell of a Hartley kernel call along an axis of length
     t.N: those the function needs, not those of csrc/fht.cu's dense N2
@@ -549,7 +670,7 @@ def fht_ops(t, modal):
     return 2 * one + 4 if modal else one
 
 
-def _fht_cases(dtype, device, seed):
+def _fht_cases(dtype, device, seed, split640=False):
     """A Case for each Hartley kernel call. Float64 at small shapes, every
     axis, forward, inverse and modal (random symbols with null modes), for
     N1 = 1 ... 8 with N2 forced to 32 and for N2 = 64, 128, 256 (N = 64,
@@ -558,7 +679,10 @@ def _fht_cases(dtype, device, seed):
     at 2048, against the dense reference_forward. Float32 at 512^3, every
     axis, random fields; the modal pass with the tgv512 solver's symbols on each axis
     and the channel512 solver's on its Hartley axes z and x. The first
-    case of each label is the main path's."""
+    case of each label is the main path's. With `split640`, float32 also
+    at 640^3 (N1 = 5, N2 = 128) in the main path's order with the symbols
+    of les_tgv640's solver under "pallas_fft", the transform the
+    reference's "auto" takes for that cell on a TPU."""
     from cfdnn_tpu_torch import bench
     from cfdnn_tpu_torch.mesh import Mesh
     from cfdnn_tpu_torch.ops import kernels as K
@@ -641,16 +765,11 @@ def _fht_cases(dtype, device, seed):
                             K.fht_pass(x, a, t), a, t, inverse=True) / t.N,
                         lambda x=x: x, (x, t.table)))
         return cases
-    n = 512
-    t = P.PFHTAxis.make(n, dtype, device=device)
-    x = rnd((n, n, n))
     # the main path's order: forward x, y; inverse y, x; then z
-    for axis, inverse in ((0, False), (1, False), (1, True), (0, True),
-                          (2, False), (2, True)):
-        add_pass("", t, x, axis, inverse)
-    for tag, config in ((" tgv512", bench.tgv_config),
-                        (" channel512", bench.channel_config)):
-        cfg = config(n, poisson_transform="pallas_fft").finalize()
+    order = ((0, False), (1, False), (1, True), (0, True), (2, False),
+             (2, True))
+
+    def add_solver(tag, cfg, x):
         s = FDMPoissonSolver(Mesh.from_config(cfg), cfg, device=device)
         # the solver's own modal axis (z) first, then its other Hartley axes
         for axis in sorted(s.fht_axes, key=lambda a: a != s.fht_axes[-1]):
@@ -659,6 +778,25 @@ def _fht_cases(dtype, device, seed):
                         + s._lam_vecs[rest[1]]).squeeze(axis).contiguous()
             add_modal(tag, s.tr[axis].fht, x, axis, s._dev(s.tr[axis].lam),
                       lam_rest, s._null_thr, s._norm)
+
+    n = 512
+    t = P.PFHTAxis.make(n, dtype, device=device)
+    x = rnd((n, n, n))
+    for axis, inverse in order:
+        add_pass("", t, x, axis, inverse)
+    for tag, config in ((" tgv512", bench.tgv_config),
+                        (" channel512", bench.channel_config)):
+        add_solver(tag, config(n, poisson_transform="pallas_fft").finalize(),
+                   x)
+    if split640:
+        n, tag = 640, " les_tgv640"
+        t = P.PFHTAxis.make(n, dtype, device=device)
+        check((t.N1, t.N2) == (5, 128), f"fht N = 640: split {t.N1} x {t.N2}")
+        x = rnd((n, n, n))
+        for axis, inverse in order:
+            add_pass(tag, t, x, axis, inverse)
+        add_solver(tag, bench.les_tgv_config(
+            n, "float32", poisson_transform="pallas_fft").finalize(), x)
     return cases
 
 
@@ -682,57 +820,80 @@ def _as_tuple(x):
 # the outputs of each kernel, in the order its wrapper returns them
 OUTPUTS = {"germano_pass1": ("|S|", "<L:M>", "<M:M>"),
            "divergence": ("div",), "nu_sgs": ("nu_t",),
+           "divergence_xz": ("div",), "nu_sgs_xz": ("nu_t",),
            "transport": ("k", "omega", "nu_t"),
            "predictor_periodic_div": ("u*", "v*", "w*", "div"),
            "predictor_channel_div": ("u*", "v*", "w*", "div"),
            "fht_pass": ("X",), "fht_modal": ("p",)}
 
 
-def compare(name, got, ref, dtype):
+def compare(name, got, ref, dtype, f64_tol=F64_TOL):
     """[(output, max|kernel - twin|, limit, max|twin|)], one row for each
     output of a kernel, each held to its own twin output's scale: float64
-    to 1e-12 * max|twin|, float32 to 1e-5 * max|twin|."""
+    to f64_tol (1e-12) * max|twin|, float32 to 1e-5 * max|twin|."""
     rows = []
     for out, g, r in zip(OUTPUTS.get(name, ("u*", "v*", "w*")),
                          _as_tuple(got), _as_tuple(ref)):
         scale = float(r.abs().max())
-        lim = (F64_TOL if dtype == torch.float64 else F32_TOL) * scale
+        lim = (f64_tol if dtype == torch.float64 else F32_TOL) * scale
         rows.append((out, float((g - r).abs().max()), lim, scale))
     return rows
 
 
+def _hold(case, dtype, errs):
+    """Run a case's kernel and twin, check each output of the kernel
+    against the twin's (and an xz kernel's against the slab kernel's of
+    its function, a div kernel's div against the divergence kernel of its
+    own star), record the largest error under errs[name] ([float64,
+    float32]); returns the twin's outputs."""
+    got = case.kern()
+    torch.cuda.synchronize()
+    ref = case.twin()
+    shape = tuple(_as_tuple(ref)[0].shape)
+    pair = errs.setdefault(case.name, [0.0, 0.0])
+    k = 0 if dtype == torch.float64 else 1
+    tol = XZ_F64_TOL if case.slab else F64_TOL
+    for out, err, lim, scale in compare(case.name, got, ref, dtype, tol):
+        print(f"[kernels] {case.label} {out} {str(dtype)[6:]} "
+              f"{shape}: max|d|={err:.3e} (limit {lim:.3e}, "
+              f"max|twin|={scale:.3e})")
+        check(err <= lim, f"{case.label} {out} {dtype}: {err} > {lim}")
+        pair[k] = max(pair[k], err)
+    if case.slab is not None:
+        slab = case.slab()
+        for out, err, lim, scale in compare(case.name, got, slab, dtype,
+                                            tol):
+            print(f"[kernels] {case.label} {out} {str(dtype)[6:]} "
+                  f"{shape} vs the slab kernel: max|d|={err:.3e} "
+                  f"(limit {lim:.3e})")
+            check(err <= lim, f"{case.label} {out} {dtype} vs "
+                  f"slab: {err} > {lim}")
+    if case.geom is not None:
+        err, lim = own_star_div_error(got, case.geom, dtype)
+        print(f"[kernels] {case.label} div vs divergence of its own "
+              f"star {str(dtype)[6:]}: max|d|={err:.3e} (limit "
+              f"{lim:.3e})")
+        check(err <= lim, f"{case.label} own-star div {dtype}: "
+              f"{err} > {lim}")
+    return ref
+
+
 def phase_kernels(device):
-    """Each kernel against its twin on each grid of the main path, and each
-    div kernel's div against the divergence kernel of its own star;
-    returns {name: [largest float64 error, largest float32 error]}."""
+    """Each kernel against its twin on each grid of the main path (the xz
+    kernels' 640^3 cube in phase_timing), each div kernel's div against
+    the divergence kernel of its own star, each xz kernel also against the
+    slab kernel of its function; returns {name: [largest float64 error,
+    largest float32 error]}."""
     errs = {}
     for dtype, n in ((torch.float64, 32), (torch.float32, 128)):
         cases = _cases(n, dtype, device, seed=1)
         if dtype == torch.float64:
             cases += _general_cases(device, seed=1)
         cases += _div_cases(n, dtype, device, seed=1)
-        cases += _fht_cases(dtype, device, seed=1)
+        cases += _fht_cases(dtype, device, seed=1, split640=True)
+        cases += _xz_cases(dtype, device, seed=1)
         for case in cases:
-            got = case.kern()
-            torch.cuda.synchronize()
-            ref = case.twin()
-            shape = tuple(_as_tuple(ref)[0].shape)
-            pair = errs.setdefault(case.name, [0.0, 0.0])
-            k = 0 if dtype == torch.float64 else 1
-            for out, err, lim, scale in compare(case.name, got, ref, dtype):
-                print(f"[kernels] {case.label} {out} {str(dtype)[6:]} "
-                      f"{shape}: max|d|={err:.3e} (limit {lim:.3e}, "
-                      f"max|twin|={scale:.3e})")
-                check(err <= lim,
-                      f"{case.label} {out} {dtype}: {err} > {lim}")
-                pair[k] = max(pair[k], err)
-            if case.geom is not None:
-                err, lim = own_star_div_error(got, case.geom, dtype)
-                print(f"[kernels] {case.label} div vs divergence of its own "
-                      f"star {str(dtype)[6:]}: max|d|={err:.3e} (limit "
-                      f"{lim:.3e})")
-                check(err <= lim, f"{case.label} own-star div {dtype}: "
-                      f"{err} > {lim}")
+            _hold(case, dtype, errs)
     return errs
 
 
@@ -764,6 +925,11 @@ class MainPath(NamedTuple):
     traj_launches: dict = None
     off_kw: dict = None
     timed_only: bool = False
+    # the steps of its main-path run; an "xz" path (its plane above the slab
+    # cap) has its own trajectories (phase_xz_trajectories) and its float64
+    # kernel checks in phase_kernels
+    steps: int = MAIN_STEPS
+    xz: bool = False
 
 
 def _paths():
@@ -841,6 +1007,11 @@ def _paths():
                  dict(proj, predictor_channel=1, fht_pass=2, fht_modal=1),
                  n=512, traj=dict(Nx=256, Ny=24, Nz=64),
                  off_kw=dict(poisson_transform="fft")),
+        # 640^3: the "xz" plan, 20 steps
+        MainPath("les_tgv640", bench.les_tgv_case, {}, False,
+                 ("general_xz", "nu_sgs_xz"), False,
+                 dict(predictor_general_xz=1, nu_sgs_xz=1, divergence_xz=1,
+                      correct_xz=1), n=640, steps=20, xz=True),
     )
 
 
@@ -907,6 +1078,10 @@ def check_initial_nu_t(path, sim, st):
           f"{got.numel()}")
     check(bool(torch.isfinite(got).all()) and lo >= 0.0 and hi > 0.0,
           f"{name}: initial nu_t in [{lo}, {hi}]")
+    if path.xz:
+        # (at 640^3 float64 is 2 GB a field: nu_sgs_xz is held to its twin
+        # at float64 on the 32 x 640 x 640 plane, phase_kernels)
+        return
     sim64, st64 = build_case(path, path.n, device=sim.device,
                              dtype="float64")
     check(sim64.kernels == sim.kernels, f"{name}: float64 plan "
@@ -999,7 +1174,9 @@ def phase_main_path(device):
         t0 = time.perf_counter()
         sim, st = build_case(path, path.n, device=device)
         built = time.perf_counter() - t0
-        check(sim.kernels.predictor == predictor and sim.kernels.projection
+        projection = "xz" if predictor == "general_xz" else "slab"
+        check(sim.kernels.predictor == predictor
+              and sim.kernels.projection == projection
               and sim.kernels.closure == closure
               and sim._fuse_div == path.fuse,
               f"{name}: kernel plan {sim.kernels}, fused div "
@@ -1013,16 +1190,16 @@ def phase_main_path(device):
                 check_initial_nu_t(path, sim, st)
         K.reset_launch_counts()
         t0 = time.perf_counter()
-        st, d = sim.run(st, MAIN_STEPS)
+        st, d = sim.run(st, path.steps)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = K.launch_counts()
         for k, c in counts.items():
-            check(c == MAIN_STEPS * path.launches.get(k, 0),
-                  f"{name}: {k} launched {c} times in {MAIN_STEPS} steps")
+            check(c == path.steps * path.launches.get(k, 0),
+                  f"{name}: {k} launched {c} times in {path.steps} steps")
             total[k] += c
             if c:
-                per_step[k][name] = c / MAIN_STEPS
+                per_step[k][name] = c / path.steps
         for comp, shape in zip(st.velocity, velocity_shapes(sim.cfg)):
             check(tuple(comp.shape) == shape, f"{name}: shape {comp.shape}")
             check(bool(torch.isfinite(comp).all()), f"{name}: non-finite")
@@ -1030,7 +1207,7 @@ def phase_main_path(device):
         check(math.isfinite(ke), f"{name}: KE {ke}")
         check(div <= 1e-3, f"{name}: div_linf {div} > 1e-3")
         if name in ("tgv", "les_tgv", "tgv_re1600", "tgv_fused",
-                    "tgv512_pfht"):
+                    "tgv512_pfht", "les_tgv640"):
             check(ke < ke0, f"{name}: KE {ke} did not decay from {ke0}")
         extra = ""
         if closure:
@@ -1073,13 +1250,13 @@ def phase_main_path(device):
                       f"max|u| inside the body {u_in:.3e} of {u_max:.3e}")
         grid = "x".join(str(a) for a in (sim.cfg.Nx, sim.cfg.Ny, sim.cfg.Nz))
         print(f"[main] {name} {grid} float32 (built in {built:.2f} s) "
-              f"{MAIN_STEPS} steps in {wall:.2f} s: launches {counts}, "
+              f"{path.steps} steps in {wall:.2f} s: launches {counts}, "
               f"KE {ke0:.6e} -> {ke:.6e}, "
               f"div_linf {div:.3e}{extra}, t {float(st.t):.6f}, "
               f"dt {float(d.dt):.6e}")
         if sim.cfg.adaptive_dt:
             check_adaptive_dt(name, sim, st)
-        out[name] = div
+        out[name] = (div, path.steps)
     return total, out, per_step
 
 
@@ -1092,7 +1269,7 @@ def phase_trajectories(device):
     from cfdnn_tpu_torch import State, state_to_numpy
     from cfdnn_tpu_torch.ops import kernels as K
     for path in _paths():
-        if path.timed_only:
+        if path.timed_only or path.xz:
             continue
         kw = path.traj or {}
         if (path.case.__name__ in ("les_channel_case", "rans_channel_case")
@@ -1131,6 +1308,61 @@ def phase_trajectories(device):
             print(f"[traj] {path.name} {grid} float64 20 steps, kernels vs "
                   f"{label} ({', '.join(keys)}): max|d| = {err:.3e}")
             check(err <= TRAJ_TOL, f"{path.name} vs {label}: {err}")
+
+
+def phase_xz_trajectories(device):
+    """20 float64 steps in forced "xz" (the port's SLAB_FIT_CELLS lowered
+    while the Simulation is built, as tests/test_torch_xz.py lowers it):
+    the LES Taylor-Green at 32x32x64 and the stretched channel at 32x24x64,
+    the kernels on the card against the eager operators on the CPU from
+    the same initial state, u, v, w and nu_t to 1e-12 of each one's scale,
+    p to 1e-12 of the larger of its own and the velocity's scale; each
+    step launches the xz kernels once each and nothing else."""
+    import numpy as np
+    from cfdnn_tpu_torch import State, bench, state_to_numpy
+    from cfdnn_tpu_torch import solver as S
+    from cfdnn_tpu_torch.ops import kernels as K
+    xz = ("predictor_general_xz", "divergence_xz", "correct_xz")
+    for name, case, kw, launches in (
+            ("les_tgv", bench.les_tgv_case, dict(Nz=64), xz + ("nu_sgs_xz",)),
+            ("channel", bench.channel_case, dict(Ny=24, Nz=64), xz)):
+        cap = S.SLAB_FIT_CELLS
+        S.SLAB_FIT_CELLS = 8
+        try:
+            sim, st0 = case(32, device=device, dtype="float64", **kw)
+        finally:
+            S.SLAB_FIT_CELLS = cap
+        check(sim.kernels.projection == "xz",
+              f"xz {name}: plan {sim.kernels}")
+        cpu = case(32, device="cpu", dtype="float64", use_pallas="off",
+                   **kw)[0]
+        finals = {}
+        for label, s in (("kernels", sim), ("cpu", cpu)):
+            st = State(**{k: (None if v is None else v.to(s.device))
+                          for k, v in vars(st0).items()})
+            K.reset_launch_counts()
+            fin, _ = s.run(st, 20)
+            counts = K.launch_counts()
+            want = {k: (20 if label == "kernels" and k in launches else 0)
+                    for k in counts}
+            check(counts == want, f"xz {name} {label}: launches {counts}")
+            finals[label] = state_to_numpy(fin)
+        grid = "x".join(str(a) for a in (sim.cfg.Nx, sim.cfg.Ny, sim.cfg.Nz))
+        scales = {k: float(np.max(np.abs(finals["cpu"][k])))
+                  for k in ("u", "v", "w", "p", "nu_t") if k in finals["cpu"]}
+        for k, scale in scales.items():
+            err = float(np.max(np.abs(finals["kernels"][k]
+                                      - finals["cpu"][k])))
+            # the pressure solves div(u*) / dt: its roundoff is the
+            # velocity's over dt, not its own (0.05 on the near-steady
+            # channel), so it is held to the larger of its own and the
+            # velocity's scale
+            lim = 1e-12 * (max(scale, scales["u"], scales["v"], scales["w"])
+                           if k == "p" else scale)
+            print(f"[traj] xz {name} {grid} float64 20 steps {k}, kernels "
+                  f"vs cpu: max|d| = {err:.3e} ({err / scale:.2e} of its "
+                  f"scale {scale:.3e}; limit {lim:.3e})")
+            check(err <= lim, f"xz {name} {k}: {err} > {lim}")
 
 
 def _event_ms(fn, reps=50):
@@ -1187,7 +1419,10 @@ def _bound(case, outputs):
 # (bench.py:185-186)
 TIMED_STEPS = {"tgv": 1000, "channel": 1000, "les_ibm256": 150,
                "tgv512": 100, "channel512": 100, "tgv512_pfht": 100,
-               "channel512_pfht": 100}
+               "channel512_pfht": 100, "les_tgv640": 100}
+# best-of repetitions of the marginal (bench.time_steps' 3), fewer where a
+# step takes tens of milliseconds
+TIMED_REPS = {"les_tgv640": 1}
 
 
 def _time_path(path, sim, st, rows):
@@ -1197,7 +1432,7 @@ def _time_path(path, sim, st, rows):
     from cfdnn_tpu_torch import bench
     name = path.name
     s, d = bench.time_steps(sim, st, steps=TIMED_STEPS.get(
-        name.replace("_fused", ""), 400))
+        name.replace("_fused", ""), 400), reps=TIMED_REPS.get(name, 3))
     rows[f"{name}_ms_per_step"] = s * 1e3
     rows[f"{name}_mcells_per_s"] = _cells(sim) / s / 1e6
     if sim.cfg.bc_y.value == "wall":
@@ -1214,10 +1449,11 @@ def _time_path(path, sim, st, rows):
     return s * 1e3, busy, float(d.div_linf)
 
 
-def phase_timing(device):
+def phase_timing(device, errs):
     """Each unfused main path's marginal ms/step with its profile (the
     fused paths are timed by phase_ab), then each kernel against its twin
-    at the main-path shapes."""
+    at the main-path shapes; the xz kernels are checked there too, on the
+    les_tgv640 cube (their errors into `errs`)."""
     rows, divs = {}, {}
     for path in _paths():
         if not path.name.endswith("_fused"):
@@ -1244,13 +1480,33 @@ def phase_timing(device):
             t = times[case.label] = (
                 case.name, _event_ms(case.kern, reps),
                 _event_ms(case.twin, reps), _device_ms(case.kern, dreps),
-                _device_ms(case.twin, dreps), _bound(case, case.twin()), lib)
+                _device_ms(case.twin, dreps), _bound(case, case.twin()), lib,
+                None, None)
             print(f"[timing] {case.label} float32: per call kernel "
                   f"{t[1]:.4f} ms, twin {t[2]:.4f} ms; device kernel "
                   f"{t[3]:.4f} ms, twin {t[4]:.4f} ms; bound {t[5][0]:.4f} "
                   f"ms ({t[5][1]})"
                   + ("" if lib is None else
                      f"; torch.fft.{case.library.__name__} {lib:.4f} ms"))
+        # the xz kernels on the les_tgv640 cube, each checked against its
+        # twin and the slab kernel of its function, and timed beside that
+        # slab kernel on the same inputs (the twins, tens to hundreds of
+        # milliseconds a call there, over fewer reps)
+        for case in _xz_cases(torch.float32, device, seed=2, nx=640,
+                              small=False):
+            ref = _hold(case, torch.float32, errs)
+            if any(t[0] == case.name for t in times.values()):
+                continue   # timed on its first (main-path) case
+            t = times[case.label] = (
+                case.name, _event_ms(case.kern, 20), _event_ms(case.twin, 3),
+                _device_ms(case.kern, 5), _device_ms(case.twin, 2),
+                _bound(case, ref), None, _event_ms(case.slab, 20),
+                _device_ms(case.slab, 5))
+            print(f"[timing] {case.label} float32 640^3: per call kernel "
+                  f"{t[1]:.4f} ms, twin {t[2]:.4f} ms, slab kernel "
+                  f"{t[7]:.4f} ms; device kernel {t[3]:.4f} ms, twin "
+                  f"{t[4]:.4f} ms, slab kernel {t[8]:.4f} ms; bound "
+                  f"{t[5][0]:.4f} ms ({t[5][1]})")
     return rows, times
 
 
@@ -1313,16 +1569,22 @@ def kernel_entries(errs, launches, per_step, times):
     entries = []
     for k in K.KERNELS:
         name = k.__name__
-        variants = {label: dict(zip(("ms", "plain_ms", "device_ms",
-                                     "plain_device_ms", "bound_ms",
-                                     "bound_by", "library_ms"),
-                                    t[1:5] + t[5] + t[6:]))
-                    for label, t in times.items() if t[0] == name}
+        variants = {}
+        for label, t in times.items():
+            if t[0] != name:
+                continue
+            row = dict(zip(("ms", "plain_ms", "device_ms", "plain_device_ms",
+                            "bound_ms", "bound_by", "library_ms", "slab_ms",
+                            "slab_device_ms"), t[1:5] + t[5] + t[6:]))
+            if row["slab_ms"] is None:
+                # only the xz kernels have a slab kernel beside them
+                del row["slab_ms"], row["slab_device_ms"]
+            variants[label] = row
         main_case = next(iter(variants.values()))
         entries.append({
             "name": name, "route": "cuda",
             "source": ("cfdnn_tpu_torch/csrc/"
-                       f"{KERNEL_SOURCE.get(name, name)}.cu"),
+                       + KERNEL_SOURCE.get(name, name + ".cu")),
             "replaces": KERNEL_REPLACES[name],
             "launches": launches[name],
             "launches_per_step": per_step[name],
@@ -1356,15 +1618,17 @@ def main():
         launches, divs, per_step = phase_main_path(device)
     with timed("trajectories"):
         phase_trajectories(device)
+    with timed("xz trajectories"):
+        phase_xz_trajectories(device)
     with timed("timing"):
-        rows, times = phase_timing(device)
+        rows, times = phase_timing(device, errs)
     with timed("solve"):
         phase_solve(device)
     with timed("ab"):
         phase_ab(device)
     entries = kernel_entries(errs, launches, per_step, times)
-    for name, div in divs.items():
-        print(f"[main] {name}_div_linf ({MAIN_STEPS} steps) = {div:.3e}")
+    for name, (div, steps) in divs.items():
+        print(f"[main] {name}_div_linf ({steps} steps) = {div:.3e}")
     print(json.dumps({"kernels": entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -115,10 +115,10 @@ def test_predictor_channel_div_matches_pallas(stretch, with_nut, scheme):
 
 
 CASES = {
-    "periodic": (TGV, "tgv", KernelPlan("periodic", True)),
-    "channel": (CHANNEL_RUN, "channel", KernelPlan("channel", True)),
+    "periodic": (TGV, "tgv", KernelPlan("periodic", "slab")),
+    "channel": (CHANNEL_RUN, "channel", KernelPlan("channel", "slab")),
     "les_channel": (dict(CHANNEL_RUN, turb_model="smagorinsky"), "channel",
-                    KernelPlan("channel", True, "nu_sgs")),
+                    KernelPlan("channel", "slab", "nu_sgs")),
 }
 
 
@@ -185,7 +185,7 @@ def test_les_tgv_with_the_opt_in_runs_unfused(monkeypatch):
     rs = R.Simulation(_cfg(R, **grid, use_pallas="off"))
     monkeypatch.setenv("CFDNN_FUSE_DIV", "1")
     ts = T.Simulation(_cfg(T, **grid, use_pallas="on"), device="cpu")
-    assert ts.kernels == KernelPlan("general", True, "nu_sgs")
+    assert ts.kernels == KernelPlan("general", "slab", "nu_sgs")
     assert ts._fuse_div is False
     calls = _count_calls(monkeypatch, ("predictor_periodic_div",
                                        "predictor_channel_div", "divergence"))

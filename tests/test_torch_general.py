@@ -171,25 +171,33 @@ LES_TGV = dict(Nx=16, Ny=16, Nz=16, bc_x="periodic", bc_y="periodic",
                turb_model="smagorinsky")
 LES_DUCT = dict(DUCT, nu=1e-4, dp_dx=-1e-3, dt=2e-4, turb_model="wale")
 PLANS = {
-    "les_tgv": (LES_TGV, KernelPlan("general", True, "nu_sgs")),
-    "les_duct": (LES_DUCT, KernelPlan("general", True, "nu_sgs")),
+    "les_tgv": (LES_TGV, KernelPlan("general", "slab", "nu_sgs")),
+    "les_duct": (LES_DUCT, KernelPlan("general", "slab", "nu_sgs")),
     "lid_channel": (dict(GEOMETRIES["lid-skew"][0]),
-                    KernelPlan("general", True, None)),
-    "wall_x": (WALL_X, KernelPlan("xpad", False, None)),
+                    KernelPlan("general", "slab", None)),
+    "wall_x": (WALL_X, KernelPlan("xpad", None, None)),
     "dynamic_duct": (dict(LES_DUCT, turb_model="dynamic_smagorinsky"),
-                     KernelPlan("general", True, None)),
+                     KernelPlan("general", "slab", None)),
+    # with the slab cap lowered (solver.SLAB_FIT_CELLS), as the reference's
+    # tests/test_pallas_kernels.py:265 lowers its own
+    "les_tgv_xz": (dict(LES_TGV, Nz=32),
+                   KernelPlan("general_xz", "xz", "nu_sgs_xz")),
 }
 
 
 @pytest.mark.parametrize("name", sorted(PLANS))
-def test_cuda_kernel_plans(name):
+def test_cuda_kernel_plans(name, monkeypatch):
     """The plan a CUDA device would get under "auto" (a plan allocates
     nothing): the general predictor for the LES Taylor-Green, the duct and
-    the lid channel, xpad with the eager projection for a no-slip x, and
-    no closure kernel for the dynamic model on a walled z (B.7)."""
+    the lid channel, xpad with the eager projection for a no-slip x, no
+    closure kernel for the dynamic model on a walled z (B.7), and the
+    (x, z)-tiled kernels for the LES Taylor-Green on a plane above the
+    slab cap."""
     grid, plan = PLANS[name]
+    if name.endswith("_xz"):
+        monkeypatch.setattr(T.solver, "SLAB_FIT_CELLS", 8)
     sim = T.Simulation(_cfg(T, **grid), device="cpu")
-    assert sim.kernels == KernelPlan(None, False)
+    assert sim.kernels == KernelPlan(None, None)
     sim.device = torch.device("cuda", 0)
     assert sim._select_kernels() == plan
 
@@ -204,7 +212,7 @@ def test_les_trajectory_matches_reference(name):
     grid = PLANS[name][0]
     rs = R.Simulation(_cfg(R, **grid, use_pallas="off"))
     ts = T.Simulation(_cfg(T, **grid, use_pallas="on"), device="cpu")
-    assert ts.kernels == KernelPlan("general", True, "nu_sgs")
+    assert ts.kernels == KernelPlan("general", "slab", "nu_sgs")
     if name == "les_tgv":
         r = R.init_taylor_green(rs.cfg, rs.mesh)
     else:

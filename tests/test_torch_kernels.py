@@ -160,7 +160,7 @@ def test_cpu_wrappers_launch_nothing():
     K.reset_launch_counts()
     state = T.perturbed_channel(ts.cfg, ts.mesh, amp=0.05, device="cpu")
     # the CPU "auto" plan runs the eager operators
-    assert ts.kernels == T.solver.KernelPlan(None, False)
+    assert ts.kernels == T.solver.KernelPlan(None, None)
     u, v, w = state.velocity
     dt = torch.tensor(1e-3, dtype=torch.float64)
     K.divergence(u, v, w, geom=ts.geom)

@@ -174,8 +174,8 @@ def test_model_nu_t_matches_reference(model, mode):
     rs, ts = _sims(turb_model=model, use_pallas=mode)
     kernel = {"sigma": None, "dynamic_smagorinsky": "germano_pass1"}.get(
         model, "nu_sgs")
-    assert ts.kernels == (KernelPlan("channel", True, kernel) if mode == "on"
-                          else KernelPlan(None, False))
+    assert ts.kernels == (KernelPlan("channel", "slab", kernel) if mode == "on"
+                          else KernelPlan(None, None))
     state = R.perturbed_channel(rs.cfg, rs.mesh, amp=0.1)
     want = np.asarray(rs.turb.nu_t(state, rs))
     got = ts.turb.nu_t(_to_port(state, ts), ts)
@@ -235,12 +235,12 @@ def test_periodic_les_takes_no_periodic_predictor():
     a CUDA device, and matches the reference's LES Taylor-Green under 'on'
     and 'off'."""
     _, on = _sims(PERIODIC, use_pallas="on")
-    assert on.kernels == KernelPlan("general", True, "nu_sgs")
+    assert on.kernels == KernelPlan("general", "slab", "nu_sgs")
     # the plans a CUDA device would get under "auto" (a plan allocates
     # nothing): only a laminar run takes the periodic kernel
-    for model, plan in (("smagorinsky", KernelPlan("general", True,
+    for model, plan in (("smagorinsky", KernelPlan("general", "slab",
                                                    "nu_sgs")),
-                        ("none", KernelPlan("periodic", True, None))):
+                        ("none", KernelPlan("periodic", "slab", None))):
         _, auto = _sims(dict(PERIODIC, turb_model=model))
         auto.device = torch.device("cuda", 0)
         assert auto._select_kernels() == plan, model

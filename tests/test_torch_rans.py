@@ -233,7 +233,7 @@ def test_rans_trajectory_matches_reference(model):
                            use_pallas="off"))
     ts = T.Simulation(_cfg(T, **GRIDS["channel"], turb_model=model,
                            use_pallas="on"), device="cpu")
-    assert ts.kernels == KernelPlan("channel", True, "transport")
+    assert ts.kernels == KernelPlan("channel", "slab", "transport")
     r = rs.initialize(R.perturbed_channel(rs.cfg, rs.mesh, amp=0.05))
     t = _to_port(r)
     for _ in range(5):
@@ -278,16 +278,16 @@ def test_rans_kernel_plans():
     closures take the kernel too, the algebraic closures none."""
     for model in ("sst", "komega", "earsm_wj", "earsm_gs", "earsm_pope"):
         assert _cuda_plan("channel", turb_model=model) == KernelPlan(
-            "channel", True, "transport"), model
+            "channel", "slab", "transport"), model
     assert _cuda_plan("periodic", turb_model="sst") == KernelPlan(
-        "general", True, "transport")
+        "general", "slab", "transport")
     assert _cuda_plan("duct", turb_model="sst") == KernelPlan(
-        "general", True, "transport")
+        "general", "slab", "transport")
     for model in ("baseline", "gep"):
         assert _cuda_plan("channel", turb_model=model) == KernelPlan(
-            "channel", True, None)
+            "channel", "slab", None)
     _, on = _sims("periodic", turb_model="sst", use_pallas="on")
-    assert on.kernels == KernelPlan("general", True, "transport")
+    assert on.kernels == KernelPlan("general", "slab", "transport")
     assert on.transport_arrays is not None and on.les_arrays is None
 
 

@@ -255,7 +255,7 @@ def test_ibm_takes_no_fused_divergence(monkeypatch):
         ts.set_ibm_forcing(body)
         assert isinstance(ts.ibm, TI.IBMForcing)
         assert ts._fuse_div is False
-        assert ts.kernels == KernelPlan("channel", True)
+        assert ts.kernels == KernelPlan("channel", "slab")
 
 
 def test_tgv_re1600_config_is_the_example_file():

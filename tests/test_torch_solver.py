@@ -56,18 +56,30 @@ def _to_port(state, sim):
         "cpu", sim.dtype)
 
 
-@pytest.mark.parametrize("case", ["tgv", "channel"])
+# each case's grid and its predictor under "on"; channel_xz is the
+# channel with the slab cap of both packages lowered (the reference's
+# tests/test_pallas_kernels.py:265), so it takes the "xz" plan
+PREDICTORS = {"tgv": (TGV, "periodic"), "channel": (CHANNEL, "channel"),
+              "channel_xz": (dict(CHANNEL, Nz=32), "general_xz")}
+
+
+@pytest.mark.parametrize("case", sorted(PREDICTORS))
 @pytest.mark.parametrize("mode,steps", [("on", 5), ("off", 20)])
-def test_trajectory_matches_reference(case, mode, steps):
-    base = TGV if case == "tgv" else CHANNEL
+def test_trajectory_matches_reference(case, mode, steps, monkeypatch):
+    base, predictor = PREDICTORS[case]
+    tiling = "xz" if case.endswith("_xz") else "slab"
+    if tiling == "xz":
+        from cfdnn_tpu.ops import pallas_kernels
+        monkeypatch.setattr(pallas_kernels, "_SLAB_FIT_CELLS", 8)
+        monkeypatch.setattr(T.solver, "SLAB_FIT_CELLS", 8)
     rsim = R.Simulation(_cfg(R, base, use_pallas=mode))
     tsim = T.Simulation(_cfg(T, base, use_pallas=mode), device="cpu")
     if mode == "on":
-        assert rsim._pallas_predictor_ok == "slab"
-        assert tsim.kernels == KernelPlan(
-            "periodic" if case == "tgv" else "channel", True)
+        assert rsim._pallas_predictor_ok == tiling
+        assert tsim.kernels == KernelPlan(predictor, tiling)
+        assert T.solver.tiling_mode(tsim.geom, tsim.cfg) == tiling
     else:
-        assert tsim.kernels == KernelPlan(None, False)
+        assert tsim.kernels == KernelPlan(None, None)
     rs = _init(case, rsim)
     ts = _to_port(rs, tsim)
     for _ in range(steps):
@@ -171,9 +183,9 @@ def test_use_pallas_on_without_a_kernel_raises():
         T.Simulation(_cfg(T, TGV, Nz=1, use_pallas="on"), device="cpu")
     kw = dict(TGV, convective_scheme="central")
     assert T.Simulation(_cfg(T, kw, use_pallas="on"), device="cpu").kernels \
-        == KernelPlan("general", True)
+        == KernelPlan("general", "slab")
     assert T.Simulation(_cfg(T, kw), device="cpu").kernels == \
-        KernelPlan(None, False)
+        KernelPlan(None, None)
     with pytest.raises(ValueError):
         T.Simulation(_cfg(T, TGV, use_pallas="yes"), device="cpu")
 
@@ -197,14 +209,14 @@ def _lid_steps(mode):
 def test_lid_driven_wall_runs_eagerly():
     """A moving top wall under 'off' runs the eager operators, which honour
     AxisGeom.tang, and matches the reference."""
-    assert _lid_steps("off").kernels == KernelPlan(None, False)
+    assert _lid_steps("off").kernels == KernelPlan(None, None)
 
 
 def test_lid_driven_wall_takes_the_general_kernel():
     """A moving top wall is outside the channel kernel's gate (it hardcodes
     no-slip) but inside the general predictor's: 'on' plans it and matches
     the reference."""
-    assert _lid_steps("on").kernels == KernelPlan("general", True)
+    assert _lid_steps("on").kernels == KernelPlan("general", "slab")
 
 
 def test_state_round_trip_and_fields():
