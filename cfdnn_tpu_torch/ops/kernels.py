@@ -1582,8 +1582,10 @@ def _fht_check(name, f, axis, t, extra=(), extra_shapes=()):
     if f.device.type == "cuda" and not library().cfdnn_fht_tile(
             t.N1, t.N2, f.element_size()):
         raise NotImplementedError(
-            f"{name}: the kernel takes N1 <= 8 and N2 a multiple of 8 that "
-            f"fits its block (N1 = {t.N1}, N2 = {t.N2})")
+            f"{name}: the kernel takes N1 <= 8 and N2 = r * 2^m with r in "
+            f"(1, 3, 5, 7), m >= 3 and N2 <= 4096 (every split the solver "
+            f"chooses: N2 in 32 ... 256), whose block fits (N1 = {t.N1}, "
+            f"N2 = {t.N2})")
 
 
 def _fht_lines(f, axis, t):

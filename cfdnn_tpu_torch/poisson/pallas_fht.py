@@ -9,8 +9,10 @@ N1 <= 8 and N2 in {32 ... 256}) the Hartley transform factorizes into
      with H1 = cas(2 pi k1 n1 / N1) (all +-1 for N1 in {1, 2, 4});
   2. a twiddle with the k1 flip tf = tt[(N1 - k1) % N1]:
        u_c = c tt + s tf,  u_s = c tf - s tt,  (c, s) = cos/sin(2 pi k1 n2/N);
-  3. a dense contraction over the fast digit,
-       X[k1, k2] = sum_n2 C2[k2, n2] u_c[n2] + S2[k2, n2] u_s[n2].
+  3. a contraction over the fast digit,
+       X[k1, k2] = sum_n2 C2[k2, n2] u_c[n2] + S2[k2, n2] u_s[n2]
+                 = Re DFT_N2(u_c + i u_s)[k2]
+     (the twins below contract densely; the kernels run it as an FFT).
 
 The output stays in DIGIT-PERMUTED order: position p = k1*N2 + k2 holds
 wavenumber k = k1 + N1*k2, and the modal symbol is built in the same order
@@ -21,7 +23,7 @@ input); every 1/N goes into the modal pass's `norm`.
 The kernels themselves are `ops.kernels.fht_pass` (one forward or inverse
 pass along one axis) and `ops.kernels.fht_modal` (forward, the 1/lambda
 scale with null modes pinned, and the inverse, along the last transformed
-axis in one pass), in `csrc/fht.cu`. Their twins below are the
+axis in one pass), in `csrc/fht.cuh`. Their twins below are the
 exact-table algebra of the reference's `_fwd_groups` / `_inv_groups` /
 `_kernel_modal` on whole tensors in the working dtype. The reference's
 bf16 split tables (`csv`, `csr`) compensate a matrix unit that multiplies

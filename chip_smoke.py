@@ -26,9 +26,10 @@ Phases, each of which raises on failure (nothing is caught):
      each div output also against the divergence kernel of the kernel's
      own star (1e-12 / 1e-5 of scale); the two Hartley kernels
      (`_fht_cases`): float64 on every axis, forward, inverse and modal,
-     for N1 = 1 ... 8 (N2 = 32) and N2 = 64, 128, 256 (with the round
-     trip = N x and the dense reference_forward), float32 at 512^3 on
-     every axis with the tgv512 and channel512 solvers' symbols; the four
+     for N1 = 1 ... 8 (N2 = 32) and N2 = 64, 96, 128, 160, 192, 224, 256
+     (with the round trip = N x and the dense reference_forward), float32
+     at 512^3 and 640^3 on every axis with the tgv512, channel512 and
+     les_tgv640 solvers' symbols; the four
      xz kernels (`_xz_cases`) on the les_tgv640 plane 32x640x640 (the
      predictor with and without nu_t, nu_sgs, divergence, correct) and on
      small grids the xz gate serves (a stretched walled y, a lid, a
@@ -133,11 +134,11 @@ KERNEL_REPLACES = {
     "correct_xz": "cfdnn_tpu/ops/pallas_kernels.py:1060",
 }
 # the two div kernels are instantiations in their predictor's source, the
-# two Hartley kernels share csrc/fht.cu, three xz kernels csrc/xz.cu, and
+# two Hartley kernels share csrc/fht.cuh, three xz kernels csrc/xz.cu, and
 # the xz predictor is a header with a source for each dtype
 KERNEL_SOURCE = {"predictor_periodic_div": "predictor_periodic.cu",
                  "predictor_channel_div": "predictor_channel.cu",
-                 "fht_pass": "fht.cu", "fht_modal": "fht.cu",
+                 "fht_pass": "fht.cuh", "fht_modal": "fht.cuh",
                  "predictor_general_xz": "predictor_general_xz.cuh",
                  "nu_sgs_xz": "xz.cu", "divergence_xz": "xz.cu",
                  "correct_xz": "xz.cu"}
@@ -660,8 +661,9 @@ def _xz_cases(dtype, device, seed, nx=32, small=True):
 
 def fht_ops(t, modal):
     """Operations a cell of a Hartley kernel call along an axis of length
-    t.N: those the function needs, not those of csrc/fht.cu's dense N2
-    contraction (4 N2 + 4 N1 + 6 a cell a direction, 534 at N = 512). A
+    t.N: those the function needs, not those of csrc/fht.cuh's algorithm
+    (a complex FFT of N2 for each k1 group, of which the real part is
+    kept: ~5 log2 N2 + 2 N1 + 6 a cell a direction, ~49 at N = 512). A
     real transform of length N by a fast algorithm takes 2.5 N log2 N
     flops (half of a complex FFT's 5 N log2 N), 2.5 log2 N a cell a
     direction; the modal pass does both directions and its scale (an add,
@@ -673,12 +675,15 @@ def fht_ops(t, modal):
 def _fht_cases(dtype, device, seed, split640=False):
     """A Case for each Hartley kernel call. Float64 at small shapes, every
     axis, forward, inverse and modal (random symbols with null modes), for
-    N1 = 1 ... 8 with N2 forced to 32 and for N2 = 64, 128, 256 (N = 64,
-    128, 256 and 2048 = 8 x 256, the largest split the kernels take), the
-    last four also with the round trip inverse(forward(x)) = N x and, but
-    at 2048, against the dense reference_forward. Float32 at 512^3, every
-    axis, random fields; the modal pass with the tgv512 solver's symbols on each axis
-    and the channel512 solver's on its Hartley axes z and x. The first
+    N1 = 1 ... 8 with N2 forced to 32, for N2 = 64, 128, 256 (N = 64, 128,
+    256 and 2048 = 8 x 256, the largest split the solver takes) and for
+    the odd radices' N2 = 96, 160, 192, 224 (N1 = 1, and 480 = 5 x 96, 448
+    = 2 x 224) and two forced splits outside the solver's (N2 = 40 with
+    N1 = 2, N2 = 48), all but N2 = 32 also with the round trip
+    inverse(forward(x)) = N x and, at N <= 256, against the dense
+    reference_forward. Float32 at 512^3, every axis, random fields; the
+    modal pass with the tgv512 solver's symbols on each axis and the
+    channel512 solver's on its Hartley axes z and x. The first
     case of each label is the main path's. With `split640`, float32 also
     at 640^3 (N1 = 5, N2 = 128) in the main path's order with the symbols
     of les_tgv640's solver under "pallas_fft", the transform the
@@ -732,6 +737,11 @@ def _fht_cases(dtype, device, seed, split640=False):
     if dtype == torch.float64:
         splits = [(32 * n1, 32) for n1 in range(1, 9)]
         splits += [(64, 64), (128, 128), (256, 256), (2048, 256)]
+        # the radix-3, 5 and 7 stages of the kernels' N2 FFT
+        splits += [(96, 96), (160, 160), (192, 192), (224, 224), (480, 96),
+                   (448, 224)]
+        # two forced splits outside the solver's
+        splits += [(80, 40), (48, 48)]
         for N, n2 in splits:
             t = P.PFHTAxis.make(N, dtype, n2=n2, device=device)
             tag = f" N1={t.N1} N2={t.N2}"

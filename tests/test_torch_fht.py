@@ -105,6 +105,62 @@ def test_modal_matches_pallas(N1, axis):
     assert _rel(got.numpy(), want) <= F64
 
 
+# The splits the kernels' radix-3, 5 and 7 stages and their other
+# power-of-two plans serve, N2 in {64, 96, 160, 192, 224, 256}, each with
+# N1 = 1 and one N1 > 1 (the solver's own split, but N2 = 256 forced at
+# N = 256, where the solver takes 2 x 128).
+SPLITS = [(64, None), (320, None), (96, None), (480, None), (160, None),
+          (800, None), (192, None), (576, None), (224, None), (1568, None),
+          (256, 256), (2048, None)]
+
+
+def _split_axes(N, n2):
+    r = rp.PFHTAxis.make(N, jnp.float64, n2=n2)
+    t = tp.PFHTAxis.make(N, torch.float64, n2=n2, device="cpu")
+    assert (r.N1, r.N2) == (t.N1, t.N2) and t.N1 * t.N2 == N
+    return r, t
+
+
+def _split_shape(axis, N):
+    shape = [4, 6, 5]
+    shape[axis] = N
+    return shape
+
+
+@pytest.mark.parametrize("N,n2", SPLITS)
+def test_pass_matches_pallas_at_split(N, n2):
+    """fht_pass forward and inverse == fht_pallas (float64, interpret) on
+    every axis at the split."""
+    r, t = _split_axes(N, n2)
+    for axis in range(3):
+        x = _data(_split_shape(axis, N), N + axis)
+        for inverse in (False, True):
+            want = rp.fht_pallas(jnp.asarray(x), axis, r, inverse=inverse,
+                                 interpret=True)
+            got = K.fht_pass(torch.from_numpy(x), axis, t, inverse=inverse)
+            assert _rel(got.numpy(), want) <= F64, (t.N1, t.N2, axis,
+                                                    inverse)
+
+
+@pytest.mark.parametrize("N,n2", SPLITS)
+def test_modal_matches_pallas_at_split(N, n2):
+    """fht_modal == fht_pallas_modal (float64, interpret) on every axis at
+    the split, the null mode pinned by thr."""
+    r, t = _split_axes(N, n2)
+    kw = dict(thr=1e-9, norm=0.37 / N)
+    for axis in range(3):
+        shape = _split_shape(axis, N)
+        x = _data(shape, 2 * N + axis)
+        lam_axis, lam_rest = _lams(shape, axis, N + axis)
+        want = rp.fht_pallas_modal(jnp.asarray(x), axis, r, lam_axis,
+                                   jnp.asarray(lam_rest), interpret=True,
+                                   **kw)
+        got = K.fht_modal(torch.from_numpy(x), axis, t,
+                          torch.from_numpy(lam_axis),
+                          torch.from_numpy(lam_rest), **kw)
+        assert _rel(got.numpy(), want) <= F64, (t.N1, t.N2, axis)
+
+
 @pytest.mark.parametrize("N", [128, 512])
 def test_default_split_matches_pallas_and_dense(N):
     """The solver's split (N1 = 1, N2 = 128 at 128; N1 = 4 at 512): each
