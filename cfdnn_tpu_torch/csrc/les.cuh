@@ -43,8 +43,8 @@ struct LesGrid {
 
     // The stencils below read component C (0 u, 1 v, 2 w) at its stored
     // point (i, j, k) through a reader r, r.template at<C>(i, j, k): Global
-    // (device memory) for the slab kernels, the staged tile for nu_sgs_xz
-    // (xz.cu).
+    // (device memory) for the slab kernels. nu_sgs_xz (xz.cu) runs the same
+    // gradient over offsets on its staged tile.
 
     // Component C, cell-centred in y (u, or w), at row jj in [-1, ny]: odd
     // reflection about the wall value 0 (pad_tangential), or the periodic

@@ -1,14 +1,13 @@
-// The term math of the general predictor, shared by its two kernels:
+// The term math of the general predictor's slab kernel,
 // predictor_general.cu (one thread per point, every operand read from
-// device memory) and predictor_general_xz.cu (an (x, z) tile staged in
-// shared memory, walked along y). Each function below is templated over
-// a reader G, which supplies
+// device memory); predictor_general_xz.cuh runs the same terms in the
+// same order over offsets on its staged tile. Each function below is
+// templated over a reader G, which supplies
 //   g.ax[3]              the three axes (Axis: metrics, cells, walls),
 //   g.nu                 the scalar viscosity,
 //   g.template val<C>(p) component C at the in-range point p,
 //   g.ne(p)              nu + nu_t at cell p;
-// every periodic wrap and wall ghost is formed here, from in-range reads,
-// so the two kernels run the same arithmetic on the same values.
+// every periodic wrap and wall ghost is formed here, from in-range reads.
 //
 // The operators and the order of evaluation are the operator library's
 // (ops/operators.py _conv_skew, _conv_advective, diffusive), term by term,

@@ -1,6 +1,6 @@
-// The stencils of the projection kernels, shared by the slab kernels
-// (divergence.cu, correct.cu: one thread per point, device memory) and
-// the xz kernels (xz.cu: an (x, z) tile staged in shared memory), each
+// The stencils of the slab projection kernels (divergence.cu, correct.cu:
+// one thread per point, device memory; xz.cu runs the same expressions
+// over offsets on its staged tile), each
 // read through a reader: r.template at<C>(i, j, k) gives face component
 // C (0 u, 1 v, 2 w) at its stored point, r(i, j, k) the pressure at a
 // cell.

@@ -12,9 +12,11 @@
 //                        the same 5-block tile of p).
 // The plain PyTorch twins are the slab kernels' (ops/kernels.py
 // nu_sgs_twin, divergence_twin, correct_twin): the turbulence algebra and
-// the operator library. The stencils are the slab kernels' own, read from
-// the staged window: les.cuh LesGrid::gradient and nu_closure, and
-// projection.cuh div_cell and face_grad.
+// the operator library. The stencils are the slab kernels' own (les.cuh
+// LesGrid::gradient, projection.cuh div_cell and face_grad), expression
+// for expression, rewritten over offsets from the thread's point: each
+// operand is one shared-memory load at a fixed offset (View::at), with no
+// wrap and no fold; the closures are les.cuh's nu_closure itself.
 //
 // Grid: periodic uniform x and z (the launchers refuse anything else), y
 // periodic or bounded by stationary no-slip walls at any stretching.
@@ -23,15 +25,15 @@
 // writes nu_t (16 bytes a cell in float32, ~100-250 flops); divergence_xz
 // the same bytes and 6 flops; correct_xz reads u, v, w, p and writes
 // three faces (28 bytes, 9 flops). Design: xz_tile.cuh's 8 x 32 tile
-// walked along y. The gradient's cross terms interpolate in x and z, so
-// nu_sgs_xz stages the halo's corners; the divergence and the face
-// gradient are axis-aligned and stage none (the reference's 5-block
-// tile). The window holds the y-planes each stencil reaches: j - 1 ...
-// j + 1 (gradient), j ... j + 1 (divergence: v's upper face), j - 1 ... j
-// (gradient of p); correct_xz reads u, v, w at the point itself straight
-// from device memory.
+// walked along y, the next plane copied by cp.async. The window holds the
+// y-planes each stencil reaches: j - 1 ... j + 1 (gradient), j ... j + 1
+// (divergence: v's upper face), j - 1 ... j (gradient of p); correct_xz
+// reads u, v, w at the point itself straight from device memory. The
+// gradient's y ghosts (odd reflections at a wall) are compiled only into
+// the planes next to a wall (EDGE).
+#include <type_traits>
+
 #include "les.cuh"
-#include "projection.cuh"
 #include "xz_tile.cuh"
 
 namespace {
@@ -40,44 +42,82 @@ using cfdnn::LesGrid;
 using cfdnn::xz::Window;
 using cfdnn::xz::fits;
 using cfdnn::xz::kThreads;
-using cfdnn::xz::kPlane;
-
-// Readers of the staged windows: face or velocity component C, or the
-// pressure, at a global in-range point.
-template <typename T, int NF, int YLO, int YHI>
-struct Staged {
-    typename Window<T, NF, YLO, YHI>::View win;
-
-    template <int C>
-    __device__ __forceinline__ T at(int i, int j, int k) const {
-        return win.read(C, i, j, k);
-    }
-
-    __device__ __forceinline__ T operator()(int i, int j, int k) const {
-        return win.read(0, i, j, k);
-    }
-};
 
 // ---- nu_sgs_xz ---------------------------------------------------------
 
+// LesGrid::gradient at the thread's point on the staged window r (u, v, w:
+// fields 0, 1, 2), its order of evaluation: x and z periodic, so is y
+// unless EDGE (a plane next to a wall of a walled y, where yc forms the
+// odd reflection).
+template <typename T, bool EDGE, typename View>
+__device__ __forceinline__ void gradient(const LesGrid<T>& g, const View& r,
+                                         int i, int k, T G[3][3]) {
+    const T h = T(0.5);
+    const int j = r.j, ny = g.ny;
+    // yc<C>(di, j + dj, dk): the odd reflection beyond a wall
+    auto yc = [&](auto c, int di, int dj, int dk) -> T {
+        constexpr int C = decltype(c)::value;
+        if (EDGE) {
+            if (j + dj < 0) return -r.template at<C>(di, -j, dk);
+            if (j + dj >= ny) return -r.template at<C>(di, ny - 1 - j, dk);
+        }
+        return r.template at<C>(di, dj, dk);
+    };
+    using U = std::integral_constant<int, 0>;
+    using W = std::integral_constant<int, 2>;
+    const T dy = g.den_y[j], dx = g.den_x[i], dz = g.den_z[k];
+    // diagonal: staggered difference across the cell
+    G[0][0] = (r.template at<0>(1, 0, 0) - r.template at<0>(0, 0, 0)) * g.inv_dx[i];
+    G[1][1] = (r.template at<1>(0, 1, 0) - r.template at<1>(0, 0, 0)) * g.inv_dy[j];
+    G[2][2] = (r.template at<2>(0, 0, 1) - r.template at<2>(0, 0, 0)) * g.inv_dz[k];
+    // off the diagonal: central difference at the component's own
+    // points, then the mean of the two points bounding the cell
+    const T uy_lo = (yc(U{}, 0, 1, 0) - yc(U{}, 0, -1, 0)) / dy;
+    const T uy_hi = (yc(U{}, 1, 1, 0) - yc(U{}, 1, -1, 0)) / dy;
+    G[0][1] = h * (uy_lo + uy_hi);
+    const T uz_lo = (r.template at<0>(0, 0, 1) - r.template at<0>(0, 0, -1)) / dz;
+    const T uz_hi = (r.template at<0>(1, 0, 1) - r.template at<0>(1, 0, -1)) / dz;
+    G[0][2] = h * (uz_lo + uz_hi);
+    const T vx_lo = (r.template at<1>(1, 0, 0) - r.template at<1>(-1, 0, 0)) / dx;
+    const T vx_hi = (r.template at<1>(1, 1, 0) - r.template at<1>(-1, 1, 0)) / dx;
+    G[1][0] = h * (vx_lo + vx_hi);
+    const T vz_lo = (r.template at<1>(0, 0, 1) - r.template at<1>(0, 0, -1)) / dz;
+    const T vz_hi = (r.template at<1>(0, 1, 1) - r.template at<1>(0, 1, -1)) / dz;
+    G[1][2] = h * (vz_lo + vz_hi);
+    const T wx_lo = (r.template at<2>(1, 0, 0) - r.template at<2>(-1, 0, 0)) / dx;
+    const T wx_hi = (r.template at<2>(1, 0, 1) - r.template at<2>(-1, 0, 1)) / dx;
+    G[2][0] = h * (wx_lo + wx_hi);
+    const T wy_lo = (yc(W{}, 0, 1, 0) - yc(W{}, 0, -1, 0)) / dy;
+    const T wy_hi = (yc(W{}, 0, 1, 1) - yc(W{}, 0, -1, 1)) / dy;
+    G[2][1] = h * (wy_lo + wy_hi);
+}
+
+// float32 at three blocks an SM, float64 at two
+template <typename T>
+constexpr int kMinBlocks = sizeof(T) == 4 ? 3 : 2;
+
 template <typename T, int CLOSURE>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kMinBlocks<T>)
 nu_sgs_xz_kernel(LesGrid<T> g, const T* __restrict__ delta,
                  T* __restrict__ out, T coeff) {
-    __shared__ T buf[3 * 3 * kPlane];
-    Window<T, 3, 1, 1> win;
-    win.init(buf, g.nx, g.ny, g.nz, g.wall_y, g.ny, true);
+    using Win = Window<T, 3, 1, 1>;
+    using View = typename Win::View;
+    __shared__ T buf[Win::kSize];
+    Win win;
+    win.init(buf, g.nx, g.ny, g.nz, g.wall_y, g.ny);
     win.field(0, g.u, g.ny);
     win.field(1, g.v, g.nfy());
     win.field(2, g.w, g.ny);
     const int i = win.i, k = win.k;
     const bool owns = win.owns;
-    win.walk([&](const typename Window<T, 3, 1, 1>::View& view) {
+    win.walk([&](const View& view) {
         if (!owns) return;
-        const Staged<T, 3, 1, 1> r{view};
-        const int j = view.jc;
+        const int j = view.j;
         T G[3][3];
-        g.gradient(r, i, j, k, G);
+        if (g.wall_y && (j == 0 || j == g.ny - 1))
+            gradient<T, true>(g, view, i, k, G);
+        else
+            gradient<T, false>(g, view, i, k, G);
         out[(i * g.ny + j) * g.nz + k] =
             cfdnn::nu_closure<T, CLOSURE>(G, delta + (j * g.nz + k), coeff);
     });
@@ -119,26 +159,31 @@ int launch_nu_sgs(const void* u, const void* v, const void* w,
 
 // ---- divergence_xz -----------------------------------------------------
 
+// div_cell with a periodic x and z (mx = mz = 1) and my = 1 (periodic)
+// or 2 (walled): (face_hi - face_lo) * inv_d along x, then y, then z.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 divergence_xz_kernel(const T* __restrict__ u, const T* __restrict__ v,
                      const T* __restrict__ w, const T* __restrict__ inv_dx,
                      const T* __restrict__ inv_dy, const T* __restrict__ inv_dz,
                      T* __restrict__ out, int nx, int ny, int nz, int my) {
-    __shared__ T buf[3 * 2 * kPlane];
-    Window<T, 3, 0, 1> win;
-    win.init(buf, nx, ny, nz, my == 2, ny, false);
+    using Win = Window<T, 3, 0, 1>;
+    using View = typename Win::View;
+    __shared__ T buf[Win::kSize];
+    Win win;
+    win.init(buf, nx, ny, nz, my == 2, ny);
     win.field(0, u, ny);
     win.field(1, v, my == 2 ? ny + 1 : ny);
     win.field(2, w, ny);
     const int i = win.i, k = win.k;
     const bool owns = win.owns;
-    win.walk([&](const typename Window<T, 3, 0, 1>::View& view) {
+    win.walk([&](const View& r) {
         if (!owns) return;
-        const Staged<T, 3, 0, 1> r{view};
-        const int j = view.jc;
-        out[(i * ny + j) * nz + k] = cfdnn::div_cell(
-            r, inv_dx, inv_dy, inv_dz, i, j, k, nx, ny, nz, 1, my, 1);
+        const int j = r.j;
+        T acc = (r.template at<0>(1, 0, 0) - r.template at<0>(0, 0, 0)) * inv_dx[i];
+        acc = acc + (r.template at<1>(0, 1, 0) - r.template at<1>(0, 0, 0)) * inv_dy[j];
+        acc = acc + (r.template at<2>(0, 0, 1) - r.template at<2>(0, 0, 0)) * inv_dz[k];
+        out[(i * ny + j) * nz + k] = acc;
     });
 }
 
@@ -161,6 +206,9 @@ int launch_divergence(const void* u, const void* v, const void* w,
 
 // ---- correct_xz --------------------------------------------------------
 
+// face_grad of p at the three faces of the point: (p - p one cell down) *
+// inv_dc, periodic along x and z; along y periodic (my = 1) or walled (my
+// = 2: zero at the two wall faces, bc.pad_pressure's Neumann copy).
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 correct_xz_kernel(const T* __restrict__ u, const T* __restrict__ v,
@@ -169,25 +217,31 @@ correct_xz_kernel(const T* __restrict__ u, const T* __restrict__ v,
                   const T* __restrict__ inv_dcy, const T* __restrict__ inv_dcz,
                   T* __restrict__ ou, T* __restrict__ ov, T* __restrict__ ow,
                   int nx, int ny, int nz, int my) {
-    __shared__ T buf[1 * 2 * kPlane];
+    using Win = Window<T, 1, 1, 0>;
+    using View = typename Win::View;
+    __shared__ T buf[Win::kSize];
     const int nfy = my == 2 ? ny + 1 : ny;
-    Window<T, 1, 1, 0> win;
-    win.init(buf, nx, ny, nz, my == 2, nfy, false);
+    Win win;
+    win.init(buf, nx, ny, nz, my == 2, nfy);
     win.field(0, p, ny);
     const T dt = *dt_ptr;
     const int i = win.i, k = win.k;
     const bool owns = win.owns;
-    win.walk([&](const typename Window<T, 1, 1, 0>::View& view) {
+    win.walk([&](const View& r) {
         if (!owns) return;
-        const Staged<T, 1, 1, 0> r{view};
-        const int j = view.jc;
+        const int j = r.j;
         if (j < ny) {
             const int c = (i * ny + j) * nz + k;
-            ou[c] = u[c] - dt * cfdnn::face_grad(r, inv_dcx, i, j, k, 0, 1, nx, ny, nz);
-            ow[c] = w[c] - dt * cfdnn::face_grad(r, inv_dcz, i, j, k, 2, 1, nx, ny, nz);
+            const T p0 = r.template at<0>(0, 0, 0);
+            ou[c] = u[c] - dt * ((p0 - r.template at<0>(-1, 0, 0)) * inv_dcx[i]);
+            ow[c] = w[c] - dt * ((p0 - r.template at<0>(0, 0, -1)) * inv_dcz[k]);
         }
         const int f = (i * nfy + j) * nz + k;
-        ov[f] = v[f] - dt * cfdnn::face_grad(r, inv_dcy, i, j, k, 1, my, nx, ny, nz);
+        const T gy = my == 2 && (j == 0 || j == ny)
+                         ? T(0) * inv_dcy[j]
+                         : (r.template at<0>(0, 0, 0) - r.template at<0>(0, -1, 0))
+                               * inv_dcy[j];
+        ov[f] = v[f] - dt * gy;
     });
 }
 

@@ -1,23 +1,27 @@
-// The (x, z) tile of the xz kernels (predictor_general_xz.cu, xz.cu): a
+// The (x, z) tile of the xz kernels (predictor_general_xz.cuh, xz.cu): a
 // block owns kTx x-points by kTz z-points of the grid, one thread a point,
 // and walks them along y, plane by plane, over a chunk of kChunk planes.
 //
 // On the TPU the xz kernels exist because a whole y-z plane overflows the
 // core's VMEM, so they tile x and z and keep full y columns. The Hopper
 // tile takes the same shape: z fastest and a warp wide, so every load of
-// a plane coalesces along z; the tile and its one-cell x/z halo (with the
-// corners where a stencil's cross terms reach them) are staged in shared
-// memory; and a ring of y-planes (j - YLO ... j + YHI of the current plane
-// j) rolls along the walk, so each plane is fetched from device memory
-// once per block. The next plane is fetched into registers while the
-// current one is computed, and stored into the ring after it.
+// a plane coalesces along z; the tile and its one-cell x/z halo (corners
+// included) are staged in shared memory; and a ring of y-planes (j - YLO
+// ... j + YHI of the current plane j, and one plane more in flight) rolls
+// along the walk, so each plane is fetched from device memory once per
+// block. The next plane is copied into the ring by cp.async while the
+// current one is computed: no register holds a plane in flight, and one
+// barrier a plane both publishes the copy and retires the slot it reuses.
 //
-// A reader turns the global, in-range indices the stencil code forms
-// (every periodic wrap and wall ghost is the stencil code's own) into the
-// staged copy: x and z back into the tile's halo frame, y into the ring.
-// x and z are periodic here: the wrappers' gate refuses anything else.
-// y is periodic (wrapped rows) or walled (rows beyond the stored ones are
-// neither fetched nor read: the stencils form those ghosts themselves).
+// The stencils read the window through View::at<C>(di, dj, dk): component
+// C at an offset of -1, 0 or +1 along each axis from the thread's point,
+// one shared-memory load at a fixed offset from the plane's base. The
+// x and z halo is staged wrapped (x and z are periodic here: the wrappers'
+// gate refuses anything else), and on a periodic y the ring holds the
+// wrapped planes, so inside the tile a neighbour is always one step away
+// and no read folds an index. On a walled y the rows beyond the stored
+// ones are neither fetched nor read: the stencils form those ghosts
+// themselves, on the planes next to a wall.
 #pragma once
 
 #include "common.cuh"
@@ -31,7 +35,6 @@ constexpr int kThreads = kTx * kTz;          // a thread per owned point
 constexpr int kPx = kTx + 2;                 // staged x points (halo 1)
 constexpr int kPz = kTz + 2;                 // staged z points (halo 1)
 constexpr int kPlane = kPx * kPz;            // staged points of a plane
-constexpr int kLoads = (kPlane + kThreads - 1) / kThreads;  // a thread's
 constexpr int kChunk = 64;                   // y planes a block walks
 
 // The launch grid: (tiles, chunks of the y rows the kernel walks).
@@ -41,52 +44,59 @@ inline dim3 grid(int nx, int nz, int rows) {
                 static_cast<unsigned>((rows + kChunk - 1) / kChunk));
 }
 
-// Whether the tile takes a grid: periodic x and z of at least one point,
-// `rows` y rows to walk, 32-bit offsets, the y chunks within the launch
-// grid's y extent.
+// Whether the tile takes a grid: periodic x of at least kTx points (one
+// wrap puts every staged x in range) and z of at least one, `rows` y rows
+// to walk, 32-bit offsets, the y chunks within the launch grid's y extent.
 inline bool fits(int nx, int rows, int nz) {
-    return nx >= 1 && nz >= 1 && rows >= 1
+    return nx >= kTx && nz >= 1 && rows >= 1
            && static_cast<long long>(nx) * rows * nz <= 2147483647LL
            && (rows + kChunk - 1) / kChunk <= 65535;
 }
 
-// A global periodic index g of an axis of n points, in the halo frame
-// (-1 ... B) of a tile of B points starting at o. Requests come from the
-// tile's own points and their neighbours, so one shift by n suffices.
-template <int B>
-__device__ __forceinline__ int local(int g, int o, int n) {
-    int d = g - o;
-    if (d < -1) d += n;
-    else if (d > B) d -= n;
-    return d;
+// One element from device memory into shared memory, asynchronously
+// (cp.async, sm_80 and later; 4 or 8 bytes), and the group fences.
+template <typename T>
+__device__ __forceinline__ void copy_async(T* dst, const T* src) {
+    const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n"
+                 :: "r"(d), "l"(src), "n"(sizeof(T)));
+}
+
+__device__ __forceinline__ void commit_copies() {
+    asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ __forceinline__ void wait_copies() {
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
 // The staged window of NF fields over a tile: y-planes j - YLO ... j + YHI
-// of the current plane j, in a ring of shared-memory slots.
+// of the current plane j, and the next plane in flight, in a ring of
+// shared-memory slots, each [NF][kPx][kPz].
 template <typename T, int NF, int YLO, int YHI>
 struct Window {
-    static constexpr int kSlots = 1 + YLO + YHI;
+    static constexpr int kSlots = YLO + YHI + 2;
+    static constexpr int kSize = kSlots * NF * kPlane;   // elements
 
-    T* buf;                    // [NF][kSlots][kPx][kPz], shared memory
+    T* buf;                    // [kSlots][NF][kPx][kPz], shared memory
     const T* f[NF];            // the fields, (nx, rows, nz) each
-    int sx[NF], sy[NF];        // x and y strides
+    int sx[NF];                // x strides
     int rows[NF];              // stored y rows (ny + 1: v's walled faces)
     int nx, ny, nz;            // cells
     int wall_y;                // 1: walled y, 0: periodic y
     int i0, k0;                // the tile's origin
-    int i, k;                  // this thread's point (beyond nx or nz on a
+    int tx, tz;                // this thread's owned point in the tile
+    int i, k;                  // ... and in the grid (beyond nx or nz on a
     bool owns;                 //   ragged tile, then owns is false)
     int j0, j1;                // the walk: planes [j0, j1)
-    int gx[kLoads], gz[kLoads], slot_at[kLoads];  // this thread's staged
-    T pre[NF][kLoads];         // points (slot_at -1: none) and the plane
-                               // in flight
+    int e;                     // this thread's staged points e, e + kThreads
+    int gx[2], gz[2];          //   of a plane (the second where
+                               //   e + kThreads < kPlane) in the grid
 
     // The tile of this block, this thread's point and staged points, the
-    // walk over `walk_rows` planes; corner halo points are staged only
-    // with `corners`.
+    // walk over `walk_rows` planes.
     __device__ __forceinline__ void init(T* shared, int nx_, int ny_, int nz_,
-                                         int wall_y_, int walk_rows,
-                                         bool corners) {
+                                         int wall_y_, int walk_rows) {
         buf = shared;
         nx = nx_;
         ny = ny_;
@@ -94,32 +104,29 @@ struct Window {
         wall_y = wall_y_;
         const int tiles_z = (nz + kTz - 1) / kTz;
         const int b = static_cast<int>(blockIdx.x);
-        const int t = static_cast<int>(threadIdx.x);
+        e = static_cast<int>(threadIdx.x);
         i0 = b / tiles_z * kTx;
         k0 = b % tiles_z * kTz;
-        i = i0 + t / kTz;
-        k = k0 + t % kTz;
+        tx = e / kTz;
+        tz = e % kTz;
+        i = i0 + tx;
+        k = k0 + tz;
         owns = i < nx && k < nz;
         j0 = static_cast<int>(blockIdx.y) * kChunk;
         j1 = min(j0 + kChunk, walk_rows);
 #pragma unroll
-        for (int q = 0; q < kLoads; ++q) {
-            const int p = t + q * kThreads;
-            const int lx = p / kPz, lz = p - (p / kPz) * kPz;
-            const bool corner = (lx == 0 || lx == kPx - 1)
-                                && (lz == 0 || lz == kPz - 1);
-            slot_at[q] = p < kPlane && (corners || !corner) ? p : -1;
-            gx[q] = (i0 - 1 + lx + nx) % nx;
-            gz[q] = (k0 - 1 + lz + nz) % nz;
-#pragma unroll
-            for (int c = 0; c < NF; ++c) pre[c][q] = T(0);
+        for (int q = 0; q < 2; ++q) {
+            const int p = min(e + q * kThreads, kPlane - 1);
+            const int lx = p / kPz;
+            const int g = i0 - 1 + lx;
+            gx[q] = g < 0 ? g + nx : (g >= nx ? g - nx : g);
+            gz[q] = (k0 - 1 + p - lx * kPz + nz) % nz;
         }
     }
 
     __device__ __forceinline__ void field(int c, const T* ptr, int rows_c) {
         f[c] = ptr;
         rows[c] = rows_c;
-        sy[c] = nz;
         sx[c] = rows_c * nz;
     }
 
@@ -130,48 +137,38 @@ struct Window {
         return r >= 0 && r < rows[c] ? r : -1;
     }
 
-    // plane r of every field: device memory -> registers
-    __device__ __forceinline__ void fetch(int r) {
+    // Start the copy of plane r of every field into ring slot s: each
+    // thread its staged points e and e + kThreads of the plane.
+    __device__ __forceinline__ void fetch(int r, int s) {
+        static_assert(kPlane <= 2 * kThreads, "two staged points a thread");
 #pragma unroll
         for (int c = 0; c < NF; ++c) {
             const int rr = row(c, r);
             if (rr < 0) continue;
-#pragma unroll
-            for (int q = 0; q < kLoads; ++q)
-                if (slot_at[q] >= 0)
-                    pre[c][q] = f[c][gx[q] * sx[c] + rr * sy[c] + gz[q]];
+            const T* src = f[c] + rr * nz;
+            T* dst = buf + (s * NF + c) * kPlane + e;
+            copy_async(dst, src + (gx[0] * sx[c] + gz[0]));
+            if (e + kThreads < kPlane)
+                copy_async(dst + kThreads, src + (gx[1] * sx[c] + gz[1]));
         }
     }
 
-    // registers -> ring slot s
-    __device__ __forceinline__ void put(int s) {
-#pragma unroll
-        for (int c = 0; c < NF; ++c)
-#pragma unroll
-            for (int q = 0; q < kLoads; ++q)
-                if (slot_at[q] >= 0)
-                    buf[(c * kSlots + s) * kPlane + slot_at[q]] = pre[c][q];
-    }
-
-    // The window as the stencils read it while plane jc is current: the
-    // ring slot `base` holds plane jc - YLO. Passed to the walk's body by
-    // value, so the plane and the slot are plain values of the iteration.
+    // The window as the stencils read it while plane j is current: o[d]
+    // is this thread's staged point in the slot of plane j - YLO + d.
     struct View {
-        const Window* w;
-        int jc, base;
+        const T* buf;
+        int o[YLO + YHI + 1];
+        int j;
 
-        // Field c at the global, in-range point (gi, gj, gk).
-        __device__ __forceinline__ T read(int c, int gi, int gj, int gk) const {
-            int dj = gj - jc;
-            if (!w->wall_y) {
-                if (dj < -YLO) dj += w->ny;
-                else if (dj > YHI) dj -= w->ny;
-            }
-            int s = base + dj + YLO;
-            if (s >= kSlots) s -= kSlots;
-            const int lx = local<kTx>(gi, w->i0, w->nx) + 1;
-            const int lz = local<kTz>(gk, w->k0, w->nz) + 1;
-            return w->buf[(c * kSlots + s) * kPlane + lx * kPz + lz];
+        // Component C at (i + di, j + dj, k + dk), each offset in -1 ... 1.
+        // dj picks the plane; on the planes next to a wall it may vary at
+        // run time, elsewhere every offset is a constant and the read is
+        // one load at a fixed offset from the plane's base.
+        template <int C>
+        __device__ __forceinline__ T at(int di, int dj, int dk) const {
+            const int base = (YLO && dj < 0) ? o[0]
+                             : ((YHI && dj > 0) ? o[YLO + YHI] : o[YLO]);
+            return buf[base + C * kPlane + di * kPz + dk];
         }
     };
 
@@ -182,26 +179,31 @@ struct Window {
     __device__ __forceinline__ void walk(Body body) {
         static_assert(YLO >= 0 && YLO <= 1 && YHI >= 0 && YHI <= 1,
                       "the stencils reach one plane either way");
-        // planes j0 - YLO ... j0 + YHI - 1 into slots 0 ... YLO + YHI - 1
-        if constexpr (YLO == 1) {
-            fetch(j0 - 1);
-            put(0);
-        }
-        if constexpr (YHI == 1) {
-            fetch(j0);
-            put(YLO);
-        }
-        fetch(j0 + YHI);
-        int base = 0;
+        // planes j0 - YLO ... j0 + YHI into slots 0 ... YLO + YHI
+#pragma unroll
+        for (int d = 0; d <= YLO + YHI; ++d) fetch(j0 - YLO + d, d);
+        commit_copies();
+        const int point = (tx + 1) * kPz + tz + 1;
+        int s = 0;   // the slot of plane j - YLO
         for (int j = j0; j < j1; ++j) {
-            // the leading plane j + YHI replaces plane j - YLO - 1
-            const int lead = base + YLO + YHI;
-            put(lead >= kSlots ? lead - kSlots : lead);
+            // plane j + YHI has landed for every thread, and every thread
+            // is done with plane j - YLO - 1, whose slot the next plane
+            // takes
+            wait_copies();
             __syncthreads();
-            if (j + 1 < j1) fetch(j + 1 + YHI);
-            body(View{this, j, base});
-            __syncthreads();
-            base = base + 1 == kSlots ? 0 : base + 1;
+            if (j + 1 < j1) {
+                const int next = s == 0 ? kSlots - 1 : s - 1;
+                fetch(j + YHI + 1, next);
+                commit_copies();
+            }
+            View view{buf, {}, j};
+#pragma unroll
+            for (int d = 0; d <= YLO + YHI; ++d) {
+                const int sd = s + d >= kSlots ? s + d - kSlots : s + d;
+                view.o[d] = sd * NF * kPlane + point;
+            }
+            body(view);
+            s = s + 1 == kSlots ? 0 : s + 1;
         }
     }
 };

@@ -1105,24 +1105,45 @@ correct.launches = 0
 # ---------------------------------------------------------------------------
 
 
-def nu_sgs_eligible(geom: Geometry) -> bool:
-    """Structural gate of the nu_sgs kernel (the reference's LES gate,
-    cfdnn_tpu/turbulence/les.py:37-39): periodic uniform x, y and z each
-    periodic uniform or a stationary no-slip wall at any stretching
-    (y.n, z.n > 1), O2."""
+def les_refusal(name: str, geom: Geometry) -> Optional[str]:
+    """The gates of the LES kernels (a key of LES_GATES): why the kernel
+    `name` does not serve `geom`, the first of its conditions that fails,
+    or None where it does.
+      nu_sgs         the reference's LES gate (cfdnn_tpu/turbulence/
+                     les.py:37-39): periodic uniform x, y and z each
+                     periodic uniform or a stationary no-slip wall at any
+                     stretching (y.n, z.n > 1), O2;
+      germano_pass1  nu_sgs's with a periodic uniform z (its box filter's
+                     wall-z truncation is ROADMAP B.7);
+      nu_sgs_xz      nu_sgs's on the xz kernels' grid (xz_eligible)."""
     x, y, z = geom.axes
-    return (x.periodic and x.uniform and x.n > 1 and _yz_ok(y) and _yz_ok(z)
-            # the wall ghosts hardcode stationary no-slip
-            and all(t == (0.0, 0.0) for ax in (y, z) for t in ax.tang)
-            and geom.space_order == 2)
+    if not (x.periodic and x.uniform and x.n > 1):
+        return f"{name} needs a periodic uniform x"
+    if not (_yz_ok(y) and _yz_ok(z)):
+        return (f"{name} needs y and z each periodic uniform or a no-slip "
+                "wall")
+    if any(t != (0.0, 0.0) for ax in (y, z) for t in ax.tang):
+        return (f"{name} needs stationary walls (its wall ghosts are "
+                "no-slip at rest; a lid or a moving wall is not served)")
+    if geom.space_order != 2:
+        return f"{name} needs O2"
+    if name == "germano_pass1" and not (z.periodic and z.uniform):
+        return ("germano_pass1 needs a periodic uniform z (a walled z is "
+                "ROADMAP B.7)")
+    if name == "nu_sgs_xz" and not xz_eligible(geom):
+        return ("nu_sgs_xz needs the (x, z) tile's grid (x.n >= 8, a "
+                "periodic z)")
+    return None
+
+
+def nu_sgs_eligible(geom: Geometry) -> bool:
+    """Structural gate of the nu_sgs kernel (`les_refusal`)."""
+    return les_refusal("nu_sgs", geom) is None
 
 
 def germano_pass1_eligible(geom: Geometry) -> bool:
-    """Structural gate of the germano_pass1 kernel: nu_sgs's with a
-    periodic uniform z (its box filter's wall-z truncation is ROADMAP
-    B.7)."""
-    z = geom.axes[2]
-    return nu_sgs_eligible(geom) and z.periodic and z.uniform
+    """Structural gate of the germano_pass1 kernel (`les_refusal`)."""
+    return les_refusal("germano_pass1", geom) is None
 
 
 LES_GATES = {"nu_sgs": nu_sgs_eligible,
@@ -1288,12 +1309,13 @@ def xz_eligible(geom: Geometry) -> bool:
 
 
 def nu_sgs_xz_eligible(geom: Geometry) -> bool:
-    """Gate of nu_sgs_xz: the xz gate with stationary walls (the LES
-    kernels' wall ghosts hardcode stationary no-slip)."""
-    return xz_eligible(geom) and nu_sgs_eligible(geom)
+    """Gate of nu_sgs_xz (`les_refusal`): the xz gate with stationary
+    walls (the LES kernels' wall ghosts hardcode stationary no-slip)."""
+    return les_refusal("nu_sgs_xz", geom) is None
 
 
 LES_GATES["nu_sgs_xz"] = nu_sgs_xz_eligible
+
 
 
 def _check_xz(name, geom, gate=xz_eligible):

@@ -375,10 +375,9 @@ class Simulation:
             why = ("the transport kernel serves a channel or general "
                    "predictor's grid with stationary walls (ROADMAP B.8)")
         else:
-            ok = closure is None or kernels.LES_GATES[closure](geom)
-            why = (f"the {closure} kernel does not serve this geometry "
-                   "(ROADMAP B.5/B.7: germano_pass1 takes a periodic z "
-                   "only)")
+            why = None if closure is None else kernels.les_refusal(closure,
+                                                                   geom)
+            ok = why is None
         if not ok:
             if cfg.use_pallas == "on":
                 raise NotImplementedError(

@@ -33,7 +33,8 @@ Phases, each of which raises on failure (nothing is caught):
      xz kernels (`_xz_cases`) on the les_tgv640 plane 32x640x640 (the
      predictor with and without nu_t, nu_sgs, divergence, correct) and on
      small grids the xz gate serves (a stretched walled y, a lid, a
-     periodic y; skew and central; Smagorinsky, WALE and Vreman), float64
+     periodic y, ragged tiles over two y chunks; skew and central;
+     Smagorinsky, WALE and Vreman), float64
      to 1e-13 of scale and float32 to 1e-5, each against its twin and
      against the slab kernel of its function on the same inputs; each
      output of a kernel is held to its own twin output's scale;
@@ -89,7 +90,8 @@ Phases, each of which raises on failure (nothing is caught):
      the 512^3 Poisson solve alone, "fft" against "pallas_fft", on the
      tgv512 and channel512 solvers; les_tgv640 over 100 steps (one rep)
      with its profile, and each xz kernel at 640^3 beside its twin and
-     the slab kernel of its function on the same inputs;
+     the slab kernel of its function on the same inputs (with its float32
+     difference from that slab kernel);
   6. the A/B: tgv, channel and les_channel unfused and fused, in the
      order off, on, on, off, ms/step and device ms/step of each.
 It prints the `kernels` JSON line (each kernel's bound: the larger of its
@@ -578,8 +580,10 @@ def _xz_cases(dtype, device, seed, nx=32, small=True):
     label; then, with `small`, on small grids the xz gate serves: the
     stretched walled-y channel 16x24x32 (central, nu_t; nu_sgs with
     Smagorinsky, WALE and Vreman; divergence, correct), the lid 16x12x32
-    (skew, lid_velocity 1.3, scalar nu) and a periodic y 16x24x32 (skew,
-    nu_t; nu_sgs with WALE and Vreman)."""
+    (skew, lid_velocity 1.3, scalar nu), a periodic y 16x24x32 (skew,
+    nu_t; nu_sgs with WALE and Vreman) and two grids of ragged tiles over
+    two y chunks: the walled stretched 12x70x40 (skew, nu_t, the three
+    closures) and the periodic-y 20x67x44 (central, nu_t, Smagorinsky)."""
     import functools
     from cfdnn_tpu_torch import BCType, Config, bench, velocity_shapes
     from cfdnn_tpu_torch import ConvectiveScheme as CS
@@ -615,7 +619,17 @@ def _xz_cases(dtype, device, seed, nx=32, small=True):
                                         bc_y=BCType.PERIODIC, y_min=0.0,
                                         y_max=1.0,
                                         convective_scheme=CS.SKEW),
-             True, ("wale", "vreman"), False)]
+             True, ("wale", "vreman"), False),
+            # ragged tiles (nx, nz not multiples of 8 x 32) over two
+            # 64-plane chunks, walled and periodic y
+            (" ragged skew", Config(**base, Nx=12, Ny=70, Nz=40,
+                                    stretch_y=True,
+                                    convective_scheme=CS.SKEW),
+             True, ("smagorinsky", "wale", "vreman"), True),
+            (" ragged periodic-y central",
+             Config(**base, Nx=20, Ny=67, Nz=44, bc_y=BCType.PERIODIC,
+                    y_min=0.0, y_max=1.0, convective_scheme=CS.CENTRAL),
+             True, ("smagorinsky",), True)]
     cases = []
     for tag, cfg, with_nut, closures, projection in grids:
         cfg = cfg.finalize()
@@ -878,6 +892,8 @@ def _hold(case, dtype, errs):
                   f"(limit {lim:.3e})")
             check(err <= lim, f"{case.label} {out} {dtype} vs "
                   f"slab: {err} > {lim}")
+            vs = errs.setdefault("vs slab", {})
+            vs[case.label] = max(vs.get(case.label, 0.0), err / scale)
     if case.geom is not None:
         err, lim = own_star_div_error(got, case.geom, dtype)
         print(f"[kernels] {case.label} div vs divergence of its own "
@@ -1504,7 +1520,11 @@ def phase_timing(device, errs):
         # milliseconds a call there, over fewer reps)
         for case in _xz_cases(torch.float32, device, seed=2, nx=640,
                               small=False):
+            errs.setdefault("vs slab", {}).pop(case.label, None)
             ref = _hold(case, torch.float32, errs)
+            print(f"[kernels] {case.label} float32 640^3 vs the slab "
+                  f"kernel on the same inputs: max|d| / max|slab| = "
+                  f"{errs['vs slab'][case.label]:.3e}")
             if any(t[0] == case.name for t in times.values()):
                 continue   # timed on its first (main-path) case
             t = times[case.label] = (

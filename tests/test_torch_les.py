@@ -284,6 +284,37 @@ def test_les_kernels_refuse_other_geometries():
         K.nu_sgs(u, v, w, gs, geom=ts.geom, closure="sigma", coeff=1.35)
 
 
+def test_les_refusal_names_the_x_gate():
+    """use_pallas="on" on a wall-x lid cavity with WALE: the refusal names
+    the nu_sgs gate's failing condition, a periodic x, not another
+    kernel's."""
+    cfg = _cfg(T, Nx=12, Ny=12, Nz=12, bc_x="wall", x_max=1.5, y_min=0.0,
+               y_max=1.0, z_max=2.0, lid_velocity=1.0, turb_model="wale",
+               use_pallas="on")
+    with pytest.raises(NotImplementedError) as err:
+        T.Simulation(cfg, device="cpu")
+    assert "nu_sgs needs a periodic uniform x" in str(err.value)
+    assert "germano" not in str(err.value)
+
+
+def test_les_refusal_names_the_xz_wall_gate(monkeypatch):
+    """use_pallas="on" on a lid channel with Smagorinsky in the "xz" plan
+    (the slab cap lowered): the refusal names nu_sgs_xz and its failing
+    condition, stationary walls."""
+    from cfdnn_tpu_torch import solver as TS
+    monkeypatch.setattr(TS, "SLAB_FIT_CELLS", 8)
+    cfg = _cfg(T, Nx=16, Ny=12, Nz=32, stretch_y=True, lid_velocity=1.0,
+               turb_model="smagorinsky", use_pallas="on")
+    with pytest.raises(NotImplementedError) as err:
+        T.Simulation(cfg, device="cpu")
+    assert "nu_sgs_xz needs stationary walls" in str(err.value)
+    assert "germano" not in str(err.value)
+    # the same grid in "auto" plans the xz predictor with the plain closure
+    sim = T.Simulation(cfg.with_(use_pallas="auto"), device="cpu")
+    sim.device = torch.device("cuda", 0)
+    assert sim._select_kernels() == KernelPlan("general_xz", "xz")
+
+
 def test_les_wrapper_gradients_match_twin():
     """The autograd bridge of nu_sgs and germano_pass1: gradients through
     the wrappers equal those of autograd through the twins (the

@@ -398,9 +398,8 @@ def test_transport_kernel_matches_twin_on_cuda():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
     import chip_smoke
     dev = torch.device("cuda", 0)
-    for label, name, kern, twin, _ in chip_smoke._transport_cases(
-            16, torch.float64, dev, 0):
-        got, ref = kern(), twin()
-        for out, err, lim, _ in chip_smoke.compare(name, got, ref,
+    for case in chip_smoke._transport_cases(16, torch.float64, dev, 0):
+        got, ref = case.kern(), case.twin()
+        for out, err, lim, _ in chip_smoke.compare(case.name, got, ref,
                                                    torch.float64):
-            assert err <= lim, f"{label} {out}: {err} > {lim}"
+            assert err <= lim, f"{case.label} {out}: {err} > {lim}"

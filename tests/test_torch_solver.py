@@ -260,7 +260,8 @@ def test_import_loads_no_jax():
             "cfdnn_tpu_torch.turbulence.features, "
             "cfdnn_tpu_torch.turbulence.registry, cfdnn_tpu_torch.ibm, "
             "cfdnn_tpu_torch.ibm.geometry, cfdnn_tpu_torch.ibm.forcing, "
-            "cfdnn_tpu_torch.sass_compare, "
+            "cfdnn_tpu_torch.sass_compare, cfdnn_tpu_torch.xz_variants, "
+            "cfdnn_tpu_torch.cuda_tests, "
             "cfdnn_tpu_torch.poisson.pallas_fht, "
             "cfdnn_tpu_torch.poisson.fht; "
             "assert not any(m == 'jax' or m.startswith('jax.') "

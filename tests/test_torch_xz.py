@@ -290,45 +290,70 @@ def test_xz_trajectory_matches_reference(name, monkeypatch):
                      "correct": 0}
 
 
+# the grids of the on-card check: the kernel grids of the CPU tests, a lid
+# (moving wall ghosts), ragged tiles (nx, nz not multiples of 8 x 32; ny
+# over one 64-plane chunk) on a walled and a periodic y, and nx = 8, the
+# smallest the gate serves, with nz < 32
+CUDA_GRIDS = {
+    "wall-stretched": dict(KERNEL_GRID, bc_y="wall", stretch_y=True),
+    "periodic": dict(KERNEL_GRID, bc_y="periodic"),
+    "lid": dict(KERNEL_GRID, Ny=12, y_min=0.0, y_max=1.0, lid_velocity=1.3),
+    "ragged-wall": dict(KERNEL_GRID, Nx=12, Ny=70, Nz=40, stretch_y=True),
+    "ragged-periodic": dict(KERNEL_GRID, Nx=20, Ny=67, Nz=44,
+                            bc_y="periodic"),
+    "nx8": dict(KERNEL_GRID, Nx=8, Ny=5, Nz=6, stretch_y=True),
+}
+
+
 @pytest.mark.cuda
 def test_xz_kernels_match_twins_and_slab_kernels_on_cuda():
     """On a CUDA card: each xz kernel against its twin and against the slab
-    kernel of the same function, float64, on the walled stretched and the
-    periodic kernel grids, to 1e-13 of each output's scale."""
+    kernel of the same function, float64, to 1e-13 of each output's scale,
+    on CUDA_GRIDS: the predictor skew and central, with and without nu_t;
+    nu_sgs_xz with the three closures (where its gate serves: not the
+    lid); divergence_xz and correct_xz."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
     dev = torch.device("cuda", 0)
-    for y_axis in sorted(Y_AXES):
-        bc_y, stretch = Y_AXES[y_axis]
-        cfg = _cfg(T, **KERNEL_GRID, bc_y=bc_y, stretch_y=stretch).finalize()
-        sim = T.Simulation(cfg.with_(use_pallas="off"), device=dev)
-        g = sim.geom
-        comps, cell = _rand(sim, 14)
-        u, v, w = (_t(c).to(dev) for c in comps)
-        nut = _t(0.01 * np.abs(cell)).to(dev)
-        p = _t(cell).to(dev)
-        dt = torch.tensor(1e-3, dtype=torch.float64, device=dev)
-        gen, les = K.general_arrays(g), K.les_arrays(g)
-        kw = dict(geom=g, nu=cfg.nu, fx=0.5, scheme=cfg.convective_scheme)
-        calls = [
-            (K.predictor_general_xz(u, v, w, dt, gen, nu_t=nut, **kw),
-             K.predictor_general(u, v, w, dt, gen, nu_t=nut, **kw),
-             K.predictor_general_twin(u, v, w, dt, nut, **kw)),
-            (K.divergence_xz(u, v, w, geom=g), K.divergence(u, v, w, geom=g),
-             K.divergence_twin(u, v, w, geom=g)),
-            (K.correct_xz(u, v, w, p, dt, geom=g),
-             K.correct(u, v, w, p, dt, geom=g),
-             K.correct_twin(u, v, w, p, dt, geom=g))]
-        for closure, coeff in CLOSURES.items():
-            lk = dict(geom=g, closure=closure, coeff=coeff)
-            calls.append((K.nu_sgs_xz(u, v, w, les, **lk),
-                          K.nu_sgs(u, v, w, les, **lk),
-                          K.nu_sgs_twin(u, v, w, **lk)))
-        torch.cuda.synchronize()
-        for got, slab, twin in calls:
-            for outs in zip(*(o if isinstance(o, tuple) else (o,)
-                              for o in (got, slab, twin))):
-                scale = float(outs[2].abs().max())
-                for other in outs[1:]:
-                    assert float((outs[0] - other).abs().max()) <= \
-                        1e-13 * scale
+    for name, grid in CUDA_GRIDS.items():
+        for scheme in ("skew", "central"):
+            cfg = _cfg(T, **grid, convective_scheme=scheme).finalize()
+            sim = T.Simulation(cfg.with_(use_pallas="off"), device=dev)
+            g = sim.geom
+            assert K.xz_eligible(g), name
+            comps, cell = _rand(sim, 14)
+            u, v, w = (_t(c).to(dev) for c in comps)
+            nut = _t(0.01 * np.abs(cell)).to(dev)
+            p = _t(cell).to(dev)
+            dt = torch.tensor(1e-3, dtype=torch.float64, device=dev)
+            gen, les = K.general_arrays(g), K.les_arrays(g)
+            kw = dict(geom=g, nu=cfg.nu, fx=0.5, scheme=cfg.convective_scheme)
+            calls = [
+                (f"predictor {n is not None}",
+                 K.predictor_general_xz(u, v, w, dt, gen, nu_t=n, **kw),
+                 K.predictor_general(u, v, w, dt, gen, nu_t=n, **kw),
+                 K.predictor_general_twin(u, v, w, dt, n, **kw))
+                for n in (None, nut)]
+            if scheme == "skew":
+                calls += [
+                    ("divergence", K.divergence_xz(u, v, w, geom=g),
+                     K.divergence(u, v, w, geom=g),
+                     K.divergence_twin(u, v, w, geom=g)),
+                    ("correct", K.correct_xz(u, v, w, p, dt, geom=g),
+                     K.correct(u, v, w, p, dt, geom=g),
+                     K.correct_twin(u, v, w, p, dt, geom=g))]
+                for closure, coeff in CLOSURES.items():
+                    if not K.nu_sgs_xz_eligible(g):
+                        break
+                    lk = dict(geom=g, closure=closure, coeff=coeff)
+                    calls.append((closure, K.nu_sgs_xz(u, v, w, les, **lk),
+                                  K.nu_sgs(u, v, w, les, **lk),
+                                  K.nu_sgs_twin(u, v, w, **lk)))
+            torch.cuda.synchronize()
+            for what, got, slab, twin in calls:
+                for outs in zip(*(o if isinstance(o, tuple) else (o,)
+                                  for o in (got, slab, twin))):
+                    scale = float(outs[2].abs().max())
+                    for other in outs[1:]:
+                        err = float((outs[0] - other).abs().max())
+                        assert err <= 1e-13 * scale, (name, scheme, what, err)
