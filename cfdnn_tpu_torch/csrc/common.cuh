@@ -10,6 +10,10 @@
 
 #include <cuda_runtime.h>
 
+#include <atomic>
+
+#include "tile_plan.cuh"
+
 namespace cfdnn {
 
 constexpr int kBlock = 256;
@@ -25,6 +29,31 @@ __device__ __forceinline__ int wrap_p(int i, int n) { return i == n - 1 ? 0 : i 
 // Flat offset of (i, j, k) in an (., ny, nz) array.
 __device__ __forceinline__ long long at3(int i, int j, int k, int ny, int nz) {
     return (static_cast<long long>(i) * ny + j) * nz + k;
+}
+
+// The chunk of y planes a block of `Kernel` (a walked (x, z) tile of
+// `Threads` threads, no dynamic shared memory) walks over `tiles` tiles
+// and `rows` rows on the current device: plan::chunk with the blocks the
+// device holds at once (its SMs times the kernel's resident blocks an
+// SM), asked once a device.
+template <auto Kernel, int Threads>
+int walk_chunk(long long tiles, int rows) {
+    constexpr int kDevices = 64;
+    static std::atomic<int> resident[kDevices];
+    int dev = 0;
+    cudaGetDevice(&dev);
+    int held = dev < kDevices ? resident[dev].load(std::memory_order_relaxed)
+                              : 0;
+    if (held == 0) {
+        int sms = 0, per_sm = 0;
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, Kernel,
+                                                      Threads, 0);
+        held = sms * per_sm;
+        if (dev < kDevices)
+            resident[dev].store(held, std::memory_order_relaxed);
+    }
+    return plan::chunk(tiles, rows, held);
 }
 
 }  // namespace cfdnn

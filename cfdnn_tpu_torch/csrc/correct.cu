@@ -7,73 +7,143 @@
 //     grad = (p[f] - p[f-1]) * inv_dc_a[f]
 // with the periodic wrap on a periodic axis, and on a bounded axis the
 // Neumann copy ghost of bc.pad_pressure, which makes the gradient at the
-// two boundary faces exactly zero. The plain PyTorch twin is
-// ops.operators.correct_velocity.
+// two boundary faces exactly zero: it is T(0) * inv_dc_a[f] there, as
+// projection.cuh's face_grad writes it (a non-finite metric stays
+// non-finite). The plain PyTorch twin is ops.operators.correct_velocity.
 //
-// The gradient is projection.cuh face_grad, which correct_xz (xz.cu)
-// shares, with the axis modes described there.
+// Per axis a mode: 0 = the axis has one cell (its component is copied, as
+// the operators do), 1 = periodic (N stored faces, face N wraps to 0),
+// 2 = bounded (N+1 stored faces, boundary faces in the array). Every mix of
+// modes is served: the all-periodic box, the wall-y channel, the duct
+// (walled y and z), a bounded x (the wall-x cavity), 2-D grids (nz = 1).
 //
-// Bound on the H100: device-memory bandwidth (four fields in, three out,
-// 3 flops a face). Design: one launch covers the three components as one
-// flat index range [u | v | w], one thread per face, z fastest within a
-// warp; dt is read from device memory so that the launch needs no host
-// value.
-#include "projection.cuh"
+// Bound on the H100: device-memory bandwidth (u, v, w, p in, three faces
+// out: 28 bytes a cell in float32, 9 flops). Design: one thread per cell
+// (i, j, k), writing the three faces it owns (u at face i, v at face j, w
+// at face k; a thread at the high end of a bounded axis also that axis's
+// last face), so each of u, v and w is read and written once, coalesced
+// along z. A block of kTx x kTz threads (z fastest, a warp wide) owns an
+// (x, z) tile and walks its cells along y over a chunk of planes: p is
+// read from device memory once a cell. The y neighbour p(i, j-1, k) is the
+// thread's own register from the plane before; the x and z neighbours come
+// from the plane of p staged in shared memory, the tile's own cells and,
+// for the threads on its low x row and low z column, their neighbour
+// outside the tile read by the thread itself (wrapped on a periodic axis).
+// (On the H100, each thread reading its x and z neighbours from device
+// memory, where a neighbouring warp's load has most likely put them in
+// L1, was as fast at 512^3 and 4% slower at 256x128x256.) Each plane's
+// operands are loaded one plane ahead, so a thread has two planes of
+// loads in flight across the plane's barrier. 32-bit offsets: the wrapper
+// refuses a field of more than 2^31 - 1 elements. The launcher picks the
+// chunk of planes a block walks (tile_plan.cuh: two waves of blocks at
+// least, 8 to 64 planes).
+#include "common.cuh"
 
 namespace {
 
-// The pressure in device memory (projection.cuh's reader).
-template <typename T>
-struct Cells {
-    const T* __restrict__ p;
-    int ny, nz;
-
-    __device__ __forceinline__ T operator()(int i, int j, int k) const {
-        return p[cfdnn::at3(i, j, k, ny, nz)];
-    }
-};
+constexpr int kTx = 8;                  // x cells of a tile
+constexpr int kTz = 32;                 // z cells: one warp
+constexpr int kThreads = kTx * kTz;     // a thread per cell of the tile
 
 template <typename T>
-__global__ void correct_kernel(
+__global__ void __launch_bounds__(kThreads)
+correct_kernel(
         const T* __restrict__ u, const T* __restrict__ v,
         const T* __restrict__ w, const T* __restrict__ p,
         const T* __restrict__ dt_ptr, const T* __restrict__ inv_dcx,
         const T* __restrict__ inv_dcy, const T* __restrict__ inv_dcz,
         T* __restrict__ ou, T* __restrict__ ov, T* __restrict__ ow,
-        int nx, int ny, int nz, int mx, int my, int mz) {
-    const int nfx = mx == 2 ? nx + 1 : nx;
+        int nx, int ny, int nz, int mx, int my, int mz, int chunk) {
+    __shared__ T sp[2][kTx][kTz];       // p of the plane, two planes apart
+    const int tiles_z = (nz + kTz - 1) / kTz;
+    const int b = static_cast<int>(blockIdx.x);
+    const int tx = static_cast<int>(threadIdx.x) / kTz;
+    const int tz = static_cast<int>(threadIdx.x) % kTz;
+    const int i = b / tiles_z * kTx + tx;
+    const int k = b % tiles_z * kTz + tz;
+    const int j0 = static_cast<int>(blockIdx.y) * chunk;
+    const int j1 = min(j0 + chunk, ny);
+    const bool owns = i < nx && k < nz;
     const int nfy = my == 2 ? ny + 1 : ny;
     const int nfz = mz == 2 ? nz + 1 : nz;
-    const long long n_u = static_cast<long long>(nfx) * ny * nz;
-    const long long n_v = static_cast<long long>(nx) * nfy * nz;
-    const long long n_w = static_cast<long long>(nx) * ny * nfz;
-    long long idx = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-    const T* f;
-    T* o;
-    const T* inv_dc;
-    int axis, mode, s1, s2;   // component's y and z extents
-    if (idx < n_u) {
-        f = u; o = ou; inv_dc = inv_dcx; axis = 0; mode = mx; s1 = ny; s2 = nz;
-    } else if (idx < n_u + n_v) {
-        idx -= n_u;
-        f = v; o = ov; inv_dc = inv_dcy; axis = 1; mode = my; s1 = nfy; s2 = nz;
-    } else if (idx < n_u + n_v + n_w) {
-        idx -= n_u + n_v;
-        f = w; o = ow; inv_dc = inv_dcz; axis = 2; mode = mz; s1 = ny; s2 = nfz;
-    } else {
-        return;
+    const int sx = ny * nz;             // p's (and u's) x stride
+    // whether this cell's x / z face is a pressure difference (not a
+    // copied or a zero-gradient boundary face), the offset of the cell one
+    // step down (wrapped on a periodic axis), and whether this thread reads
+    // that neighbour itself
+    const bool dx = mx == 1 || (mx == 2 && i > 0);
+    const bool dz = mz == 1 || (mz == 2 && k > 0);
+    const int ox = mx == 1 && i == 0 ? (nx - 1) * sx : -sx;
+    const int oz = mz == 1 && k == 0 ? nz - 1 : -1;
+    const bool load_x = owns && dx && tx == 0;
+    const bool load_z = owns && dz && tz == 0;
+    // (i, 0, k) in p and u, v, w
+    const int cp = owns ? i * sx + k : 0;
+    const int cv = owns ? i * nfy * nz + k : 0;
+    const int cw = owns ? i * ny * nfz + k : 0;
+    const T dt = *dt_ptr;
+    // p one plane down: the plane before the chunk (the last one on a
+    // periodic y)
+    T p_prev = T(0);
+    if (owns && (my == 1 || (my == 2 && j0 > 0)))
+        p_prev = p[cp + (j0 > 0 ? j0 - 1 : ny - 1) * nz];
+    // the operands of the next plane, loaded a plane ahead
+    T pn = T(0), un = T(0), vn = T(0), wn = T(0), xn = T(0), zn = T(0);
+    auto fetch = [&](int j) {
+        if (!owns) return;
+        const int c = cp + j * nz;
+        pn = p[c];
+        un = u[c];
+        vn = v[cv + j * nz];
+        wn = w[cw + j * nfz];
+        if (load_x) xn = p[c + ox];
+        if (load_z) zn = p[c + oz];
+    };
+    if (j0 < j1) fetch(j0);
+    for (int j = j0; j < j1; ++j) {
+        const T p0 = pn, uu = un, vv = vn, ww = wn;
+        T pxm = xn, pzm = zn;
+        if (j + 1 < j1) fetch(j + 1);
+        T (*s)[kTz] = sp[j & 1];
+        s[tx][tz] = p0;
+        __syncthreads();
+        if (tx > 0) pxm = s[tx - 1][tz];
+        if (tz > 0) pzm = s[tx][tz - 1];
+        if (owns) {
+            const int c = cp + j * nz;
+            // u at face i (and face nx of a bounded x)
+            if (mx == 0) {
+                ou[c] = uu;
+            } else {
+                const T g = dx ? (p0 - pxm) * inv_dcx[i] : T(0) * inv_dcx[i];
+                ou[c] = uu - dt * g;
+                if (mx == 2 && i == nx - 1)
+                    ou[c + sx] = u[c + sx] - dt * (T(0) * inv_dcx[nx]);
+            }
+            // v at face j (and face ny of a bounded y)
+            const int f = cv + j * nz;
+            if (my == 0) {
+                ov[f] = vv;
+            } else {
+                const T g = my == 2 && j == 0 ? T(0) * inv_dcy[j]
+                                              : (p0 - p_prev) * inv_dcy[j];
+                ov[f] = vv - dt * g;
+                if (my == 2 && j == ny - 1)
+                    ov[f + nz] = v[f + nz] - dt * (T(0) * inv_dcy[ny]);
+            }
+            // w at face k (and face nz of a bounded z)
+            const int e = cw + j * nfz;
+            if (mz == 0) {
+                ow[e] = ww;
+            } else {
+                const T g = dz ? (p0 - pzm) * inv_dcz[k] : T(0) * inv_dcz[k];
+                ow[e] = ww - dt * g;
+                if (mz == 2 && k == nz - 1)
+                    ow[e + 1] = w[e + 1] - dt * (T(0) * inv_dcz[nz]);
+            }
+        }
+        p_prev = p0;
     }
-    if (mode == 0) {
-        o[idx] = f[idx];
-        return;
-    }
-    const int k = static_cast<int>(idx % s2);
-    const long long r = idx / s2;
-    const int j = static_cast<int>(r % s1);
-    const int i = static_cast<int>(r / s1);
-    const T g = cfdnn::face_grad(Cells<T>{p, ny, nz}, inv_dc, i, j, k, axis, mode,
-                                 nx, ny, nz);
-    o[idx] = f[idx] - *dt_ptr * g;
 }
 
 template <typename T>
@@ -81,18 +151,27 @@ int launch(const void* u, const void* v, const void* w, const void* p,
            const void* dt, const void* inv_dcx, const void* inv_dcy,
            const void* inv_dcz, void* ou, void* ov, void* ow,
            int nx, int ny, int nz, int mx, int my, int mz, void* stream) {
-    const long long n =
-        static_cast<long long>(mx == 2 ? nx + 1 : nx) * ny * nz
-        + static_cast<long long>(nx) * (my == 2 ? ny + 1 : ny) * nz
-        + static_cast<long long>(nx) * ny * (mz == 2 ? nz + 1 : nz);
-    correct_kernel<T><<<cfdnn::blocks_for(n), cfdnn::kBlock, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
+    // 32-bit offsets for every face array
+    const long long cx = nx, cy = ny, cz = nz;
+    const long long n_u = (mx == 2 ? cx + 1 : cx) * cy * cz;
+    const long long n_v = cx * (my == 2 ? cy + 1 : cy) * cz;
+    const long long n_w = cx * cy * (mz == 2 ? cz + 1 : cz);
+    const long long most = n_u > n_v ? (n_u > n_w ? n_u : n_w)
+                                     : (n_v > n_w ? n_v : n_w);
+    if (nx < 1 || ny < 1 || nz < 1 || most > 2147483647LL)
+        return static_cast<int>(cudaErrorInvalidValue);
+    const int tiles = ((nx + kTx - 1) / kTx) * ((nz + kTz - 1) / kTz);
+    const int chunk = cfdnn::walk_chunk<correct_kernel<T>, kThreads>(tiles,
+                                                                     ny);
+    const dim3 grid(static_cast<unsigned>(tiles),
+                    static_cast<unsigned>((ny + chunk - 1) / chunk));
+    correct_kernel<T><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const T*>(u), static_cast<const T*>(v),
         static_cast<const T*>(w), static_cast<const T*>(p),
         static_cast<const T*>(dt), static_cast<const T*>(inv_dcx),
         static_cast<const T*>(inv_dcy), static_cast<const T*>(inv_dcz),
         static_cast<T*>(ou), static_cast<T*>(ov), static_cast<T*>(ow),
-        nx, ny, nz, mx, my, mz);
+        nx, ny, nz, mx, my, mz, chunk);
     return static_cast<int>(cudaGetLastError());
 }
 

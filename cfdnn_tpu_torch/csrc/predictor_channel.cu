@@ -1,16 +1,20 @@
-// predictor_channel: the fused Euler momentum predictor of the wall-y
+// predictor_channel_div: the fused Euler momentum predictor of the wall-y
 // channel (periodic uniform x and z, no-slip walls in y at any stretching,
 // O2 skew or central convection, scalar nu or nu + a cell eddy viscosity
-// nu_t), and with DIV the same predictor that also zeroes v's wall faces and
-// writes the divergence of its star in the same pass. The main path of the
-// channel and of the LES channel.
+// nu_t) that also zeroes v's wall faces and writes the divergence of its
+// star in the same pass: the DIV instantiation of the slab kernel below.
+// Its DIV = false instantiation, the channel predictor of the main path,
+// is no longer compiled: predictor_channel_tile.cuh runs that function
+// (these star_u, star_w, star_v over offsets on an (x, z) tile walked
+// along y), and this file keeps the slab kernel's text for the DIV
+// instantiation only, which stays the kernel of before, instruction for
+// instruction (sass_compare.py).
 //
-// Replaces cfdnn_tpu/ops/pallas_kernels.py fused_predictor_channel (body
-// _channel_kernel, math predictor_slab_math_channel, y-metrics
-// _channel_y_arrays), both of its branches: nut_e=None (nut == nullptr
-// here) and the cell nu_t operand of the LES closures; and, as the DIV
-// instantiation, fused_predictor_channel_div (body _channel_div_kernel). The
-// plain PyTorch twins are ops/kernels.py predictor_channel_twin and
+// Replaces cfdnn_tpu/ops/pallas_kernels.py fused_predictor_channel_div
+// (body _channel_div_kernel; the predictor's math is fused_predictor_channel's:
+// _channel_kernel, predictor_slab_math_channel, _channel_y_arrays), both of
+// its branches: nut_e=None (nut == nullptr here) and the cell nu_t operand
+// of the LES closures. The plain PyTorch twin is ops/kernels.py
 // predictor_channel_div_twin.
 //
 // Shapes: u, w, nut, div (nx, ny, nz); v (nx, ny+1, nz) with the wall faces
@@ -25,8 +29,8 @@
 // own axis and averaged to the transverse faces flux direction first, then
 // the component's axis, in the order of ops.operators.diffusive: the face
 // values below are spelled out in that order.
-// Without DIV, star v is computed at the wall faces too, exactly as the twin
-// computes it; the solver's BC pass zeroes those faces afterwards.
+// Without DIV (the template's other branch, not instantiated here), star v
+// is computed at the wall faces too, exactly as the twin computes it.
 //
 // Bound on the H100: device-memory bandwidth (three fields in, three out,
 // ~200 flops a cell; with nu_t one more field in and ~150 more flops; DIV
@@ -39,10 +43,7 @@
 // walls) besides the point itself: the same rows the velocity stencils
 // touch, so L1/L2 serve them. Whether nu_t is there and whether the
 // divergence is written are template parameters, and the divergence's
-// output pointer is the kernel's last parameter, so the two DIV = false
-// instantiations are the kernels of before the DIV instantiation was
-// added: their SASS (cuobjdump -sass) is the same, instruction for
-// instruction.
+// output pointer is the kernel's last parameter.
 //
 // Where the DIV instantiation could go wrong, and what it does:
 //   1. The divergence of cell (i, j, k) needs the star u at (i+1, j, k),
@@ -379,30 +380,6 @@ int launch(const void* u, const void* v, const void* w, const void* dt,
 }
 
 }  // namespace
-
-extern "C" int cfdnn_predictor_channel_f32(
-        const void* u, const void* v, const void* w, const void* dt,
-        const void* inv_dy, const void* inv_dyc, const void* inv_dgy,
-        const void* inv2_cy, const void* inv2_fy, const void* nut,
-        void* su, void* sv, void* sw, int nx, int ny, int nz,
-        double ihx, double ihz, double nu, double fx, int skew,
-        void* stream) {
-    return launch<float, false>(
-        u, v, w, dt, inv_dy, inv_dyc, inv_dgy, inv2_cy, inv2_fy, nut, su, sv,
-        sw, nullptr, nx, ny, nz, ihx, ihz, nu, fx, skew, stream);
-}
-
-extern "C" int cfdnn_predictor_channel_f64(
-        const void* u, const void* v, const void* w, const void* dt,
-        const void* inv_dy, const void* inv_dyc, const void* inv_dgy,
-        const void* inv2_cy, const void* inv2_fy, const void* nut,
-        void* su, void* sv, void* sw, int nx, int ny, int nz,
-        double ihx, double ihz, double nu, double fx, int skew,
-        void* stream) {
-    return launch<double, false>(
-        u, v, w, dt, inv_dy, inv_dyc, inv_dgy, inv2_cy, inv2_fy, nut, su, sv,
-        sw, nullptr, nx, ny, nz, ihx, ihz, nu, fx, skew, stream);
-}
 
 extern "C" int cfdnn_predictor_channel_div_f32(
         const void* u, const void* v, const void* w, const void* dt,

@@ -1,6 +1,9 @@
-// The (x, z) tile of the xz kernels (predictor_general_xz.cuh, xz.cu): a
-// block owns kTx x-points by kTz z-points of the grid, one thread a point,
-// and walks them along y, plane by plane, over a chunk of kChunk planes.
+// The (x, z) tile of the xz kernels (predictor_general_xz.cuh, xz.cu) and
+// of the slab channel predictor (predictor_channel_tile.cuh): a block owns
+// kTx x-points by kTz z-points of the grid, one thread a point, and walks
+// them along y, plane by plane, over a chunk of planes (kChunk for the xz
+// kernels; the channel predictor's launcher picks its own, so that a small
+// grid still gives the card enough blocks).
 //
 // On the TPU the xz kernels exist because a whole y-z plane overflows the
 // core's VMEM, so they tile x and z and keep full y columns. The Hopper
@@ -38,10 +41,10 @@ constexpr int kPlane = kPx * kPz;            // staged points of a plane
 constexpr int kChunk = 64;                   // y planes a block walks
 
 // The launch grid: (tiles, chunks of the y rows the kernel walks).
-inline dim3 grid(int nx, int nz, int rows) {
+inline dim3 grid(int nx, int nz, int rows, int chunk = kChunk) {
     return dim3(static_cast<unsigned>(((nx + kTx - 1) / kTx)
                                       * ((nz + kTz - 1) / kTz)),
-                static_cast<unsigned>((rows + kChunk - 1) / kChunk));
+                static_cast<unsigned>((rows + chunk - 1) / chunk));
 }
 
 // Whether the tile takes a grid: periodic x of at least kTx points (one
@@ -70,12 +73,18 @@ __device__ __forceinline__ void wait_copies() {
     asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
+// Wait until at most N of this thread's latest copy groups are in flight.
+template <int N>
+__device__ __forceinline__ void wait_copies_but() {
+    asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
 // The staged window of NF fields over a tile: y-planes j - YLO ... j + YHI
-// of the current plane j, and the next plane in flight, in a ring of
-// shared-memory slots, each [NF][kPx][kPz].
-template <typename T, int NF, int YLO, int YHI>
+// of the current plane j, and the next AHEAD planes in flight (one for
+// the xz kernels), in a ring of shared-memory slots, each [NF][kPx][kPz].
+template <typename T, int NF, int YLO, int YHI, int AHEAD = 1>
 struct Window {
-    static constexpr int kSlots = YLO + YHI + 2;
+    static constexpr int kSlots = YLO + YHI + 1 + AHEAD;
     static constexpr int kSize = kSlots * NF * kPlane;   // elements
 
     T* buf;                    // [kSlots][NF][kPx][kPz], shared memory
@@ -94,9 +103,10 @@ struct Window {
                                //   e + kThreads < kPlane) in the grid
 
     // The tile of this block, this thread's point and staged points, the
-    // walk over `walk_rows` planes.
+    // walk over `walk_rows` planes in chunks of `chunk`.
     __device__ __forceinline__ void init(T* shared, int nx_, int ny_, int nz_,
-                                         int wall_y_, int walk_rows) {
+                                         int wall_y_, int walk_rows,
+                                         int chunk = kChunk) {
         buf = shared;
         nx = nx_;
         ny = ny_;
@@ -112,8 +122,8 @@ struct Window {
         i = i0 + tx;
         k = k0 + tz;
         owns = i < nx && k < nz;
-        j0 = static_cast<int>(blockIdx.y) * kChunk;
-        j1 = min(j0 + kChunk, walk_rows);
+        j0 = static_cast<int>(blockIdx.y) * chunk;
+        j1 = min(j0 + chunk, walk_rows);
 #pragma unroll
         for (int q = 0; q < 2; ++q) {
             const int p = min(e + q * kThreads, kPlane - 1);
@@ -179,21 +189,38 @@ struct Window {
     __device__ __forceinline__ void walk(Body body) {
         static_assert(YLO >= 0 && YLO <= 1 && YHI >= 0 && YHI <= 1,
                       "the stencils reach one plane either way");
-        // planes j0 - YLO ... j0 + YHI into slots 0 ... YLO + YHI
+        static_assert(AHEAD >= 1, "one plane in flight at least");
+        // planes j0 - YLO ... j0 + YHI into slots 0 ... YLO + YHI, then
+        // with AHEAD > 1 the planes after them, a copy group each
 #pragma unroll
         for (int d = 0; d <= YLO + YHI; ++d) fetch(j0 - YLO + d, d);
         commit_copies();
+#pragma unroll
+        for (int a = 1; a < AHEAD; ++a) {
+            if (j0 + a < j1) fetch(j0 + YHI + a, YLO + YHI + a);
+            commit_copies();
+        }
         const int point = (tx + 1) * kPz + tz + 1;
         int s = 0;   // the slot of plane j - YLO
         for (int j = j0; j < j1; ++j) {
             // plane j + YHI has landed for every thread, and every thread
-            // is done with plane j - YLO - 1, whose slot the next plane
-            // takes
-            wait_copies();
-            __syncthreads();
-            if (j + 1 < j1) {
-                const int next = s == 0 ? kSlots - 1 : s - 1;
-                fetch(j + YHI + 1, next);
+            // is done with plane j - YLO - 1, whose slot the plane AHEAD
+            // planes on takes
+            if constexpr (AHEAD == 1) {
+                wait_copies();
+                __syncthreads();
+                if (j + 1 < j1) {
+                    const int next = s == 0 ? kSlots - 1 : s - 1;
+                    fetch(j + YHI + 1, next);
+                    commit_copies();
+                }
+            } else {
+                // a group a plane, empty past the walk's end, so that the
+                // AHEAD - 1 latest groups are the planes after j + YHI
+                wait_copies_but<AHEAD - 1>();
+                __syncthreads();
+                if (j + AHEAD < j1)
+                    fetch(j + YHI + AHEAD, s == 0 ? kSlots - 1 : s - 1);
                 commit_copies();
             }
             View view{buf, {}, j};

@@ -45,12 +45,18 @@ steps of the benchmark grids:
 
 Each source file's head says what bounds the kernel on the H100 and what
 its design does about it. Each kernel computes what its TPU kernel
-computes, not the TPU kernel's x-slab structure: one thread per output
-point, z fastest within a warp, periodic wrap by index arithmetic, float
-and double instantiations. The xz kernels share their slab kernels' term
-code through a reader type (csrc/predictor_terms.cuh, les.cuh,
-projection.cuh): the slab kernels read device memory, the xz kernels a
-shared-memory tile.
+computes, not the TPU kernel's x-slab structure, in float and double
+instantiations: most run one thread per output point, z fastest within a
+warp, periodic wrap by index arithmetic. The slab kernels share their
+term code with the xz kernels through a reader type
+(csrc/predictor_terms.cuh, les.cuh, projection.cuh): the slab kernels
+read device memory, the xz kernels a shared-memory tile. Two slab
+kernels walk an (x, z) tile along y themselves: predictor_channel
+(csrc/predictor_channel_tile.cuh, on the xz kernels' staged window, with
+its own term code over offsets) and correct (csrc/correct.cu, one thread
+a cell writing its three faces); their launchers pick the chunk of planes
+a block walks (csrc/tile_plan.cuh), and a grid their tile refuses raises
+ValueError (`tile_refusal`).
 
 Beside each kernel stand:
   - its plain PyTorch twin (`*_twin`), the eager form of the same math.
@@ -87,6 +93,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import hashlib
+import math
 import os
 import shutil
 import subprocess
@@ -214,6 +221,8 @@ def _bind(path) -> ctypes.CDLL:
     lib.cfdnn_germano_pass1_blocks.restype = ctypes.c_int
     lib.cfdnn_fht_tile.argtypes = [_I, _I, _I]
     lib.cfdnn_fht_tile.restype = ctypes.c_int
+    lib.cfdnn_tile_chunk.argtypes = [_L, _I, _I]
+    lib.cfdnn_tile_chunk.restype = ctypes.c_int
     return lib
 
 
@@ -289,6 +298,30 @@ class _ViaTwin(torch.autograd.Function):
                                        allow_unused=True))
         return (None, None, None) + tuple(
             next(got) if x.requires_grad else None for x in xs)
+
+
+# ---------------------------------------------------------------------------
+# The grids refused by the slab kernels that walk an (x, z) tile along y:
+# predictor_channel (on csrc/xz_tile.cuh) and correct (csrc/correct.cu)
+# ---------------------------------------------------------------------------
+
+INT32_MAX = 2 ** 31 - 1    # the tiles' offsets are 32-bit
+
+
+def tile_refusal(name: str, nx: int, largest: int,
+                 min_nx: int = 1) -> Optional[str]:
+    """Why the walked tile of kernel `name` refuses a grid (None where it
+    takes it): nx x-points below `min_nx` (the channel predictor stages
+    its x halo with one periodic wrap: xz::fits) or a field of `largest`
+    elements past the tile's 32-bit offsets."""
+    if nx < min_nx:
+        return (f"{name}: the (x, z) tile needs nx >= {min_nx} (its x halo "
+                f"is staged with one periodic wrap: xz::fits), got nx = "
+                f"{nx}")
+    if largest > INT32_MAX:
+        return (f"{name}: the tile's offsets are 32-bit, and a field of "
+                f"{largest} elements is past 2^31 - 1")
+    return None
 
 
 def _axis_mode(ax) -> int:
@@ -691,10 +724,17 @@ def predictor_channel(u, v, w, dt, ys, *, hx, hz, nu, fx, scheme, nu_t=None):
     uniform x/z, stretched no-slip y, O2 skew or central, body force fx on
     u). `ys` = channel_y_arrays(geom). The viscosity is the scalar nu, or
     nu + nu_t with `nu_t` a cell field (Nx, Ny, Nz). Star v is produced at
-    the wall faces too; the caller's BC pass zeroes them."""
+    the wall faces too; the caller's BC pass zeroes them. The kernel runs
+    on an (x, z) tile walked along y: a grid it refuses (`tile_refusal`:
+    Nx < 8, a field past 2^31 - 1 elements) raises ValueError, on the CPU
+    as on the card."""
     nx, ny, nz = u.shape
     if ny < 2:
         raise ValueError("predictor_channel: needs Ny >= 2")
+    why = tile_refusal("predictor_channel", nx, nx * (ny + 1) * nz,
+                       min_nx=8)      # xz::kTx
+    if why:
+        raise ValueError(why)
     extra = () if nu_t is None else (nu_t,)
     _check("predictor_channel", (u, v, w, dt, *ys, *extra),
            ((nx, ny, nz), (nx, ny + 1, nz), (nx, ny, nz), (),
@@ -1082,7 +1122,9 @@ def _correct_cuda(u, v, w, p, dt, *, geom):
 
 def correct(u, v, w, p, dt, *, geom: Geometry):
     """(u, v, w) - dt * grad(p) at the stored faces, O2, with the Neumann
-    pressure ghost at bounded axes (zero gradient at the boundary faces)."""
+    pressure ghost at bounded axes (zero gradient at the boundary faces).
+    The kernel walks an (x, z) tile along y with 32-bit offsets: a face
+    array past 2^31 - 1 elements raises ValueError (`tile_refusal`)."""
     for ax in geom.axes:
         if not ax.periodic and "dirichlet" in (ax.p_lo, ax.p_hi):
             raise NotImplementedError(
@@ -1092,6 +1134,10 @@ def correct(u, v, w, p, dt, *, geom: Geometry):
     _check("correct", (u, v, w, p, dt),
            _face_shapes(geom) + ((x.n, y.n, z.n), ()))
     _check_geom("correct", geom, (u,))
+    why = tile_refusal("correct", x.n,
+                       max(math.prod(s) for s in _face_shapes(geom)))
+    if why:
+        raise ValueError(why)
     return _ViaTwin.apply(_correct_launch, correct_twin, dict(geom=geom),
                           u, v, w, p, dt)
 

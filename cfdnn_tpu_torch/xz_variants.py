@@ -1,22 +1,38 @@
-"""Time variants of the float32 (x, z)-tiled kernels (`csrc/xz_tile.cuh`,
-`csrc/predictor_general_xz.cuh`, `csrc/xz.cu`) side by side on one card,
-on chip_smoke's 640^3 calls of predictor_general_xz (with and without
-nu_t), nu_sgs_xz, divergence_xz and correct_xz.
+"""Time variants of the float32 kernels that walk an (x, z) tile along y
+side by side on one card: the xz kernels (`csrc/xz_tile.cuh`,
+`csrc/predictor_general_xz.cuh`, `csrc/xz.cu`) on chip_smoke's 640^3
+calls of predictor_general_xz (with and without nu_t), nu_sgs_xz,
+divergence_xz and correct_xz, and the two slab kernels on a walked tile
+(`csrc/predictor_channel_tile.cuh`, `csrc/correct.cu`) on its 512^3 calls
+of predictor_channel (channel512) and correct (tgv512, channel512), and
+on the main paths' smaller calls of the two (device ms by the profiler).
 
 Each variant is the kernels' sources with a few textual substitutions,
 built with the library's flags into its own shared library:
 - "kernel": the sources as they are;
-- "sync": each plane copied by plain loads and stores where the kernels
-  issue cp.async (what the asynchronous copy buys);
+- "sync": each plane copied by plain loads and stores where the tile
+  issues cp.async (what the asynchronous copy buys; the xz kernels and
+  the channel predictor);
 - "one_block": `__launch_bounds__` without its minimum of blocks an SM
-  (what the register cap buys);
+  (what the register cap buys; the xz predictor and the channel
+  predictor);
+- "ahead1", "ahead3": the channel predictor's walk with one or three
+  planes in flight (two in float32 as it stands); "three_blocks",
+  "five_blocks": its register cap at three or five blocks an SM (four
+  as it stands; the launcher's chunk follows the occupancy it gets);
 - "parent": the sources of another copy, with `--parent DIR` (an older
-  commit's `cfdnn_tpu_torch/csrc`, which keeps the C interface).
-Every variant computes the function: each call is held to the slab
-kernel of its function on the same inputs (1e-5 of scale) and timed by
-CUDA events over 20 calls, in two turns, the second in the reverse
-order. ptxas's registers and spills and the SASS instruction mix of each
-variant's xz kernels (cuobjdump) are printed first.
+  commit's `cfdnn_tpu_torch/csrc`, which keeps the C interfaces; a copy
+  from before the walked tile, without `predictor_channel_tile.cu`, has
+  the slab predictor_channel and correct).
+Every variant computes the function: each call of an xz kernel is held to
+the slab kernel of its function on the same inputs, each call of
+predictor_channel or correct to the kernel of this copy (the library's),
+1e-5 of scale, and the difference is printed (the parent's
+predictor_channel differs by FMA contraction only, its correct by
+nothing); each is timed by CUDA events over 20 calls, in two turns, the
+second in the reverse order. ptxas's registers and spills and the SASS
+instruction mix of each variant's tile kernels (cuobjdump) are printed
+first.
 
 Run on a machine with the CUDA toolkit, from the repository's root:
 
@@ -39,11 +55,27 @@ SUBS = {
     "kernel": [],
     "sync": [(r"(void copy_async\(T\* dst, const T\* src\) \{).*?\n\}",
               r"\1 *dst = *src; }"),
-             (r'asm volatile\("cp\.async\.[a-z_]+;\\n"[^;]*;', "")],
-    "one_block": [(r"sizeof\(T\) == 4 \? 3 : 2", "1")],
+             (r'asm volatile\("cp\.async\.[a-z_]+[^"]*"[^;]*;', "")],
+    "one_block": [(r"sizeof\(T\) == 4 \? \d : 2", "1")],
+    # the channel predictor's planes in flight and blocks an SM (float32)
+    "ahead1": [(r"kChannelAhead = sizeof\(T\) == 4 \? \d",
+                "kChannelAhead = sizeof(T) == 4 ? 1")],
+    "ahead3": [(r"kChannelAhead = sizeof\(T\) == 4 \? \d",
+                "kChannelAhead = sizeof(T) == 4 ? 3")],
+    "three_blocks": [(r"kChannelMinBlocks = sizeof\(T\) == 4 \? \d",
+                      "kChannelMinBlocks = sizeof(T) == 4 ? 3")],
+    "five_blocks": [(r"kChannelMinBlocks = sizeof\(T\) == 4 \? \d",
+                     "kChannelMinBlocks = sizeof(T) == 4 ? 5")],
 }
-SOURCES = ("xz.cu", "predictor_general_xz.cu", "error.cu")
-NAMES = ("predictor_general_xz", "nu_sgs_xz", "divergence_xz", "correct_xz")
+SOURCES = ("xz.cu", "predictor_general_xz.cu", "correct.cu", "error.cu")
+# the channel predictor's float source: the walked tile, or a copy's
+# slab kernel from before it
+CHANNEL_SOURCES = ("predictor_channel_tile.cu", "predictor_channel.cu")
+NAMES = ("predictor_general_xz", "nu_sgs_xz", "divergence_xz", "correct_xz",
+         "predictor_channel", "correct")
+# the float32 kernels whose registers and SASS mix are printed (mangled)
+TILE_KERNELS = re.compile(r"(xz_kernel|predictor_channel_tile_kernel"
+                          r"|predictor_channel_kernel|correct_kernel)If")
 OUT = Path(__file__).resolve().parents[1] / "build" / "xz_variants"
 
 
@@ -66,27 +98,31 @@ def build(name: str, src_dir: Path):
     if missing:
         raise RuntimeError(f"{name}: {missing} not in the sources")
     lib = d / "lib.so"
+    channel = next(f for f in CHANNEL_SOURCES if (d / f).exists())
     cmd = [K._nvcc(), *K.NVCC_FLAGS, "-Xptxas=-v", "-shared", "-o", str(lib),
-           *(str(d / f) for f in SOURCES)]
+           *(str(d / f) for f in SOURCES + (channel,))]
     return lib, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                  stderr=subprocess.STDOUT)
 
 
 def registers(log: str):
-    """ptxas's lines for the float32 xz kernels: (entry, registers line)."""
-    rows, entry = [], None
+    """ptxas's lines for the float32 tile kernels: (entry, registers
+    line)."""
+    rows, entry, spill = [], None, ""
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            entry = m.group(1)
-        elif entry and "registers" in line and "xz_kernelIf" in entry:
-            rows.append((entry, line.strip()))
+            entry, spill = m.group(1), ""
+        elif "spill" in line:
+            spill = "; " + line.strip()
+        elif entry and "registers" in line and TILE_KERNELS.search(entry):
+            rows.append((entry, line.strip() + spill))
             entry = None
     return rows
 
 
 def mix(path: Path):
-    """{kernel: Counter of SASS opcode classes} of the xz kernels in a
+    """{kernel: Counter of SASS opcode classes} of the tile kernels in a
     library (cuobjdump -sass)."""
     tools = Path(K._nvcc()).parent
     text = subprocess.run([str(tools / "cuobjdump"), "-sass", str(path)],
@@ -95,7 +131,7 @@ def mix(path: Path):
     for line in text.splitlines():
         m = re.match(r"\s*Function : (\S+)", line)
         if m:
-            cur = m.group(1) if "xz" in m.group(1) else None
+            cur = m.group(1) if TILE_KERNELS.search(m.group(1)) else None
             if cur:
                 out[cur] = collections.Counter()
             continue
@@ -144,7 +180,7 @@ def main(argv) -> int:
         for entry, line in registers(log):
             print(f"[ptxas] {name} {entry[:70]}: {line}")
         for kern, ops in mix(path).items():
-            if "xz_kernelIf" not in kern:     # the float32 kernels
+            if not TILE_KERNELS.search(kern):     # the float32 kernels
                 continue
             cls = {c: sum(ops[o] for o in group) for c, group in CLASSES}
             print(f"[sass] {name} {kern[:70]}: {sum(ops.values())} "
@@ -159,10 +195,22 @@ def main(argv) -> int:
         if case.label not in seen:
             seen.add(case.label)
             cases.append(case)
+    cases += list(C._tile_cases_512(device, seed=2))
+    # and at the main paths' smaller shapes (the channel and the periodic
+    # box 128^3, the LES channel 128x64x128, les_ibm256's 256x128x256),
+    # timed by the profiler's device ms: a call there takes less than the
+    # host's launch
+    small = [case for case in C._cases(128, torch.float32, device, seed=2)
+             if case.name in ("predictor_channel", "correct")
+             and case.label not in seen and not seen.add(case.label)]
+    cases += small
     with torch.no_grad():
         K._lib = main_lib
-        refs = {case.label: case.slab() for case in cases}
-        slab = {case.label: C._event_ms(case.slab, 20) for case in cases}
+        # the xz kernels against their slab kernels, the walked slab
+        # kernels against this copy's
+        refs = {case.label: (case.slab or case.kern)() for case in cases}
+        slab = {case.label: C._event_ms(case.slab, 20) for case in cases
+                if case.slab}
         print("[variant] slab kernels: " + ", ".join(
             f"{label} {ms:.4f}" for label, ms in slab.items()), flush=True)
         for turn in (0, 1):
@@ -171,13 +219,21 @@ def main(argv) -> int:
                 K._lib = lib
                 row = []
                 for case in cases:
+                    errs = []
                     for got, ref in zip(C._as_tuple(case.kern()),
                                         C._as_tuple(refs[case.label])):
                         err = float((got - ref).abs().max()
                                     / ref.abs().max())
                         C.check(err <= C.F32_TOL,
                                 f"{name} {case.label}: {err}")
-                    ms = C._event_ms(case.kern, 20)
+                        errs.append(err)
+                    if turn == 0 and case.slab is None:
+                        print(f"[variant] {name} {case.label}: max|d| / "
+                              f"max|this copy| = "
+                              + ", ".join(f"{e:.3e}" for e in errs))
+                    ms = (C._device_ms(case.kern, 20)
+                          if any(case is c for c in small)
+                          else C._event_ms(case.kern, 20))
                     row.append(f"{case.label} {ms:.4f}")
                 print(f"[variant] {name} turn {turn + 1}: " + ", ".join(row),
                       flush=True)

@@ -36,8 +36,14 @@ Phases, each of which raises on failure (nothing is caught):
      periodic y, ragged tiles over two y chunks; skew and central;
      Smagorinsky, WALE and Vreman), float64
      to 1e-13 of scale and float32 to 1e-5, each against its twin and
-     against the slab kernel of its function on the same inputs; each
-     output of a kernel is held to its own twin output's scale;
+     against the slab kernel of its function on the same inputs; the two
+     slab kernels that walk an (x, z) tile (`_tile_cases`):
+     predictor_channel, scalar nu and nu_t, skew and central, at nx = 8
+     with ny = 2 and 3 and on the ragged 12x70x40 (several chunks), and
+     correct on the periodic box, the duct, a wall-x cavity, a 2-D grid
+     and an nx = 5 channel, float64 to 1e-14 of scale and float32 to
+     1e-5; each output of a kernel is held to its own twin output's
+     scale;
   3. the main paths (`_paths`), each with its launches per step declared:
      Simulation.run of the port's bench.py rows (the 128^3 Taylor-Green
      and channel, the 128x64x128 LES channel with static and dynamic
@@ -85,7 +91,9 @@ Phases, each of which raises on failure (nothing is caught):
      transform "auto" (cuFFT; tgv512, channel512) and each transform's
      div_linf after the first 100 steps; each kernel against its twin at
      the main-path shapes with CUDA events and with the profiler's device
-     time, the Hartley kernels beside torch.fft along the same axis
+     time, predictor_channel and correct also at 512^3 (channel512's
+     predictor, tgv512's and channel512's correct, each held to its twin
+     there too), the Hartley kernels beside torch.fft along the same axis
      (fht_pass beside one rfft or irfft, fht_modal beside rfft + irfft);
      the 512^3 Poisson solve alone, "fft" against "pallas_fft", on the
      tgv512 and channel512 solvers; les_tgv640 over 100 steps (one rep)
@@ -137,8 +145,10 @@ KERNEL_REPLACES = {
 }
 # the two div kernels are instantiations in their predictor's source, the
 # two Hartley kernels share csrc/fht.cuh, three xz kernels csrc/xz.cu, and
-# the xz predictor is a header with a source for each dtype
+# the xz predictor and the channel predictor (on its walked tile) are
+# headers with a source for each dtype
 KERNEL_SOURCE = {"predictor_periodic_div": "predictor_periodic.cu",
+                 "predictor_channel": "predictor_channel_tile.cuh",
                  "predictor_channel_div": "predictor_channel.cu",
                  "fht_pass": "fht.cuh", "fht_modal": "fht.cuh",
                  "predictor_general_xz": "predictor_general_xz.cuh",
@@ -147,6 +157,9 @@ KERNEL_SOURCE = {"predictor_periodic_div": "predictor_periodic.cu",
 # the xz kernels run their slab kernels' arithmetic on staged operands:
 # float64 to 1e-13 of scale, against their twins and the slab kernels
 XZ_F64_TOL = 1e-13
+# the two slab kernels that walk an (x, z) tile (predictor_channel,
+# correct) against their twins on the shapes where the tile can break
+TILE_F64_TOL = 1e-14
 # The H100 SXM's published peaks (NVIDIA data sheet): HBM bandwidth and
 # float32 outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
@@ -190,7 +203,8 @@ class Case(NamedTuple):
     operations per cell (`ops`, they depend on N) and its yardstick
     (`library`, torch.fft calls on the same tensor, named by the
     function's name: rfft, irfft or rfft_irfft); an xz case the slab
-    kernel of the same function on the same inputs (`slab`)."""
+    kernel of the same function on the same inputs (`slab`); a case with
+    its own float64 limit carries it (`f64_tol`, of scale)."""
     label: str
     name: str
     kern: Callable
@@ -200,6 +214,7 @@ class Case(NamedTuple):
     ops: float = None
     library: Callable = None
     slab: Callable = None
+    f64_tol: float = None
 
 
 def check(cond, msg):
@@ -571,6 +586,121 @@ def _div_cases(n, dtype, device, seed):
     return cases
 
 
+def _tile_cases(dtype, device, seed):
+    """The two slab kernels that walk an (x, z) tile along y, each against
+    its twin where the tile can break (float64 to 1e-14 of scale, float32
+    to 1e-5): predictor_channel, scalar nu and nu_t, skew and central, on
+    stretched walled-y channels of the smallest x the tile takes (nx = 8,
+    nz = 6 < 32) with ny = 2 and 3 (every plane next to a wall) and on the
+    ragged 12 x 70 x 40 (x and z not multiples of the 8 x 32 tile; ny + 1
+    = 71 planes over several chunks); correct on the all-periodic box, the
+    duct (walled y and z), a wall-x cavity, a 2-D channel (nz = 1), and an
+    nx = 5 channel, each over more than one chunk of planes."""
+    from cfdnn_tpu_torch import BCType, Config, velocity_shapes
+    from cfdnn_tpu_torch import ConvectiveScheme as CS
+    from cfdnn_tpu_torch.mesh import Mesh
+    from cfdnn_tpu_torch.ops import kernels as K
+    from cfdnn_tpu_torch.ops.grid import Geometry
+    gen = torch.Generator(device=device).manual_seed(seed)
+    dts = "float64" if dtype == torch.float64 else "float32"
+
+    def rnd(shape):
+        return torch.randn(shape, generator=gen, dtype=dtype, device=device)
+
+    base = dict(nu=3e-3, nu_specified=True, dp_dx=-0.4, dp_dx_specified=True,
+                dt=1e-3, adaptive_dt=False, dtype=dts)
+    cases = []
+    for nx, ny, nz in ((8, 2, 6), (8, 3, 6), (12, 70, 40)):
+        for scheme in (CS.SKEW, CS.CENTRAL):
+            cfg = Config(**base, Nx=nx, Ny=ny, Nz=nz, stretch_y=True,
+                         convective_scheme=scheme).finalize()
+            g = Geometry.make(Mesh.from_config(cfg), cfg, device=device)
+            u, v, w = (rnd(sh) for sh in velocity_shapes(cfg))
+            nut = rnd((nx, ny, nz)).abs() * 1e-3
+            dt = torch.full((), cfg.dt, dtype=dtype, device=device)
+            ys = K.channel_y_arrays(g)
+            kc = dict(hx=g.x.h, hz=g.z.h, nu=cfg.nu, fx=-cfg.dp_dx,
+                      scheme=scheme)
+            for n in (None, nut):
+                cases.append(Case(
+                    f"predictor_channel {nx}x{ny}x{nz} {scheme.value}"
+                    + ("" if n is None else "+nu_t"), "predictor_channel",
+                    lambda u=u, v=v, w=w, dt=dt, ys=ys, n=n, kc=kc:
+                        K.predictor_channel(u, v, w, dt, ys, nu_t=n, **kc),
+                    lambda u=u, v=v, w=w, dt=dt, ys=ys, n=n, kc=kc:
+                        K.predictor_channel_twin(u, v, w, dt, *ys, n, **kc),
+                    (u, v, w, dt, *ys) + (() if n is None else (n,)),
+                    f64_tol=TILE_F64_TOL))
+    periodic = dict(bc_y=BCType.PERIODIC, y_min=0.0, y_max=1.0)
+    for tag, grid in (
+            ("periodic 12x20x40", dict(Nx=12, Ny=20, Nz=40, **periodic)),
+            ("duct 12x20x24", dict(Nx=12, Ny=20, Nz=24, stretch_y=True,
+                                   bc_z=BCType.WALL, z_min=-1.0)),
+            ("wall-x 10x18x16", dict(Nx=10, Ny=18, Nz=16,
+                                     bc_x=BCType.WALL)),
+            ("2-D 24x20x1", dict(Nx=24, Ny=20, Nz=1, stretch_y=True)),
+            ("nx5 5x20x33", dict(Nx=5, Ny=20, Nz=33, stretch_y=True))):
+        cfg = Config(**base, **grid).finalize()
+        g = Geometry.make(Mesh.from_config(cfg), cfg, device=device)
+        u, v, w = (rnd(sh) for sh in velocity_shapes(cfg))
+        p = rnd((cfg.Nx, cfg.Ny, cfg.Nz))
+        dt = torch.full((), cfg.dt, dtype=dtype, device=device)
+        cases.append(Case(
+            f"correct {tag}", "correct",
+            lambda u=u, v=v, w=w, p=p, dt=dt, g=g:
+                K.correct(u, v, w, p, dt, geom=g),
+            lambda u=u, v=v, w=w, p=p, dt=dt, g=g:
+                K.correct_twin(u, v, w, p, dt, geom=g),
+            (u, v, w, p, dt, g.x.inv_dc, g.y.inv_dc, g.z.inv_dc),
+            f64_tol=TILE_F64_TOL))
+    return cases
+
+
+def _tile_cases_512(device, seed):
+    """predictor_channel on channel512's grid (512^3, stretched, central,
+    scalar nu) and correct on tgv512's (all periodic) and channel512's
+    (walled y), float32: the 512^3 calls of the two slab kernels that walk
+    an (x, z) tile, for the timing phase and for the variants' old-against-
+    new yardstick (cfdnn_tpu_torch/xz_variants.py). Made one at a time
+    (a generator): each holds ~2.7-3.8 GB of the card."""
+    from cfdnn_tpu_torch import bench, velocity_shapes
+    from cfdnn_tpu_torch.mesh import Mesh
+    from cfdnn_tpu_torch.ops import kernels as K
+    from cfdnn_tpu_torch.ops.grid import Geometry
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def rnd(shape):
+        return torch.randn(shape, generator=gen, dtype=torch.float32,
+                           device=device)
+
+    for label, config in (
+            ("predictor_channel channel512", bench.channel_config),
+            ("correct tgv512", bench.tgv_config),
+            ("correct channel512", bench.channel_config)):
+        cfg = config(512).finalize()
+        g = Geometry.make(Mesh.from_config(cfg), cfg, device=device)
+        u, v, w = (rnd(sh) for sh in velocity_shapes(cfg))
+        dt = torch.full((), cfg.dt, dtype=torch.float32, device=device)
+        if label.startswith("predictor_channel"):
+            ys = K.channel_y_arrays(g)
+            kc = dict(hx=g.x.h, hz=g.z.h, nu=cfg.nu, fx=-cfg.dp_dx,
+                      scheme=cfg.convective_scheme)
+            yield Case(label, "predictor_channel",
+                       lambda u=u, v=v, w=w, dt=dt, ys=ys, kc=kc:
+                           K.predictor_channel(u, v, w, dt, ys, **kc),
+                       lambda u=u, v=v, w=w, dt=dt, ys=ys, kc=kc:
+                           K.predictor_channel_twin(u, v, w, dt, *ys, **kc),
+                       (u, v, w, dt, *ys))
+        else:
+            p = rnd((cfg.Nx, cfg.Ny, cfg.Nz))
+            yield Case(label, "correct",
+                       lambda u=u, v=v, w=w, p=p, dt=dt, g=g:
+                           K.correct(u, v, w, p, dt, geom=g),
+                       lambda u=u, v=v, w=w, p=p, dt=dt, g=g:
+                           K.correct_twin(u, v, w, p, dt, geom=g),
+                       (u, v, w, p, dt, g.x.inv_dc, g.y.inv_dc, g.z.inv_dc))
+
+
 def _xz_cases(dtype, device, seed, nx=32, small=True):
     """A Case for each xz kernel, each with the slab kernel of the same
     function on the same inputs (`slab`): first on the les_tgv640 plane,
@@ -876,7 +1006,7 @@ def _hold(case, dtype, errs):
     shape = tuple(_as_tuple(ref)[0].shape)
     pair = errs.setdefault(case.name, [0.0, 0.0])
     k = 0 if dtype == torch.float64 else 1
-    tol = XZ_F64_TOL if case.slab else F64_TOL
+    tol = case.f64_tol or (XZ_F64_TOL if case.slab else F64_TOL)
     for out, err, lim, scale in compare(case.name, got, ref, dtype, tol):
         print(f"[kernels] {case.label} {out} {str(dtype)[6:]} "
               f"{shape}: max|d|={err:.3e} (limit {lim:.3e}, "
@@ -906,10 +1036,12 @@ def _hold(case, dtype, errs):
 
 def phase_kernels(device):
     """Each kernel against its twin on each grid of the main path (the xz
-    kernels' 640^3 cube in phase_timing), each div kernel's div against
-    the divergence kernel of its own star, each xz kernel also against the
-    slab kernel of its function; returns {name: [largest float64 error,
-    largest float32 error]}."""
+    kernels' 640^3 cube and the walked slab kernels' 512^3 grids in
+    phase_timing), each div kernel's div against the divergence kernel of
+    its own star, each xz kernel also against the slab kernel of its
+    function, predictor_channel and correct also on the edge shapes of
+    their walked tile (`_tile_cases`); returns {name: [largest float64
+    error, largest float32 error]}."""
     errs = {}
     for dtype, n in ((torch.float64, 32), (torch.float32, 128)):
         cases = _cases(n, dtype, device, seed=1)
@@ -918,6 +1050,7 @@ def phase_kernels(device):
         cases += _div_cases(n, dtype, device, seed=1)
         cases += _fht_cases(dtype, device, seed=1, split640=True)
         cases += _xz_cases(dtype, device, seed=1)
+        cases += _tile_cases(dtype, device, seed=1)
         for case in cases:
             _hold(case, dtype, errs)
     return errs
@@ -1478,8 +1611,9 @@ def _time_path(path, sim, st, rows):
 def phase_timing(device, errs):
     """Each unfused main path's marginal ms/step with its profile (the
     fused paths are timed by phase_ab), then each kernel against its twin
-    at the main-path shapes; the xz kernels are checked there too, on the
-    les_tgv640 cube (their errors into `errs`)."""
+    at the main-path shapes, predictor_channel and correct also at 512^3;
+    those and the xz kernels (on the les_tgv640 cube) are checked there
+    too (their errors into `errs`)."""
     rows, divs = {}, {}
     for path in _paths():
         if not path.name.endswith("_fused"):
@@ -1514,6 +1648,21 @@ def phase_timing(device, errs):
                   f"ms ({t[5][1]})"
                   + ("" if lib is None else
                      f"; torch.fft.{case.library.__name__} {lib:.4f} ms"))
+        # the two slab kernels that walk an (x, z) tile at 512^3
+        # (channel512's predictor, tgv512's and channel512's correction),
+        # each checked against its twin and timed beside it (the twin over
+        # fewer reps: tens of milliseconds a call there)
+        for case in _tile_cases_512(device, seed=2):
+            ref = _hold(case, torch.float32, errs)
+            t = times[case.label] = (
+                case.name, _event_ms(case.kern, 20), _event_ms(case.twin, 3),
+                _device_ms(case.kern, 5), _device_ms(case.twin, 2),
+                _bound(case, ref), None, None, None)
+            print(f"[timing] {case.label} float32: per call kernel "
+                  f"{t[1]:.4f} ms, twin {t[2]:.4f} ms; device kernel "
+                  f"{t[3]:.4f} ms, twin {t[4]:.4f} ms; bound {t[5][0]:.4f} "
+                  f"ms ({t[5][1]})")
+            del case, ref
         # the xz kernels on the les_tgv640 cube, each checked against its
         # twin and the slab kernel of its function, and timed beside that
         # slab kernel on the same inputs (the twins, tens to hundreds of
