@@ -4,63 +4,147 @@
 // _divergence_kernel, which runs ops.operators.divergence on an x-slab).
 // For cell (i, j, k):
 //     div = sum over axes a of (face_hi - face_lo) * inv_d_a
-// with the reference's order of summation (x, then y, then z): projection.cuh
-// div_cell, which divergence_xz (xz.cu) shares, with the axis modes
-// described there. The plain PyTorch twin is ops.operators.divergence.
+// with the reference's order of summation (x, then y, then z) and the
+// first-term rule of projection.cuh's div_cell (the first axis's term is
+// the sum, not 0 + it), which divergence_xz (xz.cu) runs. The plain
+// PyTorch twin is ops.operators.divergence.
 //
-// Bound on the H100: device-memory bandwidth (three fields in, one out,
-// 6 flops a cell). Design: one thread per cell, z fastest within a warp;
-// the +1 neighbours along x and y are the same warp's rows a plane or a
-// row further, served by L1/L2.
-#include "projection.cuh"
+// Per axis a mode: 0 = the axis has one cell (skipped), 1 = periodic (N
+// stored faces, face N wraps to 0), 2 = bounded (N+1 stored faces). Every
+// mix is served: the all-periodic box, the wall-y channel, the duct
+// (walled y and z), a bounded x (the wall-x cavity: u has nx + 1 faces),
+// 2-D grids (nz = 1), any nx.
+//
+// Bound on the H100: device-memory bandwidth (u, v, w in, div out: 16
+// bytes a cell in float32, 6 flops). Design: one thread a cell on an
+// 8 x 32 (x, z) tile walked along y over a chunk of planes, as correct.cu,
+// so that each face is read from device memory once:
+//   - u, v and w at the thread's cell are loaded one plane ahead, so a
+//     thread has two planes of loads in flight;
+//   - v at j + 1 is the next plane's v load, carried in a register (each
+//     plane loads the v row above it: wrapped to row 0 past the last plane
+//     of a periodic y, the stored face ny on a bounded one);
+//   - u at i + 1 and w at k + 1 (wrapped on a periodic axis, face nx or nz
+//     on a bounded one) are loaded by the thread itself, one plane ahead
+//     too: they are the faces the x row above in the block and the next
+//     lane of the warp load for their own cells, so they come from L1,
+//     not from device memory.
+// inv_dx[i] and inv_dz[k] are loaded once a thread, inv_dy[j] once a plane.
+// (The slab kernel of before read u at i + 1 a whole y-z plane away and
+// split a 64-bit flat index with % and / in every thread.) Taking u at
+// i + 1 from the plane staged in shared memory and w at k + 1 from the
+// neighbouring lane costs a barrier a plane and ran 3-9% slower on the
+// H100 at 128^3, 256x128x256 and 512^3. 32-bit offsets: the wrapper
+// refuses a face array of more than 2^31 - 1 elements. The launcher picks the chunk of planes a block walks
+// (tile_plan.cuh: two waves of blocks at least, 8 to 64 planes).
+#include "common.cuh"
 
 namespace {
 
-// The faces in device memory (projection.cuh's reader), with the y and z
-// modes that set v's and w's stored extents.
-template <typename T>
-struct Faces {
-    const T* __restrict__ u;
-    const T* __restrict__ v;
-    const T* __restrict__ w;
-    int ny, nz, my, mz;
-
-    template <int C>
-    __device__ __forceinline__ T at(int i, int j, int k) const {
-        if constexpr (C == 0) return u[cfdnn::at3(i, j, k, ny, nz)];
-        else if constexpr (C == 1) return v[cfdnn::at3(i, j, k, my == 1 ? ny : ny + 1, nz)];
-        else return w[cfdnn::at3(i, j, k, ny, mz == 1 ? nz : nz + 1)];
-    }
-};
+constexpr int kTx = 8;                  // x cells of a tile
+constexpr int kTz = 32;                 // z cells: one warp
+constexpr int kThreads = kTx * kTz;     // a thread per cell of the tile
 
 template <typename T>
-__global__ void divergence_kernel(
+__global__ void __launch_bounds__(kThreads)
+divergence_kernel(
         const T* __restrict__ u, const T* __restrict__ v,
         const T* __restrict__ w, const T* __restrict__ inv_dx,
         const T* __restrict__ inv_dy, const T* __restrict__ inv_dz,
-        T* __restrict__ out, int nx, int ny, int nz, int mx, int my, int mz) {
-    const long long idx = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-    if (idx >= static_cast<long long>(nx) * ny * nz) return;
-    const int k = static_cast<int>(idx % nz);
-    const long long r = idx / nz;
-    const int j = static_cast<int>(r % ny);
-    const int i = static_cast<int>(r / ny);
-    const Faces<T> faces{u, v, w, ny, nz, my, mz};
-    out[idx] = cfdnn::div_cell(faces, inv_dx, inv_dy, inv_dz, i, j, k, nx, ny, nz,
-                               mx, my, mz);
+        T* __restrict__ out, int nx, int ny, int nz, int mx, int my, int mz,
+        int chunk) {
+    const int tiles_z = (nz + kTz - 1) / kTz;
+    const int b = static_cast<int>(blockIdx.x);
+    const int tx = static_cast<int>(threadIdx.x) / kTz;
+    const int tz = static_cast<int>(threadIdx.x) % kTz;
+    const int i = b / tiles_z * kTx + tx;
+    const int k = b % tiles_z * kTz + tz;
+    const int j0 = static_cast<int>(blockIdx.y) * chunk;
+    const int j1 = min(j0 + chunk, ny);
+    const bool owns = i < nx && k < nz;
+    const int nfy = my == 2 ? ny + 1 : ny;
+    const int nfz = mz == 2 ? nz + 1 : nz;
+    const int sx = ny * nz;             // u's (and out's) x stride
+    // the offset of u at i + 1 and of w at k + 1 from the thread's own face
+    // (wrapped on a periodic axis)
+    const int ox = mx == 1 && i == nx - 1 ? -(nx - 1) * sx : sx;
+    const int oz = mz == 1 && k == nz - 1 ? -(nz - 1) : 1;
+    // (i, 0, k) in u (and out), v, w
+    const int cu = owns ? i * sx + k : 0;
+    const int cv = owns ? i * nfy * nz + k : 0;
+    const int cw = owns ? i * ny * nfz + k : 0;
+    const T idx = owns && mx ? inv_dx[i] : T(0);
+    const T idz = owns && mz ? inv_dz[k] : T(0);
+    // v at the plane's lower face: the row of the chunk's first plane, then
+    // the upper face of the plane before
+    T v_lo = T(0);
+    if (owns && my && j0 < j1) v_lo = v[cv + j0 * nz];
+    // the operands of the next plane, loaded a plane ahead: u, v's upper
+    // face (row j + 1, wrapped past a periodic y's last plane), w, inv_dy,
+    // and u at i + 1 and w at k + 1
+    T un = T(0), vn = T(0), wn = T(0), yn = T(0), xn = T(0), zn = T(0);
+    auto fetch = [&](int j) {
+        if (!owns) return;
+        if (mx) un = u[cu + j * nz];
+        if (my) {
+            vn = v[cv + (my == 1 && j == ny - 1 ? 0 : j + 1) * nz];
+            yn = inv_dy[j];
+        }
+        if (mz) wn = w[cw + j * nfz];
+        if (mx) xn = u[cu + j * nz + ox];
+        if (mz) zn = w[cw + j * nfz + oz];
+    };
+    if (j0 < j1) fetch(j0);
+    for (int j = j0; j < j1; ++j) {
+        const T uu = un, v_hi = vn, ww = wn, idy = yn;
+        const T u_hi = xn, w_hi = zn;
+        if (j + 1 < j1) fetch(j + 1);
+        if (owns) {
+            T acc = T(0);
+            bool have = false;
+            if (mx) {
+                acc = (u_hi - uu) * idx;
+                have = true;
+            }
+            if (my) {
+                const T t = (v_hi - v_lo) * idy;
+                acc = have ? acc + t : t;
+                have = true;
+            }
+            if (mz) {
+                const T t = (w_hi - ww) * idz;
+                acc = have ? acc + t : t;
+            }
+            out[cu + j * nz] = acc;
+        }
+        v_lo = v_hi;
+    }
 }
 
 template <typename T>
 int launch(const void* u, const void* v, const void* w, const void* inv_dx,
            const void* inv_dy, const void* inv_dz, void* out,
            int nx, int ny, int nz, int mx, int my, int mz, void* stream) {
-    const long long n = static_cast<long long>(nx) * ny * nz;
-    divergence_kernel<T><<<cfdnn::blocks_for(n), cfdnn::kBlock, 0,
+    // 32-bit offsets for every face array
+    const long long cx = nx, cy = ny, cz = nz;
+    const long long n_u = (mx == 2 ? cx + 1 : cx) * cy * cz;
+    const long long n_v = cx * (my == 2 ? cy + 1 : cy) * cz;
+    const long long n_w = cx * cy * (mz == 2 ? cz + 1 : cz);
+    const long long most = n_u > n_v ? (n_u > n_w ? n_u : n_w)
+                                     : (n_v > n_w ? n_v : n_w);
+    if (nx < 1 || ny < 1 || nz < 1 || most > 2147483647LL)
+        return static_cast<int>(cudaErrorInvalidValue);
+    const int tiles = ((nx + kTx - 1) / kTx) * ((nz + kTz - 1) / kTz);
+    const int chunk = cfdnn::walk_chunk<divergence_kernel<T>, kThreads>(
+        tiles, ny);
+    const dim3 grid(static_cast<unsigned>(tiles),
+                    static_cast<unsigned>((ny + chunk - 1) / chunk));
+    divergence_kernel<T><<<grid, kThreads, 0,
                            static_cast<cudaStream_t>(stream)>>>(
         static_cast<const T*>(u), static_cast<const T*>(v),
         static_cast<const T*>(w), static_cast<const T*>(inv_dx),
         static_cast<const T*>(inv_dy), static_cast<const T*>(inv_dz),
-        static_cast<T*>(out), nx, ny, nz, mx, my, mz);
+        static_cast<T*>(out), nx, ny, nz, mx, my, mz, chunk);
     return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,28 +1,26 @@
-// predictor_periodic: the fused Euler momentum predictor on an all-periodic
-// uniform O2 grid (the Taylor-Green main path), and with DIV the same
-// predictor that also writes the divergence of its star in the same pass.
+// predictor_periodic_div: the fused Euler momentum predictor on an
+// all-periodic uniform O2 grid that also writes the divergence of its star
+// in the same pass (the DIV instantiation of a slab kernel whose DIV =
+// false instantiation was predictor_periodic; that predictor now walks an
+// (x, z) tile, predictor_periodic_tile.cuh).
 //
-// Replaces cfdnn_tpu/ops/pallas_kernels.py fused_predictor (body
-// _predictor_kernel, math predictor_slab_math) and, as the DIV
-// instantiation, fused_predictor_div (body _predictor_div_kernel). For every
-// cell it computes the skew convection, nu * Laplacian and the body force of
-// u, v and w and writes the three star components:
+// Replaces cfdnn_tpu/ops/pallas_kernels.py fused_predictor_div (body
+// _predictor_div_kernel, math predictor_slab_math). For every cell it
+// computes the skew convection, nu * Laplacian and the body force of u, v
+// and w and writes the three star components:
 //     star = phi + dt * (-conv + nu * lap (+ fx on u))
-// With DIV it also writes the staggered cell divergence of the star,
+// and the staggered cell divergence of the star,
 //     div = (u*_{i+1} - u*_i)/hx + (v*_{j+1} - v*_j)/hy + (w*_{k+1} - w*_k)/hz
-// The plain PyTorch twins are ops/kernels.py predictor_periodic_twin and
-// predictor_periodic_div_twin.
+// The plain PyTorch twin is ops/kernels.py predictor_periodic_div_twin.
 //
 // Bound on the H100: device-memory bandwidth. It reads three fields and
-// writes three (24 B a cell in float32; DIV one more, 28 B) for about 150
-// flops a cell (DIV about 310), far below the card's flop-to-byte balance.
-// Design: one thread per cell, z fastest within a warp (coalesced),
-// periodic wrap by index arithmetic, each operand read through the
-// read-only path so that the ~20 neighbour reads of a cell hit L1/L2
-// instead of device memory. No shared-memory tiling yet: the x-slab and
-// VMEM machinery of the TPU kernel has no counterpart here.
+// writes four (28 B a cell in float32) for about 310 flops a cell, far
+// below the card's flop-to-byte balance. Design: one thread per cell, z
+// fastest within a warp (coalesced), periodic wrap by index arithmetic,
+// each operand read through the read-only path so that the ~40 neighbour
+// reads of a cell hit L1/L2 instead of device memory.
 //
-// Where the DIV instantiation could go wrong, and what it does:
+// Where it could go wrong, and what it does:
 //   1. The divergence of cell (i, j, k) needs the star u at (i+1, j, k),
 //      v at (i, j+1, k) and w at (i, j, k+1), which other threads (in
 //      other blocks) write; a block cannot wait on another. So each thread
@@ -42,10 +40,9 @@
 //   4. The TPU kernel's asymmetric x-halo (bx+1 star planes per slab) is
 //      not ported: it exists for the slab, and a thread here reaches its
 //      neighbours directly.
-// Whether the divergence is written is a template parameter, and its
-// output pointer is the kernel's last parameter, so the DIV = false
-// instantiation is the kernel of before the DIV instantiation was added:
-// its SASS (cuobjdump -sass) is the same, instruction for instruction.
+// Whether the divergence is written is still the kernel's template
+// parameter, and only DIV = true is instantiated: its SASS (cuobjdump
+// -sass) is the kernel's of before, instruction for instruction.
 #include "common.cuh"
 
 namespace {
@@ -197,24 +194,6 @@ int launch(const void* u, const void* v, const void* w, const void* dt,
 }
 
 }  // namespace
-
-extern "C" int cfdnn_predictor_periodic_f32(
-        const void* u, const void* v, const void* w, const void* dt,
-        void* su, void* sv, void* sw, int nx, int ny, int nz,
-        double ihx, double ihy, double ihz, double nu, double fx,
-        void* stream) {
-    return launch<float, false>(u, v, w, dt, su, sv, sw, nullptr, nx, ny, nz,
-                                ihx, ihy, ihz, nu, fx, stream);
-}
-
-extern "C" int cfdnn_predictor_periodic_f64(
-        const void* u, const void* v, const void* w, const void* dt,
-        void* su, void* sv, void* sw, int nx, int ny, int nz,
-        double ihx, double ihy, double ihz, double nu, double fx,
-        void* stream) {
-    return launch<double, false>(u, v, w, dt, su, sv, sw, nullptr, nx, ny, nz,
-                                 ihx, ihy, ihz, nu, fx, stream);
-}
 
 extern "C" int cfdnn_predictor_periodic_div_f32(
         const void* u, const void* v, const void* w, const void* dt,

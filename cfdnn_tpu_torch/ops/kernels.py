@@ -50,13 +50,15 @@ instantiations: most run one thread per output point, z fastest within a
 warp, periodic wrap by index arithmetic. The slab kernels share their
 term code with the xz kernels through a reader type
 (csrc/predictor_terms.cuh, les.cuh, projection.cuh): the slab kernels
-read device memory, the xz kernels a shared-memory tile. Two slab
-kernels walk an (x, z) tile along y themselves: predictor_channel
-(csrc/predictor_channel_tile.cuh, on the xz kernels' staged window, with
-its own term code over offsets) and correct (csrc/correct.cu, one thread
-a cell writing its three faces); their launchers pick the chunk of planes
-a block walks (csrc/tile_plan.cuh), and a grid their tile refuses raises
-ValueError (`tile_refusal`).
+read device memory, the xz kernels a shared-memory tile. Four slab
+kernels walk an (x, z) tile along y themselves: predictor_channel and
+predictor_periodic (csrc/predictor_channel_tile.cuh,
+csrc/predictor_periodic_tile.cuh, on the xz kernels' staged window, each
+with its own term code over offsets), correct and divergence
+(csrc/correct.cu, csrc/divergence.cu, one thread a cell, each face read
+once); their launchers pick the chunk of planes a block walks
+(csrc/tile_plan.cuh), and a grid their tile refuses raises ValueError
+(`tile_refusal`).
 
 Beside each kernel stand:
   - its plain PyTorch twin (`*_twin`), the eager form of the same math.
@@ -302,7 +304,8 @@ class _ViaTwin(torch.autograd.Function):
 
 # ---------------------------------------------------------------------------
 # The grids refused by the slab kernels that walk an (x, z) tile along y:
-# predictor_channel (on csrc/xz_tile.cuh) and correct (csrc/correct.cu)
+# predictor_channel and predictor_periodic (on csrc/xz_tile.cuh), correct
+# and divergence (csrc/correct.cu, csrc/divergence.cu)
 # ---------------------------------------------------------------------------
 
 INT32_MAX = 2 ** 31 - 1    # the tiles' offsets are 32-bit
@@ -312,7 +315,8 @@ def tile_refusal(name: str, nx: int, largest: int,
                  min_nx: int = 1) -> Optional[str]:
     """Why the walked tile of kernel `name` refuses a grid (None where it
     takes it): nx x-points below `min_nx` (the channel predictor stages
-    its x halo with one periodic wrap: xz::fits) or a field of `largest`
+    its x halo with one periodic wrap: xz::fits; the periodic predictor
+    stages a full wrap and takes every nx) or a field of `largest`
     elements past the tile's 32-bit offsets."""
     if nx < min_nx:
         return (f"{name}: the (x, z) tile needs nx >= {min_nx} (its x halo "
@@ -428,11 +432,16 @@ def _predictor_periodic_cuda(u, v, w, dt, *, hx, hy, hz, nu, fx):
 def predictor_periodic(u, v, w, dt, *, hx, hy, hz, nu, fx):
     """Euler star (u*, v*, w*) of the all-periodic uniform O2 skew
     predictor with scalar nu and body force fx on u. u, v, w: (Nx, Ny, Nz);
-    dt: a 0-d tensor of the same device and dtype."""
+    dt: a 0-d tensor of the same device and dtype. The kernel runs on an
+    (x, z) tile walked along y: a field past 2^31 - 1 elements raises
+    ValueError (`tile_refusal`), on the CPU as on the card."""
     _check("predictor_periodic", (u, v, w, dt),
            (None, u.shape, u.shape, ()))
     if u.ndim != 3:
         raise ValueError(f"predictor_periodic: u has shape {tuple(u.shape)}")
+    why = tile_refusal("predictor_periodic", u.shape[0], u.numel())
+    if why:
+        raise ValueError(why)
     kw = dict(hx=hx, hy=hy, hz=hz, nu=nu, fx=fx)
     return _ViaTwin.apply(_predictor_periodic_launch, predictor_periodic_twin,
                           kw, u, v, w, dt)
@@ -1082,9 +1091,15 @@ def _divergence_cuda(u, v, w, *, geom):
 
 
 def divergence(u, v, w, *, geom: Geometry):
-    """Staggered O2 cell divergence of (u, v, w) on `geom`."""
+    """Staggered O2 cell divergence of (u, v, w) on `geom`. The kernel
+    walks an (x, z) tile along y with 32-bit offsets: a face array past
+    2^31 - 1 elements raises ValueError (`tile_refusal`)."""
     _check("divergence", (u, v, w), _face_shapes(geom))
     _check_geom("divergence", geom, (u,))
+    why = tile_refusal("divergence", geom.x.n,
+                       max(math.prod(s) for s in _face_shapes(geom)))
+    if why:
+        raise ValueError(why)
     return _ViaTwin.apply(_divergence_launch, divergence_twin,
                           dict(geom=geom), u, v, w)
 

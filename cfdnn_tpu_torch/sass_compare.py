@@ -3,26 +3,24 @@ copy of their sources, instruction for instruction.
 
 Changes to the sources must leave the kernels of before as they were,
 except the ones a change redesigns on purpose:
+- every source file of the old copy (`csrc/*.cu`) is compiled in both
+  copies, so every kernel of the old copy is held to the new copy's
+  kernel of the same name: the slab, xz, walked-tile and Hartley kernels
+  alike, including those that share a header with a redesigned kernel
+  (`xz_tile.cuh`, `predictor_terms.cuh`, `les.cuh`, `projection.cuh`);
 - `csrc/predictor_periodic.cu` and `csrc/predictor_channel.cu` carry a
   `bool DIV` template parameter, last among each kernel's template
   arguments, whose false instantiations were the kernels of before it: an
-  old copy's `K<T>` (`K<T, NUT>`) is held to the new copy's `K<T, false>`
-  (`K<T, NUT, false>`);
-- the slab stencils read their operands through a reader type
-  (`csrc/predictor_terms.cuh`, `les.cuh`, `projection.cuh`), which the
-  (x, z)-tiled kernels share: predictor_periodic, predictor_general,
-  nu_sgs, germano_pass1, transport and divergence keep their names and
-  must keep their code, and so must predictor_channel.cu's DIV = true
-  instantiation (the channel predictor + divergence);
-- the xz kernels (`xz.cu`, `predictor_general_xz*.cu`) share the tile of
-  `csrc/xz_tile.cuh` with the channel predictor, which picks its own chunk
-  of planes: their code must stay too;
-- REDESIGNED names the kernels rewritten on purpose: the channel
-  predictor's DIV = false instantiations (now
-  `predictor_channel_tile_kernel` on the walked (x, z) tile,
-  `csrc/predictor_channel_tile.cuh`) and `correct_kernel` (one thread a
-  cell on its own walked tile). An old copy's kernel of those names is
-  reported as REDESIGNED and not compared.
+  old copy's `K<T>` (`K<T, NUT>`) that the new copy lacks is held to the
+  new copy's `K<T, false>` (`K<T, NUT, false>`); both files now compile
+  only DIV = true, whose code must stay;
+- REDESIGNED names the kernels this change rewrites on purpose: the
+  periodic predictor's DIV = false instantiation (now
+  `predictor_periodic_tile_kernel` on the walked (x, z) tile,
+  `csrc/predictor_periodic_tile.cuh`) and `divergence_kernel` (one thread
+  a cell on its own walked tile). An old copy's kernel of those names is
+  reported as REDESIGNED and not compared. A later change that redesigns
+  other kernels names them here in place of these.
 This compiles each file of both copies to a cubin with the library's
 flags, disassembles it with cuobjdump, and holds every kernel of the old
 copy to the new copy's kernel of the same name, else to its DIV = false
@@ -48,13 +46,10 @@ from pathlib import Path
 
 from .ops.kernels import NVCC_FLAGS, _CSRC, _nvcc
 
-SOURCES = ("predictor_periodic", "predictor_channel", "predictor_general",
-           "nu_sgs", "germano_pass1", "transport", "divergence", "correct",
-           "xz", "predictor_general_xz", "predictor_general_xz_f64")
 # the kernels redesigned on purpose (demangled names of the old copy): the
-# channel predictor's DIV = false instantiations and the correction
-REDESIGNED = re.compile(r"predictor_channel_kernel<\w+, \(bool\)[01], "
-                        r"\(bool\)0>|correct_kernel<\w+>")
+# periodic predictor's DIV = false instantiation and the divergence
+REDESIGNED = re.compile(r"predictor_periodic_kernel<\w+, \(bool\)0>"
+                        r"|divergence_kernel<\w+>")
 OUT = Path(__file__).resolve().parents[1] / "build" / "sass"
 
 
@@ -64,8 +59,9 @@ def sass(src: Path, tag: str) -> dict:
     cubin = OUT / f"{tag}.cubin"
     subprocess.run([str(tools / "nvcc"), *NVCC_FLAGS, "-cubin", "-o",
                     str(cubin), str(src)], check=True)
+    # a source without kernels (a host-only file) gives an empty listing
     text = subprocess.run([str(tools / "cuobjdump"), "-sass", str(cubin)],
-                          capture_output=True, text=True, check=True).stdout
+                          capture_output=True, text=True).stdout
     (OUT / f"{tag}.sass").write_text(text)
     funcs, cur = {}, None
     for line in text.splitlines():
@@ -89,14 +85,20 @@ def main(argv) -> int:
         return 2
     old_dir = Path(argv[0])
     OUT.mkdir(parents=True, exist_ok=True)
-    ok = True
+    # every source of the old copy; one the new copy lacks is MISSING
+    stems = sorted(f.stem for f in old_dir.glob("*.cu"))
+    gone = [s for s in stems if not (_CSRC / f"{s}.cu").exists()]
+    ok = not gone
+    for stem in gone:
+        print(f"MISSING {stem}.cu in {_CSRC}")
+    stems = [s for s in stems if s not in gone]
     # every cubin at once (nvcc is one process a source)
-    with concurrent.futures.ThreadPoolExecutor(len(SOURCES) * 2) as pool:
+    with concurrent.futures.ThreadPoolExecutor(len(stems) * 2) as pool:
         listings = {(stem, tag): pool.submit(sass, d / f"{stem}.cu",
                                              f"{stem}_{tag}")
-                    for stem in SOURCES
+                    for stem in stems
                     for tag, d in (("old", old_dir), ("new", _CSRC))}
-    for stem in SOURCES:
+    for stem in stems:
         old = listings[stem, "old"].result()
         new = listings[stem, "new"].result()
         for name, ins in sorted(old.items()):

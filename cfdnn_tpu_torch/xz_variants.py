@@ -2,37 +2,40 @@
 side by side on one card: the xz kernels (`csrc/xz_tile.cuh`,
 `csrc/predictor_general_xz.cuh`, `csrc/xz.cu`) on chip_smoke's 640^3
 calls of predictor_general_xz (with and without nu_t), nu_sgs_xz,
-divergence_xz and correct_xz, and the two slab kernels on a walked tile
-(`csrc/predictor_channel_tile.cuh`, `csrc/correct.cu`) on its 512^3 calls
-of predictor_channel (channel512) and correct (tgv512, channel512), and
-on the main paths' smaller calls of the two (device ms by the profiler).
+divergence_xz and correct_xz, and the four slab kernels on a walked tile
+(`csrc/predictor_channel_tile.cuh`, `csrc/predictor_periodic_tile.cuh`,
+`csrc/correct.cu`, `csrc/divergence.cu`) on its 512^3 calls of
+predictor_channel (channel512), predictor_periodic (tgv512), correct and
+divergence (tgv512, channel512), and on the main paths' smaller calls of
+the four (device ms by the profiler).
 
 Each variant is the kernels' sources with a few textual substitutions,
 built with the library's flags into its own shared library:
 - "kernel": the sources as they are;
 - "sync": each plane copied by plain loads and stores where the tile
   issues cp.async (what the asynchronous copy buys; the xz kernels and
-  the channel predictor);
+  the channel and periodic predictors);
 - "one_block": `__launch_bounds__` without its minimum of blocks an SM
   (what the register cap buys; the xz predictor and the channel
-  predictor);
-- "ahead1", "ahead3": the channel predictor's walk with one or three
-  planes in flight (two in float32 as it stands); "three_blocks",
-  "five_blocks": its register cap at three or five blocks an SM (four
-  as it stands; the launcher's chunk follows the occupancy it gets);
+  predictor: the periodic predictor has no cap);
+- "ahead1", "ahead3": the channel and periodic predictors' walks with
+  one or three planes in flight (two in float32 as they stand);
+  "three_blocks", "five_blocks": the channel predictor's register cap at
+  three or five blocks an SM (four as it stands; the launcher's chunk
+  follows the occupancy it gets);
 - "parent": the sources of another copy, with `--parent DIR` (an older
   commit's `cfdnn_tpu_torch/csrc`, which keeps the C interfaces; a copy
-  from before the walked tile, without `predictor_channel_tile.cu`, has
-  the slab predictor_channel and correct).
+  from before a walked tile, without `predictor_channel_tile.cu` or
+  `predictor_periodic_tile.cu`, has that predictor's slab kernel, and
+  its correct and divergence may be slab kernels too).
 Every variant computes the function: each call of an xz kernel is held to
-the slab kernel of its function on the same inputs, each call of
-predictor_channel or correct to the kernel of this copy (the library's),
-1e-5 of scale, and the difference is printed (the parent's
-predictor_channel differs by FMA contraction only, its correct by
-nothing); each is timed by CUDA events over 20 calls, in two turns, the
-second in the reverse order. ptxas's registers and spills and the SASS
-instruction mix of each variant's tile kernels (cuobjdump) are printed
-first.
+the slab kernel of its function on the same inputs, each call of a slab
+kernel on a walked tile to the kernel of this copy (the library's), 1e-5
+of scale, and the difference is printed (the parent's slab predictors
+differ by FMA contraction only, its correct and divergence by nothing);
+each is timed by CUDA events over 20 calls, in two turns, the second in
+the reverse order. ptxas's registers and spills and the SASS instruction
+mix of each variant's tile kernels (cuobjdump) are printed first.
 
 Run on a machine with the CUDA toolkit, from the repository's root:
 
@@ -57,25 +60,30 @@ SUBS = {
               r"\1 *dst = *src; }"),
              (r'asm volatile\("cp\.async\.[a-z_]+[^"]*"[^;]*;', "")],
     "one_block": [(r"sizeof\(T\) == 4 \? \d : 2", "1")],
-    # the channel predictor's planes in flight and blocks an SM (float32)
-    "ahead1": [(r"kChannelAhead = sizeof\(T\) == 4 \? \d",
-                "kChannelAhead = sizeof(T) == 4 ? 1")],
-    "ahead3": [(r"kChannelAhead = sizeof\(T\) == 4 \? \d",
-                "kChannelAhead = sizeof(T) == 4 ? 3")],
+    # the channel and periodic predictors' planes in flight, the channel
+    # predictor's blocks an SM (float32)
+    "ahead1": [(r"(k(?:Channel|Periodic)Ahead) = sizeof\(T\) == 4 \? \d",
+                r"\1 = sizeof(T) == 4 ? 1")],
+    "ahead3": [(r"(k(?:Channel|Periodic)Ahead) = sizeof\(T\) == 4 \? \d",
+                r"\1 = sizeof(T) == 4 ? 3")],
     "three_blocks": [(r"kChannelMinBlocks = sizeof\(T\) == 4 \? \d",
                       "kChannelMinBlocks = sizeof(T) == 4 ? 3")],
     "five_blocks": [(r"kChannelMinBlocks = sizeof\(T\) == 4 \? \d",
                      "kChannelMinBlocks = sizeof(T) == 4 ? 5")],
 }
-SOURCES = ("xz.cu", "predictor_general_xz.cu", "correct.cu", "error.cu")
-# the channel predictor's float source: the walked tile, or a copy's
-# slab kernel from before it
-CHANNEL_SOURCES = ("predictor_channel_tile.cu", "predictor_channel.cu")
+SOURCES = ("xz.cu", "predictor_general_xz.cu", "correct.cu", "divergence.cu",
+           "error.cu")
+# the float source of the channel and of the periodic predictor: the walked
+# tile, or a copy's slab kernel from before it
+PREDICTOR_SOURCES = (("predictor_channel_tile.cu", "predictor_channel.cu"),
+                     ("predictor_periodic_tile.cu", "predictor_periodic.cu"))
 NAMES = ("predictor_general_xz", "nu_sgs_xz", "divergence_xz", "correct_xz",
-         "predictor_channel", "correct")
+         "predictor_channel", "correct", "predictor_periodic", "divergence")
 # the float32 kernels whose registers and SASS mix are printed (mangled)
 TILE_KERNELS = re.compile(r"(xz_kernel|predictor_channel_tile_kernel"
-                          r"|predictor_channel_kernel|correct_kernel)If")
+                          r"|predictor_channel_kernel|correct_kernel"
+                          r"|predictor_periodic_tile_kernel"
+                          r"|predictor_periodic_kernel|divergence_kernel)If")
 OUT = Path(__file__).resolve().parents[1] / "build" / "xz_variants"
 
 
@@ -98,9 +106,10 @@ def build(name: str, src_dir: Path):
     if missing:
         raise RuntimeError(f"{name}: {missing} not in the sources")
     lib = d / "lib.so"
-    channel = next(f for f in CHANNEL_SOURCES if (d / f).exists())
+    predictors = tuple(next(f for f in pair if (d / f).exists())
+                       for pair in PREDICTOR_SOURCES)
     cmd = [K._nvcc(), *K.NVCC_FLAGS, "-Xptxas=-v", "-shared", "-o", str(lib),
-           *(str(d / f) for f in SOURCES + (channel,))]
+           *(str(d / f) for f in SOURCES + predictors)]
     return lib, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                  stderr=subprocess.STDOUT)
 
@@ -201,7 +210,8 @@ def main(argv) -> int:
     # timed by the profiler's device ms: a call there takes less than the
     # host's launch
     small = [case for case in C._cases(128, torch.float32, device, seed=2)
-             if case.name in ("predictor_channel", "correct")
+             if case.name in ("predictor_channel", "correct",
+                              "predictor_periodic", "divergence")
              and case.label not in seen and not seen.add(case.label)]
     cases += small
     with torch.no_grad():

@@ -36,14 +36,16 @@ Phases, each of which raises on failure (nothing is caught):
      periodic y, ragged tiles over two y chunks; skew and central;
      Smagorinsky, WALE and Vreman), float64
      to 1e-13 of scale and float32 to 1e-5, each against its twin and
-     against the slab kernel of its function on the same inputs; the two
+     against the slab kernel of its function on the same inputs; the four
      slab kernels that walk an (x, z) tile (`_tile_cases`):
      predictor_channel, scalar nu and nu_t, skew and central, at nx = 8
-     with ny = 2 and 3 and on the ragged 12x70x40 (several chunks), and
-     correct on the periodic box, the duct, a wall-x cavity, a 2-D grid
-     and an nx = 5 channel, float64 to 1e-14 of scale and float32 to
-     1e-5; each output of a kernel is held to its own twin output's
-     scale;
+     with ny = 2 and 3 and on the ragged 12x70x40 (several chunks);
+     predictor_periodic at nx = 8 with ny = 1, 2, 3 (nz = 6), on the
+     ragged 12x70x40 and at nx = 5 and 3; correct and divergence on the
+     periodic box, the duct, a wall-x cavity, a 2-D grid and an nx = 5
+     channel, divergence also on a ragged periodic 12x70x40 and a box of
+     one y cell; float64 to 1e-14 of scale and float32 to 1e-5; each
+     output of a kernel is held to its own twin output's scale;
   3. the main paths (`_paths`), each with its launches per step declared:
      Simulation.run of the port's bench.py rows (the 128^3 Taylor-Green
      and channel, the 128x64x128 LES channel with static and dynamic
@@ -91,9 +93,9 @@ Phases, each of which raises on failure (nothing is caught):
      transform "auto" (cuFFT; tgv512, channel512) and each transform's
      div_linf after the first 100 steps; each kernel against its twin at
      the main-path shapes with CUDA events and with the profiler's device
-     time, predictor_channel and correct also at 512^3 (channel512's
-     predictor, tgv512's and channel512's correct, each held to its twin
-     there too), the Hartley kernels beside torch.fft along the same axis
+     time, the four slab kernels on a walked tile also at 512^3
+     (channel512's and tgv512's predictor, tgv512's and channel512's
+     correct and divergence, each held to its twin there too), the Hartley kernels beside torch.fft along the same axis
      (fht_pass beside one rfft or irfft, fht_modal beside rfft + irfft);
      the 512^3 Poisson solve alone, "fft" against "pallas_fft", on the
      tgv512 and channel512 solvers; les_tgv640 over 100 steps (one rep)
@@ -145,9 +147,10 @@ KERNEL_REPLACES = {
 }
 # the two div kernels are instantiations in their predictor's source, the
 # two Hartley kernels share csrc/fht.cuh, three xz kernels csrc/xz.cu, and
-# the xz predictor and the channel predictor (on its walked tile) are
-# headers with a source for each dtype
-KERNEL_SOURCE = {"predictor_periodic_div": "predictor_periodic.cu",
+# the xz predictor and the channel and periodic predictors (on their walked
+# tiles) are headers with a source for each dtype
+KERNEL_SOURCE = {"predictor_periodic": "predictor_periodic_tile.cuh",
+                 "predictor_periodic_div": "predictor_periodic.cu",
                  "predictor_channel": "predictor_channel_tile.cuh",
                  "predictor_channel_div": "predictor_channel.cu",
                  "fht_pass": "fht.cuh", "fht_modal": "fht.cuh",
@@ -157,8 +160,9 @@ KERNEL_SOURCE = {"predictor_periodic_div": "predictor_periodic.cu",
 # the xz kernels run their slab kernels' arithmetic on staged operands:
 # float64 to 1e-13 of scale, against their twins and the slab kernels
 XZ_F64_TOL = 1e-13
-# the two slab kernels that walk an (x, z) tile (predictor_channel,
-# correct) against their twins on the shapes where the tile can break
+# the four slab kernels that walk an (x, z) tile (predictor_channel,
+# predictor_periodic, correct, divergence) against their twins on the
+# shapes where the tile can break
 TILE_F64_TOL = 1e-14
 # The H100 SXM's published peaks (NVIDIA data sheet): HBM bandwidth and
 # float32 outside the tensor cores.
@@ -249,8 +253,9 @@ def _cases(n, dtype, device, seed):
     path's shapes: n^3, the channel stretched with Ny = n, the LES channel
     n x n/2 x n (both with Ny = 3n/2 for the float64 check), the LES duct
     n x 3n/4 x 3n/4, and the LES + IBM channel 2n x n x 2n (its
-    predictor_channel with nu_t, nu_sgs, divergence and correct). The
-    first case of each label is the main path's."""
+    predictor_channel with nu_t, nu_sgs, divergence and correct), and
+    predictor_periodic on a periodic box of that shape too. The first
+    case of each label is the main path's."""
     from cfdnn_tpu_torch import bench
     from cfdnn_tpu_torch.fields import velocity_shapes
     from cfdnn_tpu_torch.mesh import Mesh
@@ -283,6 +288,7 @@ def _cases(n, dtype, device, seed):
     ul, vl, wl = (rnd(s) for s in velocity_shapes(les))
     ud, vd, wd = (rnd(s) for s in velocity_shapes(duct))
     ui, vi, wi = (rnd(s) for s in velocity_shapes(ibm))
+    ub, vb, wb = (rnd((2 * n, n, 2 * n)) for _ in range(3))
 
     # an eddy viscosity >= 0 of the size Smagorinsky gives these fields
     def nut_of(cfg):
@@ -294,6 +300,7 @@ def _cases(n, dtype, device, seed):
     dt_t, dt_c, dt_d, dt_i = dt_of(tgv), dt_of(ch), dt_of(duct), dt_of(ibm)
     ys = K.channel_y_arrays(g_c)
     kp = dict(hx=g_t.x.h, hy=g_t.y.h, hz=g_t.z.h, nu=tgv.nu, fx=0.0)
+    kb = dict(kp, hx=g_t.x.h / 2, hz=g_t.z.h / 2)
     kc = dict(hx=g_c.x.h, hz=g_c.z.h, nu=ch.nu, fx=-ch.dp_dx,
               scheme=ch.convective_scheme)
     yl, gs = K.channel_y_arrays(g_l), K.les_arrays(g_l)
@@ -311,6 +318,12 @@ def _cases(n, dtype, device, seed):
              lambda: K.predictor_periodic(ut, vt, wt, dt_t, **kp),
              lambda: K.predictor_periodic_twin(ut, vt, wt, dt_t, **kp),
              (ut, vt, wt, dt_t)),
+        # the periodic box at the LES + IBM channel's 2n x n x 2n, the
+        # periodic predictor's time between 128^3 and 512^3
+        Case("predictor_periodic 2n x n x 2n", "predictor_periodic",
+             lambda: K.predictor_periodic(ub, vb, wb, dt_t, **kb),
+             lambda: K.predictor_periodic_twin(ub, vb, wb, dt_t, **kb),
+             (ub, vb, wb, dt_t)),
         Case("predictor_channel", "predictor_channel",
              lambda: K.predictor_channel(uc, vc, wc, dt_c, ys, **kc),
              lambda: K.predictor_channel_twin(uc, vc, wc, dt_c, *ys, **kc),
@@ -587,15 +600,21 @@ def _div_cases(n, dtype, device, seed):
 
 
 def _tile_cases(dtype, device, seed):
-    """The two slab kernels that walk an (x, z) tile along y, each against
+    """The four slab kernels that walk an (x, z) tile along y, each against
     its twin where the tile can break (float64 to 1e-14 of scale, float32
     to 1e-5): predictor_channel, scalar nu and nu_t, skew and central, on
     stretched walled-y channels of the smallest x the tile takes (nx = 8,
     nz = 6 < 32) with ny = 2 and 3 (every plane next to a wall) and on the
     ragged 12 x 70 x 40 (x and z not multiples of the 8 x 32 tile; ny + 1
-    = 71 planes over several chunks); correct on the all-periodic box, the
+    = 71 planes over several chunks); predictor_periodic (fx on u) on
+    all-periodic boxes at nx = 8 with ny = 1, 2, 3 and nz = 6 (the ring's
+    y wrap within one plane or two), on the ragged 12 x 70 x 40 and below
+    the tile's width, 5 x 20 x 33 and 3 x 9 x 40 (the staged x wrapped
+    more than once); correct and divergence on the all-periodic box, the
     duct (walled y and z), a wall-x cavity, a 2-D channel (nz = 1), and an
-    nx = 5 channel, each over more than one chunk of planes."""
+    nx = 5 channel, each over more than one chunk of planes, divergence
+    also on a ragged periodic box over nine chunks (12 x 70 x 40) and a
+    box of one y cell (12 x 1 x 40: no y term)."""
     from cfdnn_tpu_torch import BCType, Config, velocity_shapes
     from cfdnn_tpu_torch import ConvectiveScheme as CS
     from cfdnn_tpu_torch.mesh import Mesh
@@ -632,6 +651,21 @@ def _tile_cases(dtype, device, seed):
                     (u, v, w, dt, *ys) + (() if n is None else (n,)),
                     f64_tol=TILE_F64_TOL))
     periodic = dict(bc_y=BCType.PERIODIC, y_min=0.0, y_max=1.0)
+    for nx, ny, nz in ((8, 1, 6), (8, 2, 6), (8, 3, 6), (12, 70, 40),
+                       (5, 20, 33), (3, 9, 40)):
+        cfg = Config(**base, Nx=nx, Ny=ny, Nz=nz, **periodic,
+                     convective_scheme=CS.SKEW).finalize()
+        g = Geometry.make(Mesh.from_config(cfg), cfg, device=device)
+        u, v, w = (rnd(sh) for sh in velocity_shapes(cfg))
+        dt = torch.full((), cfg.dt, dtype=dtype, device=device)
+        kp = dict(hx=g.x.h, hy=g.y.h, hz=g.z.h, nu=cfg.nu, fx=-cfg.dp_dx)
+        cases.append(Case(
+            f"predictor_periodic {nx}x{ny}x{nz}", "predictor_periodic",
+            lambda u=u, v=v, w=w, dt=dt, kp=kp:
+                K.predictor_periodic(u, v, w, dt, **kp),
+            lambda u=u, v=v, w=w, dt=dt, kp=kp:
+                K.predictor_periodic_twin(u, v, w, dt, **kp),
+            (u, v, w, dt), f64_tol=TILE_F64_TOL))
     for tag, grid in (
             ("periodic 12x20x40", dict(Nx=12, Ny=20, Nz=40, **periodic)),
             ("duct 12x20x24", dict(Nx=12, Ny=20, Nz=24, stretch_y=True,
@@ -639,10 +673,21 @@ def _tile_cases(dtype, device, seed):
             ("wall-x 10x18x16", dict(Nx=10, Ny=18, Nz=16,
                                      bc_x=BCType.WALL)),
             ("2-D 24x20x1", dict(Nx=24, Ny=20, Nz=1, stretch_y=True)),
-            ("nx5 5x20x33", dict(Nx=5, Ny=20, Nz=33, stretch_y=True))):
+            ("nx5 5x20x33", dict(Nx=5, Ny=20, Nz=33, stretch_y=True)),
+            ("ragged periodic 12x70x40", dict(Nx=12, Ny=70, Nz=40,
+                                              **periodic)),
+            ("one y cell 12x1x40", dict(Nx=12, Ny=1, Nz=40, **periodic))):
         cfg = Config(**base, **grid).finalize()
         g = Geometry.make(Mesh.from_config(cfg), cfg, device=device)
         u, v, w = (rnd(sh) for sh in velocity_shapes(cfg))
+        cases.append(Case(
+            f"divergence {tag}", "divergence",
+            lambda u=u, v=v, w=w, g=g: K.divergence(u, v, w, geom=g),
+            lambda u=u, v=v, w=w, g=g: K.divergence_twin(u, v, w, geom=g),
+            (u, v, w, g.x.inv_d, g.y.inv_d, g.z.inv_d),
+            f64_tol=TILE_F64_TOL))
+        if tag.startswith(("ragged", "one y")):
+            continue
         p = rnd((cfg.Nx, cfg.Ny, cfg.Nz))
         dt = torch.full((), cfg.dt, dtype=dtype, device=device)
         cases.append(Case(
@@ -658,11 +703,12 @@ def _tile_cases(dtype, device, seed):
 
 def _tile_cases_512(device, seed):
     """predictor_channel on channel512's grid (512^3, stretched, central,
-    scalar nu) and correct on tgv512's (all periodic) and channel512's
-    (walled y), float32: the 512^3 calls of the two slab kernels that walk
-    an (x, z) tile, for the timing phase and for the variants' old-against-
-    new yardstick (cfdnn_tpu_torch/xz_variants.py). Made one at a time
-    (a generator): each holds ~2.7-3.8 GB of the card."""
+    scalar nu), predictor_periodic on tgv512's (all periodic, skew), and
+    correct and divergence on tgv512's and channel512's (walled y),
+    float32: the 512^3 calls of the four slab kernels that walk an (x, z)
+    tile, for the timing phase and for the variants' old-against-new
+    yardstick (cfdnn_tpu_torch/xz_variants.py). Made one at a time (a
+    generator): each holds ~2.7-3.8 GB of the card."""
     from cfdnn_tpu_torch import bench, velocity_shapes
     from cfdnn_tpu_torch.mesh import Mesh
     from cfdnn_tpu_torch.ops import kernels as K
@@ -675,13 +721,31 @@ def _tile_cases_512(device, seed):
 
     for label, config in (
             ("predictor_channel channel512", bench.channel_config),
+            ("predictor_periodic tgv512", bench.tgv_config),
             ("correct tgv512", bench.tgv_config),
-            ("correct channel512", bench.channel_config)):
+            ("correct channel512", bench.channel_config),
+            ("divergence tgv512", bench.tgv_config),
+            ("divergence channel512", bench.channel_config)):
         cfg = config(512).finalize()
         g = Geometry.make(Mesh.from_config(cfg), cfg, device=device)
         u, v, w = (rnd(sh) for sh in velocity_shapes(cfg))
         dt = torch.full((), cfg.dt, dtype=torch.float32, device=device)
-        if label.startswith("predictor_channel"):
+        if label.startswith("predictor_periodic"):
+            kp = dict(hx=g.x.h, hy=g.y.h, hz=g.z.h, nu=cfg.nu, fx=0.0)
+            yield Case(label, "predictor_periodic",
+                       lambda u=u, v=v, w=w, dt=dt, kp=kp:
+                           K.predictor_periodic(u, v, w, dt, **kp),
+                       lambda u=u, v=v, w=w, dt=dt, kp=kp:
+                           K.predictor_periodic_twin(u, v, w, dt, **kp),
+                       (u, v, w, dt))
+        elif label.startswith("divergence"):
+            yield Case(label, "divergence",
+                       lambda u=u, v=v, w=w, g=g:
+                           K.divergence(u, v, w, geom=g),
+                       lambda u=u, v=v, w=w, g=g:
+                           K.divergence_twin(u, v, w, geom=g),
+                       (u, v, w, g.x.inv_d, g.y.inv_d, g.z.inv_d))
+        elif label.startswith("predictor_channel"):
             ys = K.channel_y_arrays(g)
             kc = dict(hx=g.x.h, hz=g.z.h, nu=cfg.nu, fx=-cfg.dp_dx,
                       scheme=cfg.convective_scheme)
@@ -1039,8 +1103,8 @@ def phase_kernels(device):
     kernels' 640^3 cube and the walked slab kernels' 512^3 grids in
     phase_timing), each div kernel's div against the divergence kernel of
     its own star, each xz kernel also against the slab kernel of its
-    function, predictor_channel and correct also on the edge shapes of
-    their walked tile (`_tile_cases`); returns {name: [largest float64
+    function, the four slab kernels on a walked tile also on its edge
+    shapes (`_tile_cases`); returns {name: [largest float64
     error, largest float32 error]}."""
     errs = {}
     for dtype, n in ((torch.float64, 32), (torch.float32, 128)):
@@ -1611,8 +1675,8 @@ def _time_path(path, sim, st, rows):
 def phase_timing(device, errs):
     """Each unfused main path's marginal ms/step with its profile (the
     fused paths are timed by phase_ab), then each kernel against its twin
-    at the main-path shapes, predictor_channel and correct also at 512^3;
-    those and the xz kernels (on the les_tgv640 cube) are checked there
+    at the main-path shapes, the four slab kernels on a walked tile also at
+    512^3; those and the xz kernels (on the les_tgv640 cube) are checked there
     too (their errors into `errs`)."""
     rows, divs = {}, {}
     for path in _paths():
@@ -1648,8 +1712,9 @@ def phase_timing(device, errs):
                   f"ms ({t[5][1]})"
                   + ("" if lib is None else
                      f"; torch.fft.{case.library.__name__} {lib:.4f} ms"))
-        # the two slab kernels that walk an (x, z) tile at 512^3
-        # (channel512's predictor, tgv512's and channel512's correction),
+        # the four slab kernels that walk an (x, z) tile at 512^3
+        # (channel512's and tgv512's predictor, tgv512's and channel512's
+        # correction and divergence),
         # each checked against its twin and timed beside it (the twin over
         # fewer reps: tens of milliseconds a call there)
         for case in _tile_cases_512(device, seed=2):

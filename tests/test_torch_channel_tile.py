@@ -2,7 +2,8 @@
 (csrc/predictor_channel_tile.cuh) and correct (csrc/correct.cu).
 
 On the CPU: the launch plan (csrc/tile_plan.cu, built by the host's C++
-compiler: the chunk of y planes a block walks, at least two waves of
+compiler: the chunk of y planes a block walks, here and in the two other
+walked tiles, predictor_periodic's and divergence's, at least two waves of
 blocks and at least eight planes; `tile_refusal`: the grids the tile
 refuses, and the wrappers' ValueError naming the gate), and the wrappers
 (their twins here) against the JAX
@@ -89,7 +90,11 @@ def _tiles(nx, nz):
 # (nx, rows walked, nz, the blocks an H100 holds at once, the chunk): the
 # main paths' grids (channel 128^3, les_channel 128x64x128, les_ibm256
 # 256x128x256, channel512, tgv512; the predictor walks ny + 1 planes, four
-# blocks an SM in float32 and two in float64; correct eight)
+# blocks an SM in float32 and two in float64; correct eight), then those of
+# the periodic predictor (csrc/predictor_periodic_tile.cuh: ny planes, four
+# blocks an SM, or six as its 40 registers allow in float32: the same
+# chunks; tgv 128^3 and 512^3, a grid below the tile's width) and of
+# divergence (csrc/divergence.cu: six blocks an SM; tgv 128^3, les_ibm256)
 PLANS = [(128, 129, 128, 4 * H100_SMS, 8),
          (128, 65, 128, 4 * H100_SMS, 8),
          (256, 129, 256, 4 * H100_SMS, 31),
@@ -97,7 +102,12 @@ PLANS = [(128, 129, 128, 4 * H100_SMS, 8),
          (128, 129, 128, 2 * H100_SMS, 15),
          (128, 128, 128, 8 * H100_SMS, 8),
          (256, 128, 256, 8 * H100_SMS, 15),
-         (512, 512, 512, 8 * H100_SMS, 64)]
+         (512, 512, 512, 8 * H100_SMS, 64),
+         (128, 128, 128, 4 * H100_SMS, 8),
+         (512, 512, 512, 4 * H100_SMS, 64),
+         (5, 20, 33, 4 * H100_SMS, 8),
+         (128, 128, 128, 6 * H100_SMS, 8),
+         (256, 128, 256, 6 * H100_SMS, 20)]
 
 
 @pytest.mark.parametrize("nx,rows,nz,resident,want", PLANS)
