@@ -50,15 +50,16 @@ instantiations: most run one thread per output point, z fastest within a
 warp, periodic wrap by index arithmetic. The slab kernels share their
 term code with the xz kernels through a reader type
 (csrc/predictor_terms.cuh, les.cuh, projection.cuh): the slab kernels
-read device memory, the xz kernels a shared-memory tile. Four slab
-kernels walk an (x, z) tile along y themselves: predictor_channel and
-predictor_periodic (csrc/predictor_channel_tile.cuh,
-csrc/predictor_periodic_tile.cuh, on the xz kernels' staged window, each
-with its own term code over offsets), correct and divergence
-(csrc/correct.cu, csrc/divergence.cu, one thread a cell, each face read
-once); their launchers pick the chunk of planes a block walks
-(csrc/tile_plan.cuh), and a grid their tile refuses raises ValueError
-(`tile_refusal`).
+read device memory, the xz kernels a shared-memory tile. Six slab
+kernels walk an (x, z) tile along y themselves: predictor_channel,
+predictor_periodic and nu_sgs (csrc/predictor_channel_tile.cuh,
+csrc/predictor_periodic_tile.cuh, csrc/nu_sgs_tile.cuh, on the xz
+kernels' staged window, each with its own term code over offsets),
+correct and divergence (csrc/correct.cu, csrc/divergence.cu, one thread a
+cell, each face read once) and transport (csrc/transport_tile.cuh, SST's
+per-point coefficients formed once a point into a ring of planes); their
+launchers pick the chunk of planes a block walks (csrc/tile_plan.cuh), and
+a grid their tile refuses raises ValueError (`tile_refusal`).
 
 Beside each kernel stand:
   - its plain PyTorch twin (`*_twin`), the eager form of the same math.
@@ -304,8 +305,9 @@ class _ViaTwin(torch.autograd.Function):
 
 # ---------------------------------------------------------------------------
 # The grids refused by the slab kernels that walk an (x, z) tile along y:
-# predictor_channel and predictor_periodic (on csrc/xz_tile.cuh), correct
-# and divergence (csrc/correct.cu, csrc/divergence.cu)
+# predictor_channel, predictor_periodic and nu_sgs (on csrc/xz_tile.cuh's
+# window), correct, divergence and transport (csrc/correct.cu,
+# csrc/divergence.cu, csrc/transport_tile.cuh)
 # ---------------------------------------------------------------------------
 
 INT32_MAX = 2 ** 31 - 1    # the tiles' offsets are 32-bit
@@ -1288,9 +1290,15 @@ def nu_sgs(u, v, w, gs, *, geom: Geometry, closure: str, coeff: float):
     """Cell nu_sgs (Nx, Ny, Nz) of an algebraic LES closure from the
     nine-component velocity gradient, in one pass over u, v, w.
     `closure`: "smagorinsky" | "wale" | "vreman", with its constant
-    `coeff`; `gs` = les_arrays(geom)."""
+    `coeff`; `gs` = les_arrays(geom). The kernel walks an (x, z) tile along
+    y with 32-bit offsets: a face array past 2^31 - 1 elements raises
+    ValueError (`tile_refusal`)."""
     _closure_id(closure)   # raises on an unknown closure
     _check_les("nu_sgs", u, v, w, gs, geom)
+    why = tile_refusal("nu_sgs", geom.x.n,
+                       max(math.prod(s) for s in _face_shapes(geom)))
+    if why:
+        raise ValueError(why)
     kw = dict(geom=geom, closure=closure, coeff=coeff)
     return _ViaTwin.apply(_nu_sgs_launch, nu_sgs_twin, kw, u, v, w, *gs)
 
@@ -1601,7 +1609,9 @@ def transport(u, v, w, k, om, nu_t, dt, consts, gs, *, geom: Geometry,
     nu_t (Nx, Ny, Nz) and the velocity. `consts`: the per-cell constants
     (1, Ny, Nz), y_wall, and with a wall the pin mask and om_visc; `c`:
     SSTConstants or KOmegaConstants; `om_wall`: omega's wall value (None
-    without a wall); dt: a 0-d tensor; `gs` = transport_arrays(geom)."""
+    without a wall); dt: a 0-d tensor; `gs` = transport_arrays(geom). The
+    kernel walks an (x, z) tile along y with 32-bit offsets: a face array
+    past 2^31 - 1 elements raises ValueError (`tile_refusal`)."""
     if model not in TRANSPORT_MODELS:
         raise ValueError(f"transport: model {model!r}; one of "
                          f"{sorted(TRANSPORT_MODELS)}")
@@ -1618,6 +1628,10 @@ def transport(u, v, w, k, om, nu_t, dt, consts, gs, *, geom: Geometry,
     _check("transport", (u, v, w, k, om, nu_t, dt, *consts, *gs),
            _face_shapes(geom) + (cell,) * 3 + ((),) + (plane,) * len(consts)
            + _transport_array_shapes(geom))
+    why = tile_refusal("transport", x.n,
+                       max(math.prod(s) for s in _face_shapes(geom)))
+    if why:
+        raise ValueError(why)
     kw = dict(gs=gs, geom=geom, model=model, c=c, nu=nu, om_wall=om_wall)
     return _ViaTwin.apply(_transport_launch, _transport_twin_gs, kw,
                           u, v, w, k, om, nu_t, dt, *consts)

@@ -14,13 +14,14 @@ except the ones a change redesigns on purpose:
   old copy's `K<T>` (`K<T, NUT>`) that the new copy lacks is held to the
   new copy's `K<T, false>` (`K<T, NUT, false>`); both files now compile
   only DIV = true, whose code must stay;
-- REDESIGNED names the kernels this change rewrites on purpose: the
-  periodic predictor's DIV = false instantiation (now
-  `predictor_periodic_tile_kernel` on the walked (x, z) tile,
-  `csrc/predictor_periodic_tile.cuh`) and `divergence_kernel` (one thread
-  a cell on its own walked tile). An old copy's kernel of those names is
-  reported as REDESIGNED and not compared. A later change that redesigns
-  other kernels names them here in place of these.
+- REDESIGNED names the kernels this change rewrites on purpose: the slab
+  `nu_sgs_kernel` (now `nu_sgs_tile_kernel` on xz_tile.cuh's window,
+  `csrc/nu_sgs_tile.cuh`) and `transport_kernel` (now
+  `transport_tile_kernel`, SST's coefficients formed once a point on a
+  walked tile, `csrc/transport_tile.cuh`), every instantiation of each.
+  An old copy's kernel of those names is reported as REDESIGNED and not
+  compared. A later change that redesigns other kernels names them here
+  in place of these.
 This compiles each file of both copies to a cubin with the library's
 flags, disassembles it with cuobjdump, and holds every kernel of the old
 copy to the new copy's kernel of the same name, else to its DIV = false
@@ -46,10 +47,10 @@ from pathlib import Path
 
 from .ops.kernels import NVCC_FLAGS, _CSRC, _nvcc
 
-# the kernels redesigned on purpose (demangled names of the old copy): the
-# periodic predictor's DIV = false instantiation and the divergence
-REDESIGNED = re.compile(r"predictor_periodic_kernel<\w+, \(bool\)0>"
-                        r"|divergence_kernel<\w+>")
+# the kernels redesigned on purpose (demangled names of the old copy):
+# nu_sgs (each closure) and transport (each model)
+REDESIGNED = re.compile(r"nu_sgs_kernel<\w+, \(int\)\d>"
+                        r"|transport_kernel<\w+, \(int\)\d>")
 OUT = Path(__file__).resolve().parents[1] / "build" / "sass"
 
 

@@ -7,14 +7,23 @@ divergence_xz and correct_xz, and the four slab kernels on a walked tile
 `csrc/correct.cu`, `csrc/divergence.cu`) on its 512^3 calls of
 predictor_channel (channel512), predictor_periodic (tgv512), correct and
 divergence (tgv512, channel512), and on the main paths' smaller calls of
-the four (device ms by the profiler).
+the four (device ms by the profiler); and the two closure kernels on a
+walked tile (`csrc/nu_sgs_tile.cuh`, `csrc/transport_tile.cuh`) on the
+main paths' calls of nu_sgs (les_ibm256's 256x128x256, the LES channel
+128x64x128 and the duct 128x96x96, each closure) and transport
+(rans_channel's 128^3, each model), device ms by the profiler.
 
 Each variant is the kernels' sources with a few textual substitutions,
 built with the library's flags into its own shared library:
 - "kernel": the sources as they are;
 - "sync": each plane copied by plain loads and stores where the tile
-  issues cp.async (what the asynchronous copy buys; the xz kernels and
-  the channel and periodic predictors);
+  issues cp.async (what the asynchronous copy buys; the xz kernels, the
+  channel and periodic predictors and nu_sgs);
+- "pow": transport's F1 through pow(arg1, 4) where it forms arg1^4 as
+  (arg1 * arg1) * (arg1 * arg1) (what the squared square buys);
+- "l1": transport's k and omega (the blend's neighbours and the cell's)
+  by plain loads from device memory, through L1, where float32 stages
+  them on a window with a two-point x/z halo (what the window buys);
 - "one_block": `__launch_bounds__` without its minimum of blocks an SM
   (what the register cap buys; the xz predictor and the channel
   predictor: the periodic predictor has no cap);
@@ -70,20 +79,26 @@ SUBS = {
                       "kChannelMinBlocks = sizeof(T) == 4 ? 3")],
     "five_blocks": [(r"kChannelMinBlocks = sizeof\(T\) == 4 \? \d",
                      "kChannelMinBlocks = sizeof(T) == 4 ? 5")],
+    "pow": [(r"safe_tanh\(pow4\(arg1\)\)", "safe_tanh(pow(arg1, T(4)))")],
+    "l1": [(r"constexpr bool kStageKOm = true;",
+            "constexpr bool kStageKOm = false;")],
 }
 SOURCES = ("xz.cu", "predictor_general_xz.cu", "correct.cu", "divergence.cu",
-           "error.cu")
+           "nu_sgs.cu", "transport.cu", "error.cu")
 # the float source of the channel and of the periodic predictor: the walked
 # tile, or a copy's slab kernel from before it
 PREDICTOR_SOURCES = (("predictor_channel_tile.cu", "predictor_channel.cu"),
                      ("predictor_periodic_tile.cu", "predictor_periodic.cu"))
 NAMES = ("predictor_general_xz", "nu_sgs_xz", "divergence_xz", "correct_xz",
-         "predictor_channel", "correct", "predictor_periodic", "divergence")
+         "predictor_channel", "correct", "predictor_periodic", "divergence",
+         "nu_sgs", "transport")
 # the float32 kernels whose registers and SASS mix are printed (mangled)
 TILE_KERNELS = re.compile(r"(xz_kernel|predictor_channel_tile_kernel"
                           r"|predictor_channel_kernel|correct_kernel"
                           r"|predictor_periodic_tile_kernel"
-                          r"|predictor_periodic_kernel|divergence_kernel)If")
+                          r"|predictor_periodic_kernel|divergence_kernel"
+                          r"|nu_sgs_tile_kernel|nu_sgs_kernel"
+                          r"|transport_tile_kernel|transport_kernel)If")
 OUT = Path(__file__).resolve().parents[1] / "build" / "xz_variants"
 
 
@@ -206,12 +221,14 @@ def main(argv) -> int:
             cases.append(case)
     cases += list(C._tile_cases_512(device, seed=2))
     # and at the main paths' smaller shapes (the channel and the periodic
-    # box 128^3, the LES channel 128x64x128, les_ibm256's 256x128x256),
-    # timed by the profiler's device ms: a call there takes less than the
-    # host's launch
+    # box 128^3, the LES channel 128x64x128, the duct 128x96x96,
+    # les_ibm256's 256x128x256; nu_sgs and transport only there), timed by
+    # the profiler's device ms: a call there takes less than the host's
+    # launch
     small = [case for case in C._cases(128, torch.float32, device, seed=2)
              if case.name in ("predictor_channel", "correct",
-                              "predictor_periodic", "divergence")
+                              "predictor_periodic", "divergence", "nu_sgs",
+                              "transport")
              and case.label not in seen and not seen.add(case.label)]
     cases += small
     with torch.no_grad():

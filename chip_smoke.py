@@ -44,8 +44,14 @@ Phases, each of which raises on failure (nothing is caught):
      ragged 12x70x40 and at nx = 5 and 3; correct and divergence on the
      periodic box, the duct, a wall-x cavity, a 2-D grid and an nx = 5
      channel, divergence also on a ragged periodic 12x70x40 and a box of
-     one y cell; float64 to 1e-14 of scale and float32 to 1e-5; each
-     output of a kernel is held to its own twin output's scale;
+     one y cell; the two closure kernels on walked tiles
+     (`_closure_tile_cases`), nu_sgs for each closure and transport for
+     each model, on stretched walled-y and periodic-y grids at nx = 8 with
+     ny = 2 and 3 (nz = 6), the ragged 12x70x40, nx = 5 and 3, and the
+     duct at 16x12x20, 8x3x6 and 12x20x70 (one to three z tiles),
+     transport also on the channel with dp/dx = 0 and the periodic box;
+     float64 to 1e-14 of scale and float32 to 1e-5; each output of a
+     kernel is held to its own twin output's scale;
   3. the main paths (`_paths`), each with its launches per step declared:
      Simulation.run of the port's bench.py rows (the 128^3 Taylor-Green
      and channel, the 128x64x128 LES channel with static and dynamic
@@ -147,9 +153,12 @@ KERNEL_REPLACES = {
 }
 # the two div kernels are instantiations in their predictor's source, the
 # two Hartley kernels share csrc/fht.cuh, three xz kernels csrc/xz.cu, and
-# the xz predictor and the channel and periodic predictors (on their walked
-# tiles) are headers with a source for each dtype
+# the xz predictor, the channel and periodic predictors, nu_sgs and
+# transport (on their walked tiles) are headers with a source for each
+# dtype
 KERNEL_SOURCE = {"predictor_periodic": "predictor_periodic_tile.cuh",
+                 "nu_sgs": "nu_sgs_tile.cuh",
+                 "transport": "transport_tile.cuh",
                  "predictor_periodic_div": "predictor_periodic.cu",
                  "predictor_channel": "predictor_channel_tile.cuh",
                  "predictor_channel_div": "predictor_channel.cu",
@@ -160,9 +169,9 @@ KERNEL_SOURCE = {"predictor_periodic": "predictor_periodic_tile.cuh",
 # the xz kernels run their slab kernels' arithmetic on staged operands:
 # float64 to 1e-13 of scale, against their twins and the slab kernels
 XZ_F64_TOL = 1e-13
-# the four slab kernels that walk an (x, z) tile (predictor_channel,
-# predictor_periodic, correct, divergence) against their twins on the
-# shapes where the tile can break
+# the six slab kernels that walk an (x, z) tile (predictor_channel,
+# predictor_periodic, correct, divergence, nu_sgs, transport) against their
+# twins on the shapes where the tile can break
 TILE_F64_TOL = 1e-14
 # The H100 SXM's published peaks (NVIDIA data sheet): HBM bandwidth and
 # float32 outside the tensor cores.
@@ -178,23 +187,26 @@ F32_OPS_PER_S = 67e12
 # 52 + 51 + 51 (154, skew 170), nu_t's viscosity averages and fluxes 46 more
 # each (292), and its DIV instantiation twice those plus 8 (central 316,
 # with nu_t 592);
-# transport (tanh one, pow(x, 4) two multiplies, clamps none): the
-# gradient, strain and centre velocity 69, the upwind advection of k and
-# omega 34, k's production, source and both updates 17; SST's F1 blend 33
-# at the cell, and at each of its six neighbours with their diffusivities
-# (45 each), the diffusion 76, the blended coefficients and omega's
-# source 31 (MODEL 0, "transport sst": 530), with nu_t of the clipped
-# values 14 more (MODEL 1, the main case: 544); Wilcox's constant
-# diffusivities 4 at the cell and at each neighbour, its diffusion 76 and
-# omega's source 5 (MODEL 2: 229).
+# transport, the function's work a cell (tanh one, x^4 two multiplies,
+# clamps none): the gradient, strain and centre velocity 69, the upwind
+# advection of k and omega 34, k's production, source and both updates
+# 17; SST's F1 blend 33 and its diffusivities nu_k, nu_om 12, each once a
+# cell (a neighbour's are its own cell's), the diffusion 76, beta, alpha,
+# the cross-diffusion and omega's source 19 (MODEL 0, "transport sst":
+# 260), with nu_t of the clipped values 14 more (MODEL 1, the main case:
+# 274); Wilcox's constant diffusivities 4 once a cell, its diffusion 76
+# and omega's source 5 (MODEL 2: 205). The kernel forms F1 and the
+# diffusivities 1.33 times a cell (its tile's x/z halo) where the slab
+# kernel before it formed them seven times; the bound counts the
+# function's work, whatever implements it.
 OPS_PER_CELL = {"predictor_periodic": 154, "predictor_channel": 154,
                 "predictor_channel+nu_t": 292,
                 "predictor_channel les_ibm+nu_t": 292,
                 "predictor_periodic_div": 316, "predictor_channel_div": 316,
                 "predictor_channel_div+nu_t": 592,
                 "predictor_general": 300, "divergence": 6, "correct": 9,
-                "nu_sgs": 100, "germano_pass1": 600, "transport": 544,
-                "transport sst": 530, "transport komega": 229,
+                "nu_sgs": 100, "germano_pass1": 600, "transport": 274,
+                "transport sst": 260, "transport komega": 205,
                 # the xz kernels: their slab kernels' functions
                 "predictor_general_xz": 300, "nu_sgs_xz": 100,
                 "divergence_xz": 6, "correct_xz": 9}
@@ -701,6 +713,113 @@ def _tile_cases(dtype, device, seed):
     return cases
 
 
+# the closure kernels' edge shapes (`_closure_tile_cases`): (tag, grid), the
+# grid's overrides of a stretched walled-y channel; the last two serve
+# transport only
+_CLOSURE_GRIDS = (
+    ("8x2x6", dict(Nx=8, Ny=2, Nz=6)),
+    ("8x3x6", dict(Nx=8, Ny=3, Nz=6)),
+    ("periodic 8x2x6", dict(Nx=8, Ny=2, Nz=6, bc_y="periodic")),
+    ("periodic 8x3x6", dict(Nx=8, Ny=3, Nz=6, bc_y="periodic")),
+    ("ragged 12x70x40", dict(Nx=12, Ny=70, Nz=40)),
+    ("nx5 5x20x33", dict(Nx=5, Ny=20, Nz=33)),
+    ("nx3 periodic 3x9x40", dict(Nx=3, Ny=9, Nz=40, bc_y="periodic")),
+    ("duct 16x12x20", dict(Nx=16, Ny=12, Nz=20, bc_z="wall",
+                           stretch_z=True)),
+    ("duct 8x3x6", dict(Nx=8, Ny=3, Nz=6, bc_z="wall")),
+    ("duct 12x20x70", dict(Nx=12, Ny=20, Nz=70, bc_z="wall",
+                           stretch_z=True)),
+    ("walls-pin 12x20x40", dict(Nx=12, Ny=20, Nz=40, dp_dx=0.0)),
+    ("box 12x20x40", dict(Nx=12, Ny=20, Nz=40, bc_y="periodic",
+                          bc_z="periodic")),
+)
+
+
+def _closure_tile_cases(dtype, device, seed):
+    """The two closure kernels on a walked (x, z) tile, nu_sgs (each
+    closure) and transport (each model), against their twins where the
+    tile can break (float64 to 1e-14 of scale, float32 to 1e-5): a
+    stretched walled-y channel and a periodic y at nx = 8 with ny = 2 and
+    3 (every plane next to a wall; the ring's planes j - 1 and j + 1 the
+    same rows) and nz = 6 < 32; the ragged 12 x 70 x 40 (several chunks);
+    below the tile's width, 5 x 20 x 33 and 3 x 9 x 40 (the staged x
+    wrapped more than once); the duct (walled y and z) at 16 x 12 x 20, at
+    8 x 3 x 6 (one z tile, both walls in it) and at 12 x 20 x 70 (three z
+    tiles); transport also on the channel with dp/dx = 0 (the omega pin on
+    the wall cells only) and the all-periodic box. Vreman is held by its
+    nu_t^2 (the comment below)."""
+    from cfdnn_tpu_torch import BCType, Config, TurbulenceModel
+    from cfdnn_tpu_torch import velocity_shapes
+    from cfdnn_tpu_torch.mesh import Mesh
+    from cfdnn_tpu_torch.ops import kernels as K
+    from cfdnn_tpu_torch.ops.grid import Geometry
+    from cfdnn_tpu_torch.turbulence import les as L
+    from cfdnn_tpu_torch.turbulence import transport as tr
+    gen = torch.Generator(device=device).manual_seed(seed)
+    dts = "float64" if dtype == torch.float64 else "float32"
+
+    def rnd(shape):
+        return torch.randn(shape, generator=gen, dtype=dtype, device=device)
+
+    base = dict(nu=1e-3, nu_specified=True, dp_dx=-1e-3, dp_dx_specified=True,
+                dt=1e-3, adaptive_dt=False, dtype=dts, stretch_y=True,
+                y_min=-1.0, y_max=1.0, z_min=-1.0, z_max=1.0,
+                turb_model=TurbulenceModel.SST)
+    cases = []
+    for tag, grid in _CLOSURE_GRIDS:
+        kw = dict(base, **grid)
+        for axis in ("bc_y", "bc_z"):
+            if kw.get(axis) == "periodic":
+                kw[axis] = BCType.PERIODIC
+                kw["stretch_" + axis[-1]] = False
+            elif axis in kw:
+                kw[axis] = BCType.WALL
+        cfg = Config(**kw).finalize()
+        mesh = Mesh.from_config(cfg)
+        g = Geometry.make(mesh, cfg, device=device)
+        cell = (cfg.Nx, cfg.Ny, cfg.Nz)
+        u, v, w = (rnd(sh) for sh in velocity_shapes(cfg))
+        if not tag.startswith(("walls-pin", "box")):
+            les = K.les_arrays(g)
+            for model in (L.SmagorinskyModel, L.WALEModel, L.VremanModel):
+                kl = dict(geom=g, closure=model.closure, coeff=model.coeff)
+                # Vreman's nu_t is c sqrt(B / a:a), B a sum of cancelling
+                # minors: where B ~ 0 the square root magnifies B's
+                # roundoff (a fused multiply-add on the card, none in the
+                # twin) up to sqrt(eps) of scale, whatever computes it, so
+                # its edge cases hold nu_t^2, which is B's conditioning
+                # (the main-path cases of `_cases` hold nu_t itself)
+                p = 2 if model is L.VremanModel else 1
+                cases.append(Case(
+                    f"nu_sgs {tag} {model.closure}"
+                    + (" nu_t^2" if p == 2 else ""), "nu_sgs",
+                    lambda u=u, v=v, w=w, a=les, kl=kl, p=p:
+                        K.nu_sgs(u, v, w, a, **kl) ** p,
+                    lambda u=u, v=v, w=w, kl=kl, p=p:
+                        K.nu_sgs_twin(u, v, w, **kl) ** p,
+                    (u, v, w, *les), f64_tol=TILE_F64_TOL))
+        gs = K.transport_arrays(g)
+        k = rnd(cell).abs() * 1e-2 + 1e-4
+        om = rnd(cell).abs() * 10.0 + 1.0
+        nu_t = rnd(cell).abs() * 1e-3
+        dt = torch.full((), cfg.dt, dtype=dtype, device=device)
+        fields = (u, v, w, k, om, nu_t, dt)
+        for model in ("sst_nut", "sst", "komega"):
+            turb = (tr.KOmegaTransport if model == "komega"
+                    else tr.SSTTransport)(cfg, mesh, g)
+            consts = turb.kernel_consts
+            kt = dict(geom=g, model=model, c=turb.c, nu=cfg.nu,
+                      om_wall=turb.om_wall)
+            cases.append(Case(
+                f"transport {tag} {model}", "transport",
+                lambda f=fields, c=consts, a=gs, kt=kt:
+                    K.transport(*f, c, a, **kt),
+                lambda f=fields, c=consts, kt=kt:
+                    K.transport_twin(*f, *c, **kt),
+                (*fields, *consts, *gs), f64_tol=TILE_F64_TOL))
+    return cases
+
+
 def _tile_cases_512(device, seed):
     """predictor_channel on channel512's grid (512^3, stretched, central,
     scalar nu), predictor_periodic on tgv512's (all periodic, skew), and
@@ -1115,6 +1234,7 @@ def phase_kernels(device):
         cases += _fht_cases(dtype, device, seed=1, split640=True)
         cases += _xz_cases(dtype, device, seed=1)
         cases += _tile_cases(dtype, device, seed=1)
+        cases += _closure_tile_cases(dtype, device, seed=1)
         for case in cases:
             _hold(case, dtype, errs)
     return errs
