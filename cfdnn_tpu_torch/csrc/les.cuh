@@ -1,11 +1,10 @@
 // Shared device code of the LES kernels (nu_sgs, nu_sgs_xz, germano_pass1;
 // transport reads the gradient too): the grid they serve, the ghost rules
-// of its fields, the nine-component velocity gradient at a cell, the
-// cell-centre velocity and the algebraic closures' nu_sgs.
+// of its fields, the nine-component velocity gradient at a cell and the
+// algebraic closures' nu_sgs.
 //
 // The grid: periodic uniform x; y and z each periodic uniform or bounded
-// by stationary no-slip walls at any stretching (germano_pass1 keeps z
-// periodic: wall_z = 0). Shapes: u (nx, ny, nz) (x periodic: N faces
+// by stationary no-slip walls at any stretching. Shapes: u (nx, ny, nz) (x periodic: N faces
 // stored); v (nx, ny+1, nz) with the wall faces stored, or (nx, ny, nz) on
 // a periodic y; w (nx, ny, nz+1) likewise, or (nx, ny, nz) on a periodic z.
 //
@@ -37,14 +36,10 @@ struct LesGrid {
     __device__ __forceinline__ int nfy() const { return wall_y ? ny + 1 : ny; }
     __device__ __forceinline__ int nfz() const { return wall_z ? nz + 1 : nz; }
 
-    __device__ __forceinline__ T U(int i, int j, int k) const { return u[at3(i, j, k, ny, nz)]; }
-    __device__ __forceinline__ T V(int i, int jf, int k) const { return v[at3(i, jf, k, nfy(), nz)]; }
-    __device__ __forceinline__ T W(int i, int j, int kf) const { return w[at3(i, j, kf, ny, nfz())]; }
-
     // The stencils below read component C (0 u, 1 v, 2 w) at its stored
-    // point (i, j, k) through a reader r, r.template at<C>(i, j, k): Global
-    // (device memory) for the slab kernels. nu_sgs_xz (xz.cu) runs the same
-    // gradient over offsets on its staged tile.
+    // point (i, j, k) through a reader r, r.template at<C>(i, j, k)
+    // (transport_tile.cuh's). nu_sgs_xz (xz.cu) and nu_sgs_tile.cuh run the
+    // same gradient over offsets on their staged tiles.
 
     // Component C, cell-centred in y (u, or w), at row jj in [-1, ny]: odd
     // reflection about the wall value 0 (pad_tangential), or the periodic
@@ -101,33 +96,6 @@ struct LesGrid {
         const T wy_lo = (yc<2>(r, i, j + 1, k) - yc<2>(r, i, j - 1, k)) / dy;
         const T wy_hi = (yc<2>(r, i, j + 1, kf) - yc<2>(r, i, j - 1, kf)) / dy;
         G[2][1] = h * (wy_lo + wy_hi);
-    }
-
-    // The global-memory reader, with the stored rows of v and columns of
-    // w counted once
-    struct Global {
-        const LesGrid& g;
-        int nys, nzs;
-
-        template <int C>
-        __device__ __forceinline__ T at(int i, int j, int k) const {
-            if constexpr (C == 0) return g.u[at3(i, j, k, g.ny, g.nz)];
-            else if constexpr (C == 1) return g.v[at3(i, j, k, nys, g.nz)];
-            else return g.w[at3(i, j, k, g.ny, nzs)];
-        }
-    };
-
-    // grad(u) at cell (i, j, k) from device memory
-    __device__ __forceinline__ void gradient(int i, int j, int k, T G[3][3]) const {
-        gradient(Global{*this, nfy(), nfz()}, i, j, k, G);
-    }
-
-    // (u, v, w) interpolated to the centre of cell (i, j, k)
-    __device__ __forceinline__ void centre(int i, int j, int k, T c[3]) const {
-        const T h = T(0.5);
-        c[0] = h * (U(i, j, k) + U(wrap_p(i, nx), j, k));
-        c[1] = h * (V(i, j, k) + V(i, vhi(j), k));
-        c[2] = h * (W(i, j, k) + W(i, j, whi(k)));
     }
 };
 

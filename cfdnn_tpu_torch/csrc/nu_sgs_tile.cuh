@@ -32,10 +32,11 @@
 // 16 bytes moved a cell in float32). Design: xz_tile.cuh's 8 x 32 tile,
 // a one-cell x/z halo with corners, a ring of y-planes j - 1 ... j + 1
 // plus the planes in flight (two in float32, one in float64), the next
-// plane copied by cp.async, one barrier a plane (`Stage`: xz::Window's
-// ring and walk, with each field's own stored rows and columns, so that
-// w's nz + 1 columns of a walled z are staged too, the staged x wrapped
-// fully and the staged columns beyond a walled z clamped into the array).
+// plane copied by cp.async, one barrier a plane (tile_stage.cuh's
+// `xz::Stage`: xz::Window's ring and walk, with each field's own stored
+// rows and columns, so that w's nz + 1 columns of a walled z are staged
+// too, the staged x wrapped fully and the staged columns beyond a walled z
+// clamped into the array).
 // Each plane of u, v and w is fetched from device memory once a block.
 // float32 is capped at 64 registers, four blocks an SM (faster than three
 // or five at 256x128x256). The launcher picks the chunk of planes a block
@@ -47,141 +48,12 @@
 #include <type_traits>
 
 #include "les.cuh"
-#include "xz_tile.cuh"
+#include "tile_stage.cuh"
 
 namespace {
 
 using cfdnn::LesGrid;
 namespace xz = cfdnn::xz;
-
-// xz::Window<T, 3, 1, 1, AHEAD> over u, v, w (fields 0, 1, 2) with each
-// field's stored rows (v: ny + 1 with a walled y) and columns (w: nz + 1
-// with a walled z): the same ring of slots [slot][field][kPx][kPz], the
-// same View, the same walk.
-template <typename T, int AHEAD>
-struct Stage {
-    using Window = xz::Window<T, 3, 1, 1, AHEAD>;
-    using View = typename Window::View;
-    static constexpr int NF = 3;
-    static constexpr int kSlots = Window::kSlots;
-    static constexpr int kSize = Window::kSize;
-
-    T* buf;
-    const T* f[NF];
-    int cols[NF];              // stored columns (the row stride)
-    int ny, wall_y;
-    int rows[NF];              // stored rows
-    int i0, k0, tx, tz, i, k;  // the tile's origin; this thread's point
-    bool owns;
-    int j0, j1;                // the walk: planes [j0, j1)
-    int e;                     // this thread's staged points e, e + kThreads
-    int src[2][NF];            //   their offsets within a plane of each field
-
-    __device__ __forceinline__ void init(T* shared, const LesGrid<T>& g,
-                                         int chunk) {
-        buf = shared;
-        const int nx = g.nx, nz = g.nz;
-        ny = g.ny;
-        wall_y = g.wall_y;
-        f[0] = g.u;
-        f[1] = g.v;
-        f[2] = g.w;
-        rows[0] = ny;
-        rows[1] = g.nfy();
-        rows[2] = ny;
-        cols[0] = nz;
-        cols[1] = nz;
-        cols[2] = g.nfz();
-        const int tiles_z = (nz + xz::kTz - 1) / xz::kTz;
-        const int b = static_cast<int>(blockIdx.x);
-        e = static_cast<int>(threadIdx.x);
-        i0 = b / tiles_z * xz::kTx;
-        k0 = b % tiles_z * xz::kTz;
-        tx = e / xz::kTz;
-        tz = e % xz::kTz;
-        i = i0 + tx;
-        k = k0 + tz;
-        owns = i < nx && k < nz;
-        j0 = static_cast<int>(blockIdx.y) * chunk;
-        j1 = min(j0 + chunk, ny);
-#pragma unroll
-        for (int q = 0; q < 2; ++q) {
-            const int p = min(e + q * xz::kThreads, xz::kPlane - 1);
-            const int lx = p / xz::kPz;
-            const int gx = (i0 - 1 + lx + nx) % nx;
-            const int gz = k0 - 1 + p - lx * xz::kPz;
-#pragma unroll
-            for (int c = 0; c < NF; ++c) {
-                // a walled z's columns beyond the array are never read
-                const int z = g.wall_z ? min(max(gz, 0), cols[c] - 1)
-                                       : (gz + nz) % nz;
-                src[q][c] = gx * rows[c] * cols[c] + z;
-            }
-        }
-    }
-
-    // The stored row of global plane r of field c, -1 where there is none
-    // (beyond a wall; a periodic y wraps): xz::Window::row.
-    __device__ __forceinline__ int row(int c, int r) const {
-        if (!wall_y) return r < 0 ? r + ny : (r >= ny ? r - ny : r);
-        return r >= 0 && r < rows[c] ? r : -1;
-    }
-
-    // Start the copy of plane r of every field into ring slot s.
-    __device__ __forceinline__ void fetch(int r, int s) {
-#pragma unroll
-        for (int c = 0; c < NF; ++c) {
-            const int rr = row(c, r);
-            if (rr < 0) continue;
-            const T* base = f[c] + rr * cols[c];
-            T* dst = buf + (s * NF + c) * xz::kPlane + e;
-            xz::copy_async(dst, base + src[0][c]);
-            if (e + xz::kThreads < xz::kPlane)
-                xz::copy_async(dst + xz::kThreads, base + src[1][c]);
-        }
-    }
-
-    // xz::Window::walk with this fetch: body(view) for each plane j of
-    // [j0, j1) with planes j - 1 ... j + 1 staged.
-    template <typename Body>
-    __device__ __forceinline__ void walk(Body body) {
-        static_assert(AHEAD >= 1, "one plane in flight at least");
-#pragma unroll
-        for (int d = 0; d <= 2; ++d) fetch(j0 - 1 + d, d);
-        xz::commit_copies();
-#pragma unroll
-        for (int a = 1; a < AHEAD; ++a) {
-            if (j0 + a < j1) fetch(j0 + 1 + a, 2 + a);
-            xz::commit_copies();
-        }
-        const int point = (tx + 1) * xz::kPz + tz + 1;
-        int s = 0;   // the slot of plane j - 1
-        for (int j = j0; j < j1; ++j) {
-            if constexpr (AHEAD == 1) {
-                xz::wait_copies();
-                __syncthreads();
-                if (j + 1 < j1) {
-                    fetch(j + 2, s == 0 ? kSlots - 1 : s - 1);
-                    xz::commit_copies();
-                }
-            } else {
-                xz::wait_copies_but<AHEAD - 1>();
-                __syncthreads();
-                if (j + AHEAD < j1)
-                    fetch(j + 1 + AHEAD, s == 0 ? kSlots - 1 : s - 1);
-                xz::commit_copies();
-            }
-            View view{buf, {}, j};
-#pragma unroll
-            for (int d = 0; d <= 2; ++d) {
-                const int sd = s + d >= kSlots ? s + d - kSlots : s + d;
-                view.o[d] = sd * NF * xz::kPlane + point;
-            }
-            body(view);
-            s = s + 1 == kSlots ? 0 : s + 1;
-        }
-    }
-};
 
 // LesGrid::gradient at the thread's point (i, k) on the staged window r,
 // its order of evaluation. x is periodic and staged wrapped, so are y
@@ -255,7 +127,7 @@ template <typename T, int CLOSURE>
 __global__ void __launch_bounds__(xz::kThreads, kSgsMinBlocks<T>)
 nu_sgs_tile_kernel(LesGrid<T> g, const T* __restrict__ delta,
                    T* __restrict__ out, T coeff, int chunk) {
-    using Win = Stage<T, kSgsAhead<T>>;
+    using Win = xz::Stage<T, 3, kSgsAhead<T>>;
     using View = typename Win::View;
     __shared__ T buf[Win::kSize];
     Win win;

@@ -1,0 +1,481 @@
+// predictor_general: the fused Euler momentum predictor on a periodic
+// uniform x with y and z each periodic (uniform) or bounded by no-slip
+// walls at any stretching, moving or not (the LES Taylor-Green, the square
+// duct, the lid-driven channel, and through the xpad wrapper a wall x), on
+// an (x, z) tile walked along y. O2 skew or central convection, scalar nu
+// or nu + a cell eddy viscosity.
+//
+// Replaces cfdnn_tpu/ops/pallas_kernels.py fused_predictor_general (body
+// _general_kernel, which runs ops.convective + ops.diffusive on an
+// x-slab). The plain PyTorch twin is ops/kernels.py predictor_general_twin:
+// the operator library itself. Star values at wall faces are computed as
+// the twin computes them; the solver's BC pass overwrites them.
+//
+// Shapes: u (nx, ny, nz), v (nx, nyf, nz), w (nx, ny, nzf), nu_t (nx, ny,
+// nz), with nyf = ny + 1 on a wall y (wall faces stored), ny on a periodic
+// y, and nzf likewise. Metrics: five device vectors per axis (x, y, z),
+// ops/kernels.py general_arrays, passed as a host array of 15 pointers;
+// the (lo, hi) tangential wall velocities of u, v, w on y and on z as a
+// host array of 12 doubles (predictor_terms.cuh make_grid).
+//
+// The terms are predictor_terms.cuh's, term by term and in the same order
+// of evaluation, over offsets from the thread's point on the staged window
+// (`Tile`, predictor_general_xz.cuh's with a walled z beside the walled
+// y): each operand is one shared-memory load at a fixed offset. A walled
+// y's ghosts (the odd reflections, the lid's tangential values, the
+// clamped cells) are compiled only into the planes next to a wall (EDGE),
+// a walled z's into the blocks of the first and the last z tile (ZW, the
+// low and the high wall apart). The
+// x and z metrics are staged beside the window (a walled z's clamped into
+// each vector, not folded); the y metrics are read by global row.
+//
+// Bound on the H100: device-memory bandwidth (u, v, w and nu_t in, three
+// stars out: 28 bytes a cell in float32, ~300 flops a cell). Design: a
+// block of 8 x 32 threads stages its tile plus a one-cell x/z halo, 10 x 34
+// points of each field and plane (tile_stage.cuh's `xz::Stage`:
+// xz::Window's ring and walk with each field's own stored rows and
+// columns, so that v's ny + 1 rows and w's nz + 1 columns of the walls
+// are staged, the staged x wrapped fully),
+// and walks the nyf planes of its chunk with the next plane copied by
+// cp.async, one barrier a plane; on a periodic y the ring holds the
+// wrapped planes. Each plane of each field is fetched from device memory
+// once a block. A walled z's wall face k = nz of w costs no z tile of its
+// own: the lane at k = nz of the last z tile writes it beside its warp's
+// stars, or, where nz fills that tile, eight lanes of one warp write it
+// from the window shifted to it. The launcher picks the chunk of planes a block walks
+// (tile_plan.cuh: two waves of blocks at least, 8 to 64 planes). 32-bit
+// offsets: the wrapper refuses a field of 2^31 elements or more
+// (ops/kernels.py tile_refusal), and so does the launcher.
+//
+// The float and double entry points are compiled apart
+// (predictor_general.cu, predictor_general_f64.cu), so that the library's
+// parallel build does not wait on one file of all the kernels.
+#pragma once
+
+#include <type_traits>
+
+#include "predictor_terms.cuh"
+#include "tile_stage.cuh"
+
+namespace {
+
+using namespace cfdnn::general;
+namespace xz = cfdnn::xz;
+using xz::kPx;
+using xz::kPz;
+
+// The five metric vectors of an axis, in general_arrays' order.
+enum Metric { INV_D, INV_DC, INV_DG, DEN_C, DEN_F, kMetrics };
+
+template <typename T>
+__device__ __forceinline__ const T* metric_ptr(const Axis<T>& A, int m) {
+    switch (m) {
+        case INV_D: return A.inv_d;
+        case INV_DC: return A.inv_dc;
+        case INV_DG: return A.inv_dg;
+        case DEN_C: return A.den_c;
+        default: return A.den_f;
+    }
+}
+
+// The length of metric vector m of axis A (general_arrays' shapes).
+template <typename T>
+__device__ __forceinline__ int metric_len(const Axis<T>& A, int m) {
+    if (m == INV_D || m == DEN_C) return A.n;
+    if (m == DEN_F) return A.wall ? A.n + 1 : A.n;
+    return A.n + 1;
+}
+
+// An offset from the thread's point; a component's own offset along its
+// axis counts faces, the other two cells (as Pt counts indices).
+struct Off {
+    int d[3];
+};
+
+__device__ __forceinline__ Off with(Off o, int a, int x) {
+    o.d[a] = x;
+    return o;
+}
+
+// The general predictor's terms on the staged window, those that
+// predictor_terms.cuh sets out, one function a term. x is periodic; y is too unless EDGE (a plane next
+// to a wall of a walled y, where the y ghosts are formed at run time from
+// j), and z unless ZW (a block of a walled z's first z tile, bit 1, or its
+// last, bit 2, where the ghosts of that wall are formed from k). The
+// offsets are constants after inlining but on those planes and in those
+// blocks.
+template <typename T, bool NUT, bool EDGE, int ZW, typename View>
+struct Tile {
+    View win;
+    const T* mx;       // staged x metrics at this thread's x: [m * kPx + di]
+    const T* mz;       // staged z metrics at this thread's z: [m * kPz + dk]
+    Axis<T> ay;        // y: metrics by global row, wall velocities
+    Axis<T> az;        // z: wall velocities
+    int j, jm, jp;     // this plane and its y neighbours' metric rows
+    int k;             // this point's z (a face index for w's wall face)
+    int ny, nz;
+    T nu;
+
+    template <int C>
+    __device__ __forceinline__ T val(const Off& o) const {
+        return win.template at<C>(o.d[0], o.d[1], o.d[2]);
+    }
+
+    // nu + nu_t at cell o
+    __device__ __forceinline__ T ne(const Off& o) const {
+        return nu + val<3>(o);
+    }
+
+    // metric m of axis A at offset x
+    template <int A>
+    __device__ __forceinline__ T met(int m, int x) const {
+        if constexpr (A == 0) return mx[m * kPx + x];
+        else if constexpr (A == 2) return mz[m * kPz + x];
+        else return metric_ptr(ay, m)[x < 0 ? jm : (x > 0 ? jp : j)];
+    }
+
+    // whether the low and the high wall of axis A are within reach
+    template <int A>
+    __host__ __device__ static constexpr bool lo_wall() {
+        return A == 1 ? EDGE : (A == 2 && (ZW & 1));
+    }
+    template <int A>
+    __host__ __device__ static constexpr bool hi_wall() {
+        return A == 1 ? EDGE : (A == 2 && (ZW & 2));
+    }
+
+    // the point's index along a walled axis A, that axis's cells and its
+    // wall velocities
+    template <int A>
+    __device__ __forceinline__ int pos() const { return A == 1 ? j : k; }
+    template <int A>
+    __device__ __forceinline__ int cells() const { return A == 1 ? ny : nz; }
+    template <int A>
+    __device__ __forceinline__ T tlo(int c) const {
+        return A == 1 ? ay.tlo[c] : az.tlo[c];
+    }
+    template <int A>
+    __device__ __forceinline__ T thi(int c) const {
+        return A == 1 ? ay.thi[c] : az.thi[c];
+    }
+
+    // face_cells: the cells on either side of face F (an offset) of axis
+    // A, clamped beyond a wall
+    template <int A>
+    __device__ __forceinline__ void face_cells(int F, int& lo, int& hi) const {
+        lo = lo_wall<A>() && pos<A>() + F <= 0 ? F : F - 1;
+        hi = hi_wall<A>() && pos<A>() + F >= cells<A>() ? F - 1 : F;
+    }
+
+    // normal<S>(p, f + X): the odd reflection beyond a wall
+    template <int S>
+    __device__ __forceinline__ T normal(const Off& p, int X) const {
+        if (lo_wall<S>() && pos<S>() + X < 0)
+            return T(2) * val<S>(with(p, S, 0)) - val<S>(with(p, S, 1));
+        if (hi_wall<S>() && pos<S>() + X > cells<S>())
+            return T(2) * val<S>(with(p, S, 0)) - val<S>(with(p, S, -1));
+        return val<S>(with(p, S, X));
+    }
+
+    // tangential<C, D>(p, c + X): 2 tang - interior beyond a wall. X is
+    // -1, 0 or 1, so a ghost is read only from the cell next to the wall,
+    // which is this point's: its offset is 0 (where the xz kernel folds
+    // -j or ny - 1 - j, a run-time offset in every lane of a z-wall tile)
+    template <int C, int D>
+    __device__ __forceinline__ T tangential(const Off& p, int X) const {
+        if (lo_wall<D>() && pos<D>() + X < 0)
+            return T(2) * tlo<D>(C) - val<C>(with(p, D, 0));
+        if (hi_wall<D>() && pos<D>() + X >= cells<D>())
+            return T(2) * thi<D>(C) - val<C>(with(p, D, 0));
+        return val<C>(with(p, D, X));
+    }
+
+    template <int S>
+    __device__ __forceinline__ T skew_own(const Off& p) const {
+        const T h = T(0.5);
+        int cl, ch;
+        face_cells<S>(0, cl, ch);
+        const T u_lo = h * (val<S>(with(p, S, cl)) + val<S>(with(p, S, cl + 1)));
+        const T u_hi = h * (val<S>(with(p, S, ch)) + val<S>(with(p, S, ch + 1)));
+        const T lo_n = normal<S>(p, -1);
+        const T hi_n = normal<S>(p, 1);
+        return h * (u_hi * hi_n - u_lo * lo_n) * met<S>(INV_DC, 0);
+    }
+
+    template <int S, int D>
+    __device__ __forceinline__ T skew_cross(const Off& p) const {
+        const T h = T(0.5);
+        auto edge = [&](int e) -> T {
+            const Off pe = with(p, D, e);
+            const T lo = lo_wall<S>() && pos<S>() == 0
+                             ? T(2) * tlo<S>(D) - val<D>(with(pe, S, 0))
+                             : val<D>(with(pe, S, -1));
+            const T hi = hi_wall<S>() && pos<S>() == cells<S>()
+                             ? T(2) * thi<S>(D) - val<D>(with(pe, S, -1))
+                             : val<D>(pe);
+            return h * (lo + hi);
+        };
+        const T u_lo = edge(0);
+        const T u_hi = edge(1);
+        const T lo_n = tangential<S, D>(p, -1);
+        const T hi_n = tangential<S, D>(p, 1);
+        return h * (u_hi * hi_n - u_lo * lo_n) * met<D>(INV_D, 0);
+    }
+
+    template <int S>
+    __device__ __forceinline__ T central_own(const Off& p) const {
+        const T dphi = (normal<S>(p, 1) - normal<S>(p, -1)) / met<S>(DEN_F, 0);
+        return val<S>(p) * dphi;
+    }
+
+    template <int S, int D>
+    __device__ __forceinline__ T central_cross(const Off& p) const {
+        const T h = T(0.5);
+        auto uc = [&](int x) -> T {
+            const Off px = with(p, S, x);
+            return h * (val<D>(with(px, D, 0)) + val<D>(with(px, D, 1)));
+        };
+        const T lo = lo_wall<S>() && pos<S>() == 0 ? T(2) * tlo<S>(D) - uc(0)
+                                                   : uc(-1);
+        const T hi = hi_wall<S>() && pos<S>() == cells<S>()
+                         ? T(2) * thi<S>(D) - uc(-1) : uc(0);
+        const T adv = h * (lo + hi);
+        const T dphi = (tangential<S, D>(p, 1) - tangential<S, D>(p, -1))
+                       / met<D>(DEN_C, 0);
+        return adv * dphi;
+    }
+
+    template <bool SKEW, int S, int D>
+    __device__ __forceinline__ T conv_term(const Off& p) const {
+        if constexpr (D == S)
+            return SKEW ? skew_own<S>(p) : central_own<S>(p);
+        else
+            return SKEW ? skew_cross<S, D>(p) : central_cross<S, D>(p);
+    }
+
+    template <int S>
+    __device__ __forceinline__ T diff_own(const Off& p) const {
+        auto flux = [&](int x) -> T {
+            const T grad = (val<S>(with(p, S, x + 1)) - val<S>(with(p, S, x)))
+                           * met<S>(INV_D, x);
+            if constexpr (NUT)
+                return ne(with(p, S, x)) * grad;
+            else
+                return nu * grad;
+        };
+        int lo, hi;
+        face_cells<S>(0, lo, hi);
+        return (flux(hi) - flux(lo)) * met<S>(INV_DC, 0);
+    }
+
+    template <int S, int D>
+    __device__ __forceinline__ T diff_cross(const Off& p) const {
+        const T h = T(0.5);
+        auto flux = [&](int e) -> T {
+            const T grad = (tangential<S, D>(p, e) - tangential<S, D>(p, e - 1))
+                           * met<D>(INV_DG, e);
+            if constexpr (NUT) {
+                int el, eh, xl, xh;
+                face_cells<D>(e, el, eh);
+                face_cells<S>(0, xl, xh);
+                const Off pl = with(p, S, xl), ph = with(p, S, xh);
+                const T n_lo = h * (ne(with(pl, D, el)) + ne(with(pl, D, eh)));
+                const T n_hi = h * (ne(with(ph, D, el)) + ne(with(ph, D, eh)));
+                return h * (n_lo + n_hi) * grad;
+            } else {
+                return nu * grad;
+            }
+        };
+        return (flux(1) - flux(0)) * met<D>(INV_D, 0);
+    }
+
+    template <int S, int D>
+    __device__ __forceinline__ T diff_term(const Off& p) const {
+        if constexpr (D == S)
+            return diff_own<S>(p);
+        else
+            return diff_cross<S, D>(p);
+    }
+
+    // u* (S = 0, with the body force), v* or w* at the thread's point
+    template <bool SKEW, int S>
+    __device__ __forceinline__ T star(T dt, T fx) const {
+        const Off p{{0, 0, 0}};
+        T conv = conv_term<SKEW, S, 0>(p);
+        conv = conv + conv_term<SKEW, S, 1>(p);
+        conv = conv + conv_term<SKEW, S, 2>(p);
+        T lap = diff_term<S, 0>(p);
+        lap = lap + diff_term<S, 1>(p);
+        lap = lap + diff_term<S, 2>(p);
+        const T c = val<S>(p);
+        if constexpr (S == 0)
+            return c + dt * (-conv + lap + fx);
+        else
+            return c + dt * (-conv + lap);
+    }
+};
+
+// the planes in flight: one (float32 and float64)
+template <typename T>
+constexpr int kGeneralAhead = 1;
+
+// float32 at three blocks an SM (<= 80 registers a thread), float64 at two
+template <typename T>
+constexpr int kGeneralMinBlocks = sizeof(T) == 4 ? 3 : 2;
+
+// WZ: a walled z (its ghosts compiled in; a periodic z's instantiation
+// has none of that code)
+template <typename T, bool NUT, bool SKEW, bool WZ>
+__global__ void __launch_bounds__(xz::kThreads, kGeneralMinBlocks<T>)
+predictor_general_kernel(Grid<T> g, const T* __restrict__ dt_ptr,
+                         T* __restrict__ su, T* __restrict__ sv,
+                         T* __restrict__ sw, T fx, int chunk) {
+    constexpr int NF = NUT ? 4 : 3;
+    using Win = xz::Stage<T, NF, kGeneralAhead<T>>;
+    using View = typename Win::View;
+    __shared__ T buf[Win::kSize];
+    __shared__ T mx[kMetrics * kPx];
+    __shared__ T mz[kMetrics * kPz];
+    const int nx = g.ax[0].n, ny = g.ax[1].n, nz = g.ax[2].n;
+    const bool wall_y = g.ax[1].wall, wall_z = WZ;
+    Win win;
+    win.init(buf, g, wall_y ? ny + 1 : ny, chunk);
+    // the x and z metrics of the tile and its halo (the walk's first
+    // barrier publishes them): x and a periodic z wrapped, a walled z's
+    // clamped into each vector (the entries beyond it are never read)
+    const int t = static_cast<int>(threadIdx.x);
+    if (t < kMetrics * kPx) {
+        const int m = t / kPx, lx = t - m * kPx;
+        mx[t] = metric_ptr(g.ax[0], m)[(win.i0 - 1 + lx + nx) % nx];
+    }
+    if (t < kMetrics * kPz) {
+        const int m = t / kPz, lz = t - m * kPz;
+        const int gz = win.k0 - 1 + lz;
+        mz[t] = metric_ptr(g.ax[2], m)[
+            wall_z ? min(max(gz, 0), metric_len(g.ax[2], m) - 1)
+                   : (gz + nz) % nz];
+    }
+    const T dt = *dt_ptr;
+    const int i = win.i, k = win.k;
+    const T* mxt = mx + win.tx + 1;
+    const T* mzt = mz + win.tz + 1;
+    const bool owns = win.owns;
+    // a walled z's ghosts are read only in its first z tile (zw bit 1) and
+    // its last (bit 2)
+    const int zw = wall_z ? (win.k0 == 0 ? 1 : 0)
+                            | (win.k0 + xz::kTz >= nz ? 2 : 0)
+                          : 0;
+    // w's wall face k = nz of a walled z costs no z tile of its own: where
+    // the last z tile holds it, the lane at k = nz writes it beside its
+    // warp's stars; where nz fills that tile, warp 0's lanes l < kTx write
+    // it at the tile's x l, from the window shifted to (l, nz)
+    const bool face_lane = (zw & 2) && k == nz && i < nx;
+    const int lf = static_cast<int>(threadIdx.x);
+    const bool face_warp = (zw & 2) && win.k0 + xz::kTz == nz
+                           && lf < xz::kTx && win.i0 + lf < nx;
+    auto plane = [&](auto edge, auto z_walls, const View& view, int j, int jm,
+                     int jp) {
+        constexpr bool E = decltype(edge)::value;
+        constexpr int Z = decltype(z_walls)::value;
+        using Tl = Tile<T, NUT, E, Z, View>;
+        const Tl r{view, mxt, mzt, g.ax[1], g.ax[2], j, jm, jp, k, ny, nz,
+                   g.nu};
+        if (owns && j < ny)
+            su[i * g.sx[0] + j * g.sy[0] + k] = r.template star<SKEW, 0>(dt, fx);
+        if ((owns || face_lane) && j < ny)
+            sw[i * g.sx[2] + j * g.sy[2] + k] = r.template star<SKEW, 2>(dt, fx);
+        if (owns)
+            sv[i * g.sx[1] + j * g.sy[1] + k] = r.template star<SKEW, 1>(dt, fx);
+        if constexpr ((Z & 2) != 0) {
+            if (face_warp && j < ny) {
+                // this thread's point is (0, lf); the face's (lf, nz)
+                View shifted = view;
+                const int by = (lf + 1) * kPz + xz::kTz + 1 - (kPz + lf + 1);
+#pragma unroll
+                for (int d = 0; d < 3; ++d) shifted.o[d] += by;
+                const int x = win.i0 + lf;
+                sw[x * g.sx[2] + j * g.sy[2] + nz] =
+                    Tl{shifted, mx + lf + 1, mz + xz::kTz + 1, g.ax[1],
+                       g.ax[2], j, jm, jp, nz, ny, nz, g.nu}
+                        .template star<SKEW, 2>(dt, fx);
+            }
+        }
+    };
+    using Yes = std::true_type;
+    using No = std::false_type;
+    auto z_plane = [&](auto edge, const View& view, int j, int jm, int jp) {
+        if constexpr (!WZ) {
+            plane(edge, std::integral_constant<int, 0>{}, view, j, jm, jp);
+            return;
+        }
+        switch (zw) {
+            case 0: plane(edge, std::integral_constant<int, 0>{}, view, j, jm, jp); break;
+            case 1: plane(edge, std::integral_constant<int, 1>{}, view, j, jm, jp); break;
+            case 2: plane(edge, std::integral_constant<int, 2>{}, view, j, jm, jp); break;
+            default: plane(edge, std::integral_constant<int, 3>{}, view, j, jm, jp);
+        }
+    };
+    win.walk([&](const View& view) {
+        if (!owns && !face_lane && !face_warp) return;
+        const int j = view.j;
+        if (wall_y && (j == 0 || j >= ny - 1)) {
+            z_plane(Yes{}, view, j, j - 1, j + 1);
+        } else {
+            const int jm = wall_y ? j - 1 : cfdnn::wrap_m(j, ny);
+            const int jp = wall_y ? j + 1 : cfdnn::wrap_p(j, ny);
+            z_plane(No{}, view, j, jm, jp);
+        }
+    });
+}
+
+template <typename T, bool NUT, bool SKEW, bool WZ>
+void launch_walls(const Grid<T>& g, const T* dt, T* su, T* sv, T* sw, T fx,
+                  cudaStream_t stream) {
+    const int nyf = g.ax[1].wall ? g.ax[1].n + 1 : g.ax[1].n;
+    const long long tiles = xz::grid(g.ax[0].n, g.ax[2].n, 1).x;   // a plane
+    const int chunk = cfdnn::walk_chunk<
+        predictor_general_kernel<T, NUT, SKEW, WZ>, xz::kThreads>(tiles, nyf);
+    predictor_general_kernel<T, NUT, SKEW, WZ>
+        <<<xz::grid(g.ax[0].n, g.ax[2].n, nyf, chunk), xz::kThreads, 0,
+           stream>>>(g, dt, su, sv, sw, fx, chunk);
+}
+
+template <typename T, bool NUT, bool SKEW>
+void launch_kernel(const Grid<T>& g, const T* dt, T* su, T* sv, T* sw, T fx,
+                   cudaStream_t stream) {
+    if (g.ax[2].wall)
+        launch_walls<T, NUT, SKEW, true>(g, dt, su, sv, sw, fx, stream);
+    else
+        launch_walls<T, NUT, SKEW, false>(g, dt, su, sv, sw, fx, stream);
+}
+
+// The entry's body: refuses (cudaErrorInvalidValue) an x of fewer than
+// xz::kTx cells (the wrappers' gate) and a field past 32-bit offsets.
+template <typename T>
+int launch(const void* u, const void* v, const void* w, const void* dt,
+           const void* nut, void* su, void* sv, void* sw,
+           const void* const* metrics, const double* tang, int nx, int ny,
+           int nz, int wall_y, int wall_z, double nu, double fx, int skew,
+           void* stream) {
+    const long long cx = nx, cy = ny, cz = nz;
+    const long long n_v = cx * (cy + (wall_y ? 1 : 0)) * cz;
+    const long long n_w = cx * cy * (cz + (wall_z ? 1 : 0));
+    if (nx < xz::kTx || ny < 2 || nz < 2
+        || (n_v > n_w ? n_v : n_w) > 2147483647LL)
+        return static_cast<int>(cudaErrorInvalidValue);
+    const Grid<T> g = make_grid<T>(u, v, w, nut, metrics, tang, nx, ny, nz,
+                                   wall_y, wall_z, nu);
+    const T* d = static_cast<const T*>(dt);
+    T* o[3] = {static_cast<T*>(su), static_cast<T*>(sv), static_cast<T*>(sw)};
+    const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (nut) {
+        if (skew) launch_kernel<T, true, true>(g, d, o[0], o[1], o[2], T(fx), s);
+        else launch_kernel<T, true, false>(g, d, o[0], o[1], o[2], T(fx), s);
+    } else {
+        if (skew) launch_kernel<T, false, true>(g, d, o[0], o[1], o[2], T(fx), s);
+        else launch_kernel<T, false, false>(g, d, o[0], o[1], o[2], T(fx), s);
+    }
+    return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace

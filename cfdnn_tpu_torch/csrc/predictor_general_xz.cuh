@@ -71,8 +71,8 @@ __device__ __forceinline__ Off with(Off o, int a, int x) {
     return o;
 }
 
-// The general predictor's terms on the staged window, predictor_terms.cuh
-// function by function. x and z are periodic, and so is y unless EDGE:
+// The general predictor's terms on the staged window, those that
+// predictor_terms.cuh sets out, one function a term. x and z are periodic, and so is y unless EDGE:
 // a plane next to a wall of a walled y, where the y ghosts are formed at
 // run time from j. The offsets are constants after inlining but on those
 // planes.

@@ -47,19 +47,23 @@ Each source file's head says what bounds the kernel on the H100 and what
 its design does about it. Each kernel computes what its TPU kernel
 computes, not the TPU kernel's x-slab structure, in float and double
 instantiations: most run one thread per output point, z fastest within a
-warp, periodic wrap by index arithmetic. The slab kernels share their
-term code with the xz kernels through a reader type
-(csrc/predictor_terms.cuh, les.cuh, projection.cuh): the slab kernels
-read device memory, the xz kernels a shared-memory tile. Six slab
+warp, periodic wrap by index arithmetic. Kernels of one function share
+their grid and term code through a reader type (csrc/les.cuh,
+projection.cuh; the general predictor's grid in csrc/predictor_terms.cuh,
+its terms over offsets in each of its two kernels): a reader of device
+memory or of a shared-memory tile. Eight slab
 kernels walk an (x, z) tile along y themselves: predictor_channel,
-predictor_periodic and nu_sgs (csrc/predictor_channel_tile.cuh,
-csrc/predictor_periodic_tile.cuh, csrc/nu_sgs_tile.cuh, on the xz
+predictor_periodic, predictor_general and nu_sgs
+(csrc/predictor_channel_tile.cuh, csrc/predictor_periodic_tile.cuh,
+csrc/predictor_general_tile.cuh, csrc/nu_sgs_tile.cuh, on the xz
 kernels' staged window, each with its own term code over offsets),
-correct and divergence (csrc/correct.cu, csrc/divergence.cu, one thread a
-cell, each face read once) and transport (csrc/transport_tile.cuh, SST's
-per-point coefficients formed once a point into a ring of planes); their
-launchers pick the chunk of planes a block walks (csrc/tile_plan.cuh), and
-a grid their tile refuses raises ValueError (`tile_refusal`).
+germano_pass1 (csrc/germano_tile.cuh: nu_sgs's window, the test filter
+summed separably), correct and divergence (csrc/correct.cu,
+csrc/divergence.cu, one thread a cell, each face read once) and transport
+(csrc/transport_tile.cuh, SST's per-point coefficients formed once a point
+into a ring of planes); their launchers pick the chunk of planes a block
+walks (csrc/tile_plan.cuh), and a grid their tile refuses raises
+ValueError (`tile_refusal`).
 
 Beside each kernel stand:
   - its plain PyTorch twin (`*_twin`), the eager form of the same math.
@@ -198,7 +202,7 @@ _SIGNATURES = {
     "divergence": [_P] * 7 + [_I] * 6 + [_P],
     "correct": [_P] * 11 + [_I] * 6 + [_P],
     "nu_sgs": [_P] * 11 + [_I] * 6 + [_D, _P],
-    "germano_pass1": [_P] * 14 + [_I] * 5 + [_P],
+    "germano_pass1": [_P] * 14 + [_I] * 6 + [_P],
     "transport": [_P] * 15 + [_I] * 6 + [_P],
     "fht_pass": [_P] * 3 + [_I] * 2 + [_L] * 2 + [_I, _P],
     "fht_modal": [_P] * 5 + [_I] * 2 + [_L] * 2 + [_D] * 2 + [_P],
@@ -305,9 +309,9 @@ class _ViaTwin(torch.autograd.Function):
 
 # ---------------------------------------------------------------------------
 # The grids refused by the slab kernels that walk an (x, z) tile along y:
-# predictor_channel, predictor_periodic and nu_sgs (on csrc/xz_tile.cuh's
-# window), correct, divergence and transport (csrc/correct.cu,
-# csrc/divergence.cu, csrc/transport_tile.cuh)
+# predictor_channel, predictor_periodic, predictor_general, nu_sgs and
+# germano_pass1 (on csrc/xz_tile.cuh's window), correct, divergence and
+# transport (csrc/correct.cu, csrc/divergence.cu, csrc/transport_tile.cuh)
 # ---------------------------------------------------------------------------
 
 INT32_MAX = 2 ** 31 - 1    # the tiles' offsets are 32-bit
@@ -966,7 +970,9 @@ def predictor_general(u, v, w, dt, gs, *, geom: Geometry, nu, fx, scheme,
     O2 skew or central, body force fx on u. `gs` = general_arrays(geom).
     The viscosity is the scalar nu, or nu + nu_t with `nu_t` a cell field.
     Star values at the wall faces are produced as the operators produce
-    them; the caller's BC pass overwrites them."""
+    them; the caller's BC pass overwrites them. The kernel walks an (x, z)
+    tile along y with 32-bit offsets: a face array past 2^31 - 1 elements
+    raises ValueError (`tile_refusal`)."""
     if not _general_geom_ok(geom):
         raise NotImplementedError(
             "predictor_general: the kernel serves a periodic uniform x "
@@ -980,6 +986,10 @@ def predictor_general(u, v, w, dt, gs, *, geom: Geometry, nu, fx, scheme,
            + _general_array_shapes(geom))
     _check_geom("predictor_general", geom, (u,))
     _scheme_is_skew(scheme)
+    why = tile_refusal("predictor_general", x.n,
+                       max(math.prod(s) for s in _face_shapes(geom)))
+    if why:
+        raise ValueError(why)
     kw = dict(gs=gs, geom=geom, nu=nu, fx=fx, scheme=scheme)
     return _ViaTwin.apply(_predictor_general_launch,
                           _predictor_general_twin_gs, kw, u, v, w, dt, *extra)
@@ -1176,8 +1186,8 @@ def les_refusal(name: str, geom: Geometry) -> Optional[str]:
                      les.py:37-39): periodic uniform x, y and z each
                      periodic uniform or a stationary no-slip wall at any
                      stretching (y.n, z.n > 1), O2;
-      germano_pass1  nu_sgs's with a periodic uniform z (its box filter's
-                     wall-z truncation is ROADMAP B.7);
+      germano_pass1  nu_sgs's (its box filter truncates at a wall of y or
+                     z, as the reference's fuses it on any slab geometry);
       nu_sgs_xz      nu_sgs's on the xz kernels' grid (xz_eligible)."""
     x, y, z = geom.axes
     if not (x.periodic and x.uniform and x.n > 1):
@@ -1190,9 +1200,6 @@ def les_refusal(name: str, geom: Geometry) -> Optional[str]:
                 "no-slip at rest; a lid or a moving wall is not served)")
     if geom.space_order != 2:
         return f"{name} needs O2"
-    if name == "germano_pass1" and not (z.periodic and z.uniform):
-        return ("germano_pass1 needs a periodic uniform z (a walled z is "
-                "ROADMAP B.7)")
     if name == "nu_sgs_xz" and not xz_eligible(geom):
         return ("nu_sgs_xz needs the (x, z) tile's grid (x.n >= 8, a "
                 "periodic z)")
@@ -1242,12 +1249,10 @@ def _closure_id(closure: str) -> int:
 
 def _check_les(name, u, v, w, gs, geom):
     if not LES_GATES[name](geom):
-        z_rule = ("a periodic uniform z (a walled z is ROADMAP B.7)"
-                  if name == "germano_pass1"
-                  else "y and z periodic uniform or stationary walls")
         raise NotImplementedError(
-            f"{name}: the kernel serves a periodic uniform x with {z_rule}; "
-            "other geometries are ROADMAP B.5/B.7")
+            f"{name}: the kernel serves a periodic uniform x with y and z "
+            "periodic uniform or stationary walls; a moving wall is "
+            "ROADMAP §B")
     x, y, z = geom.axes
     _check(name, (u, v, w, *gs),
            _face_shapes(geom) + ((x.n,), (y.n,), (z.n,), (x.n,), (y.n,),
@@ -1328,14 +1333,16 @@ def _germano_pass1_cuda(u, v, w, *gs, geom):
     smag = torch.empty((x.n, y.n, z.n), dtype=u.dtype, device=u.device)
     lm, mm = (torch.empty((1, y.n, 1), dtype=u.dtype, device=u.device)
               for _ in range(2))
-    # per-block float64 partial plane sums of L:M and M:M; the kernel's
-    # source decides the block count and checks the buffer against it
+    # float64 partial plane sums of L:M and M:M, one a (plane, tile); the
+    # kernel's source decides the tile count and checks the buffer against
+    # it
     blocks = library().cfdnn_germano_pass1_blocks(x.n, z.n)
     partial = torch.empty((2, y.n, blocks), dtype=torch.float64,
                           device=u.device)
     _launch("germano_pass1", u,
             *(t.data_ptr() for t in (u, v, w, *gs, smag, partial, lm, mm)),
-            x.n, y.n, z.n, int(y.bc == BCType.WALL), blocks)
+            x.n, y.n, z.n, int(y.bc == BCType.WALL), int(z.bc == BCType.WALL),
+            blocks)
     germano_pass1.launches += 1
     return smag, lm, mm
 
@@ -1345,8 +1352,14 @@ def germano_pass1(u, v, w, gs, *, geom: Geometry):
     (x, z)-plane sums of L:M and M:M (1, Ny, 1)) with L_ij the
     test-filtered Leonard stress and M_ij = 3 Delta^2 |S| S_ij. The plane
     sums are taken in float64 in a fixed order, so a run repeats bit for
-    bit. `gs` = les_arrays(geom)."""
+    bit. `gs` = les_arrays(geom). The kernel walks an (x, z) tile along y
+    with 32-bit offsets: a face array past 2^31 - 1 elements raises
+    ValueError (`tile_refusal`)."""
     _check_les("germano_pass1", u, v, w, gs, geom)
+    why = tile_refusal("germano_pass1", geom.x.n,
+                       max(math.prod(s) for s in _face_shapes(geom)))
+    if why:
+        raise ValueError(why)
     return _ViaTwin.apply(_germano_pass1_launch, germano_pass1_twin,
                           dict(geom=geom), u, v, w, *gs)
 

@@ -15,13 +15,14 @@ except the ones a change redesigns on purpose:
   new copy's `K<T, false>` (`K<T, NUT, false>`); both files now compile
   only DIV = true, whose code must stay;
 - REDESIGNED names the kernels this change rewrites on purpose: the slab
-  `nu_sgs_kernel` (now `nu_sgs_tile_kernel` on xz_tile.cuh's window,
-  `csrc/nu_sgs_tile.cuh`) and `transport_kernel` (now
-  `transport_tile_kernel`, SST's coefficients formed once a point on a
-  walked tile, `csrc/transport_tile.cuh`), every instantiation of each.
-  An old copy's kernel of those names is reported as REDESIGNED and not
-  compared. A later change that redesigns other kernels names them here
-  in place of these.
+  `predictor_general_kernel` (now on xz_tile.cuh's window with a walled
+  z, `csrc/predictor_general_tile.cuh`, under the same name) and
+  germano_pass1's `germano_cells_kernel` and `germano_rows_kernel` (now
+  on nu_sgs's walked window with the test filter summed separably,
+  `csrc/germano_tile.cuh`), every instantiation of each. An old copy's
+  kernel of those names is reported as REDESIGNED and not compared. A
+  later change that redesigns other kernels names them here in place of
+  these.
 This compiles each file of both copies to a cubin with the library's
 flags, disassembles it with cuobjdump, and holds every kernel of the old
 copy to the new copy's kernel of the same name, else to its DIV = false
@@ -48,9 +49,10 @@ from pathlib import Path
 from .ops.kernels import NVCC_FLAGS, _CSRC, _nvcc
 
 # the kernels redesigned on purpose (demangled names of the old copy):
-# nu_sgs (each closure) and transport (each model)
-REDESIGNED = re.compile(r"nu_sgs_kernel<\w+, \(int\)\d>"
-                        r"|transport_kernel<\w+, \(int\)\d>")
+# the general predictor (each dtype, nu_t and scheme) and germano_pass1's
+# two kernels (each dtype)
+REDESIGNED = re.compile(r"predictor_general_kernel<[^<>]*>"
+                        r"|germano_(?:cells|rows)_kernel<\w+>")
 OUT = Path(__file__).resolve().parents[1] / "build" / "sass"
 
 

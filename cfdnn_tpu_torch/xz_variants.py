@@ -11,7 +11,13 @@ the four (device ms by the profiler); and the two closure kernels on a
 walked tile (`csrc/nu_sgs_tile.cuh`, `csrc/transport_tile.cuh`) on the
 main paths' calls of nu_sgs (les_ibm256's 256x128x256, the LES channel
 128x64x128 and the duct 128x96x96, each closure) and transport
-(rans_channel's 128^3, each model), device ms by the profiler.
+(rans_channel's 128^3, each model), device ms by the profiler; and the
+general predictor and germano_pass1 on their walked tiles
+(`csrc/predictor_general_tile.cuh`, `csrc/germano_tile.cuh`) on the main
+paths' calls (les_tgv's 128^3 and les_duct's 128x96x96 predictor with
+nu_t, les_channel_dynamic's 128x64x128 germano_pass1), device ms by the
+profiler, and the predictor at 640^3 beside predictor_general_xz (the
+xz kernels' cases hold it as their `slab`).
 
 Each variant is the kernels' sources with a few textual substitutions,
 built with the library's flags into its own shared library:
@@ -25,8 +31,10 @@ built with the library's flags into its own shared library:
   by plain loads from device memory, through L1, where float32 stages
   them on a window with a two-point x/z halo (what the window buys);
 - "one_block": `__launch_bounds__` without its minimum of blocks an SM
-  (what the register cap buys; the xz predictor and the channel
-  predictor: the periodic predictor has no cap);
+  (what the register cap buys; the xz, channel and general predictors
+  and germano_pass1: the periodic predictor has no cap);
+- "germano_three_blocks": germano_pass1's register cap at three blocks
+  an SM (four in float32 as it stands);
 - "ahead1", "ahead3": the channel and periodic predictors' walks with
   one or three planes in flight (two in float32 as they stand);
   "three_blocks", "five_blocks": the channel predictor's register cap at
@@ -36,7 +44,9 @@ built with the library's flags into its own shared library:
   commit's `cfdnn_tpu_torch/csrc`, which keeps the C interfaces; a copy
   from before a walked tile, without `predictor_channel_tile.cu` or
   `predictor_periodic_tile.cu`, has that predictor's slab kernel, and
-  its correct and divergence may be slab kernels too).
+  its correct and divergence may be slab kernels too; a copy from before
+  germano_pass1 took a walled z has its entry without `wall_z`, which the
+  binding drops for it).
 Every variant computes the function: each call of an xz kernel is held to
 the slab kernel of its function on the same inputs, each call of a slab
 kernel on a walked tile to the kernel of this copy (the library's), 1e-5
@@ -82,23 +92,28 @@ SUBS = {
     "pow": [(r"safe_tanh\(pow4\(arg1\)\)", "safe_tanh(pow(arg1, T(4)))")],
     "l1": [(r"constexpr bool kStageKOm = true;",
             "constexpr bool kStageKOm = false;")],
+    "germano_three_blocks": [(r"kGermanoMinBlocks = sizeof\(T\) == 4 \? \d",
+                              "kGermanoMinBlocks = sizeof(T) == 4 ? 3")],
 }
 SOURCES = ("xz.cu", "predictor_general_xz.cu", "correct.cu", "divergence.cu",
-           "nu_sgs.cu", "transport.cu", "error.cu")
+           "nu_sgs.cu", "transport.cu", "predictor_general.cu",
+           "germano_pass1.cu", "error.cu")
 # the float source of the channel and of the periodic predictor: the walked
 # tile, or a copy's slab kernel from before it
 PREDICTOR_SOURCES = (("predictor_channel_tile.cu", "predictor_channel.cu"),
                      ("predictor_periodic_tile.cu", "predictor_periodic.cu"))
 NAMES = ("predictor_general_xz", "nu_sgs_xz", "divergence_xz", "correct_xz",
          "predictor_channel", "correct", "predictor_periodic", "divergence",
-         "nu_sgs", "transport")
+         "nu_sgs", "transport", "predictor_general", "germano_pass1")
 # the float32 kernels whose registers and SASS mix are printed (mangled)
 TILE_KERNELS = re.compile(r"(xz_kernel|predictor_channel_tile_kernel"
                           r"|predictor_channel_kernel|correct_kernel"
                           r"|predictor_periodic_tile_kernel"
                           r"|predictor_periodic_kernel|divergence_kernel"
                           r"|nu_sgs_tile_kernel|nu_sgs_kernel"
-                          r"|transport_tile_kernel|transport_kernel)If")
+                          r"|transport_tile_kernel|transport_kernel"
+                          r"|predictor_general_kernel"
+                          r"|germano_cells_kernel)If")
 OUT = Path(__file__).resolve().parents[1] / "build" / "xz_variants"
 
 
@@ -176,15 +191,36 @@ CLASSES = (("LDS", ("LDS",)), ("LDG", ("LDG", "LDGSTS")),
                              "ULDC")))
 
 
-def bind(path: Path) -> ctypes.CDLL:
+class _NoWallZ:
+    """A library whose germano_pass1 entry predates its `wall_z`
+    argument: the calls drop it (the 19th argument; the copy's gate took
+    a periodic z only)."""
+
+    def __init__(self, lib):
+        self._lib = lib
+
+    def __getattr__(self, name):
+        fn = getattr(self._lib, name)
+        if name == "cfdnn_germano_pass1_f32":
+            return lambda *a: fn(*a[:18], *a[19:])
+        return fn
+
+
+def bind(path: Path):
     lib = ctypes.CDLL(str(path))
+    old_germano = "int wall_z" not in (path.parent
+                                       / "germano_pass1.cu").read_text()
     for name in NAMES:
         fn = getattr(lib, f"cfdnn_{name}_f32")
         fn.argtypes = K._SIGNATURES[name]
+        if name == "germano_pass1" and old_germano:
+            fn.argtypes = fn.argtypes[:18] + fn.argtypes[19:]
         fn.restype = ctypes.c_int
     lib.cfdnn_error_string.argtypes = [ctypes.c_int]
     lib.cfdnn_error_string.restype = ctypes.c_char_p
-    return lib
+    lib.cfdnn_germano_pass1_blocks.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.cfdnn_germano_pass1_blocks.restype = ctypes.c_int
+    return _NoWallZ(lib) if old_germano else lib
 
 
 def main(argv) -> int:
@@ -222,13 +258,14 @@ def main(argv) -> int:
     cases += list(C._tile_cases_512(device, seed=2))
     # and at the main paths' smaller shapes (the channel and the periodic
     # box 128^3, the LES channel 128x64x128, the duct 128x96x96,
-    # les_ibm256's 256x128x256; nu_sgs and transport only there), timed by
-    # the profiler's device ms: a call there takes less than the host's
-    # launch
+    # les_ibm256's 256x128x256; nu_sgs, transport, the general predictor
+    # and germano_pass1 only there), timed by the profiler's device ms: a
+    # call there takes less than the host's launch
     small = [case for case in C._cases(128, torch.float32, device, seed=2)
              if case.name in ("predictor_channel", "correct",
                               "predictor_periodic", "divergence", "nu_sgs",
-                              "transport")
+                              "transport", "predictor_general",
+                              "germano_pass1")
              and case.label not in seen and not seen.add(case.label)]
     cases += small
     with torch.no_grad():

@@ -50,6 +50,13 @@ Phases, each of which raises on failure (nothing is caught):
      ny = 2 and 3 (nz = 6), the ragged 12x70x40, nx = 5 and 3, and the
      duct at 16x12x20, 8x3x6 and 12x20x70 (one to three z tiles),
      transport also on the channel with dp/dx = 0 and the periodic box;
+     predictor_general and germano_pass1 on their walked tiles
+     (`_general_tile_cases`): the predictor at nx = 8 with ny = 2 and 3
+     (walled and periodic y), the ragged 12x70x40, ducts with nz = 31, 32
+     and 33, a lid on y and on z and the xpad wrapper; germano_pass1 at
+     nx = 3, 5 and 8, ny = 2 and 3, the ragged 12x70x40 and ducts of one
+     to three z tiles, its plane sums also over a second launch, bit for
+     bit (every germano_pass1 case);
      float64 to 1e-14 of scale and float32 to 1e-5; each output of a
      kernel is held to its own twin output's scale;
   3. the main paths (`_paths`), each with its launches per step declared:
@@ -153,11 +160,13 @@ KERNEL_REPLACES = {
 }
 # the two div kernels are instantiations in their predictor's source, the
 # two Hartley kernels share csrc/fht.cuh, three xz kernels csrc/xz.cu, and
-# the xz predictor, the channel and periodic predictors, nu_sgs and
-# transport (on their walked tiles) are headers with a source for each
-# dtype
+# the xz predictor, the channel, periodic and general predictors, nu_sgs,
+# germano_pass1 and transport (on their walked tiles) are headers with a
+# source for each dtype
 KERNEL_SOURCE = {"predictor_periodic": "predictor_periodic_tile.cuh",
+                 "predictor_general": "predictor_general_tile.cuh",
                  "nu_sgs": "nu_sgs_tile.cuh",
+                 "germano_pass1": "germano_tile.cuh",
                  "transport": "transport_tile.cuh",
                  "predictor_periodic_div": "predictor_periodic.cu",
                  "predictor_channel": "predictor_channel_tile.cuh",
@@ -169,9 +178,10 @@ KERNEL_SOURCE = {"predictor_periodic": "predictor_periodic_tile.cuh",
 # the xz kernels run their slab kernels' arithmetic on staged operands:
 # float64 to 1e-13 of scale, against their twins and the slab kernels
 XZ_F64_TOL = 1e-13
-# the six slab kernels that walk an (x, z) tile (predictor_channel,
-# predictor_periodic, correct, divergence, nu_sgs, transport) against their
-# twins on the shapes where the tile can break
+# the eight slab kernels that walk an (x, z) tile (predictor_channel,
+# predictor_periodic, predictor_general, correct, divergence, nu_sgs,
+# germano_pass1, transport) against their twins on the shapes where the
+# tile can break
 TILE_F64_TOL = 1e-14
 # The H100 SXM's published peaks (NVIDIA data sheet): HBM bandwidth and
 # float32 outside the tensor cores.
@@ -198,14 +208,20 @@ F32_OPS_PER_S = 67e12
 # and omega's source 5 (MODEL 2: 205). The kernel forms F1 and the
 # diffusivities 1.33 times a cell (its tile's x/z halo) where the slab
 # kernel before it formed them seven times; the bound counts the
-# function's work, whatever implements it.
+# function's work, whatever implements it. germano_pass1 likewise, the
+# function's work with the separable filter: the centre velocity and its
+# six products 12, the 3-point box sums of the nine quantities 54 (two
+# adds an axis each), the filtered means, L, M and their weighted
+# contractions 66 (nine divisions, L 12, M 9, L:M and M:M 36), the
+# gradient 42 and the strain with |S| 20 (194; 600 counted the 27-point
+# filter that the kernel before this one ran).
 OPS_PER_CELL = {"predictor_periodic": 154, "predictor_channel": 154,
                 "predictor_channel+nu_t": 292,
                 "predictor_channel les_ibm+nu_t": 292,
                 "predictor_periodic_div": 316, "predictor_channel_div": 316,
                 "predictor_channel_div+nu_t": 592,
                 "predictor_general": 300, "divergence": 6, "correct": 9,
-                "nu_sgs": 100, "germano_pass1": 600, "transport": 274,
+                "nu_sgs": 100, "germano_pass1": 194, "transport": 274,
                 "transport sst": 260, "transport komega": 205,
                 # the xz kernels: their slab kernels' functions
                 "predictor_general_xz": 300, "nu_sgs_xz": 100,
@@ -220,7 +236,9 @@ class Case(NamedTuple):
     (`library`, torch.fft calls on the same tensor, named by the
     function's name: rfft, irfft or rfft_irfft); an xz case the slab
     kernel of the same function on the same inputs (`slab`); a case with
-    its own float64 limit carries it (`f64_tol`, of scale)."""
+    its own float64 limit carries it (`f64_tol`, of scale); a `banded`
+    case's kernel is run with its outputs between NaN bands
+    (`_banded_call`)."""
     label: str
     name: str
     kern: Callable
@@ -231,11 +249,70 @@ class Case(NamedTuple):
     library: Callable = None
     slab: Callable = None
     f64_tol: float = None
+    banded: bool = False
 
 
 def check(cond, msg):
     if not cond:
         raise AssertionError(msg)
+
+
+def _banded(shape, dtype, device, bands):
+    """An empty tensor of `shape` in the middle of a NaN-filled buffer
+    three times its size, recorded in `bands`: a kernel that reads past it
+    reads NaN, one that writes past it leaves a number in a band."""
+    n = math.prod(shape)
+    buf = torch.full((3 * n,), float("nan"), dtype=dtype, device=device)
+    bands.append((buf, n))
+    return buf[n:2 * n].view(shape)
+
+
+def _band(t):
+    """A copy of `t` between two NaN bands."""
+    return _banded(tuple(t.shape), t.dtype, t.device, []).copy_(t)
+
+
+class _BandedTorch:
+    """torch as ops.kernels sees it during `_banded_call`: what it
+    allocates (the kernels' outputs and partial sums, the xpad wrapper's
+    padded fields) lies between NaN bands."""
+
+    def __init__(self):
+        self.bands = []
+
+    def __getattr__(self, name):
+        return getattr(torch, name)
+
+    def empty(self, shape, *, dtype, device):
+        return _banded(tuple(shape), dtype, device, self.bands)
+
+    def empty_like(self, a):
+        return _banded(tuple(a.shape), a.dtype, a.device, self.bands)
+
+    def cat(self, ts):
+        ref = torch.cat(ts)
+        return _banded(tuple(ref.shape), ref.dtype, ref.device,
+                       self.bands).copy_(ref)
+
+
+def _banded_call(case):
+    """case.kern() with every tensor the wrapper allocates between NaN
+    bands as long as itself, in place of a memory checker (the card's
+    machine runs none): fails if the kernel wrote into a band. With the
+    case's inputs banded too (`_band`), a read past an input that reaches
+    an output makes it NaN, which the comparison with the twin fails."""
+    from cfdnn_tpu_torch.ops import kernels as K
+    prev, K.torch = K.torch, _BandedTorch()
+    try:
+        got = case.kern()
+        torch.cuda.synchronize()
+    finally:
+        banded, K.torch = K.torch, prev
+    for buf, n in banded.bands:
+        check(bool(buf[:n].isnan().all() and buf[2 * n:].isnan().all()),
+              f"{case.label}: a kernel wrote past an output of "
+              f"{n} elements")
+    return got
 
 
 def card_line():
@@ -527,14 +604,14 @@ def _general_cases(device, seed):
         cfg = Config(**base, **kw).finalize()
         g = Geometry.make(Mesh.from_config(cfg), cfg, device=device)
         u, v, w = (rnd(s) for s in velocity_shapes(cfg))
-        nu_t = (rnd((cfg.Nx, cfg.Ny, cfg.Nz)).abs() * 1e-2 if with_nut
-                else None)
-        dt = torch.full((), 1e-2, dtype=dtype, device=device)
+        nu_t = (_band(rnd((cfg.Nx, cfg.Ny, cfg.Nz)).abs() * 1e-2)
+                if with_nut else None)
+        dt = _band(torch.full((), 1e-2, dtype=dtype, device=device))
         kg = dict(nu=cfg.nu, fx=0.7, scheme=cfg.convective_scheme)
         if cfg.bc_x == BCType.WALL:
             check(K.xpad_eligible(g, cfg), f"{label}: not an xpad grid")
             xg = K.xpad_geometry(g)
-            arrays = K.general_arrays(xg)
+            arrays = tuple(map(_band, K.general_arrays(xg)))
             kern = (lambda u=u, v=v, w=w, dt=dt, n=nu_t, a=arrays, g=g, kg=kg,
                     xg=xg: K.predictor_xpad(u, v, w, dt, a, geom=g, xgeom=xg,
                                             nu_t=n, **kg))
@@ -636,7 +713,8 @@ def _tile_cases(dtype, device, seed):
     dts = "float64" if dtype == torch.float64 else "float32"
 
     def rnd(shape):
-        return torch.randn(shape, generator=gen, dtype=dtype, device=device)
+        return _band(torch.randn(shape, generator=gen, dtype=dtype,
+                                 device=device))
 
     base = dict(nu=3e-3, nu_specified=True, dp_dx=-0.4, dp_dx_specified=True,
                 dt=1e-3, adaptive_dt=False, dtype=dts)
@@ -817,6 +895,142 @@ def _closure_tile_cases(dtype, device, seed):
                 lambda f=fields, c=consts, kt=kt:
                     K.transport_twin(*f, *c, **kt),
                 (*fields, *consts, *gs), f64_tol=TILE_F64_TOL))
+    return cases
+
+
+# the general predictor and germano_pass1 on their walked (x, z) tiles
+# (`_general_tile_cases`): predictor_general's edge shapes (tag, the
+# grid's overrides of a stretched walled-y channel, the scheme, with nu_t)
+# and germano_pass1's (tag, overrides)
+_GENERAL_TILE_GRIDS = (
+    ("8x2x6", dict(Nx=8, Ny=2, Nz=6), "skew", True),
+    ("8x3x6", dict(Nx=8, Ny=3, Nz=6), "central", True),
+    ("periodic 8x2x6", dict(Nx=8, Ny=2, Nz=6, bc_y="periodic"), "central",
+     True),
+    ("periodic 8x3x6", dict(Nx=8, Ny=3, Nz=6, bc_y="periodic"), "skew",
+     False),
+    ("ragged 12x70x40", dict(Nx=12, Ny=70, Nz=40), "skew", True),
+    ("duct 12x9x31", dict(Nx=12, Ny=9, Nz=31, bc_z="wall", stretch_z=True),
+     "central", True),
+    ("duct 12x9x32", dict(Nx=12, Ny=9, Nz=32, bc_z="wall", stretch_z=True),
+     "skew", True),
+    ("duct 12x70x33", dict(Nx=12, Ny=70, Nz=33, bc_z="wall",
+                           stretch_z=True), "central", False),
+    ("lid-y 16x12x8", dict(Nx=16, Ny=12, Nz=8, y_min=0.0, lid_velocity=1.3),
+     "skew", False),
+    ("lid-z 8x10x33", dict(Nx=8, Ny=10, Nz=33, bc_y="periodic",
+                           bc_z="wall", stretch_z=True), "central", True),
+    ("xpad wall-x 10x7x36", dict(Nx=10, Ny=7, Nz=36, bc_x="wall",
+                                 x_max=1.5, bc_y="periodic"), "skew", True),
+)
+_GERMANO_TILE_GRIDS = (
+    ("nx3 periodic 3x9x40", dict(Nx=3, Ny=9, Nz=40, bc_y="periodic")),
+    ("nx5 5x20x33", dict(Nx=5, Ny=20, Nz=33)),
+    ("8x2x6", dict(Nx=8, Ny=2, Nz=6)),
+    ("8x3x6", dict(Nx=8, Ny=3, Nz=6)),
+    ("periodic 8x2x6", dict(Nx=8, Ny=2, Nz=6, bc_y="periodic")),
+    ("periodic 8x3x6", dict(Nx=8, Ny=3, Nz=6, bc_y="periodic")),
+    ("ragged 12x70x40", dict(Nx=12, Ny=70, Nz=40)),
+    ("duct 16x12x20", dict(Nx=16, Ny=12, Nz=20, bc_z="wall",
+                           stretch_z=True)),
+    ("duct 8x3x6", dict(Nx=8, Ny=3, Nz=6, bc_z="wall")),
+    ("duct 12x20x70", dict(Nx=12, Ny=20, Nz=70, bc_z="wall",
+                           stretch_z=True)),
+)
+# the lid on z: u and v at the (lo, hi) walls of z
+_LID_Z = ((0.4, -0.7), (0.0, 1.1), (0.0, 0.0))
+
+
+def _general_tile_cases(dtype, device, seed):
+    """predictor_general and germano_pass1 on their walked (x, z) tiles,
+    each against its twin where the tile can break (float64 to 1e-14 of
+    scale, float32 to 1e-5): the predictor (`_GENERAL_TILE_GRIDS`) at
+    nx = 8 with ny = 2 and 3, walled and periodic y (every plane next to
+    a wall; the ring's planes j - 1 and j + 1 the same rows), on the
+    ragged 12 x 70 x 40 (several chunks), on ducts with nz = 31, 32 and 33
+    (w's wall face k = nz written by the lane at k = nz of the last z
+    tile, or, where nz fills that tile, by warp 0's lanes 0-7), with a
+    lid on y and one on z (a walled z's tangential velocities), and
+    through the xpad wrapper on a no-slip x; germano_pass1
+    (`_GERMANO_TILE_GRIDS`) at nx = 3, 5 and 8 (the staged x wrapped more
+    than once), ny = 2 and 3 walled and periodic, on the ragged 12 x 70 x
+    40 and on ducts of one to three z tiles (the filter truncated at the
+    walls of z). Every input and every tensor the wrappers allocate lies
+    between NaN bands (`_band`, `_banded_call`), so a read or a write past
+    an array fails the case."""
+    import dataclasses
+    from cfdnn_tpu_torch import BCType, Config, ConvectiveScheme
+    from cfdnn_tpu_torch import velocity_shapes
+    from cfdnn_tpu_torch.mesh import Mesh
+    from cfdnn_tpu_torch.ops import kernels as K
+    from cfdnn_tpu_torch.ops.grid import Geometry
+    gen = torch.Generator(device=device).manual_seed(seed)
+    dts = "float64" if dtype == torch.float64 else "float32"
+
+    def rnd(shape):
+        return _band(torch.randn(shape, generator=gen, dtype=dtype,
+                                 device=device))
+
+    base = dict(nu=3e-3, nu_specified=True, dp_dx=-0.4, dp_dx_specified=True,
+                dt=1e-3, adaptive_dt=False, dtype=dts, stretch_y=True,
+                y_min=-1.0, y_max=1.0, z_min=-1.0, z_max=1.0)
+
+    def geometry(grid, **extra):
+        kw = dict(base, **grid, **extra)
+        for axis in ("bc_x", "bc_y", "bc_z"):
+            if kw.get(axis) == "periodic":
+                kw[axis] = BCType.PERIODIC
+                kw["stretch_" + axis[-1]] = False
+            elif axis in kw:
+                kw[axis] = BCType.WALL
+        cfg = Config(**kw).finalize()
+        return cfg, Geometry.make(Mesh.from_config(cfg), cfg, device=device)
+
+    cases = []
+    for tag, grid, scheme, with_nut in _GENERAL_TILE_GRIDS:
+        cfg, g = geometry(grid, convective_scheme=ConvectiveScheme(scheme))
+        if tag.startswith("lid-z"):
+            x, y, z = g.axes
+            g = dataclasses.replace(
+                g, axes=(x, y, dataclasses.replace(z, tang=_LID_Z)))
+        u, v, w = (rnd(sh) for sh in velocity_shapes(cfg))
+        nu_t = (_band(rnd((cfg.Nx, cfg.Ny, cfg.Nz)).abs() * 1e-2)
+                if with_nut else None)
+        dt = _band(torch.full((), 1e-2, dtype=dtype, device=device))
+        kg = dict(nu=cfg.nu, fx=0.7, scheme=cfg.convective_scheme)
+        if tag.startswith("xpad"):
+            check(K.xpad_eligible(g, cfg), f"{tag}: not an xpad grid")
+            xg = K.xpad_geometry(g)
+            arrays = tuple(map(_band, K.general_arrays(xg)))
+            kern = (lambda u=u, v=v, w=w, dt=dt, n=nu_t, a=arrays, g=g, kg=kg,
+                    xg=xg: K.predictor_xpad(u, v, w, dt, a, geom=g, xgeom=xg,
+                                            nu_t=n, **kg))
+            twin = (lambda u=u, v=v, w=w, dt=dt, n=nu_t, g=g, kg=kg, xg=xg:
+                    K.predictor_xpad_twin(u, v, w, dt, n, geom=g, xgeom=xg,
+                                          **kg))
+        else:
+            check(K.general_eligible(g, cfg), f"{tag}: not a general grid")
+            arrays = tuple(map(_band, K.general_arrays(g)))
+            kern = (lambda u=u, v=v, w=w, dt=dt, n=nu_t, a=arrays, g=g, kg=kg:
+                    K.predictor_general(u, v, w, dt, a, geom=g, nu_t=n, **kg))
+            twin = (lambda u=u, v=v, w=w, dt=dt, n=nu_t, g=g, kg=kg:
+                    K.predictor_general_twin(u, v, w, dt, n, geom=g, **kg))
+        cases.append(Case(
+            f"predictor_general {tag} {scheme}"
+            + ("+nu_t" if with_nut else ""), "predictor_general", kern, twin,
+            (u, v, w, dt, *arrays) + (() if nu_t is None else (nu_t,)),
+            f64_tol=TILE_F64_TOL, banded=True))
+    for tag, grid in _GERMANO_TILE_GRIDS:
+        cfg, g = geometry(grid)
+        check(K.germano_pass1_eligible(g), f"{tag}: not a germano grid")
+        u, v, w = (rnd(sh) for sh in velocity_shapes(cfg))
+        les = tuple(map(_band, K.les_arrays(g)))
+        cases.append(Case(
+            f"germano_pass1 {tag}", "germano_pass1",
+            lambda u=u, v=v, w=w, a=les, g=g: K.germano_pass1(u, v, w, a,
+                                                               geom=g),
+            lambda u=u, v=v, w=w, g=g: K.germano_pass1_twin(u, v, w, geom=g),
+            (u, v, w, *les), f64_tol=TILE_F64_TOL, banded=True))
     return cases
 
 
@@ -1183,7 +1397,7 @@ def _hold(case, dtype, errs):
     its function, a div kernel's div against the divergence kernel of its
     own star), record the largest error under errs[name] ([float64,
     float32]); returns the twin's outputs."""
-    got = case.kern()
+    got = _banded_call(case) if case.banded else case.kern()
     torch.cuda.synchronize()
     ref = case.twin()
     shape = tuple(_as_tuple(ref)[0].shape)
@@ -1196,6 +1410,15 @@ def _hold(case, dtype, errs):
               f"max|twin|={scale:.3e})")
         check(err <= lim, f"{case.label} {out} {dtype}: {err} > {lim}")
         pair[k] = max(pair[k], err)
+    if case.name == "germano_pass1":
+        # the plane sums are fixed-order float64 partials: a second launch
+        # on the same inputs gives them bit for bit
+        again = case.kern()
+        same = all(torch.equal(a, b) for a, b in zip(got[1:], again[1:]))
+        print(f"[kernels] {case.label} {str(dtype)[6:]} plane sums of two "
+              f"launches equal bit for bit: {same}")
+        check(same, f"{case.label} {dtype}: the plane sums of two launches "
+              "differ")
     if case.slab is not None:
         slab = case.slab()
         for out, err, lim, scale in compare(case.name, got, slab, dtype,
@@ -1222,9 +1445,10 @@ def phase_kernels(device):
     kernels' 640^3 cube and the walked slab kernels' 512^3 grids in
     phase_timing), each div kernel's div against the divergence kernel of
     its own star, each xz kernel also against the slab kernel of its
-    function, the four slab kernels on a walked tile also on its edge
-    shapes (`_tile_cases`); returns {name: [largest float64
-    error, largest float32 error]}."""
+    function, the slab kernels on a walked tile also on their edge
+    shapes (`_tile_cases`, `_closure_tile_cases`, `_general_tile_cases`),
+    germano_pass1's plane sums also over a second launch (bit for bit);
+    returns {name: [largest float64 error, largest float32 error]}."""
     errs = {}
     for dtype, n in ((torch.float64, 32), (torch.float32, 128)):
         cases = _cases(n, dtype, device, seed=1)
@@ -1235,6 +1459,7 @@ def phase_kernels(device):
         cases += _xz_cases(dtype, device, seed=1)
         cases += _tile_cases(dtype, device, seed=1)
         cases += _closure_tile_cases(dtype, device, seed=1)
+        cases += _general_tile_cases(dtype, device, seed=1)
         for case in cases:
             _hold(case, dtype, errs)
     return errs

@@ -138,10 +138,10 @@ def test_predictor_xpad_matches_pallas(with_nut):
 @pytest.mark.parametrize("closure", sorted(CLOSURES))
 def test_nu_sgs_on_the_duct_matches_pallas(closure):
     """nu_sgs on the stretched walled-y/z duct (twin and wrapper) against
-    the reference's fused_nu_sgs in interpret mode, to 1e-14."""
+    the reference's fused_nu_sgs in interpret mode, to 1e-14 (both LES
+    kernels' gates take the duct)."""
     rs, ts = _sims(**DUCT, turb_model=closure, use_pallas="on")
-    assert K.nu_sgs_eligible(ts.geom) and not K.germano_pass1_eligible(
-        ts.geom)
+    assert K.nu_sgs_eligible(ts.geom) and K.germano_pass1_eligible(ts.geom)
     comps, _ = _inputs(ts, 5, False)
     want = PK.fused_nu_sgs(*(jnp.asarray(c) for c in comps), geom=rs.geom,
                            model_fn=rs.turb._model_fn, interpret=True)
@@ -177,7 +177,7 @@ PLANS = {
                     KernelPlan("general", "slab", None)),
     "wall_x": (WALL_X, KernelPlan("xpad", None, None)),
     "dynamic_duct": (dict(LES_DUCT, turb_model="dynamic_smagorinsky"),
-                     KernelPlan("general", "slab", None)),
+                     KernelPlan("general", "slab", "germano_pass1")),
     # with the slab cap lowered (solver.SLAB_FIT_CELLS), as the reference's
     # tests/test_pallas_kernels.py:265 lowers its own
     "les_tgv_xz": (dict(LES_TGV, Nz=32),
@@ -189,8 +189,8 @@ PLANS = {
 def test_cuda_kernel_plans(name, monkeypatch):
     """The plan a CUDA device would get under "auto" (a plan allocates
     nothing): the general predictor for the LES Taylor-Green, the duct and
-    the lid channel, xpad with the eager projection for a no-slip x, no
-    closure kernel for the dynamic model on a walled z (B.7), and the
+    the lid channel, xpad with the eager projection for a no-slip x,
+    germano_pass1 for the dynamic model on a walled z, and the
     (x, z)-tiled kernels for the LES Taylor-Green on a plane above the
     slab cap."""
     grid, plan = PLANS[name]

@@ -259,27 +259,34 @@ def test_periodic_les_takes_no_periodic_predictor():
 
 def test_les_kernels_refuse_other_geometries():
     """nu_sgs serves a walled-z duct (its own gate, the reference's LES
-    gate); germano_pass1 keeps a periodic z and raises naming B.7 there,
-    so the plan a CUDA device would get runs the dynamic closure plain."""
+    gate), and so does germano_pass1: its filter truncates at the walls of
+    z and its wrapper matches the reference's fused_germano_pass1 there, so
+    the plan a CUDA device would get, and use_pallas="on", run the dynamic
+    closure through the kernel."""
     duct = dict(Nx=16, Ny=12, Nz=8, bc_z="wall", z_min=-1.0, z_max=1.0)
     _, ts = _sims(duct, turb_model="smagorinsky")
-    assert K.nu_sgs_eligible(ts.geom) and not K.germano_pass1_eligible(
-        ts.geom)
-    u, v, w = _t(_velocity(ts, 5))
+    assert K.nu_sgs_eligible(ts.geom) and K.germano_pass1_eligible(ts.geom)
+    arrs = _velocity(ts, 5)
+    u, v, w = _t(arrs)
     gs = K.les_arrays(ts.geom)
     nut = K.nu_sgs(u, v, w, gs, geom=ts.geom, closure="smagorinsky",
                    coeff=0.17)
     _close(nut, K.nu_sgs_twin(u, v, w, geom=ts.geom, closure="smagorinsky",
                               coeff=0.17), 0.0)
-    with pytest.raises(NotImplementedError, match="B.7"):
-        K.germano_pass1(u, v, w, gs, geom=ts.geom)
+    rs, _ = _sims(duct, turb_model="dynamic_smagorinsky")
+    w_s, w_lm, w_mm = PK.fused_germano_pass1(*_j(arrs), geom=rs.geom,
+                                             interpret=True)
+    smag, lm, mm = K.germano_pass1(u, v, w, gs, geom=ts.geom)
+    _close(smag, w_s, 0.0, 1e-14, "|S|")
+    _close(lm, w_lm, 0.0, 1e-12, "L:M")
+    _close(mm, w_mm, 0.0, 1e-12, "M:M")
     ts.device = torch.device("cuda", 0)
     assert ts._select_kernels().closure == "nu_sgs"
     _, dyn = _sims(duct, turb_model="dynamic_smagorinsky")
     dyn.device = torch.device("cuda", 0)
-    assert dyn._select_kernels().closure is None
-    with pytest.raises(NotImplementedError, match="B.7"):
-        _sims(duct, turb_model="dynamic_smagorinsky", use_pallas="on")
+    assert dyn._select_kernels().closure == "germano_pass1"
+    _, on = _sims(duct, turb_model="dynamic_smagorinsky", use_pallas="on")
+    assert on.kernels == KernelPlan("general", "slab", "germano_pass1")
     with pytest.raises(ValueError, match="closure"):
         K.nu_sgs(u, v, w, gs, geom=ts.geom, closure="sigma", coeff=1.35)
 
