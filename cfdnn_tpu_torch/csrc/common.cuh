@@ -32,12 +32,12 @@ __device__ __forceinline__ long long at3(int i, int j, int k, int ny, int nz) {
 }
 
 // The chunk of y planes a block of `Kernel` (a walked (x, z) tile of
-// `Threads` threads, no dynamic shared memory) walks over `tiles` tiles
-// and `rows` rows on the current device: plan::chunk with the blocks the
-// device holds at once (its SMs times the kernel's resident blocks an
-// SM), asked once a device.
+// `Threads` threads and `smem` bytes of dynamic shared memory) walks over
+// `tiles` tiles and `rows` rows on the current device: plan::chunk with
+// the blocks the device holds at once (its SMs times the kernel's
+// resident blocks an SM), asked once a device.
 template <auto Kernel, int Threads>
-int walk_chunk(long long tiles, int rows) {
+int walk_chunk(long long tiles, int rows, size_t smem = 0) {
     constexpr int kDevices = 64;
     static std::atomic<int> resident[kDevices];
     int dev = 0;
@@ -48,7 +48,7 @@ int walk_chunk(long long tiles, int rows) {
         int sms = 0, per_sm = 0;
         cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
         cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, Kernel,
-                                                      Threads, 0);
+                                                      Threads, smem);
         held = sms * per_sm;
         if (dev < kDevices)
             resident[dev].store(held, std::memory_order_relaxed);

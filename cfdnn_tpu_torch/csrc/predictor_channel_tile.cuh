@@ -1,18 +1,29 @@
-// predictor_channel (DIV = false): the channel predictor of
-// predictor_channel.cu on an (x, z) tile walked along y.
+// predictor_channel: the channel predictor on an (x, z) tile walked along
+// y.
 //
 // Replaces cfdnn_tpu/ops/pallas_kernels.py fused_predictor_channel (body
 // _channel_kernel, math predictor_slab_math_channel, y-metrics
 // _channel_y_arrays), both of its branches: nut_e=None (nut == nullptr
 // here) and the cell nu_t operand of the LES closures. The plain PyTorch
-// twin is ops/kernels.py predictor_channel_twin. The DIV instantiation
-// (fused_predictor_channel_div) stays predictor_channel.cu's slab kernel.
+// twin is ops/kernels.py predictor_channel_twin. The predictor +
+// divergence kernel (fused_predictor_channel_div) runs these stars on a
+// window with a two-cell high halo: predictor_channel_div_tile.cuh.
 //
 // Grid: periodic uniform x and z, no-slip walls in y at any stretching, O2
-// skew or central, scalar nu or nu + a cell nu_t. Shapes and metrics as
-// predictor_channel.cu, whose C interface this keeps.
+// skew or central, scalar nu or nu + a cell nu_t.
+// Shapes: u, w, nut (nx, ny, nz); v (nx, ny+1, nz) with the wall faces
+// stored. y-metrics (device vectors): inv_dy (ny), inv_dyc (ny+1),
+// inv_dgy (ny+1), inv2_cy (ny), inv2_fy (ny+1).
+// Wall ghosts, each as the twin builds them:
+//   u, w tangential  -> -interior (odd reflection to 0 at the wall)
+//   v normal         -> 2 v_wall - v_next (linear extrapolation)
+//   cell quantities  -> mirror copy (phi_c of skew v, the v diffusion flux,
+//                       nu + nu_t)
+// With nu_t, the viscosity is taken at the cells along each component's
+// own axis and averaged to the transverse faces flux direction first, then
+// the component's axis, in the order of ops.operators.diffusive.
 //
-// The stars are predictor_channel.cu's star_u, star_w and star_v, term for
+// The stars are the slab kernel's star_u, star_w and star_v, term for
 // term and in the same order of evaluation, rewritten over offsets from
 // the thread's point: on the staged window (xz_tile.cuh) a neighbour is
 // always one step away, so each operand is one shared-memory load at a
@@ -49,8 +60,8 @@ namespace {
 
 using cfdnn::xz::Window;
 
-// predictor_channel.cu's stars at the thread's point on the staged window
-// r (u, v, w, nu_t: fields 0 ... 3), at plane j. x and z are periodic and
+// The stars at the thread's point on the staged window r (u, v, w, nu_t:
+// fields 0 ... 3), at plane j. x and z are periodic and
 // staged wrapped; unless EDGE every y offset stays inside the stored rows.
 template <typename T, bool NUT, bool SKEW, bool EDGE, typename View>
 struct ChannelTile {

@@ -1,20 +1,19 @@
-// predictor_periodic (DIV = false): the all-periodic predictor of
-// predictor_periodic.cu on an (x, z) tile walked along y.
+// predictor_periodic: the all-periodic predictor on an (x, z) tile walked
+// along y.
 //
 // Replaces cfdnn_tpu/ops/pallas_kernels.py fused_predictor (body
 // _predictor_kernel, math predictor_slab_math). For every cell it computes
 // the skew convection, nu * Laplacian and the body force of u, v and w and
 // writes the three star components:
 //     star = phi + dt * (-conv + nu * lap (+ fx on u))
-// The plain PyTorch twin is ops/kernels.py predictor_periodic_twin. The DIV
-// instantiation (fused_predictor_div) stays predictor_periodic.cu's slab
-// kernel: its star at i + 1 reaches two cells along x, which the window
-// does not stage.
+// The plain PyTorch twin is ops/kernels.py predictor_periodic_twin. The
+// predictor + divergence kernel (fused_predictor_div) runs these stars on
+// a window with a two-cell high halo: predictor_periodic_div_tile.cuh.
 //
 // Grid: all-periodic uniform O2, skew, scalar nu, any nx, ny and nz.
-// Shapes as predictor_periodic.cu, whose C interface this keeps.
+// Shapes: u, v, w and their stars (nx, ny, nz).
 //
-// The stars are predictor_periodic.cu's star_u, star_v and star_w, term for
+// The stars are the slab kernel's star_u, star_v and star_w, term for
 // term and in the same order of evaluation, rewritten over offsets from
 // the thread's point: on the staged window (xz_tile.cuh) every neighbour,
 // corners included, is one step away, so each operand is one shared-memory
@@ -46,8 +45,8 @@ namespace {
 
 using cfdnn::xz::Window;
 
-// predictor_periodic.cu's stars at the thread's point on the staged window
-// r (u, v, w: fields 0 ... 2). Every axis is periodic and staged wrapped.
+// The stars at the thread's point on the staged window r (u, v, w: fields
+// 0 ... 2). Every axis is periodic and staged wrapped.
 template <typename T, typename View>
 struct PeriodicTile {
     View r;

@@ -82,8 +82,22 @@ __device__ __forceinline__ void wait_copies_but() {
 // The staged window of NF fields over a tile: y-planes j - YLO ... j + YHI
 // of the current plane j, and the next AHEAD planes in flight (one for
 // the xz kernels), in a ring of shared-memory slots, each [NF][kPx][kPz].
-template <typename T, int NF, int YLO, int YHI, int AHEAD = 1>
+// The x/z halo is one cell on the low side and HI on the high side: one
+// for every stencil of a point; two (11 x 35 points a plane) for the div
+// kernels, whose block also forms the stars of the next tiles' first x
+// row and z column (div_tile.cuh). A two-cell high halo reaches past a
+// single wrap of x below nx = kTx + 1, so it is staged wrapped fully and
+// takes every nx. A walk goes PAST planes beyond the end of its chunk:
+// none, or one for the div kernels, which form star v of the next face
+// there (the next chunk's first, or a walled y's face ny).
+template <typename T, int NF, int YLO, int YHI, int AHEAD = 1, int HI = 1,
+          int PAST = 0>
 struct Window {
+    static_assert(HI >= 1 && HI <= 2, "a high halo of one or two cells");
+    static_assert(PAST >= 0 && PAST <= 1, "one plane past a chunk at most");
+    static constexpr int kPx = kTx + 1 + HI;          // staged x points
+    static constexpr int kPz = kTz + 1 + HI;          // staged z points
+    static constexpr int kPlane = kPx * kPz;          // ... of a plane
     static constexpr int kSlots = YLO + YHI + 1 + AHEAD;
     static constexpr int kSize = kSlots * NF * kPlane;   // elements
 
@@ -97,13 +111,15 @@ struct Window {
     int tx, tz;                // this thread's owned point in the tile
     int i, k;                  // ... and in the grid (beyond nx or nz on a
     bool owns;                 //   ragged tile, then owns is false)
-    int j0, j1;                // the walk: planes [j0, j1)
+    int j0, j1;                // the walk: planes [j0, j1), PAST of them
+                               //   past the chunk
     int e;                     // this thread's staged points e, e + kThreads
     int gx[2], gz[2];          //   of a plane (the second where
                                //   e + kThreads < kPlane) in the grid
 
     // The tile of this block, this thread's point and staged points, the
-    // walk over `walk_rows` planes in chunks of `chunk`.
+    // walk over `walk_rows` planes in chunks of `chunk` (and PAST planes
+    // beyond each).
     __device__ __forceinline__ void init(T* shared, int nx_, int ny_, int nz_,
                                          int wall_y_, int walk_rows,
                                          int chunk = kChunk) {
@@ -123,13 +139,16 @@ struct Window {
         k = k0 + tz;
         owns = i < nx && k < nz;
         j0 = static_cast<int>(blockIdx.y) * chunk;
-        j1 = min(j0 + chunk, walk_rows);
+        j1 = min(j0 + chunk, walk_rows) + PAST;
 #pragma unroll
         for (int q = 0; q < 2; ++q) {
             const int p = min(e + q * kThreads, kPlane - 1);
             const int lx = p / kPz;
             const int g = i0 - 1 + lx;
-            gx[q] = g < 0 ? g + nx : (g >= nx ? g - nx : g);
+            if constexpr (HI > 1)
+                gx[q] = (g % nx + nx) % nx;
+            else
+                gx[q] = g < 0 ? g + nx : (g >= nx ? g - nx : g);
             gz[q] = (k0 - 1 + p - lx * kPz + nz) % nz;
         }
     }
@@ -141,8 +160,11 @@ struct Window {
     }
 
     // The stored row of global plane r of field c, -1 where there is none
-    // (beyond a wall; a periodic y wraps).
+    // (beyond a wall; a periodic y wraps). A walk one plane past its chunk
+    // (PAST) stages plane ny + 1, which wraps twice where ny = 1.
     __device__ __forceinline__ int row(int c, int r) const {
+        if constexpr (PAST > 0)
+            if (!wall_y && r >= 2 * ny) r -= ny;
         if (!wall_y) return r < 0 ? r + ny : (r >= ny ? r - ny : r);
         return r >= 0 && r < rows[c] ? r : -1;
     }

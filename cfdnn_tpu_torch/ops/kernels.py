@@ -7,15 +7,13 @@ steps of the benchmark grids:
   predictor_periodic  <- pallas_kernels.fused_predictor (all-periodic TGV)
   predictor_periodic_div
                       <- pallas_kernels.fused_predictor_div (the same, plus
-                         the divergence of its star in the same pass; the
-                         DIV instantiation of csrc/predictor_periodic.cu)
+                         the divergence of its star in the same pass)
   predictor_channel   <- pallas_kernels.fused_predictor_channel (wall-y,
                          scalar nu or the cell nu_t of an LES closure)
   predictor_channel_div
                       <- pallas_kernels.fused_predictor_channel_div (the
                          same with v's wall faces zeroed, plus the
-                         divergence of its star; the DIV instantiation of
-                         csrc/predictor_channel.cu)
+                         divergence of its star)
   predictor_general   <- pallas_kernels.fused_predictor_general (periodic
                          x, periodic or wall y and z, moving walls, scalar
                          nu or nu_t); `predictor_xpad` wraps it for a wall
@@ -51,12 +49,16 @@ warp, periodic wrap by index arithmetic. Kernels of one function share
 their grid and term code through a reader type (csrc/les.cuh,
 projection.cuh; the general predictor's grid in csrc/predictor_terms.cuh,
 its terms over offsets in each of its two kernels): a reader of device
-memory or of a shared-memory tile. Eight slab
+memory or of a shared-memory tile. Ten slab
 kernels walk an (x, z) tile along y themselves: predictor_channel,
 predictor_periodic, predictor_general and nu_sgs
 (csrc/predictor_channel_tile.cuh, csrc/predictor_periodic_tile.cuh,
 csrc/predictor_general_tile.cuh, csrc/nu_sgs_tile.cuh, on the xz
 kernels' staged window, each with its own term code over offsets),
+predictor_channel_div and predictor_periodic_div (the two predictors'
+term code on that window with a two-cell high halo, the divergence
+taken from the stored stars: csrc/predictor_channel_div_tile.cuh,
+csrc/predictor_periodic_div_tile.cuh, csrc/div_tile.cuh),
 germano_pass1 (csrc/germano_tile.cuh: nu_sgs's window, the test filter
 summed separably), correct and divergence (csrc/correct.cu,
 csrc/divergence.cu, one thread a cell, each face read once) and transport
@@ -309,9 +311,10 @@ class _ViaTwin(torch.autograd.Function):
 
 # ---------------------------------------------------------------------------
 # The grids refused by the slab kernels that walk an (x, z) tile along y:
-# predictor_channel, predictor_periodic, predictor_general, nu_sgs and
-# germano_pass1 (on csrc/xz_tile.cuh's window), correct, divergence and
-# transport (csrc/correct.cu, csrc/divergence.cu, csrc/transport_tile.cuh)
+# predictor_channel, predictor_periodic, their div kernels,
+# predictor_general, nu_sgs and germano_pass1 (on csrc/xz_tile.cuh's
+# window), correct, divergence and transport (csrc/correct.cu,
+# csrc/divergence.cu, csrc/transport_tile.cuh)
 # ---------------------------------------------------------------------------
 
 INT32_MAX = 2 ** 31 - 1    # the tiles' offsets are 32-bit
@@ -494,7 +497,9 @@ def predictor_periodic_div(u, v, w, dt, *, geom: Geometry, nu, fx):
     """predictor_periodic's star (u*, v*, w*) and, from the same pass, its
     staggered cell divergence div(u*) (Nx, Ny, Nz), on the all-periodic
     uniform 3-D `geom`. dt: a 0-d tensor of the fields' device and
-    dtype."""
+    dtype. The kernel runs on an (x, z) tile walked along y: a field past
+    2^31 - 1 elements raises ValueError (`tile_refusal`), on the CPU as
+    on the card."""
     if not periodic_eligible(geom):
         raise NotImplementedError(
             "predictor_periodic_div: the kernel serves an all-periodic "
@@ -502,6 +507,9 @@ def predictor_periodic_div(u, v, w, dt, *, geom: Geometry, nu, fx):
     _check("predictor_periodic_div", (u, v, w, dt),
            _face_shapes(geom) + ((),))
     _check_geom("predictor_periodic_div", geom, (u,))
+    why = tile_refusal("predictor_periodic_div", u.shape[0], u.numel())
+    if why:
+        raise ValueError(why)
     return _ViaTwin.apply(_predictor_periodic_div_launch,
                           predictor_periodic_div_twin,
                           dict(geom=geom, nu=nu, fx=fx), u, v, w, dt)
@@ -810,7 +818,10 @@ def predictor_channel_div(u, v, w, dt, ys, *, geom: Geometry, nu, fx, scheme,
     """predictor_channel's star with v's wall faces set to 0 (what the BC
     pass gives), and, from the same pass, its staggered cell divergence
     div(u*) (Nx, Ny, Nz), on the wall-y channel `geom` (periodic uniform x
-    and z). `ys` = channel_y_arrays(geom); nu_t as predictor_channel's."""
+    and z). `ys` = channel_y_arrays(geom); nu_t as predictor_channel's.
+    The kernel runs on predictor_channel's walked (x, z) tile: a grid it
+    refuses (`tile_refusal`: Nx < 8, a field past 2^31 - 1 elements)
+    raises ValueError, on the CPU as on the card."""
     x, y, z = geom.axes
     if not (x.periodic and x.uniform and z.periodic and z.uniform
             and z.n > 1 and y.bc == BCType.WALL):
@@ -820,6 +831,10 @@ def predictor_channel_div(u, v, w, dt, ys, *, geom: Geometry, nu, fx, scheme,
     if y.n < 2:
         raise ValueError("predictor_channel_div: needs Ny >= 2")
     nx, ny, nz = x.n, y.n, z.n
+    why = tile_refusal("predictor_channel_div", nx, nx * (ny + 1) * nz,
+                       min_nx=8)      # xz::kTx
+    if why:
+        raise ValueError(why)
     extra = () if nu_t is None else (nu_t,)
     _check("predictor_channel_div", (u, v, w, dt, *ys, *extra),
            _face_shapes(geom) + ((), (1, ny, 1), (1, ny + 1, 1),

@@ -8,25 +8,21 @@ except the ones a change redesigns on purpose:
   kernel of the same name: the slab, xz, walked-tile and Hartley kernels
   alike, including those that share a header with a redesigned kernel
   (`xz_tile.cuh`, `predictor_terms.cuh`, `les.cuh`, `projection.cuh`);
-- `csrc/predictor_periodic.cu` and `csrc/predictor_channel.cu` carry a
-  `bool DIV` template parameter, last among each kernel's template
-  arguments, whose false instantiations were the kernels of before it: an
-  old copy's `K<T>` (`K<T, NUT>`) that the new copy lacks is held to the
-  new copy's `K<T, false>` (`K<T, NUT, false>`); both files now compile
-  only DIV = true, whose code must stay;
-- REDESIGNED names the kernels this change rewrites on purpose: the slab
-  `predictor_general_kernel` (now on xz_tile.cuh's window with a walled
-  z, `csrc/predictor_general_tile.cuh`, under the same name) and
-  germano_pass1's `germano_cells_kernel` and `germano_rows_kernel` (now
-  on nu_sgs's walked window with the test filter summed separably,
-  `csrc/germano_tile.cuh`), every instantiation of each. An old copy's
-  kernel of those names is reported as REDESIGNED and not compared. A
-  later change that redesigns other kernels names them here in place of
-  these.
+- REDESIGNED names the kernels this change rewrites on purpose: the two
+  predictor + divergence slab kernels, `predictor_periodic_kernel` and
+  `predictor_channel_kernel` (now on xz_tile.cuh's window with a two-cell
+  high halo, their divergence taken from the stored stars:
+  `csrc/predictor_periodic_div_tile.cuh`,
+  `csrc/predictor_channel_div_tile.cuh`), every instantiation of each.
+  An old copy's kernel of those names is reported as REDESIGNED and not
+  compared; their sources (`predictor_periodic.cu`,
+  `predictor_channel.cu`) are gone from the new copy, and an old source
+  the new copy lacks is compiled in the old copy alone, each of its
+  kernels REDESIGNED or MISSING. A later change that redesigns other
+  kernels names them here in place of these.
 This compiles each file of both copies to a cubin with the library's
 flags, disassembles it with cuobjdump, and holds every kernel of the old
-copy to the new copy's kernel of the same name, else to its DIV = false
-instantiation.
+copy to the new copy's kernel of the same name.
 
 Run on a machine with the CUDA toolkit, from the repository's root:
 
@@ -49,10 +45,9 @@ from pathlib import Path
 from .ops.kernels import NVCC_FLAGS, _CSRC, _nvcc
 
 # the kernels redesigned on purpose (demangled names of the old copy):
-# the general predictor (each dtype, nu_t and scheme) and germano_pass1's
-# two kernels (each dtype)
-REDESIGNED = re.compile(r"predictor_general_kernel<[^<>]*>"
-                        r"|germano_(?:cells|rows)_kernel<\w+>")
+# the periodic and channel predictor + divergence slab kernels (each
+# dtype, nu_t and DIV)
+REDESIGNED = re.compile(r"predictor_(?:periodic|channel)_kernel<[^<>]*>")
 OUT = Path(__file__).resolve().parents[1] / "build" / "sass"
 
 
@@ -88,38 +83,34 @@ def main(argv) -> int:
         return 2
     old_dir = Path(argv[0])
     OUT.mkdir(parents=True, exist_ok=True)
-    # every source of the old copy; one the new copy lacks is MISSING
+    # every source of the old copy, in both copies where the new one has it
     stems = sorted(f.stem for f in old_dir.glob("*.cu"))
-    gone = [s for s in stems if not (_CSRC / f"{s}.cu").exists()]
-    ok = not gone
-    for stem in gone:
-        print(f"MISSING {stem}.cu in {_CSRC}")
-    stems = [s for s in stems if s not in gone]
+    ok = True
     # every cubin at once (nvcc is one process a source)
     with concurrent.futures.ThreadPoolExecutor(len(stems) * 2) as pool:
         listings = {(stem, tag): pool.submit(sass, d / f"{stem}.cu",
                                              f"{stem}_{tag}")
                     for stem in stems
-                    for tag, d in (("old", old_dir), ("new", _CSRC))}
+                    for tag, d in (("old", old_dir), ("new", _CSRC))
+                    if (d / f"{stem}.cu").exists()}
     for stem in stems:
         old = listings[stem, "old"].result()
-        new = listings[stem, "new"].result()
+        gone = (stem, "new") not in listings
+        new = {} if gone else listings[stem, "new"].result()
         for name, ins in sorted(old.items()):
             if REDESIGNED.fullmatch(name):
                 print(f"REDESIGNED {len(ins)} instructions: {name}")
                 continue
-            # the same name, else the DIV = false instantiation
-            new_name = (name if name in new
-                        else name[:-1] + ", (bool)0>")
-            new_ins = new.get(new_name)
+            new_ins = new.get(name)
             if new_ins is None:
-                print(f"MISSING {new_name} among {sorted(new)}")
+                where = f"{stem}.cu gone from" if gone else "not in"
+                print(f"MISSING {name}: {where} {_CSRC}")
                 ok = False
                 continue
             same = ins == new_ins
             ok &= same
             print(f"{'SAME' if same else 'DIFF'} {len(ins)} vs {len(new_ins)} "
-                  f"instructions: {name} / {new_name}")
+                  f"instructions: {name}")
             if not same:
                 print("\n".join(list(difflib.unified_diff(
                     ins, new_ins, lineterm="", n=0))[:40]))

@@ -274,7 +274,11 @@ class Simulation:
         outlet and implicit y-diffusion are refused by _check_supported.
         (The reference's gate also says "periodic" for an all-periodic LES
         run, whose predictor has no div kernel, and then fails its assert;
-        keyed to the plan, the port runs that case unfused.)"""
+        keyed to the plan, the port runs that case unfused.) Each div
+        kernel walks its predictor's tile and refuses what that tile
+        refuses (`kernels.tile_refusal`: nx < 8 for the channel, 32-bit
+        offsets), so the fused mode takes every grid the plan's predictor
+        takes (a plan needs x.n >= 8: `tiling_mode`)."""
         if not self._fuse_div_requested or self.ibm is not None:
             return False
         pred = self.kernels.predictor

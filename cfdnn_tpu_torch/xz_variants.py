@@ -17,7 +17,12 @@ general predictor and germano_pass1 on their walked tiles
 paths' calls (les_tgv's 128^3 and les_duct's 128x96x96 predictor with
 nu_t, les_channel_dynamic's 128x64x128 germano_pass1), device ms by the
 profiler, and the predictor at 640^3 beside predictor_general_xz (the
-xz kernels' cases hold it as their `slab`).
+xz kernels' cases hold it as their `slab`); and the two predictor +
+divergence kernels on their walked tiles
+(`csrc/predictor_periodic_div_tile.cuh`,
+`csrc/predictor_channel_div_tile.cuh`) on tgv512's and channel512's
+inputs and on the main paths' calls (tgv's 128^3, channel's 128^3 and
+les_channel's 128x64x128 with nu_t), device ms by the profiler there.
 
 Each variant is the kernels' sources with a few textual substitutions,
 built with the library's flags into its own shared library:
@@ -35,6 +40,17 @@ built with the library's flags into its own shared library:
   and germano_pass1: the periodic predictor has no cap);
 - "germano_three_blocks": germano_pass1's register cap at three blocks
   an SM (four in float32 as it stands);
+- "edge_warp": the stars of the next tiles' first x row and z column
+  formed by the last x row's warp (the row) and lane 31 of every warp
+  (its row's column entry), where a div kernel's block forms them by
+  warp 0 (the row) and lanes 0-7 of warp 1 (the column) as it stands
+  (div_tile.cuh's edge_stars);
+- "div_three_blocks", "div_five_blocks": the channel div kernel's
+  register cap at three or five blocks an SM (four in float32 as it
+  stands); "periodic_div_six_blocks": the periodic div kernel capped at
+  six blocks an SM (no cap as it stands); "div_chunk8": both div
+  kernels' chunk at least 8 planes, tile_plan.cuh's own floor (16 as
+  it stands);
 - "ahead1", "ahead3": the channel and periodic predictors' walks with
   one or three planes in flight (two in float32 as they stand);
   "three_blocks", "five_blocks": the channel predictor's register cap at
@@ -46,7 +62,9 @@ built with the library's flags into its own shared library:
   `predictor_periodic_tile.cu`, has that predictor's slab kernel, and
   its correct and divergence may be slab kernels too; a copy from before
   germano_pass1 took a walled z has its entry without `wall_z`, which the
-  binding drops for it).
+  binding drops for it; a copy from before the div kernels' walked tiles
+  has their slab kernels, in `predictor_periodic.cu` and
+  `predictor_channel.cu`).
 Every variant computes the function: each call of an xz kernel is held to
 the slab kernel of its function on the same inputs, each call of a slab
 kernel on a walked tile to the kernel of this copy (the library's), 1e-5
@@ -58,7 +76,11 @@ mix of each variant's tile kernels (cuobjdump) are printed first.
 
 Run on a machine with the CUDA toolkit, from the repository's root:
 
-    python -m cfdnn_tpu_torch.xz_variants [--parent DIR] [variant ...]
+    python -m cfdnn_tpu_torch.xz_variants [--parent DIR] [--cases S,...]
+        [variant ...]
+
+`--cases` times only the cases whose label holds one of the comma-
+separated strings (`--cases _div`: the two div kernels).
 """
 
 import collections
@@ -94,17 +116,38 @@ SUBS = {
             "constexpr bool kStageKOm = false;")],
     "germano_three_blocks": [(r"kGermanoMinBlocks = sizeof\(T\) == 4 \? \d",
                               "kGermanoMinBlocks = sizeof(T) == 4 ? 3")],
+    # the div kernels' far stars (div_tile.cuh), the channel one's cap
+    "edge_warp": [(r"(EdgeStars edge_stars\(int tx, int tz\) \{\n"
+                   r"    EdgeStars s\{\};\n).*?(\n    return s;)",
+                   r"\1    s.u = tx == kTx - 1;\n    s.uz = tz;\n"
+                   r"    s.du = Pz;\n    s.w = tz == kTz - 1;\n"
+                   r"    s.wx = tx;\n    s.dw = 1;\2")],
+    "div_three_blocks": [(r"kChannelDivMinBlocks = sizeof\(T\) == 4 \? \d",
+                          "kChannelDivMinBlocks = sizeof(T) == 4 ? 3")],
+    "div_five_blocks": [(r"kChannelDivMinBlocks = sizeof\(T\) == 4 \? \d",
+                         "kChannelDivMinBlocks = sizeof(T) == 4 ? 5")],
+    "periodic_div_six_blocks": [
+        (r"__launch_bounds__\(cfdnn::xz::kThreads\)"
+         r"(\npredictor_periodic_div_tile_kernel)",
+         r"__launch_bounds__(cfdnn::xz::kThreads, 6)\1")],
+    "div_chunk8": [(r"kDivChunkMin = \d+;", "kDivChunkMin = 8;")],
 }
 SOURCES = ("xz.cu", "predictor_general_xz.cu", "correct.cu", "divergence.cu",
            "nu_sgs.cu", "transport.cu", "predictor_general.cu",
            "germano_pass1.cu", "error.cu")
-# the float source of the channel and of the periodic predictor: the walked
-# tile, or a copy's slab kernel from before it
+# the float source of the channel and of the periodic predictor and of
+# their div kernels: the walked tile, or a copy's slab kernel from before
+# it (one source may hold a predictor and its div kernel)
 PREDICTOR_SOURCES = (("predictor_channel_tile.cu", "predictor_channel.cu"),
-                     ("predictor_periodic_tile.cu", "predictor_periodic.cu"))
+                     ("predictor_periodic_tile.cu", "predictor_periodic.cu"),
+                     ("predictor_channel_div_tile.cu",
+                      "predictor_channel.cu"),
+                     ("predictor_periodic_div_tile.cu",
+                      "predictor_periodic.cu"))
 NAMES = ("predictor_general_xz", "nu_sgs_xz", "divergence_xz", "correct_xz",
          "predictor_channel", "correct", "predictor_periodic", "divergence",
-         "nu_sgs", "transport", "predictor_general", "germano_pass1")
+         "nu_sgs", "transport", "predictor_general", "germano_pass1",
+         "predictor_periodic_div", "predictor_channel_div")
 # the float32 kernels whose registers and SASS mix are printed (mangled)
 TILE_KERNELS = re.compile(r"(xz_kernel|predictor_channel_tile_kernel"
                           r"|predictor_channel_kernel|correct_kernel"
@@ -113,7 +156,9 @@ TILE_KERNELS = re.compile(r"(xz_kernel|predictor_channel_tile_kernel"
                           r"|nu_sgs_tile_kernel|nu_sgs_kernel"
                           r"|transport_tile_kernel|transport_kernel"
                           r"|predictor_general_kernel"
-                          r"|germano_cells_kernel)If")
+                          r"|germano_cells_kernel"
+                          r"|predictor_(?:periodic|channel)_div_tile_kernel)"
+                          r"If")
 OUT = Path(__file__).resolve().parents[1] / "build" / "xz_variants"
 
 
@@ -136,8 +181,9 @@ def build(name: str, src_dir: Path):
     if missing:
         raise RuntimeError(f"{name}: {missing} not in the sources")
     lib = d / "lib.so"
-    predictors = tuple(next(f for f in pair if (d / f).exists())
-                       for pair in PREDICTOR_SOURCES)
+    predictors = tuple(dict.fromkeys(
+        next(f for f in pair if (d / f).exists())
+        for pair in PREDICTOR_SOURCES))
     cmd = [K._nvcc(), *K.NVCC_FLAGS, "-Xptxas=-v", "-shared", "-o", str(lib),
            *(str(d / f) for f in SOURCES + predictors)]
     return lib, subprocess.Popen(cmd, stdout=subprocess.PIPE,
@@ -225,9 +271,17 @@ def bind(path: Path):
 
 def main(argv) -> int:
     import chip_smoke as C
-    parent = None
-    if argv[:1] == ["--parent"]:
-        parent, argv = Path(argv[1]), argv[2:]
+    parent, only = None, None
+    while argv[:1] in (["--parent"], ["--cases"]):
+        if argv[0] == "--parent":
+            parent = Path(argv[1])
+        else:
+            only = argv[1].split(",")
+        argv = argv[2:]
+
+    def wanted(label):
+        return only is None or any(s in label for s in only)
+
     names = argv or list(SUBS) + (["parent"] if parent else [])
     print(C.card_line())
     procs = {name: build(name, parent if name == "parent" else K._CSRC)
@@ -250,22 +304,29 @@ def main(argv) -> int:
     device = torch.device("cuda", 0)
     main_lib = K.library()
     cases, seen = [], set()
-    for case in C._xz_cases(torch.float32, device, seed=2, nx=640,
-                            small=False):
-        if case.label not in seen:
+    # (the 640^3 cubes are made only where an xz kernel is wanted)
+    xz = ("predictor_general_xz", "nu_sgs_xz", "divergence_xz", "correct_xz")
+    for case in (C._xz_cases(torch.float32, device, seed=2, nx=640,
+                             small=False)
+                 if any(map(wanted, xz)) else ()):
+        if case.label not in seen and wanted(case.label):
             seen.add(case.label)
             cases.append(case)
-    cases += list(C._tile_cases_512(device, seed=2))
+    cases += [case for case in C._tile_cases_512(device, seed=2)
+              if wanted(case.label)]
     # and at the main paths' smaller shapes (the channel and the periodic
     # box 128^3, the LES channel 128x64x128, the duct 128x96x96,
     # les_ibm256's 256x128x256; nu_sgs, transport, the general predictor
     # and germano_pass1 only there), timed by the profiler's device ms: a
     # call there takes less than the host's launch
     small = [case for case in C._cases(128, torch.float32, device, seed=2)
+             + C._div_cases(128, torch.float32, device, seed=2)
              if case.name in ("predictor_channel", "correct",
                               "predictor_periodic", "divergence", "nu_sgs",
                               "transport", "predictor_general",
-                              "germano_pass1")
+                              "germano_pass1", "predictor_periodic_div",
+                              "predictor_channel_div")
+             and wanted(case.label)
              and case.label not in seen and not seen.add(case.label)]
     cases += small
     with torch.no_grad():

@@ -56,7 +56,14 @@ Phases, each of which raises on failure (nothing is caught):
      and 33, a lid on y and on z and the xpad wrapper; germano_pass1 at
      nx = 3, 5 and 8, ny = 2 and 3, the ragged 12x70x40 and ducts of one
      to three z tiles, its plane sums also over a second launch, bit for
-     bit (every germano_pass1 case);
+     bit (every germano_pass1 case); the two div kernels on their walked
+     tiles (`_div_tile_cases`): predictor_periodic_div at nx = 1, 2, 3, 8
+     and 9, nz = 6, 32, 33 and 35, ny = 1, 2 and 3 and on the ragged
+     12x70x40 and 12x71x40, predictor_channel_div at nx = 8 and 9 with
+     ny = 2 and 3, the same z and ragged shapes, stretched and uniform y,
+     skew and central, scalar nu and nu_t, div also against the
+     divergence kernel of the kernel's own star (the general and div
+     cases between NaN bands);
      float64 to 1e-14 of scale and float32 to 1e-5; each output of a
      kernel is held to its own twin output's scale;
   3. the main paths (`_paths`), each with its launches per step declared:
@@ -106,9 +113,12 @@ Phases, each of which raises on failure (nothing is caught):
      transform "auto" (cuFFT; tgv512, channel512) and each transform's
      div_linf after the first 100 steps; each kernel against its twin at
      the main-path shapes with CUDA events and with the profiler's device
-     time, the four slab kernels on a walked tile also at 512^3
-     (channel512's and tgv512's predictor, tgv512's and channel512's
-     correct and divergence, each held to its twin there too), the Hartley kernels beside torch.fft along the same axis
+     time, each div kernel also beside the unfused pair it stands for
+     (its predictor kernel, then the divergence kernel of that star), the
+     six slab kernels on a walked tile also at 512^3 (channel512's and
+     tgv512's predictor and div kernel, tgv512's and channel512's correct
+     and divergence, each held to its twin there too), the Hartley
+     kernels beside torch.fft along the same axis
      (fht_pass beside one rfft or irfft, fht_modal beside rfft + irfft);
      the 512^3 Poisson solve alone, "fft" against "pallas_fft", on the
      tgv512 and channel512 solvers; les_tgv640 over 100 steps (one rep)
@@ -158,19 +168,18 @@ KERNEL_REPLACES = {
     "divergence_xz": "cfdnn_tpu/ops/pallas_kernels.py:1051",
     "correct_xz": "cfdnn_tpu/ops/pallas_kernels.py:1060",
 }
-# the two div kernels are instantiations in their predictor's source, the
-# two Hartley kernels share csrc/fht.cuh, three xz kernels csrc/xz.cu, and
-# the xz predictor, the channel, periodic and general predictors, nu_sgs,
-# germano_pass1 and transport (on their walked tiles) are headers with a
-# source for each dtype
+# the two Hartley kernels share csrc/fht.cuh, three xz kernels csrc/xz.cu,
+# and the xz predictor, the channel, periodic and general predictors, the
+# two div kernels, nu_sgs, germano_pass1 and transport (on their walked
+# tiles) are headers with a source for each dtype
 KERNEL_SOURCE = {"predictor_periodic": "predictor_periodic_tile.cuh",
                  "predictor_general": "predictor_general_tile.cuh",
                  "nu_sgs": "nu_sgs_tile.cuh",
                  "germano_pass1": "germano_tile.cuh",
                  "transport": "transport_tile.cuh",
-                 "predictor_periodic_div": "predictor_periodic.cu",
+                 "predictor_periodic_div": "predictor_periodic_div_tile.cuh",
                  "predictor_channel": "predictor_channel_tile.cuh",
-                 "predictor_channel_div": "predictor_channel.cu",
+                 "predictor_channel_div": "predictor_channel_div_tile.cuh",
                  "fht_pass": "fht.cuh", "fht_modal": "fht.cuh",
                  "predictor_general_xz": "predictor_general_xz.cuh",
                  "nu_sgs_xz": "xz.cu", "divergence_xz": "xz.cu",
@@ -178,10 +187,10 @@ KERNEL_SOURCE = {"predictor_periodic": "predictor_periodic_tile.cuh",
 # the xz kernels run their slab kernels' arithmetic on staged operands:
 # float64 to 1e-13 of scale, against their twins and the slab kernels
 XZ_F64_TOL = 1e-13
-# the eight slab kernels that walk an (x, z) tile (predictor_channel,
-# predictor_periodic, predictor_general, correct, divergence, nu_sgs,
-# germano_pass1, transport) against their twins on the shapes where the
-# tile can break
+# the ten slab kernels that walk an (x, z) tile (predictor_channel,
+# predictor_periodic, their div kernels, predictor_general, correct,
+# divergence, nu_sgs, germano_pass1, transport) against their twins on the
+# shapes where the tile can break
 TILE_F64_TOL = 1e-14
 # The H100 SXM's published peaks (NVIDIA data sheet): HBM bandwidth and
 # float32 outside the tensor cores.
@@ -191,12 +200,12 @@ F32_OPS_PER_S = 67e12
 # roots, one each), counted by hand from its source (the head of each
 # csrc/*.cu file), keyed by the case's label where its instantiations
 # differ, else by the kernel's name; correct: three faces a cell; the
-# periodic predictor's star u 52, v and w 51 each, and its DIV
-# instantiation those three again at the +1 neighbours and the
-# divergence's 8 (316); the channel predictor's stars u, w, v, central
-# 52 + 51 + 51 (154, skew 170), nu_t's viscosity averages and fluxes 46 more
-# each (292), and its DIV instantiation twice those plus 8 (central 316,
-# with nu_t 592);
+# periodic predictor's star u 52, v and w 51 each (154); the channel
+# predictor's stars u, w, v, central 52 + 51 + 51 (154, skew 170), nu_t's
+# viscosity averages and fluxes 46 more each (292); each div kernel, its
+# predictor's and the divergence's 8 (162, with nu_t 300: the function's
+# work; the slab kernels before them formed the three stars again at the
+# +1 neighbours, 316 and 592);
 # transport, the function's work a cell (tanh one, x^4 two multiplies,
 # clamps none): the gradient, strain and centre velocity 69, the upwind
 # advection of k and omega 34, k's production, source and both updates
@@ -218,8 +227,8 @@ F32_OPS_PER_S = 67e12
 OPS_PER_CELL = {"predictor_periodic": 154, "predictor_channel": 154,
                 "predictor_channel+nu_t": 292,
                 "predictor_channel les_ibm+nu_t": 292,
-                "predictor_periodic_div": 316, "predictor_channel_div": 316,
-                "predictor_channel_div+nu_t": 592,
+                "predictor_periodic_div": 162, "predictor_channel_div": 162,
+                "predictor_channel_div+nu_t": 300,
                 "predictor_general": 300, "divergence": 6, "correct": 9,
                 "nu_sgs": 100, "germano_pass1": 194, "transport": 274,
                 "transport sst": 260, "transport komega": 205,
@@ -235,9 +244,11 @@ class Case(NamedTuple):
     operations per cell (`ops`, they depend on N) and its yardstick
     (`library`, torch.fft calls on the same tensor, named by the
     function's name: rfft, irfft or rfft_irfft); an xz case the slab
-    kernel of the same function on the same inputs (`slab`); a case with
-    its own float64 limit carries it (`f64_tol`, of scale); a `banded`
-    case's kernel is run with its outputs between NaN bands
+    kernel of the same function on the same inputs (`slab`); a div
+    kernel's case the unfused predictor and divergence kernels it stands
+    for, on the same inputs and that predictor's star (`pair`); a case
+    with its own float64 limit carries it (`f64_tol`, of scale); a
+    `banded` case's kernel is run with its outputs between NaN bands
     (`_banded_call`)."""
     label: str
     name: str
@@ -250,6 +261,7 @@ class Case(NamedTuple):
     slab: Callable = None
     f64_tol: float = None
     banded: bool = False
+    pair: Callable = None
 
 
 def check(cond, msg):
@@ -637,7 +649,9 @@ def _div_cases(n, dtype, device, seed):
     channel n^3 and, with a random nu_t >= 0, the LES channel n x n/2 x n,
     both stretched and central as their paths are), each the first of its
     label; float64 on the periodic box n^3 and on the channel n x 3n/2 x n,
-    uniform and stretched y, skew and central, scalar nu and nu_t."""
+    uniform and stretched y, skew and central, scalar nu and nu_t. Each
+    carries the unfused pair it stands for (`pair`: the predictor kernel,
+    then the divergence kernel of its star)."""
     from cfdnn_tpu_torch import ConvectiveScheme as CS
     from cfdnn_tpu_torch import bench, velocity_shapes
     from cfdnn_tpu_torch.mesh import Mesh
@@ -659,7 +673,9 @@ def _div_cases(n, dtype, device, seed):
                       K.predictor_periodic_div(u, v, w, dt, **kp),
                   lambda u=u, v=v, w=w, dt=dt:
                       K.predictor_periodic_div_twin(u, v, w, dt, **kp),
-                  (u, v, w, dt), g)]
+                  (u, v, w, dt), g,
+                  pair=lambda u=u, v=v, w=w, dt=dt, g=g: _periodic_pair(
+                      u, v, w, dt, g, cfg.nu, 0.0))]
     if dtype == torch.float32:
         grids = (("", n, True, CS.CENTRAL, False),
                  ("+nu_t", n // 2, True, CS.CENTRAL, True))
@@ -684,8 +700,31 @@ def _div_cases(n, dtype, device, seed):
                 K.predictor_channel_div(u, v, w, dt, ys, nu_t=n, **kc),
             lambda u=u, v=v, w=w, dt=dt, ys=ys, n=nu_t, kc=kc:
                 K.predictor_channel_div_twin(u, v, w, dt, *ys, n, **kc),
-            (u, v, w, dt, *ys) + (() if nu_t is None else (nu_t,)), g))
+            (u, v, w, dt, *ys) + (() if nu_t is None else (nu_t,)), g,
+            pair=lambda u=u, v=v, w=w, dt=dt, ys=ys, n=nu_t, kc=kc:
+                _channel_pair(u, v, w, dt, ys, n, kc)))
     return cases
+
+
+def _periodic_pair(u, v, w, dt, g, nu, fx):
+    """The unfused kernels predictor_periodic_div stands for: the
+    periodic predictor, then the divergence kernel of its star."""
+    from cfdnn_tpu_torch.ops import kernels as K
+    star = K.predictor_periodic(u, v, w, dt, hx=g.x.h, hy=g.y.h, hz=g.z.h,
+                                nu=nu, fx=fx)
+    return K.divergence(*star, geom=g)
+
+
+def _channel_pair(u, v, w, dt, ys, nu_t, kc):
+    """The unfused kernels predictor_channel_div stands for: the channel
+    predictor, then the divergence kernel of its star (`kc` the div
+    kernel's keywords)."""
+    from cfdnn_tpu_torch.ops import kernels as K
+    g = kc["geom"]
+    star = K.predictor_channel(u, v, w, dt, ys, hx=g.x.h, hz=g.z.h,
+                               nu=kc["nu"], fx=kc["fx"],
+                               scheme=kc["scheme"], nu_t=nu_t)
+    return K.divergence(*star, geom=g)
 
 
 def _tile_cases(dtype, device, seed):
@@ -788,6 +827,86 @@ def _tile_cases(dtype, device, seed):
                 K.correct_twin(u, v, w, p, dt, geom=g),
             (u, v, w, p, dt, g.x.inv_dc, g.y.inv_dc, g.z.inv_dc),
             f64_tol=TILE_F64_TOL))
+    return cases
+
+
+# the div kernels' edge shapes (`_div_tile_cases`): the periodic one's
+# boxes (nx, ny, nz), x below a tile and over one (the two-cell high x
+# halo wrapped more than once), z at and past a tile's edge (the far z
+# column), one to three periodic y planes and the ragged 12 x 70 x 40 and
+# 12 x 71 x 40 (the walk one plane behind across chunks); the channel
+# one's (nx, ny, nz, stretched y): ny = 2 and 3 (every plane next to a
+# wall), the same z and ragged shapes, nx = 8 and 9
+_DIV_TILE_BOXES = ((1, 4, 6), (2, 3, 33), (3, 9, 32), (8, 1, 35),
+                   (9, 2, 6), (8, 3, 33), (12, 70, 40), (12, 71, 40))
+_DIV_TILE_CHANNELS = ((8, 2, 6, True), (9, 3, 32, False), (8, 3, 33, True),
+                      (9, 2, 35, True), (12, 70, 40, True),
+                      (12, 71, 40, False))
+
+
+def _div_tile_cases(dtype, device, seed):
+    """The two div kernels on their walked (x, z) tiles, each against its
+    twin where the tile can break (float64 to 1e-14 of scale, float32 to
+    1e-5; div also against the divergence kernel of the kernel's own
+    star): predictor_periodic_div (skew, fx on u) on `_DIV_TILE_BOXES`,
+    predictor_channel_div on `_DIV_TILE_CHANNELS`, skew and central,
+    scalar nu and nu_t. Every input and every tensor the wrappers allocate
+    lies between NaN bands (`_band`, `_banded_call`), so a read or a write
+    past an array fails the case."""
+    from cfdnn_tpu_torch import BCType, Config, velocity_shapes
+    from cfdnn_tpu_torch import ConvectiveScheme as CS
+    from cfdnn_tpu_torch.mesh import Mesh
+    from cfdnn_tpu_torch.ops import kernels as K
+    from cfdnn_tpu_torch.ops.grid import Geometry
+    gen = torch.Generator(device=device).manual_seed(seed)
+    dts = "float64" if dtype == torch.float64 else "float32"
+
+    def rnd(shape):
+        return _band(torch.randn(shape, generator=gen, dtype=dtype,
+                                 device=device))
+
+    base = dict(nu=3e-3, nu_specified=True, dp_dx=-0.4, dp_dx_specified=True,
+                dt=1e-3, adaptive_dt=False, dtype=dts)
+    cases = []
+    for nx, ny, nz in _DIV_TILE_BOXES:
+        cfg = Config(**base, Nx=nx, Ny=ny, Nz=nz, bc_y=BCType.PERIODIC,
+                     y_min=0.0, y_max=1.0,
+                     convective_scheme=CS.SKEW).finalize()
+        g = Geometry.make(Mesh.from_config(cfg), cfg, device=device)
+        u, v, w = (rnd(sh) for sh in velocity_shapes(cfg))
+        dt = _band(torch.full((), 1e-2, dtype=dtype, device=device))
+        kp = dict(geom=g, nu=cfg.nu, fx=-cfg.dp_dx)
+        cases.append(Case(
+            f"predictor_periodic_div {nx}x{ny}x{nz}", "predictor_periodic_div",
+            lambda u=u, v=v, w=w, dt=dt, kp=kp:
+                K.predictor_periodic_div(u, v, w, dt, **kp),
+            lambda u=u, v=v, w=w, dt=dt, kp=kp:
+                K.predictor_periodic_div_twin(u, v, w, dt, **kp),
+            (u, v, w, dt), g, f64_tol=TILE_F64_TOL, banded=True))
+    for nx, ny, nz, stretch in _DIV_TILE_CHANNELS:
+        for scheme in (CS.SKEW, CS.CENTRAL):
+            cfg = Config(**base, Nx=nx, Ny=ny, Nz=nz, stretch_y=stretch,
+                         convective_scheme=scheme).finalize()
+            g = Geometry.make(Mesh.from_config(cfg), cfg, device=device)
+            u, v, w = (rnd(sh) for sh in velocity_shapes(cfg))
+            nut = _band(rnd((nx, ny, nz)).abs() * 1e-2)
+            dt = _band(torch.full((), 1e-2, dtype=dtype, device=device))
+            ys = tuple(map(_band, K.channel_y_arrays(g)))
+            kc = dict(geom=g, nu=cfg.nu, fx=-cfg.dp_dx, scheme=scheme)
+            for n in (None, nut):
+                cases.append(Case(
+                    f"predictor_channel_div {nx}x{ny}x{nz} "
+                    f"{'stretched' if stretch else 'uniform'} "
+                    f"{scheme.value}" + ("" if n is None else "+nu_t"),
+                    "predictor_channel_div",
+                    lambda u=u, v=v, w=w, dt=dt, ys=ys, n=n, kc=kc:
+                        K.predictor_channel_div(u, v, w, dt, ys, nu_t=n,
+                                                **kc),
+                    lambda u=u, v=v, w=w, dt=dt, ys=ys, n=n, kc=kc:
+                        K.predictor_channel_div_twin(u, v, w, dt, *ys, n,
+                                                     **kc),
+                    (u, v, w, dt, *ys) + (() if n is None else (n,)), g,
+                    f64_tol=TILE_F64_TOL, banded=True))
     return cases
 
 
@@ -1036,12 +1155,14 @@ def _general_tile_cases(dtype, device, seed):
 
 def _tile_cases_512(device, seed):
     """predictor_channel on channel512's grid (512^3, stretched, central,
-    scalar nu), predictor_periodic on tgv512's (all periodic, skew), and
-    correct and divergence on tgv512's and channel512's (walled y),
-    float32: the 512^3 calls of the four slab kernels that walk an (x, z)
-    tile, for the timing phase and for the variants' old-against-new
-    yardstick (cfdnn_tpu_torch/xz_variants.py). Made one at a time (a
-    generator): each holds ~2.7-3.8 GB of the card."""
+    scalar nu), predictor_periodic on tgv512's (all periodic, skew),
+    correct and divergence on tgv512's and channel512's (walled y), and
+    the two div kernels on tgv512's and channel512's (each with its
+    unfused pair, `pair`), float32: the 512^3 calls of the six slab
+    kernels that walk an (x, z) tile, for the timing phase and for the
+    variants' old-against-new yardstick (cfdnn_tpu_torch/xz_variants.py).
+    Made one at a time (a generator): each holds ~2.7-4.3 GB of the
+    card."""
     from cfdnn_tpu_torch import bench, velocity_shapes
     from cfdnn_tpu_torch.mesh import Mesh
     from cfdnn_tpu_torch.ops import kernels as K
@@ -1058,12 +1179,37 @@ def _tile_cases_512(device, seed):
             ("correct tgv512", bench.tgv_config),
             ("correct channel512", bench.channel_config),
             ("divergence tgv512", bench.tgv_config),
-            ("divergence channel512", bench.channel_config)):
+            ("divergence channel512", bench.channel_config),
+            ("predictor_periodic_div tgv512", bench.tgv_config),
+            ("predictor_channel_div channel512", bench.channel_config)):
         cfg = config(512).finalize()
         g = Geometry.make(Mesh.from_config(cfg), cfg, device=device)
         u, v, w = (rnd(sh) for sh in velocity_shapes(cfg))
         dt = torch.full((), cfg.dt, dtype=torch.float32, device=device)
-        if label.startswith("predictor_periodic"):
+        if label.startswith("predictor_periodic_div"):
+            kp = dict(geom=g, nu=cfg.nu, fx=0.0)
+            yield Case(label, "predictor_periodic_div",
+                       lambda u=u, v=v, w=w, dt=dt, kp=kp:
+                           K.predictor_periodic_div(u, v, w, dt, **kp),
+                       lambda u=u, v=v, w=w, dt=dt, kp=kp:
+                           K.predictor_periodic_div_twin(u, v, w, dt, **kp),
+                       (u, v, w, dt), g,
+                       pair=lambda u=u, v=v, w=w, dt=dt, g=g, cfg=cfg:
+                           _periodic_pair(u, v, w, dt, g, cfg.nu, 0.0))
+        elif label.startswith("predictor_channel_div"):
+            ys = K.channel_y_arrays(g)
+            kc = dict(geom=g, nu=cfg.nu, fx=-cfg.dp_dx,
+                      scheme=cfg.convective_scheme)
+            yield Case(label, "predictor_channel_div",
+                       lambda u=u, v=v, w=w, dt=dt, ys=ys, kc=kc:
+                           K.predictor_channel_div(u, v, w, dt, ys, **kc),
+                       lambda u=u, v=v, w=w, dt=dt, ys=ys, kc=kc:
+                           K.predictor_channel_div_twin(u, v, w, dt, *ys,
+                                                        **kc),
+                       (u, v, w, dt, *ys), g,
+                       pair=lambda u=u, v=v, w=w, dt=dt, ys=ys, kc=kc:
+                           _channel_pair(u, v, w, dt, ys, None, kc))
+        elif label.startswith("predictor_periodic"):
             kp = dict(hx=g.x.h, hy=g.y.h, hz=g.z.h, nu=cfg.nu, fx=0.0)
             yield Case(label, "predictor_periodic",
                        lambda u=u, v=v, w=w, dt=dt, kp=kp:
@@ -1368,6 +1514,8 @@ def _as_tuple(x):
     return x if isinstance(x, tuple) else (x,)
 
 
+# the two kernels that write a divergence beside their predictor's star
+DIV_KERNELS = ("predictor_periodic_div", "predictor_channel_div")
 # the outputs of each kernel, in the order its wrapper returns them
 OUTPUTS = {"germano_pass1": ("|S|", "<L:M>", "<M:M>"),
            "divergence": ("div",), "nu_sgs": ("nu_t",),
@@ -1446,7 +1594,8 @@ def phase_kernels(device):
     phase_timing), each div kernel's div against the divergence kernel of
     its own star, each xz kernel also against the slab kernel of its
     function, the slab kernels on a walked tile also on their edge
-    shapes (`_tile_cases`, `_closure_tile_cases`, `_general_tile_cases`),
+    shapes (`_tile_cases`, `_div_tile_cases`, `_closure_tile_cases`,
+    `_general_tile_cases`),
     germano_pass1's plane sums also over a second launch (bit for bit);
     returns {name: [largest float64 error, largest float32 error]}."""
     errs = {}
@@ -1458,6 +1607,7 @@ def phase_kernels(device):
         cases += _fht_cases(dtype, device, seed=1, split640=True)
         cases += _xz_cases(dtype, device, seed=1)
         cases += _tile_cases(dtype, device, seed=1)
+        cases += _div_tile_cases(dtype, device, seed=1)
         cases += _closure_tile_cases(dtype, device, seed=1)
         cases += _general_tile_cases(dtype, device, seed=1)
         for case in cases:
@@ -2017,6 +2167,20 @@ def _time_path(path, sim, st, rows):
     return s * 1e3, busy, float(d.div_linf)
 
 
+def _pair_ms(case, reps, dreps):
+    """(ms a call by CUDA events, device ms) of a div kernel's unfused
+    pair, (None, None) for any other case."""
+    if case.pair is None:
+        return None, None
+    return _event_ms(case.pair, reps), _device_ms(case.pair, dreps)
+
+
+def _pair_text(t):
+    return ("" if t[7] is None else
+            f"; the unfused pair (predictor + divergence) per call "
+            f"{t[7]:.4f} ms, device {t[8]:.4f} ms")
+
+
 def phase_timing(device, errs):
     """Each unfused main path's marginal ms/step with its profile (the
     fused paths are timed by phase_ab), then each kernel against its twin
@@ -2050,28 +2214,29 @@ def phase_timing(device, errs):
                 case.name, _event_ms(case.kern, reps),
                 _event_ms(case.twin, reps), _device_ms(case.kern, dreps),
                 _device_ms(case.twin, dreps), _bound(case, case.twin()), lib,
-                None, None)
+                *_pair_ms(case, reps, dreps))
             print(f"[timing] {case.label} float32: per call kernel "
                   f"{t[1]:.4f} ms, twin {t[2]:.4f} ms; device kernel "
                   f"{t[3]:.4f} ms, twin {t[4]:.4f} ms; bound {t[5][0]:.4f} "
                   f"ms ({t[5][1]})"
                   + ("" if lib is None else
-                     f"; torch.fft.{case.library.__name__} {lib:.4f} ms"))
-        # the four slab kernels that walk an (x, z) tile at 512^3
+                     f"; torch.fft.{case.library.__name__} {lib:.4f} ms")
+                  + _pair_text(t))
+        # the six slab kernels that walk an (x, z) tile at 512^3
         # (channel512's and tgv512's predictor, tgv512's and channel512's
-        # correction and divergence),
-        # each checked against its twin and timed beside it (the twin over
-        # fewer reps: tens of milliseconds a call there)
+        # correction and divergence, the two div kernels beside their
+        # unfused pairs), each checked against its twin and timed beside
+        # it (the twin over fewer reps: tens of milliseconds a call there)
         for case in _tile_cases_512(device, seed=2):
             ref = _hold(case, torch.float32, errs)
             t = times[case.label] = (
                 case.name, _event_ms(case.kern, 20), _event_ms(case.twin, 3),
                 _device_ms(case.kern, 5), _device_ms(case.twin, 2),
-                _bound(case, ref), None, None, None)
+                _bound(case, ref), None, *_pair_ms(case, 20, 5))
             print(f"[timing] {case.label} float32: per call kernel "
                   f"{t[1]:.4f} ms, twin {t[2]:.4f} ms; device kernel "
                   f"{t[3]:.4f} ms, twin {t[4]:.4f} ms; bound {t[5][0]:.4f} "
-                  f"ms ({t[5][1]})")
+                  f"ms ({t[5][1]})" + _pair_text(t))
             del case, ref
         # the xz kernels on the les_tgv640 cube, each checked against its
         # twin and the slab kernel of its function, and timed beside that
@@ -2162,12 +2327,15 @@ def kernel_entries(errs, launches, per_step, times):
         for label, t in times.items():
             if t[0] != name:
                 continue
+            # an xz kernel's slab kernel, a div kernel's unfused pair
+            beside = "pair" if name in DIV_KERNELS else "slab"
             row = dict(zip(("ms", "plain_ms", "device_ms", "plain_device_ms",
-                            "bound_ms", "bound_by", "library_ms", "slab_ms",
-                            "slab_device_ms"), t[1:5] + t[5] + t[6:]))
-            if row["slab_ms"] is None:
-                # only the xz kernels have a slab kernel beside them
-                del row["slab_ms"], row["slab_device_ms"]
+                            "bound_ms", "bound_by", "library_ms",
+                            f"{beside}_ms", f"{beside}_device_ms"),
+                           t[1:5] + t[5] + t[6:]))
+            if row[f"{beside}_ms"] is None:
+                # only the xz and div kernels have a kernel beside them
+                del row[f"{beside}_ms"], row[f"{beside}_device_ms"]
             variants[label] = row
         main_case = next(iter(variants.values()))
         entries.append({
