@@ -1,0 +1,5 @@
+"""Case apps (port of `cfdnn_tpu/apps/`): channel, duct and
+taylor_green_3d, run as `python -m cfdnn_tpu_torch.apps.<case> [--key
+value ...]`, on the CUDA card unless `--platform cpu` is given."""
+
+__all__ = ["channel", "duct", "taylor_green_3d"]

@@ -230,19 +230,22 @@ def _sync(device):
         torch.cuda.synchronize(device)
 
 
-def time_steps(sim, state, steps=1000, reps=3):
-    """Differential best-of-reps seconds/step of `sim.run` (the constant
-    per-call cost, including the final diagnostics step, cancels) and the
-    diagnostics of the first run."""
+def time_steps(sim, state, steps=1000, reps=3, run=None):
+    """Differential best-of-reps seconds/step of `sim.run` (or of `run`,
+    a callable (state, n) -> (state, diagnostics) of the same steps; the
+    constant per-call cost, including the final diagnostics step, cancels)
+    and the diagnostics of the first run. The first runs, untimed, capture
+    the CUDA graphs that sim.run replays."""
+    run_n = sim.run if run is None else run
     short = max(steps // 5, 1)
-    state, d = sim.run(state, steps)
-    sim.run(state, short)
+    state, d = run_n(state, steps)
+    run_n(state, short)
     _sync(sim.device)
     if not math.isfinite(float(d.ke)):
         raise FloatingPointError("NaN in benchmark run")
 
     def run(n):
-        sim.run(state, n)
+        run_n(state, n)
         _sync(sim.device)
 
     s = marginal_step_seconds(lambda: run(steps), lambda: run(short),
@@ -260,19 +263,23 @@ def device_events(prof):
 
 
 def _window(fn, n, spin):
-    """(profile, host seconds, gated, device span in seconds) of `fn(n)`
-    under torch.profiler (CPU and CUDA activities), behind a spin kernel of
-    `spin` cycles when it is nonzero; gated: the spin was still running
-    when the host had enqueued all of fn, so the card ran fn back to back.
+    """(profile, host seconds, gated, device span in seconds, launched) of
+    `fn(n)` under torch.profiler (CPU and CUDA activities), behind a spin
+    kernel of `spin` cycles when it is nonzero; gated: the spin was still
+    running when the host had enqueued all of fn, so the card ran fn back
+    to back; launched: ({kernel: launches} of the port's kernels,
+    CUDA-graph kernel nodes replayed) over fn(n), for `window_complete`.
 
     The profiler has been seen to drop the records of the first kernels
     after the spin (one to five a window), so SPIN_PAD one-cycle spin
     kernels, which `_recorded` leaves out, run between the spin and the
     window."""
     from torch.profiler import ProfilerActivity, profile
+    from .ops import kernels
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
+    counts, nodes = kernels.launch_counts(), kernels.replayed_nodes()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -286,7 +293,9 @@ def _window(fn, n, spin):
         host = time.perf_counter() - t0
         gated = not start.query()
         torch.cuda.synchronize()
-    return prof, host, gated, start.elapsed_time(stop) / 1e3
+    launched = ({k: c - counts[k] for k, c in kernels.launch_counts().items()
+                 if c != counts[k]}, kernels.replayed_nodes() - nodes)
+    return prof, host, gated, start.elapsed_time(stop) / 1e3, launched
 
 
 # Spin-kernel cycles a second (~ the SM's top clock, so a slower clock only
@@ -312,6 +321,24 @@ def _recorded(prof):
             sum(e.count for e in events))
 
 
+def is_copy(key):
+    """Whether a device record is a copy or a fill, not a kernel."""
+    return "memcpy" in key.lower() or "memset" in key.lower()
+
+
+def window_complete(events, launched):
+    """(whether a window recorded every launch it must hold, what it
+    recorded of them): the port's kernels by name exactly their launches
+    (`ops.kernels.device_launches` of the records), and at least as many
+    kernel records (copies and fills left out) as the CUDA-graph kernel
+    nodes it replayed. The profiler has been seen to drop a tenth of a
+    window's records after graph replays had been traced."""
+    from .ops import kernels
+    port = kernels.device_launches((e.key, e.count) for e in events)
+    n = sum(e.count for e in events if not is_copy(e.key))
+    return port == launched[0] and n >= launched[1], (port, n)
+
+
 _LAUNCH_GAP = []
 
 
@@ -327,8 +354,8 @@ def launch_gap():
                 x.add_(1.0)
 
         fn(8)
-        prof, host, _, _ = _window(fn, 256, 0)
-        prof, _, gated, span = _window(fn, 256, _spin_for(host))
+        prof, host, _, _, _ = _window(fn, 256, 0)
+        prof, _, gated, span, _ = _window(fn, 256, _spin_for(host))
         _, busy, count = _recorded(prof)
         if not gated or count != 256:
             raise RuntimeError(f"launch_gap: gated {gated}, {count} of 256 "
@@ -351,14 +378,16 @@ def profiled(fn, reps):
     (`launch_gap`) once per kernel besides the kernels' own time. The
     profiler has been seen to drop part of a window's events (a kernel read
     0 ms, another 60% of its time): a window whose recorded device time
-    falls under MIN_DEVICE_SHARE of its span less those gaps is measured
-    again, and after PROFILE_WINDOWS such windows, or with the host ahead
-    even at one rep, this raises."""
+    falls under MIN_DEVICE_SHARE of its span less those gaps, or that lacks
+    a record of a launch it must hold (`window_complete`: each of the
+    port's kernels by name, and every kernel node of the CUDA graphs it
+    replayed), is measured again, and after PROFILE_WINDOWS such windows,
+    or with the host ahead even at one rep, this raises."""
     gap = launch_gap()
     spin = _spin_for(_window(fn, reps, 0)[1])
     shares = []
     while len(shares) < PROFILE_WINDOWS:
-        prof, _, gated, span = _window(fn, reps, spin)
+        prof, _, gated, span, launched = _window(fn, reps, spin)
         if not gated:
             if reps == 1:
                 raise RuntimeError("profiled: the spin ended before the host "
@@ -367,27 +396,31 @@ def profiled(fn, reps):
             continue
         events, busy, count = _recorded(prof)
         share = busy / max(span - count * gap, 1e-12)
-        if share >= MIN_DEVICE_SHARE:
+        whole, got = window_complete(events, launched)
+        if share >= MIN_DEVICE_SHARE and whole:
             return events, reps, span
-        shares.append((round(share, 4), count))
+        shares.append((round(share, 4), count, got, launched))
     raise RuntimeError(f"profiled: {PROFILE_WINDOWS} windows of {reps} reps "
                        f"each recorded under {MIN_DEVICE_SHARE} of their "
-                       "device span less launch gaps ((share, kernels "
-                       f"recorded) {shares})")
+                       "device span less launch gaps, or without a launch "
+                       "((share, records, (port kernels, kernel records), "
+                       f"(port launches, graph kernel nodes)) {shares})")
 
 
-def profile_steps(sim, state, steps=20):
+def profile_steps(sim, state, steps=20, run=None):
     """Device time of a window of up to `steps` steps (fewer where the
     host's launches outrun the card's queue, `profiled`), by kernel, from
     torch.profiler (CUPTI): {"device_ms_per_step": total kernel time per
     step, "span_ms_per_step": the window's device span per step (its
     kernels back to back, the gaps between them included), "steps": the
     window's steps, "kernels": [(name, ms per step, launches per step),
-    ...] longest first}. The window is one `sim.run`, so its last step
-    carries the diagnostics reductions."""
-    sim.run(state, steps)
+    ...] longest first}. The window is one `sim.run` (or `run`, as
+    time_steps takes it), so its last step carries the diagnostics
+    reductions."""
+    run = sim.run if run is None else run
+    run(state, steps)
     _sync(sim.device)
-    events, steps, span = profiled(lambda n: sim.run(state, n), steps)
+    events, steps, span = profiled(lambda n: run(state, n), steps)
     rows = sorted(((e.key, e.self_device_time_total / steps / 1e3,
                     e.count / steps) for e in events),
                   key=lambda r: -r[1])

@@ -77,7 +77,9 @@ Beside each kernel stand:
     `transport.py`): the single sources of truth the TPU kernels also ran;
   - a launch count, the integer attribute `launches` of the public
     wrapper, raised by one where the CUDA kernel is launched and nowhere
-    else.
+    else; a replay of a captured CUDA graph, which launches the kernels
+    without calling their wrappers, adds what its capture recorded
+    (`add_launches`).
 
 The public wrappers check device, dtype, shape and contiguity, then take
 the twin for CPU tensors (the CPU tests run that path, as the reference's
@@ -104,6 +106,7 @@ import dataclasses
 import hashlib
 import math
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -1806,3 +1809,86 @@ def reset_launch_counts() -> None:
 
 def launch_counts() -> dict:
     return {k.__name__: k.launches for k in KERNELS}
+
+
+def add_launches(counts: dict, times: int = 1, nodes: int = 0) -> None:
+    """Add `times` x counts[name] to each named kernel's count, and times x
+    nodes to the kernel nodes replayed (`replayed_nodes`): a replay of a
+    captured CUDA graph launches the kernels the graph holds without
+    calling their wrappers (solver.Simulation._capture counts them by name
+    in the graph, `device_launches`; times=-1 takes a capture's wrapper
+    counts off, since a capture launches nothing)."""
+    for k in KERNELS:
+        k.launches += times * counts.get(k.__name__, 0)
+    _REPLAYED[0] += times * nodes
+
+
+_REPLAYED = [0]
+
+
+def replayed_nodes() -> int:
+    """Kernel nodes (the port's and the libraries') of the CUDA graphs
+    replayed so far: what a profiler window over those replays must
+    record (bench.profiled)."""
+    return _REPLAYED[0]
+
+
+# Each wrapper's device kernels by symbol, one launch of each a call: the
+# name in the mangled symbol a CUDA graph lists (`_ZN..17divergence_kernelI
+# fE...`) and in the demangled one torch.profiler records (`void (anonymous
+# namespace)::divergence_kernel<float>(...)`). fht_pass and fht_modal share
+# fht_kernel<T, MODE, N2C>, told apart by MODE (fht.cuh: kForward 0,
+# kInverse 1, kModal 2); germano_pass1 launches two kernels a call.
+_FHT = r"fht_kernel(?:I[fd]Li|<(?:float|double), ?)"
+_SYMBOLS = tuple((name, re.compile(r"(?<![A-Za-z_])" + pattern))
+                 for name, pattern in (
+    ("predictor_periodic", r"predictor_periodic_tile_kernel"),
+    ("predictor_periodic_div", r"predictor_periodic_div_tile_kernel"),
+    ("predictor_channel", r"predictor_channel_tile_kernel"),
+    ("predictor_channel_div", r"predictor_channel_div_tile_kernel"),
+    ("predictor_general", r"predictor_general_kernel"),
+    ("divergence", r"divergence_kernel"),
+    ("correct", r"correct_kernel"),
+    ("nu_sgs", r"nu_sgs_tile_kernel"),
+    ("germano_pass1", r"germano_cells_kernel"),
+    ("germano_pass1", r"germano_rows_kernel"),
+    ("transport", r"transport_tile_kernel"),
+    ("fht_pass", _FHT + r"[01](?!\d)"),
+    ("fht_modal", _FHT + r"2(?!\d)"),
+    ("predictor_general_xz", r"predictor_general_xz_kernel"),
+    ("nu_sgs_xz", r"nu_sgs_xz_kernel"),
+    ("divergence_xz", r"divergence_xz_kernel"),
+    ("correct_xz", r"correct_xz_kernel")))
+
+
+def device_launches(records) -> dict:
+    """{wrapper name: launches} of the port's kernels among device kernel
+    records, an iterable of (symbol, count): a CUDA graph's kernel nodes
+    (count 1 each) or a profiler window's kernels. A wrapper that launches
+    several kernels a call counts the calls whose every kernel is there
+    (the fewest of its kernels' counts); every other symbol (library and
+    torch kernels) counts for none."""
+    per = {}
+    for symbol, count in records:
+        for i, (_, pattern) in enumerate(_SYMBOLS):
+            if pattern.search(symbol):
+                per[i] = per.get(i, 0) + count
+                break
+    out = {}
+    for i, (name, _) in enumerate(_SYMBOLS):
+        n = per.get(i, 0)
+        out[name] = min(out.get(name, n), n)
+    return {k: n for k, n in out.items() if n}
+
+
+# a kernel node of a CUDA graph's DOT dump (cudaGraphDebugDotPrint,
+# verbose): its label's type and, for a kernel, its mangled symbol
+_DOT_KERNEL = re.compile(r'label="\{\s*KERNEL\s*\|\s*\{\s*ID\s*\|[^|]*\|\s*'
+                         r'([^\s\\<|]+)')
+
+
+def dot_kernel_symbols(dot: str) -> list:
+    """The symbols of a CUDA graph's kernel nodes, one a node, from the
+    graph's DOT dump (torch.cuda.CUDAGraph.debug_dump); copy and memset
+    nodes are not kernels."""
+    return _DOT_KERNEL.findall(dot)

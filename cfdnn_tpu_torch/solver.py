@@ -6,12 +6,15 @@ the RANS closures) and nu_t -> dt (fixed, or the adaptive CFL and
 diffusion limit) -> the time integrator: forward Euler, or RK2/RK3
 (SSP) with a projection after every stage. A stage is predictor -> BC ->
 IBM forcing -> divergence -> direct FDM Poisson solve (rhs masked in the
-solid with IBM) -> pressure correction -> IBM forcing -> BC. Where the
-reference jits the step and scans n of them, the port runs the same
-functions eagerly in a plain Python loop; the per-step work on CUDA goes
-through the hand-written kernels of `ops/kernels.py`. dt is a 0-d tensor
-on the device, the kernels read it through a pointer, and nothing in a
-step reads it (or any other device value) on the host.
+solid with IBM) -> pressure correction -> IBM forcing -> BC. The per-step
+work on CUDA goes through the hand-written kernels of `ops/kernels.py`.
+dt is a 0-d tensor on the device, the kernels read it through a pointer,
+and nothing in a step reads it (or any other device value) on the host.
+Where the reference jits the step and scans n of them (`lax.scan`), the
+port's `run` on a CUDA device replays the step captured in CUDA graphs
+(`torch.cuda.CUDAGraph`, chunks of GRAPH_CHUNK steps); on the CPU, for a
+state that requires grad and with CFDNN_POISSON_DIAGNOSTICS it runs the
+same step in a plain Python loop (`run`).
 
 Kernel dispatch is explicit (`Simulation.kernels`). On CUDA with
 use_pallas "auto" or "on" the plan first takes the reference's tiling mode
@@ -64,14 +67,17 @@ from __future__ import annotations
 
 import dataclasses
 import os
-from typing import Optional, Tuple
+import tempfile
+import warnings
+import weakref
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
 
 from .config import (BCType, Config, ConvectiveScheme, PoissonSolverType,
                      TimeIntegrator, TurbulenceModel)
-from .fields import State, zero_state
+from .fields import _STATE_KEYS, State, velocity_shapes, zero_state
 from .mesh import Mesh
 from .ops import kernels
 from .ops import operators as ops
@@ -125,6 +131,48 @@ class KernelPlan:
 SLAB_FIT_CELLS = 6 * 256 * 256
 # pallas_kernels.py _XZ_BUDGET_CELLS: the xz block budget of _auto_bxz
 _XZ_BUDGET_CELLS = 2 * 512 * 128
+
+# Steps one captured CUDA graph holds. The graph reads its input State from
+# fixed buffers and ends with one copy of its last step's State back into
+# them, so `run` replays chunks of this many steps and copies the state
+# once a chunk (u, v, w, p read and written: 67 MB at 128^3 float32, ~11%
+# of a step's device time at every width). Two buffers taking turns would
+# not save the copy: the step allocates its outputs, so no graph can write
+# its last State into the other buffer. Timed on the H100 against 1, 2 and
+# 8 steps (PERF.md: `python -m cfdnn_tpu_torch.path_ab` on two copies of
+# the package that differ only here).
+GRAPH_CHUNK = 16
+
+
+def graph_kernel_symbols(graph) -> list:
+    """The symbols of an instantiated torch.cuda.CUDAGraph's kernel nodes
+    (one a node), from its DOT dump (`debug_dump`, which needs a graph
+    made with keep_graph=True and frees the graph's node list after it;
+    the instantiated graph replays on)."""
+    with tempfile.TemporaryDirectory() as tmp, warnings.catch_warnings():
+        # debug_dump announces itself with a warning
+        warnings.simplefilter("ignore")
+        path = os.path.join(tmp, "graph.dot")
+        graph.debug_dump(path)
+        with open(path) as f:
+            return kernels.dot_kernel_symbols(f.read())
+
+
+def _identity(state: State, members) -> tuple:
+    """(weak reference, version) of each of `state`'s member tensors, for
+    `_same_tensors`."""
+    return tuple((weakref.ref(t), t._version)
+                 for t in (getattr(state, k) for k in members))
+
+
+def _same_tensors(identity, state: State, members) -> bool:
+    """Whether `state`'s members are the tensors `identity` was taken of,
+    none of them written since (torch bumps a tensor's version at every
+    in-place write)."""
+    return identity is not None and all(
+        ref() is t and t._version == version
+        for (ref, version), t in zip(identity,
+                                     (getattr(state, k) for k in members)))
 
 
 def slab_fits(geom) -> bool:
@@ -227,6 +275,7 @@ class Simulation:
         self.geom = Geometry.make(self.mesh, cfg, device=self.device)
         self.dtype = self.geom.dtype
         self.poisson = self._make_poisson()
+        self.poisson_selection_reason = self.poisson.name
         self.turb = create_turbulence_model(cfg, self.mesh, self.geom)
         self._dt = torch.full((), cfg.dt, dtype=self.dtype, device=self.device)
         self._zero = torch.zeros((), dtype=self.dtype, device=self.device)
@@ -237,6 +286,16 @@ class Simulation:
         # and its per-solve residual print (cfdnn_tpu/solver.py:632-640)
         self._poisson_diagnostics = bool(
             os.environ.get("CFDNN_POISSON_DIAGNOSTICS"))
+        # the CUDA graphs of `run`: one capture stream and memory pool
+        # (made at the first capture), the graphs' fixed input buffers by
+        # the State members present, the graphs by (members, diagnostics,
+        # steps)
+        self._graph_stream = self._graph_pool = None
+        self._graph_io = {}
+        self._graphs = {}
+        # by members: the _identity of the State the buffers hold (the last
+        # graphed run's result)
+        self._graph_holds = {}
         self._plan()
         self._dt_limits = self._adaptive_dt_limits() if cfg.adaptive_dt \
             else None
@@ -244,7 +303,8 @@ class Simulation:
     def _plan(self) -> None:
         """Select the kernel plan, the fused-divergence mode and the
         kernels' geometry vectors (again after an immersed body is
-        attached)."""
+        attached, which also drops the CUDA graphs captured before)."""
+        self._graphs.clear()
         self.kernels = self._select_kernels()
         self._fuse_div = self._fuse_div_mode()
         pred = self.kernels.predictor
@@ -407,6 +467,16 @@ class Simulation:
         """The closure's initialisation of a state (the k and omega
         estimates of the transport models; the identity otherwise)."""
         return self.turb.initialize(state, self)
+
+    def project_initial_velocity(self, state: State) -> State:
+        """One-time divergence cleanup of an initial or perturbed field
+        without advancing time (the reference's project_initial_velocity,
+        cfdnn_tpu/solver.py:511-521): one projection at dt = 1 through the
+        step's own projection (its kernels where the plan has them); p is
+        left as it was."""
+        one = torch.ones((), dtype=self.dtype, device=self.device)
+        comps, _ = self._project((state.u, state.v, state.w), one)
+        return state.replace(u=comps[0], v=comps[1], w=comps[2])
 
     # ------------------------------------------------------------------
     # Physics pieces
@@ -624,19 +694,254 @@ class Simulation:
         return new_state, diags
 
     # ------------------------------------------------------------------
-    # Public API
+    # The step captured in CUDA graphs
+    # ------------------------------------------------------------------
+
+    def _graphed(self, state: State) -> bool:
+        """Whether `run` replays CUDA graphs for `state` (the rules in its
+        docstring)."""
+        return (self.device.type == "cuda" and not self._poisson_diagnostics
+                and not any(getattr(state, k) is not None
+                            and getattr(state, k).requires_grad
+                            for k in _STATE_KEYS))
+
+    def _graph_buffers(self, state: State):
+        """(members, (input State, diagnostics)): the graphs' fixed buffers
+        for the State members `state` carries, made once from a copy of it.
+        A member of another shape, dtype or device than this Simulation's
+        raises ValueError: a graph replays what it captured."""
+        cfg = self.cfg
+        members = tuple(k for k in _STATE_KEYS
+                        if getattr(state, k) is not None)
+        cells = (cfg.Nx, cfg.Ny, cfg.Nz)
+        shapes = dict(zip(("u", "v", "w"), velocity_shapes(cfg)), p=cells,
+                      k=cells, omega=cells, nu_t=cells)
+        dev = self.device
+        if dev.type == "cuda" and dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+        for name in members:
+            t = getattr(state, name)
+            want = (shapes.get(name, ()),
+                    torch.int32 if name == "step" else self.dtype, dev)
+            got = (tuple(t.shape), t.dtype, t.device)
+            if got != want:
+                raise ValueError(
+                    f"run: state.{name} has (shape, dtype, device) {got}; "
+                    f"this Simulation's graphs take {want}")
+        io = self._graph_io.get(members)
+        if io is None:
+            zero = self._zero
+            io = self._graph_io[members] = (
+                State(**{k: getattr(state, k).detach().clone()
+                         for k in members}),
+                StepDiagnostics(
+                    residual=zero.clone(), div_linf=zero.clone(),
+                    dt=zero.clone(), ke=zero.clone(),
+                    nan_flag=torch.zeros((), dtype=torch.bool,
+                                         device=self.device),
+                    fx=zero.clone(), fy=zero.clone(), fz=zero.clone()))
+        return members, io
+
+    def _graph(self, members, diags: bool, steps: int):
+        """(graph, launches, nodes) of `steps` steps (with or without the
+        diagnostics reductions) from the fixed input State of `members`:
+        the graph ends by copying its last State, and its diagnostics,
+        into the fixed buffers. Captured once a Simulation (`_capture`),
+        after one uncaptured warm-up step of the same kind, whose result
+        is dropped: the step writes none of its inputs, so the buffers stay
+        as they were."""
+        key = (members, diags, steps)
+        if key not in self._graphs:
+            S, D = self._graph_io[members]
+
+            def warm():
+                self._step_impl(S, with_diags=diags)
+
+            def body():
+                st = S
+                for _ in range(steps):
+                    st, d = self._step_impl(st, with_diags=diags)
+                for k in members:
+                    getattr(S, k).copy_(getattr(st, k))
+                if diags:
+                    for f in dataclasses.fields(StepDiagnostics):
+                        getattr(D, f.name).copy_(getattr(d, f.name))
+
+            self._graphs[key] = self._capture(warm, body)
+        return self._graphs[key]
+
+    def _capture(self, warm: Callable, body: Callable):
+        """(torch.cuda.CUDAGraph of body(), launches, nodes), on this
+        Simulation's capture stream and memory pool (made at the first
+        capture), after warm() ran uncaptured on the same stream: the first
+        launches do host work that a capture must not see (building the
+        kernel library, function attributes, occupancy queries, cuFFT
+        plans, cuBLAS handles). `launches` are the port's kernels the graph
+        holds, by wrapper: its kernel nodes counted by name
+        (`graph_kernel_symbols`, `kernels.device_launches`), which must
+        equal the wrappers' launches during the capture; `nodes` are all its
+        kernel nodes, library kernels included. A capture launches nothing,
+        so the wrappers' counts of it are taken off, and each replay adds
+        the graph's (ops.kernels.add_launches). A failed capture, or a graph
+        that holds other kernels than its capture launched, raises."""
+        if self._graph_stream is None:
+            self._graph_stream = torch.cuda.Stream(self.device)
+            self._graph_pool = torch.cuda.graph_pool_handle()
+        stream = self._graph_stream
+        current = torch.cuda.current_stream(self.device)
+        stream.wait_stream(current)
+        with torch.cuda.stream(stream), torch.no_grad():
+            warm()
+        current.wait_stream(stream)
+        before = kernels.launch_counts()
+        # keep_graph: the graph's nodes stay readable after instantiation
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+        with torch.no_grad(), torch.cuda.graph(graph, pool=self._graph_pool,
+                                               stream=stream):
+            body()
+        after = kernels.launch_counts()
+        called = {k: after[k] - before[k] for k in after
+                  if after[k] != before[k]}
+        kernels.add_launches(called, -1)
+        graph.instantiate()
+        symbols = graph_kernel_symbols(graph)
+        held = kernels.device_launches((s, 1) for s in symbols)
+        if held != called:
+            raise RuntimeError(f"a captured graph holds the kernels {held}; "
+                               f"its capture launched {called}")
+        return graph, held, len(symbols)
+
+    def _run_graphed(self, state: State, n: int, fast: bool):
+        """`run` by graph replays: the state copied into the fixed buffers
+        (unless they hold it already: `state` is what the last graphed run
+        of these members returned, unwritten since), chunks of GRAPH_CHUNK
+        steps (then single steps) replayed, and the result cloned out once,
+        so the returned State and diagnostics are the caller's own."""
+        members, (S, D) = self._graph_buffers(state)
+        # (steps, diagnostics) of the call; the graphs all captured before
+        # the state is copied in
+        parts = ((n - 1, False), (1, True)) if fast else ((n, True),)
+        replays = []
+        for m, diags in parts:
+            chunks, rest = divmod(m, GRAPH_CHUNK)
+            for steps, reps in ((GRAPH_CHUNK, chunks), (1, rest)):
+                if reps:
+                    replays.append((self._graph(members, diags, steps), reps))
+        if not _same_tensors(self._graph_holds.get(members), state, members):
+            for k in members:
+                getattr(S, k).copy_(getattr(state, k))
+        for (graph, launches, nodes), reps in replays:
+            for _ in range(reps):
+                graph.replay()
+            kernels.add_launches(launches, reps, nodes)
+        out = State(**{k: getattr(S, k).clone() for k in members})
+        self._graph_holds[members] = _identity(out, members)
+        return out, StepDiagnostics(**{
+            f.name: getattr(D, f.name).clone()
+            for f in dataclasses.fields(StepDiagnostics)})
+
+    # ------------------------------------------------------------------
+    # Public API (the reference's, cfdnn_tpu/solver.py:1042-1159)
     # ------------------------------------------------------------------
 
     def step(self, state: State) -> Tuple[State, StepDiagnostics]:
-        return self._step_impl(state, with_diags=True)
+        """One step with its diagnostics (`run` of one step)."""
+        return self.run(state, 1)
 
     def run(self, state: State, n: int) -> Tuple[State, StepDiagnostics]:
         """n steps. In benchmark or perf mode the first n-1 skip the
         diagnostics reductions and the last computes them, so the returned
-        diagnostics are always real (the reference's _nsteps_impl)."""
+        diagnostics are always real (the reference's _nsteps_impl);
+        otherwise every step computes them. The returned State and
+        diagnostics are the caller's own: no later call changes them.
+
+        On a CUDA device the steps replay CUDA graphs captured once a
+        Simulation (`_graph`), the counterpart of the reference's
+        lax.scan; a failed capture raises. A call copies `state` into the
+        graphs' fixed buffers, unless it is what the last call returned,
+        unwritten since (a step-by-step caller such as advance_unsteady
+        then pays only the clone out), and clones the result out. Three
+        cases run the plain Python loop of the same step instead, by rule:
+          - a CPU device (the tests);
+          - a state with a tensor that requires grad (autograd through the
+            step records each launch; a graph would replay none);
+          - CFDNN_POISSON_DIAGNOSTICS at construction, whose per-solve
+            residual is read on the host, a sync no capture may hold.
+        A state of another shape, dtype or device than this Simulation's
+        raises ValueError on the graph path."""
         if n < 1:
             raise ValueError(f"run: n={n}, need n >= 1")
         fast = self.cfg.benchmark or self.cfg.perf_mode
+        if self._graphed(state):
+            return self._run_graphed(state, n, fast)
+        return self._run_loop(state, n, fast)
+
+    def _run_loop(self, state: State, n: int, fast: bool):
+        """`run` as a plain Python loop of the step."""
         for _ in range(n - 1):
             state, _ = self._step_impl(state, with_diags=not fast)
         return self._step_impl(state, with_diags=True)
+
+    def solve_steady(self, state: State, tol: Optional[float] = None,
+                     max_steps: Optional[int] = None,
+                     callback: Optional[Callable] = None):
+        """Iterate to steady state (the reference's solve_steady,
+        cfdnn_tpu/solver.py:1086-1134): `run` chunks of
+        max(1, diag_interval) steps, the residual read on the host after
+        each, until residual < tol * dt. The reference's recycling
+        telemetry is left out: the port refuses recycling
+        (_check_supported, ROADMAP A.14)."""
+        cfg = self.cfg
+        tol = cfg.tol if tol is None else tol
+        max_steps = cfg.max_steps if max_steps is None else max_steps
+        check = max(1, cfg.diag_interval)
+        diags = None
+        it = 0
+        while it < max_steps:
+            n = min(check, max_steps - it)
+            state, diags = self.run(state, n)
+            it += n
+            res = float(diags.residual)
+            dtv = float(diags.dt)
+            if callback:
+                callback(it, state, diags)
+            if not np.isfinite(res):
+                raise FloatingPointError(f"NaN/Inf detected at step {it}")
+            # projection watchdog: alert on poor post-projection divergence
+            if (cfg.projection_watchdog
+                    and float(diags.div_linf) > cfg.div_threshold
+                    and cfg.verbose):
+                print(f"[watchdog] step {it}: post-projection "
+                      f"div_linf = {float(diags.div_linf):.3e} > "
+                      f"{cfg.div_threshold:g}")
+            if res < tol * max(dtv, 1e-30):
+                break
+        return state, diags
+
+    def solve_steady_with_snapshots(self, state: State,
+                                    snapshot_cb: Optional[Callable] = None,
+                                    snapshot_every: int = 0, **kw):
+        """solve_steady with a snapshot hook, called once at least
+        `snapshot_every` steps have passed since the last (">=", not a
+        modulo: solve_steady calls back every diag_interval steps, which a
+        modulo could alias)."""
+        last = [0]
+
+        def cb(it, st, d):
+            if (snapshot_every and snapshot_cb
+                    and it - last[0] >= snapshot_every):
+                last[0] = it
+                snapshot_cb(it, st, d)
+        return self.solve_steady(state, callback=cb, **kw)
+
+    def advance_unsteady(self, state: State, n_steps: int,
+                         callback: Optional[Callable] = None):
+        """n_steps steps: one `run` without a callback, else `step` by step
+        with callback(it, state, diags) after each."""
+        if callback is None:
+            return self.run(state, n_steps)
+        diags = None
+        for it in range(n_steps):
+            state, diags = self.step(state)
+            callback(it + 1, state, diags)
+        return state, diags

@@ -66,7 +66,17 @@ Phases, each of which raises on failure (nothing is caught):
      cases between NaN bands);
      float64 to 1e-14 of scale and float32 to 1e-5; each output of a
      kernel is held to its own twin output's scale;
-  3. the main paths (`_paths`), each with its launches per step declared:
+  3. capture (`phase_capture`): on each main path at its full width,
+     `Simulation.run` (CUDA graphs) against the plain loop of the same step
+     (`Simulation._run_loop`) from one state, 37 steps (two 16-step
+     graphs, single steps, the last with diagnostics), every State member
+     and diagnostic bit for bit, and 37 more from each result, again bit
+     for bit, with the first captured State unchanged by the second run
+     and the caller's state by either; the peak device memory of each;
+     each graph's kernels (read off its nodes by name) its steps times
+     the path's declared launches a step; on three paths the kernels
+     torch.profiler records over a captured run equal to the loop's;
+  4. the main paths (`_paths`), each with its launches per step declared:
      Simulation.run of the port's bench.py rows (the 128^3 Taylor-Green
      and channel, the 128x64x128 LES channel with static and dynamic
      Smagorinsky, the 128^3 LES Taylor-Green, the 128x96x96 LES duct, the
@@ -80,7 +90,11 @@ Phases, each of which raises on failure (nothing is caught):
      Taylor-Green (les_tgv640, 20 steps: the "xz" plan, each xz kernel
      once a step and no other kernel);
      float32, 200 steps, use_pallas="auto", the launch
-     counts set to 0 just before each run and read just after, each
+     counts set to 0 just before each run and read just after (the run
+     replays graphs captured by a run before it; a replay adds the port's
+     kernels its graph holds, counted by name off the graph's kernel nodes
+     at capture, where they must equal the wrappers' launches of the
+     capture), each
      kernel's count equal to 200 times its declared launches per step; the
      fields finite and of their shapes, the Taylor-Greens' kinetic energy
      decayed, the post-projection divergence (the fluid region's with
@@ -95,7 +109,7 @@ Phases, each of which raises on failure (nothing is caught):
      run, the first step's (k, omega, nu_t) through the kernel plan equal
      to the plain math's at float64 to 1e-12 * max|plain|; after it k,
      omega > 0 and nu_t >= 0, finite and not 0 everywhere;
-  4. each path at 32^3 (the LES and RANS channels and the fused channel
+  5. each path at 32^3 (the LES and RANS channels and the fused channel
      32x24x32, the duct 32x24x24, the LES + IBM channel 32x16x32; the
      "pallas_fft" paths 256x16x64 and 256x24x64, N1 = 2 on x) in float64
      for 20 steps, kernels on against use_pallas="off" on the card (the
@@ -107,9 +121,19 @@ Phases, each of which raises on failure (nothing is caught):
      steps of the xz kernels on the card against the operators on the CPU,
      u, v, w, nu_t <= 1e-12 of each one's scale, p of the larger of its
      own and the velocity's;
-  5. timing: ms/step and Mcells/s of each unfused main-path step
+  6. the apps (`phase_apps`) through their entry points on the card:
+     the 128^3 Re 1600 taylor_green_3d (float32, 300 steps, KE never
+     rising, div_linf <= 1e-3), the channel's Poiseuille at 32x64x32
+     (float64, rel L2 <= 4e-4), the 64x48x48 duct (float64, its steady
+     series-solution error equal to the JAX package's CPU value to 1e-6)
+     and a 32^3 float64 taylor_green_3d of 50 steps (KE and enstrophy to
+     1e-10 of the JAX package's CPU values), each app's launches a step
+     declared;
+  7. timing: ms/step and Mcells/s of each unfused main-path step
      (marginal step time, as the port's bench.py; the 512^3 rows over 100
-     steps) with a torch.profiler breakdown, the 512^3 rows also with the
+     steps) with a torch.profiler breakdown, beside the same of the plain
+     loop of the step (on STEPWISE also a step a call, advance_unsteady
+     with a callback against the loop stepped), the 512^3 rows also with the
      transform "auto" (cuFFT; tgv512, channel512) and each transform's
      div_linf after the first 100 steps; each kernel against its twin at
      the main-path shapes with CUDA events and with the profiler's device
@@ -125,7 +149,7 @@ Phases, each of which raises on failure (nothing is caught):
      with its profile, and each xz kernel at 640^3 beside its twin and
      the slab kernel of its function on the same inputs (with its float32
      difference from that slab kernel);
-  6. the A/B: tgv, channel and les_channel unfused and fused, in the
+  8. the A/B: tgv, channel and les_channel unfused and fused, in the
      order off, on, on, off, ms/step and device ms/step of each.
 It prints the `kernels` JSON line (each kernel's bound: the larger of its
 main case's bytes over 3.35 TB/s and its operations over 67 TFLOP/s,
@@ -1761,6 +1785,19 @@ def build_case(path, n, **kw):
         return path.case(n, **{**path.kw, **kw})
 
 
+def warm_graphs(sim, st, n):
+    """sim.run(st, n) with its result dropped, on a CUDA Simulation: its
+    first run captures the CUDA graphs a run of n steps replays (one
+    uncaptured warm-up step each, real launches), so that a run counted
+    after it is replays only. Returns the seconds it took."""
+    if sim.device.type != "cuda":
+        return 0.0
+    t0 = time.perf_counter()
+    sim.run(st, n)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
 def _cells(sim):
     return sim.cfg.Nx * sim.cfg.Ny * sim.cfg.Nz
 
@@ -1906,6 +1943,7 @@ def phase_main_path(device):
                 check_first_transport_step(path, sim)
             elif closure:
                 check_initial_nu_t(path, sim, st)
+        capture = warm_graphs(sim, st, path.steps)
         K.reset_launch_counts()
         t0 = time.perf_counter()
         st, d = sim.run(st, path.steps)
@@ -1967,8 +2005,9 @@ def phase_main_path(device):
             extra += (f", fx {fx:.6e}, fy {fy:.6e}, fz {float(d.fz):.6e}, "
                       f"max|u| inside the body {u_in:.3e} of {u_max:.3e}")
         grid = "x".join(str(a) for a in (sim.cfg.Nx, sim.cfg.Ny, sim.cfg.Nz))
-        print(f"[main] {name} {grid} float32 (built in {built:.2f} s) "
-              f"{path.steps} steps in {wall:.2f} s: launches {counts}, "
+        print(f"[main] {name} {grid} float32 (built in {built:.2f} s, "
+              f"graphs captured in {capture:.2f} s) {path.steps} steps in "
+              f"{wall:.2f} s: launches {counts}, "
               f"KE {ke0:.6e} -> {ke:.6e}, "
               f"div_linf {div:.3e}{extra}, t {float(st.t):.6f}, "
               f"dt {float(d.dt):.6e}")
@@ -2009,6 +2048,7 @@ def phase_trajectories(device):
                 **kw, **extra)[0]
             st = State(**{k: (None if v is None else v.to(dev))
                           for k, v in vars(st0).items()})
+            warm_graphs(sim, st, 20)
             K.reset_launch_counts()
             fin, _ = sim.run(st, 20)
             n = sum(K.launch_counts().values())
@@ -2058,6 +2098,7 @@ def phase_xz_trajectories(device):
         for label, s in (("kernels", sim), ("cpu", cpu)):
             st = State(**{k: (None if v is None else v.to(s.device))
                           for k, v in vars(st0).items()})
+            warm_graphs(s, st, 20)
             K.reset_launch_counts()
             fin, _ = s.run(st, 20)
             counts = K.launch_counts()
@@ -2081,6 +2122,257 @@ def phase_xz_trajectories(device):
                   f"vs cpu: max|d| = {err:.3e} ({err / scale:.2e} of its "
                   f"scale {scale:.3e}; limit {lim:.3e})")
             check(err <= lim, f"xz {name} {k}: {err} > {lim}")
+
+
+def _same(a, b):
+    """Whether two States (or StepDiagnostics) hold the same members, bit
+    for bit."""
+    import dataclasses
+    for f in dataclasses.fields(a):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        if (x is None) != (y is None):
+            return False
+        if x is not None and not torch.equal(x, y):
+            return False
+    return True
+
+
+def _host_copy(st):
+    from cfdnn_tpu_torch import State
+    return State(**{k: (None if v is None else v.detach().cpu())
+                    for k, v in vars(st).items()})
+
+
+def _kernel_records(fn):
+    """{kernel name: launches} of the device kernels torch.profiler
+    (CUPTI) records over fn(), copies and fills left out, behind the
+    short spin kernels of bench._window (the profiler lost the record of
+    les_ibm256's first kernel, nu_sgs, in three windows of three without
+    them); a window that lacks a record of a launch it must hold
+    (`bench.window_complete`) is recorded again, up to
+    bench.PROFILE_WINDOWS times."""
+    from cfdnn_tpu_torch import bench
+    missing = []
+    for _ in range(bench.PROFILE_WINDOWS):
+        # a one-cycle spin: the window's pad kernels without a wait
+        prof, _, _, _, launched = bench._window(lambda n: fn(), 1, 1)
+        events = bench._recorded(prof)[0]
+        whole, got = bench.window_complete(events, launched)
+        if whole:
+            return {e.key: e.count for e in events if not bench.is_copy(e.key)}
+        missing.append((got, launched))
+    raise RuntimeError(f"torch.profiler lacked launches in every window "
+                       f"((recorded, launched) {missing})")
+
+
+# steps of the capture phase's runs: two chunks of GRAPH_CHUNK (16) steps,
+# single-step graphs and the last step with the diagnostics
+CAPTURE_STEPS = 37
+# paths whose captured run and loop the capture phase also lists by
+# torch.profiler's kernel records
+CAPTURE_PROFILED = ("tgv", "les_channel_dynamic", "les_ibm256")
+
+
+def phase_capture(device):
+    """`Simulation.run` as it replays CUDA graphs against the plain loop of
+    the same step (`Simulation._run_loop`) on each main path at its full
+    width: CAPTURE_STEPS steps from one initial state, every State member
+    and diagnostic bit for bit; then CAPTURE_STEPS more from each result,
+    bit for bit again, the first captured State unchanged by the second
+    run and the caller's initial state unchanged by either; the peak
+    device memory of each (torch.cuda.max_memory_allocated, the captured
+    run's first call, which captures, included); each graph's kernels,
+    read off its nodes by name at capture, equal to its steps times the
+    path's declared launches a step. On CAPTURE_PROFILED, the kernels
+    torch.profiler records over a captured run equal to the loop's, kernel
+    for kernel (a window that lacks a launch it must hold is recorded
+    again)."""
+    from cfdnn_tpu_torch import bench, solver
+    # the card's gap between back-to-back kernels (bench.profiled's
+    # correction), measured before any profiler window sees a graph: its
+    # window of 256 launches must be recorded whole, and CUPTI dropped a
+    # quarter of it once graph replays had been traced
+    bench.launch_gap()
+    rows = {}
+    for path in _paths():
+        if path.timed_only:
+            continue
+        name = path.name
+        sim, st = build_case(path, path.n, device=device)
+        fast = sim.cfg.benchmark or sim.cfg.perf_mode
+        st_host = _host_copy(st)
+        n = CAPTURE_STEPS
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        ref, dref = sim._run_loop(st, n, fast)
+        torch.cuda.synchronize()
+        loop_peak = torch.cuda.max_memory_allocated() - base
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        got, dgot = sim.run(st, n)
+        torch.cuda.synchronize()
+        first = time.perf_counter() - t0
+        graph_peak = torch.cuda.max_memory_allocated() - base
+        check(_same(ref, got) and _same(dref, dgot),
+              f"{name}: captured run differs from the loop")
+        got_host = _host_copy(got)
+        ref2, dref2 = sim._run_loop(ref, n, fast)
+        del ref
+        got2, dgot2 = sim.run(got, n)
+        check(_same(ref2, got2) and _same(dref2, dgot2),
+              f"{name}: the second captured run differs from the loop")
+        del ref2, got2
+        check(_same(_host_copy(got), got_host),
+              f"{name}: a later run changed the State an earlier one "
+              "returned")
+        check(_same(_host_copy(st), st_host),
+              f"{name}: a run changed the caller's initial state")
+        graphs = len(sim._graphs)
+        rows[name] = dict(loop_mb=loop_peak / 2**20,
+                          captured_mb=graph_peak / 2**20)
+        print(f"[capture] {name} ({sim.kernels.predictor}, "
+              f"{sim.kernels.closure}): {n} + {n} steps, captured run equal "
+              f"to the loop bit for bit, State and diagnostics; {graphs} "
+              f"graphs, first captured run {first:.2f} s; peak device "
+              f"memory above the state loop {loop_peak / 2**20:.1f} MB, "
+              f"captured {graph_peak / 2**20:.1f} MB")
+        # what each graph holds: the port's kernels (read off its nodes by
+        # name at capture) a step times its steps, as the path declares
+        for (_, diags, steps), (_, held, nodes) in sorted(
+                sim._graphs.items(), key=lambda kv: kv[0][1:]):
+            want = {k: steps * c for k, c in path.launches.items() if c}
+            print(f"[capture] {name} graph of {steps} steps "
+                  f"({'with' if diags else 'without'} diagnostics): "
+                  f"{nodes} kernel nodes, the port's {held}")
+            check(held == want, f"{name}: a {steps}-step graph holds {held}, "
+                  f"declared {want}")
+        if name in CAPTURE_PROFILED:
+            m = 2 * solver.GRAPH_CHUNK
+            for turn in range(bench.PROFILE_WINDOWS):
+                loop = _kernel_records(lambda: sim._run_loop(got, m, fast))
+                graph = _kernel_records(lambda: sim.run(got, m))
+                if loop == graph:
+                    break
+            print(f"[capture] {name} torch.profiler over {m} steps: loop "
+                  f"{sum(loop.values())} kernel records of {len(loop)} "
+                  f"kernels, captured {sum(graph.values())} of {len(graph)}")
+            for k in sorted(set(loop) | set(graph)):
+                if loop.get(k) != graph.get(k):
+                    print(f"[capture]   {loop.get(k, 0):5d} loop "
+                          f"{graph.get(k, 0):5d} captured  {k[:100]}")
+            check(loop == graph, f"{name}: the captured run's kernel records "
+                  "differ from the loop's")
+        del sim, st, got, dgot
+    print(json.dumps({"capture_peak_mb": rows}))
+
+
+# The JAX package's CPU values of the apps phase's float64 runs, at the
+# same arguments (python -m cfdnn_tpu.apps.duct / .taylor_green_3d with
+# JAX on the CPU in float64; PERF.md): the duct's series-solution
+# error after its steady solve (21100 steps) and the 32^3 Taylor-Green's
+# kinetic energy and enstrophy after 50 steps
+DUCT_ARGS = ["--Nx", "64", "--Ny", "48", "--Nz", "48", "--nu", "0.05",
+             "--dt", "2e-3", "--adaptive_dt", "false", "--max_steps",
+             "40000", "--diag_interval", "100"]
+DUCT_STEPS_REF = 21100
+DUCT_REL_ERR_REF = 0.0016456839929060443
+TGV32_ARGS = ["--Nx", "32", "--Ny", "32", "--Nz", "32", "--dtype", "float64",
+              "--max_steps", "50"]
+TGV32_KE_REF = 0.11841308381136248
+TGV32_ENSTROPHY_REF = 1.411811705250982
+# the verify recipe's Poiseuille (nu 0.05, dp/dx -1, dt 5e-3, rest start)
+# at 32x64x32; z spans 2 pi as x does (on z's default unit span the
+# explicit diffusion limit would be 4.8e-3 < dt)
+CHANNEL_ARGS = ["--Nx", "32", "--Ny", "64", "--Nz", "32", "--z_max",
+                repr(2 * math.pi), "--nu", "0.05", "--dp_dx", "-1", "--dt",
+                "5e-3", "--adaptive_dt", "false", "--max_steps", "30000",
+                "--diag_interval", "100"]
+APP_COMMON = ["--num_snapshots", "0", "--write_fields", "false"]
+# each app's kernel launches a step: the Taylor-Green's three RK3 stages on
+# the periodic predictor, the 3-D channel's and the duct's Euler step on the
+# channel and the general predictor
+APP_LAUNCHES = {
+    "taylor_green_3d": dict(predictor_periodic=3, divergence=3, correct=3),
+    "channel": dict(predictor_channel=1, divergence=1, correct=1),
+    "duct": dict(predictor_general=1, divergence=1, correct=1),
+}
+
+
+def phase_apps(device):
+    """The apps as a user starts them (their `main`, or run_case with a
+    callback), on the card: the 128^3 Re 1600 Taylor-Green in float32 for
+    300 steps, its kinetic energy non-increasing step to step, div_linf <=
+    1e-3, its QOI lines printed; the channel's Poiseuille (CHANNEL_ARGS) to
+    steady state, rel L2 against the exact profile <= 4e-4; the duct
+    (DUCT_ARGS) to steady state, its series-solution error equal to the
+    JAX package's CPU value to 1e-6 relative at the same step; the 32^3
+    float64 Taylor-Green of 50 steps, its kinetic energy and enstrophy
+    equal to the JAX package's CPU values to 1e-10 relative. Each app's
+    kernel launches (counted from 0 before it) are its steps' and its
+    graphs' warm-up steps' (one a graph) times APP_LAUNCHES."""
+    from cfdnn_tpu_torch.apps import channel, duct, runner, taylor_green_3d
+    from cfdnn_tpu_torch.fields import init_taylor_green
+    from cfdnn_tpu_torch.ops import kernels as K
+    check(device.type == "cuda", "the apps phase runs on the card")
+
+    def launches(app, sim, st):
+        counts = {k: c for k, c in K.launch_counts().items() if c}
+        steps, warm = int(st.step), len(sim._graphs)
+        want = {k: (steps + warm) * c for k, c in APP_LAUNCHES[app].items()}
+        print(f"[apps] {app} launches {counts} in {steps} steps and {warm} "
+              f"warm-up steps: {APP_LAUNCHES[app]} a step")
+        check(counts == want, f"{app}: launches {counts}, expected {want}")
+        K.reset_launch_counts()
+
+    kes = []
+    K.reset_launch_counts()
+    with timed("apps taylor_green_3d 128^3"):
+        sim, st, d = runner.run_case(
+            "taylor_green_3d", taylor_green_3d.default_config(),
+            ["--Nx", "128", "--Ny", "128", "--Nz", "128", "--Re", "1600",
+             "--max_steps", "300", "--output_freq", "100", *APP_COMMON],
+            ic=init_taylor_green, validate=taylor_green_3d.validate,
+            callback=lambda it, s, dd: kes.append(float(dd.ke)))
+    check(sim.device.type == "cuda" and sim.cfg.dtype == "float32",
+          f"tgv128 app on {sim.device}, {sim.cfg.dtype}")
+    rises = [i for i in range(1, len(kes)) if kes[i] > kes[i - 1]]
+    div = float(d.div_linf)
+    print(f"[apps] taylor_green_3d 128^3 Re 1600 float32: {len(kes)} steps, "
+          f"KE {kes[0]:.7e} -> {kes[-1]:.7e}, steps where KE rose "
+          f"{len(rises)}, div_linf {div:.3e}, t {float(st.t):.6f}")
+    check(len(kes) == 300 and not rises, f"tgv128 app: KE rose at {rises}")
+    check(div <= 1e-3, f"tgv128 app: div_linf {div}")
+    launches("taylor_green_3d", sim, st)
+    with timed("apps channel"):
+        sim, st, d = channel.main(CHANNEL_ARGS + APP_COMMON)
+    launches("channel", sim, st)
+    rel = channel.validate(sim, st, d)["poiseuille_rel_l2"]
+    print(f"[apps] channel 32x64x32 float64: {int(st.step)} steps, "
+          f"Poiseuille rel L2 {rel:.6e} (limit 4e-4)")
+    check(rel <= 4e-4, f"channel app: rel L2 {rel}")
+    with timed("apps duct"):
+        sim, st, d = duct.main(DUCT_ARGS + APP_COMMON)
+    launches("duct", sim, st)
+    err = duct.validate(sim, st, d)["duct_bulk_rel_err"]
+    steps = int(st.step)
+    print(f"[apps] duct 64x48x48 float64: {steps} steps (JAX CPU "
+          f"{DUCT_STEPS_REF}), series error {err!r} (JAX CPU "
+          f"{DUCT_REL_ERR_REF!r}, d {abs(err / DUCT_REL_ERR_REF - 1):.3e})")
+    check(steps == DUCT_STEPS_REF
+          and abs(err - DUCT_REL_ERR_REF) <= 1e-6 * DUCT_REL_ERR_REF,
+          f"duct app: {steps} steps, error {err}")
+    with timed("apps taylor_green_3d 32^3"):
+        sim, st, d = taylor_green_3d.main(TGV32_ARGS + APP_COMMON)
+    launches("taylor_green_3d", sim, st)
+    ke, ens = float(d.ke), taylor_green_3d.enstrophy(sim, st)
+    print(f"[apps] taylor_green_3d 32^3 float64 50 steps: KE {ke!r} (JAX "
+          f"CPU {TGV32_KE_REF!r}), enstrophy {ens!r} (JAX CPU "
+          f"{TGV32_ENSTROPHY_REF!r})")
+    check(abs(ke - TGV32_KE_REF) <= 1e-10 * TGV32_KE_REF
+          and abs(ens - TGV32_ENSTROPHY_REF) <= 1e-10 * TGV32_ENSTROPHY_REF,
+          f"tgv32 app: KE {ke}, enstrophy {ens}")
 
 
 def _event_ms(fn, reps=50):
@@ -2141,16 +2433,24 @@ TIMED_STEPS = {"tgv": 1000, "channel": 1000, "les_ibm256": 150,
 # best-of repetitions of the marginal (bench.time_steps' 3), fewer where a
 # step takes tens of milliseconds
 TIMED_REPS = {"les_tgv640": 1}
+# paths also timed a step at a time, as advance_unsteady runs with a
+# callback (the apps' unsteady loop): `step` replaying one-step graphs
+# against the plain loop stepped one step a call
+STEPWISE = ("tgv", "les_channel", "tgv_re1600", "les_tgv640")
 
 
-def _time_path(path, sim, st, rows):
-    """ms/step, Mcells/s (and the div) of a path into `rows`, and its
-    torch.profiler breakdown printed; returns (ms/step, device ms/step,
-    div_linf after the first timed run)."""
+def _time_path(path, sim, st, rows, loop=True):
+    """ms/step, Mcells/s (and the div) of a path's `run` (its CUDA graphs)
+    into `rows`, and its torch.profiler breakdown printed; with `loop`, the
+    same of the plain loop of the step (`Simulation._run_loop`) beside it
+    (rows' `<path>_loop_ms_per_step`, `<path>_loop_device_ms_per_step`);
+    returns (ms/step, device ms/step, div_linf after the first timed run)
+    of `run`."""
     from cfdnn_tpu_torch import bench
     name = path.name
-    s, d = bench.time_steps(sim, st, steps=TIMED_STEPS.get(
-        name.replace("_fused", ""), 400), reps=TIMED_REPS.get(name, 3))
+    steps = TIMED_STEPS.get(name.replace("_fused", ""), 400)
+    reps = TIMED_REPS.get(name, 3)
+    s, d = bench.time_steps(sim, st, steps=steps, reps=reps)
     rows[f"{name}_ms_per_step"] = s * 1e3
     rows[f"{name}_mcells_per_s"] = _cells(sim) / s / 1e6
     if sim.cfg.bc_y.value == "wall":
@@ -2158,13 +2458,60 @@ def _time_path(path, sim, st, rows):
     prof = bench.profile_steps(sim, st)
     busy = prof["device_ms_per_step"]
     check(busy > 0, f"{name}: the profiler recorded no device time")
+    rows[f"{name}_device_ms_per_step"] = busy
     print(f"[profile] {name}: device {busy:.4f} ms/step of "
           f"{s * 1e3:.4f} ms/step (idle share {1 - busy / (s * 1e3):.3f};"
           f" device span {prof['span_ms_per_step']:.4f} ms/step over "
           f"{prof['steps']} steps)")
     for kname, ms, count in prof["kernels"][:12]:
         print(f"[profile]   {ms:9.5f} ms/step  x{count:g}  {kname[:110]}")
+    if loop:
+        fast = sim.cfg.benchmark or sim.cfg.perf_mode
+
+        def run_loop(state, n):
+            return sim._run_loop(state, n, fast)
+
+        s_loop, _ = bench.time_steps(sim, st, steps=steps, reps=reps,
+                                     run=run_loop)
+        busy_loop = bench.profile_steps(sim, st, run=run_loop)[
+            "device_ms_per_step"]
+        rows[f"{name}_loop_ms_per_step"] = s_loop * 1e3
+        rows[f"{name}_loop_device_ms_per_step"] = busy_loop
+        print(f"[profile] {name} loop: device {busy_loop:.4f} ms/step of "
+              f"{s_loop * 1e3:.4f} ms/step (idle share "
+              f"{1 - busy_loop / (s_loop * 1e3):.3f}); captured "
+              f"{s * 1e3:.4f} ms/step, {s_loop / s:.3f}x faster")
+    if loop and name in STEPWISE:
+        _time_stepwise(name, sim, st, steps, reps, rows)
     return s * 1e3, busy, float(d.div_linf)
+
+
+def _time_stepwise(name, sim, st, steps, reps, rows):
+    """Marginal ms/step of advance_unsteady with a callback (a `step` a
+    step: one-step graphs, the state cloned out each step) beside the
+    plain loop stepped one step a call, every step with its diagnostics
+    in both (rows' `<path>_stepwise_ms_per_step`,
+    `<path>_stepwise_loop_ms_per_step`)."""
+    from cfdnn_tpu_torch import bench
+    fast = sim.cfg.benchmark or sim.cfg.perf_mode
+
+    def graphs(state, n):
+        return sim.advance_unsteady(state, n, callback=lambda *a: None)
+
+    def loop(state, n):
+        for _ in range(n):
+            state, d = sim._run_loop(state, 1, fast)
+        return state, d
+
+    ms = {}
+    for tag, run in (("graphs", graphs), ("loop", loop)):
+        ms[tag] = bench.time_steps(sim, st, steps=steps, reps=reps,
+                                   run=run)[0] * 1e3
+    rows[f"{name}_stepwise_ms_per_step"] = ms["graphs"]
+    rows[f"{name}_stepwise_loop_ms_per_step"] = ms["loop"]
+    print(f"[profile] {name} a step a call (advance_unsteady with a "
+          f"callback): graphs {ms['graphs']:.4f} ms/step, loop "
+          f"{ms['loop']:.4f} ms/step, {ms['loop'] / ms['graphs']:.3f}x")
 
 
 def _pair_ms(case, reps, dreps):
@@ -2305,7 +2652,8 @@ def phase_ab(device):
         for turn, fused in enumerate((False, True, True, False)):
             path = paths[base + "_fused" if fused else base]
             ms, busy, _ = _time_path(
-                path, *build_case(path, path.n, device=device), {})
+                path, *build_case(path, path.n, device=device), {},
+                loop=False)
             print(f"[ab] {base} turn {turn + 1} "
                   f"{'fused' if fused else 'unfused'}: {ms:.4f} ms/step, "
                   f"device {busy:.4f} ms/step")
@@ -2371,12 +2719,16 @@ def main():
         phase_build()
     with timed("kernels"):
         errs = phase_kernels(device)
+    with timed("capture"):
+        phase_capture(device)
     with timed("main paths"):
         launches, divs, per_step = phase_main_path(device)
     with timed("trajectories"):
         phase_trajectories(device)
     with timed("xz trajectories"):
         phase_xz_trajectories(device)
+    with timed("apps"):
+        phase_apps(device)
     with timed("timing"):
         rows, times = phase_timing(device, errs)
     with timed("solve"):
