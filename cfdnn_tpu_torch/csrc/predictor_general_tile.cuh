@@ -47,9 +47,27 @@
 // offsets: the wrapper refuses a field of 2^31 elements or more
 // (ops/kernels.py tile_refusal), and so does the launcher.
 //
+// O4 (space_order 4): on each O4 axis (periodic, uniform, n >= 4; x
+// always, y and z where they are) the reference's O4 stencils take the
+// place of the O2 ones in central convection (the advecting velocity
+// f2c_mean4 / c2f_mean4 along O4 axes, the O2 means with the wall ghosts
+// across a walled one, times same_diff4) and in scalar-nu diffusion
+// (same_diff2_4); skew convection and the diffusion with nu_t stay O2, as
+// in the reference. predictor_general_o4_kernel runs these terms (Tile's
+// O4 template argument; the O2 kernel's terms are the O2 instantiation's,
+// unchanged) with the O2 kernel's walk on xz::Wide, tile_stage.cuh's
+// window with a two-cell halo on every side and the y-planes j - 2 ...
+// j + 2, 12 x 36 points a plane in a ring of six slots (dynamic shared
+// memory: 83 KB at float64 with nu_t), from its own C entry
+// (predictor_general_o4.cu, which takes the O4 divisors). A skew run with
+// nu_t has no O4 term: the wrapper takes the O2 entry for it. The O4
+// reach costs the O2 kernel's bytes (each plane of each field is still
+// fetched once a block) and ~40% more staged points a plane.
+//
 // The float and double entry points are compiled apart
-// (predictor_general.cu, predictor_general_f64.cu), so that the library's
-// parallel build does not wait on one file of all the kernels.
+// (predictor_general.cu, predictor_general_f64.cu, and the O4 kernel's
+// predictor_general_o4.cu, predictor_general_o4_f64.cu), so that the
+// library's parallel build does not wait on one file of all the kernels.
 #pragma once
 
 #include <type_traits>
@@ -97,15 +115,31 @@ __device__ __forceinline__ Off with(Off o, int a, int x) {
     return o;
 }
 
+// The O4 kernel's constants: on each axis whether it is O4, and the
+// divisors of same_diff4 and same_diff2_4, 12 h and 12 h^2, as the
+// reference forms them on the host.
+template <typename T>
+struct O4Axes {
+    int on[3];
+    T d1[3];
+    T d2[3];
+};
+
 // The general predictor's terms on the staged window, those that
-// predictor_terms.cuh sets out, one function a term. x is periodic; y is too unless EDGE (a plane next
+// predictor_terms.cuh sets out, one function a term (with O4, the O4
+// terms on the axes q.on names). x is periodic; y is too unless EDGE (a plane next
 // to a wall of a walled y, where the y ghosts are formed at run time from
 // j), and z unless ZW (a block of a walled z's first z tile, bit 1, or its
 // last, bit 2, where the ghosts of that wall are formed from k). The
 // offsets are constants after inlining but on those planes and in those
 // blocks.
-template <typename T, bool NUT, bool EDGE, int ZW, typename View>
+template <typename T, bool NUT, bool EDGE, int ZW, typename View,
+          bool O4 = false>
 struct Tile {
+    // the staged metrics' row length (the window's x and z points)
+    static constexpr int kMx = O4 ? xz::kWidePx : kPx;
+    static constexpr int kMz = O4 ? xz::kWidePz : kPz;
+
     View win;
     const T* mx;       // staged x metrics at this thread's x: [m * kPx + di]
     const T* mz;       // staged z metrics at this thread's z: [m * kPz + dk]
@@ -115,6 +149,7 @@ struct Tile {
     int k;             // this point's z (a face index for w's wall face)
     int ny, nz;
     T nu;
+    O4Axes<T> q;       // O4 only
 
     template <int C>
     __device__ __forceinline__ T val(const Off& o) const {
@@ -129,8 +164,8 @@ struct Tile {
     // metric m of axis A at offset x
     template <int A>
     __device__ __forceinline__ T met(int m, int x) const {
-        if constexpr (A == 0) return mx[m * kPx + x];
-        else if constexpr (A == 2) return mz[m * kPz + x];
+        if constexpr (A == 0) return mx[m * kMx + x];
+        else if constexpr (A == 2) return mz[m * kMz + x];
         else return metric_ptr(ay, m)[x < 0 ? jm : (x > 0 ? jp : j)];
     }
 
@@ -190,6 +225,30 @@ struct Tile {
         return val<C>(with(p, D, X));
     }
 
+    // whether axis A takes the O4 stencils
+    template <int A>
+    __device__ __forceinline__ bool o4() const {
+        if constexpr (O4) return q.on[A] != 0;
+        else return false;
+    }
+
+    // same_diff4 of component C along axis A (an O4 axis: no walls)
+    template <int C, int A>
+    __device__ __forceinline__ T diff4(const Off& p) const {
+        return (T(8) * (val<C>(with(p, A, 1)) - val<C>(with(p, A, -1)))
+                - (val<C>(with(p, A, 2)) - val<C>(with(p, A, -2))))
+               / q.d1[A];
+    }
+
+    // nu * same_diff2_4 of component S along axis A
+    template <int S, int A>
+    __device__ __forceinline__ T diff2_4(const Off& p) const {
+        return nu * ((-val<S>(with(p, A, 2)) + T(16) * val<S>(with(p, A, 1))
+                      - T(30) * val<S>(p) + T(16) * val<S>(with(p, A, -1))
+                      - val<S>(with(p, A, -2)))
+                     / q.d2[A]);
+    }
+
     template <int S>
     __device__ __forceinline__ T skew_own(const Off& p) const {
         const T h = T(0.5);
@@ -224,12 +283,46 @@ struct Tile {
 
     template <int S>
     __device__ __forceinline__ T central_own(const Off& p) const {
+        if constexpr (O4)
+            if (o4<S>()) return val<S>(p) * diff4<S, S>(p);
         const T dphi = (normal<S>(p, 1) - normal<S>(p, -1)) / met<S>(DEN_F, 0);
         return val<S>(p) * dphi;
     }
 
+    // O4: the advecting velocity c2f(f2c(comp D, D), S), each mean O4 along
+    // an O4 axis (f2c_mean4, c2f_mean4) and O2 elsewhere (with the wall
+    // ghosts across a walled S), times same_diff4 of phi along an O4 D
+    template <int S, int D>
+    __device__ __forceinline__ T central_cross_o4(const Off& p) const {
+        const T h = T(0.5);
+        auto uc = [&](int x) -> T {
+            const Off px = with(p, S, x);
+            if (o4<D>())
+                return (T(9) * (val<D>(with(px, D, 0)) + val<D>(with(px, D, 1)))
+                        - (val<D>(with(px, D, -1)) + val<D>(with(px, D, 2))))
+                       / T(16);
+            return h * (val<D>(with(px, D, 0)) + val<D>(with(px, D, 1)));
+        };
+        T adv;
+        if (o4<S>()) {
+            adv = (T(9) * (uc(-1) + uc(0)) - (uc(-2) + uc(1))) / T(16);
+        } else {
+            const T lo = lo_wall<S>() && pos<S>() == 0
+                             ? T(2) * tlo<S>(D) - uc(0) : uc(-1);
+            const T hi = hi_wall<S>() && pos<S>() == cells<S>()
+                             ? T(2) * thi<S>(D) - uc(-1) : uc(0);
+            adv = h * (lo + hi);
+        }
+        const T dphi = o4<D>() ? diff4<S, D>(p)
+                               : (tangential<S, D>(p, 1)
+                                  - tangential<S, D>(p, -1))
+                                     / met<D>(DEN_C, 0);
+        return adv * dphi;
+    }
+
     template <int S, int D>
     __device__ __forceinline__ T central_cross(const Off& p) const {
+        if constexpr (O4) return central_cross_o4<S, D>(p);
         const T h = T(0.5);
         auto uc = [&](int x) -> T {
             const Off px = with(p, S, x);
@@ -255,6 +348,9 @@ struct Tile {
 
     template <int S>
     __device__ __forceinline__ T diff_own(const Off& p) const {
+        // O4: a scalar nu's same_diff2_4 (nu_t stays O2)
+        if constexpr (O4 && !NUT)
+            if (o4<S>()) return diff2_4<S, S>(p);
         auto flux = [&](int x) -> T {
             const T grad = (val<S>(with(p, S, x + 1)) - val<S>(with(p, S, x)))
                            * met<S>(INV_D, x);
@@ -270,6 +366,8 @@ struct Tile {
 
     template <int S, int D>
     __device__ __forceinline__ T diff_cross(const Off& p) const {
+        if constexpr (O4 && !NUT)
+            if (o4<D>()) return diff2_4<S, D>(p);
         const T h = T(0.5);
         auto flux = [&](int e) -> T {
             const T grad = (tangential<S, D>(p, e) - tangential<S, D>(p, e - 1))
@@ -428,6 +526,141 @@ predictor_general_kernel(Grid<T> g, const T* __restrict__ dt_ptr,
     });
 }
 
+// The O4 kernel: predictor_general_kernel's walk and writes on xz::Wide
+// with Tile's O4 terms. At most 128 registers a thread (two blocks an
+// SM); the ring is dynamic shared memory. The walk is written out apart
+// from the O2 kernel's: one walk shared by both kernels (a device
+// function over the window and its halo) changed the SASS of the O2
+// kernel's walled-z instantiations (register allocation), which must stay
+// the kernel's of before (sass_compare).
+template <typename T, bool NUT, bool SKEW, bool WZ>
+__global__ void __launch_bounds__(xz::kThreads, 2)
+predictor_general_o4_kernel(Grid<T> g, O4Axes<T> q,
+                            const T* __restrict__ dt_ptr, T* __restrict__ su,
+                            T* __restrict__ sv, T* __restrict__ sw, T fx,
+                            int chunk) {
+    constexpr int NF = NUT ? 4 : 3;
+    constexpr int H = xz::kWideH;
+    using Win = xz::Wide<T, NF>;
+    using View = typename Win::View;
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    __shared__ T mx[kMetrics * Win::kPx];
+    __shared__ T mz[kMetrics * Win::kPz];
+    const int nx = g.ax[0].n, ny = g.ax[1].n, nz = g.ax[2].n;
+    const bool wall_y = g.ax[1].wall, wall_z = WZ;
+    Win win;
+    win.init(reinterpret_cast<T*>(smem_raw), g, wall_y ? ny + 1 : ny, chunk);
+    // the x and z metrics of the tile and its two-cell halo, as the O2
+    // kernel stages its one-cell halo's
+    const int t = static_cast<int>(threadIdx.x);
+    if (t < kMetrics * Win::kPx) {
+        const int m = t / Win::kPx, lx = t - m * Win::kPx;
+        mx[t] = metric_ptr(g.ax[0], m)[(win.i0 - H + lx + nx) % nx];
+    }
+    if (t < kMetrics * Win::kPz) {
+        const int m = t / Win::kPz, lz = t - m * Win::kPz;
+        const int gz = win.k0 - H + lz;
+        mz[t] = metric_ptr(g.ax[2], m)[
+            wall_z ? min(max(gz, 0), metric_len(g.ax[2], m) - 1)
+                   : (gz % nz + nz) % nz];
+    }
+    const T dt = *dt_ptr;
+    const int i = win.i, k = win.k;
+    const T* mxt = mx + win.tx + H;
+    const T* mzt = mz + win.tz + H;
+    const bool owns = win.owns;
+    const int zw = wall_z ? (win.k0 == 0 ? 1 : 0)
+                            | (win.k0 + xz::kTz >= nz ? 2 : 0)
+                          : 0;
+    const bool face_lane = (zw & 2) && k == nz && i < nx;
+    const int lf = static_cast<int>(threadIdx.x);
+    const bool face_warp = (zw & 2) && win.k0 + xz::kTz == nz
+                           && lf < xz::kTx && win.i0 + lf < nx;
+    auto plane = [&](auto edge, auto z_walls, const View& view, int j, int jm,
+                     int jp) {
+        constexpr bool E = decltype(edge)::value;
+        constexpr int Z = decltype(z_walls)::value;
+        using Tl = Tile<T, NUT, E, Z, View, true>;
+        const Tl r{view, mxt, mzt, g.ax[1], g.ax[2], j, jm, jp, k, ny, nz,
+                   g.nu, q};
+        if (owns && j < ny)
+            su[i * g.sx[0] + j * g.sy[0] + k] = r.template star<SKEW, 0>(dt, fx);
+        if ((owns || face_lane) && j < ny)
+            sw[i * g.sx[2] + j * g.sy[2] + k] = r.template star<SKEW, 2>(dt, fx);
+        if (owns)
+            sv[i * g.sx[1] + j * g.sy[1] + k] = r.template star<SKEW, 1>(dt, fx);
+        if constexpr ((Z & 2) != 0) {
+            if (face_warp && j < ny) {
+                // this thread's point is (0, lf); the face's (lf, nz)
+                View shifted = view;
+                const int by = lf * Win::kPz + xz::kTz - lf;
+#pragma unroll
+                for (int d = 0; d < 5; ++d) shifted.o[d] += by;
+                const int x = win.i0 + lf;
+                sw[x * g.sx[2] + j * g.sy[2] + nz] =
+                    Tl{shifted, mx + lf + H, mz + xz::kTz + H, g.ax[1],
+                       g.ax[2], j, jm, jp, nz, ny, nz, g.nu, q}
+                        .template star<SKEW, 2>(dt, fx);
+            }
+        }
+    };
+    using Yes = std::true_type;
+    using No = std::false_type;
+    auto z_plane = [&](auto edge, const View& view, int j, int jm, int jp) {
+        if constexpr (!WZ) {
+            plane(edge, std::integral_constant<int, 0>{}, view, j, jm, jp);
+            return;
+        }
+        switch (zw) {
+            case 0: plane(edge, std::integral_constant<int, 0>{}, view, j, jm, jp); break;
+            case 1: plane(edge, std::integral_constant<int, 1>{}, view, j, jm, jp); break;
+            case 2: plane(edge, std::integral_constant<int, 2>{}, view, j, jm, jp); break;
+            default: plane(edge, std::integral_constant<int, 3>{}, view, j, jm, jp);
+        }
+    };
+    win.walk([&](const View& view) {
+        if (!owns && !face_lane && !face_warp) return;
+        const int j = view.j;
+        if (wall_y && (j == 0 || j >= ny - 1)) {
+            z_plane(Yes{}, view, j, j - 1, j + 1);
+        } else {
+            const int jm = wall_y ? j - 1 : cfdnn::wrap_m(j, ny);
+            const int jp = wall_y ? j + 1 : cfdnn::wrap_p(j, ny);
+            z_plane(No{}, view, j, jm, jp);
+        }
+    });
+}
+
+template <typename T, bool NUT, bool SKEW, bool WZ>
+int launch_o4_walls(const Grid<T>& g, const O4Axes<T>& q, const T* dt, T* su,
+                    T* sv, T* sw, T fx, cudaStream_t stream) {
+    constexpr auto kernel = predictor_general_o4_kernel<T, NUT, SKEW, WZ>;
+    constexpr size_t smem = xz::Wide<T, NUT ? 4 : 3>::kBytes;
+    if constexpr (smem > 48 * 1024) {
+        const cudaError_t e = cudaFuncSetAttribute(
+            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+            static_cast<int>(smem));
+        if (e) return static_cast<int>(e);
+    }
+    const int nyf = g.ax[1].wall ? g.ax[1].n + 1 : g.ax[1].n;
+    const long long tiles = xz::grid(g.ax[0].n, g.ax[2].n, 1).x;   // a plane
+    const int chunk = cfdnn::walk_chunk<kernel, xz::kThreads>(tiles, nyf,
+                                                               smem);
+    kernel<<<xz::grid(g.ax[0].n, g.ax[2].n, nyf, chunk), xz::kThreads, smem,
+             stream>>>(g, q, dt, su, sv, sw, fx, chunk);
+    return 0;
+}
+
+template <typename T, bool NUT, bool SKEW>
+int launch_o4(const Grid<T>& g, const O4Axes<T>& q, const T* dt, T* su,
+              T* sv, T* sw, T fx, cudaStream_t stream) {
+    if (g.ax[2].wall)
+        return launch_o4_walls<T, NUT, SKEW, true>(g, q, dt, su, sv, sw, fx,
+                                                    stream);
+    return launch_o4_walls<T, NUT, SKEW, false>(g, q, dt, su, sv, sw, fx,
+                                                 stream);
+}
+
 template <typename T, bool NUT, bool SKEW, bool WZ>
 void launch_walls(const Grid<T>& g, const T* dt, T* su, T* sv, T* sw, T fx,
                   cudaStream_t stream) {
@@ -476,6 +709,49 @@ int launch(const void* u, const void* v, const void* w, const void* dt,
         else launch_kernel<T, false, false>(g, d, o[0], o[1], o[2], T(fx), s);
     }
     return static_cast<int>(cudaGetLastError());
+}
+
+// The O4 entry's body (predictor_general_o4.cu, _o4_f64.cu): the O2
+// entry's arguments and `o4`, (12 h, 12 h^2) of each axis, 0 on an O2
+// axis. Refuses what the O2 entry refuses, an O2 x (x is periodic with
+// nx >= 8: always O4), an O4 axis that is walled or of fewer than 4
+// cells, and skew convection with nu_t, which has no O4 term (the O2
+// kernel's work: the wrapper launches the O2 entry for it).
+template <typename T>
+int launch_o4_entry(const void* u, const void* v, const void* w,
+                    const void* dt, const void* nut, void* su, void* sv,
+                    void* sw, const void* const* metrics, const double* tang,
+                    int nx, int ny, int nz, int wall_y, int wall_z, double nu,
+                    double fx, int skew, const double* o4, void* stream) {
+    const long long cx = nx, cy = ny, cz = nz;
+    const long long n_v = cx * (cy + (wall_y ? 1 : 0)) * cz;
+    const long long n_w = cx * cy * (cz + (wall_z ? 1 : 0));
+    if (nx < xz::kTx || ny < 2 || nz < 2 || (nut && skew)
+        || (n_v > n_w ? n_v : n_w) > 2147483647LL)
+        return static_cast<int>(cudaErrorInvalidValue);
+    O4Axes<T> q;
+    const int n[3] = {nx, ny, nz}, wall[3] = {0, wall_y, wall_z};
+    for (int a = 0; a < 3; ++a) {
+        q.on[a] = o4[2 * a] != 0.0;
+        q.d1[a] = T(o4[2 * a]);
+        q.d2[a] = T(o4[2 * a + 1]);
+        if (q.on[a] && (wall[a] || n[a] < 4))
+            return static_cast<int>(cudaErrorInvalidValue);
+    }
+    if (!q.on[0]) return static_cast<int>(cudaErrorInvalidValue);
+    const Grid<T> g = make_grid<T>(u, v, w, nut, metrics, tang, nx, ny, nz,
+                                   wall_y, wall_z, nu);
+    const T* d = static_cast<const T*>(dt);
+    T* o[3] = {static_cast<T*>(su), static_cast<T*>(sv), static_cast<T*>(sw)};
+    const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    int err;
+    if (nut)
+        err = launch_o4<T, true, false>(g, q, d, o[0], o[1], o[2], T(fx), s);
+    else if (skew)
+        err = launch_o4<T, false, true>(g, q, d, o[0], o[1], o[2], T(fx), s);
+    else
+        err = launch_o4<T, false, false>(g, q, d, o[0], o[1], o[2], T(fx), s);
+    return err ? err : static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace

@@ -11,7 +11,7 @@ Axis indexing convention everywhere: axis 0 = x (i), 1 = y (j), 2 = z (k).
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -57,6 +57,17 @@ class AxisGeom:
     # WALL ghosts become 2*value - interior instead of -interior.
     tang: Tuple[Tuple[float, float], Tuple[float, float],
                 Tuple[float, float]] = ((0.0, 0.0), (0.0, 0.0), (0.0, 0.0))
+    # 24 h in each of the N entries where o4_ok, else None: the divisor of
+    # the O4 staggered differences (f2c_diff4, c2f_diff4) as the
+    # divergence and correct kernels read it
+    o4_den: Optional[torch.Tensor] = None
+
+    @property
+    def o4_ok(self) -> bool:
+        """O4 stencils apply on uniform periodic axes of n >= 4 (the
+        reference's AxisGeom.o4_ok: wide stencils near walls would need
+        one-sided closures)."""
+        return self.periodic and self.uniform and self.n >= 4
 
     @property
     def pos_c_pad(self):
@@ -110,29 +121,23 @@ class AxisGeom:
             dc=arr(dc), inv_dc=arr(1.0 / dc),
             centers=arr(ax.centers), faces=arr(ax.faces),
             pos_c_pad2=arr(pos_c_pad2), pos_f_pad2=arr(pos_f_pad2),
+            o4_den=(arr(np.full(n, 24.0 * float(ax.d[0])))
+                    if periodic and ax.uniform and n >= 4 else None),
         )
 
 
 @dataclasses.dataclass(frozen=True)
 class Geometry:
-    """All per-axis constants; built once per (mesh, config, device).
-
-    O2 only: the O4 stencils (ROADMAP A.2) are not ported yet, so a
-    config with `space_order=4` raises here instead of running O2.
-    """
+    """All per-axis constants; built once per (mesh, config, device)."""
 
     axes: Tuple[AxisGeom, AxisGeom, AxisGeom]
     dtype: torch.dtype
-    space_order: int = 2
+    space_order: int = 2     # 2 or 4 (O4 on o4_ok axes only)
 
     @classmethod
     def make(cls, mesh: Mesh, cfg: Config, *, device) -> "Geometry":
         """The geometry of `mesh` under `cfg`, as tensors on `device`
         (required: there is no default device)."""
-        if cfg.space_order != 2:
-            raise NotImplementedError(
-                f"space_order={cfg.space_order}: the port has the O2 "
-                "operators only; the O4 stencils are ROADMAP A.2")
         dtype = getattr(torch, cfg.dtype)
         return cls(
             axes=(
@@ -148,6 +153,10 @@ class Geometry:
             dtype=dtype,
             space_order=cfg.space_order,
         )
+
+    def use_o4(self, axis: int) -> bool:
+        """Whether the O4 stencils apply along `axis`."""
+        return self.space_order >= 4 and self.axes[axis].o4_ok
 
     @property
     def x(self) -> AxisGeom:

@@ -204,6 +204,8 @@ _SIGNATURES = {
     "predictor_channel": [_P] * 13 + [_I] * 3 + [_D] * 4 + [_I, _P],
     "predictor_channel_div": [_P] * 14 + [_I] * 3 + [_D] * 4 + [_I, _P],
     "predictor_general": [_P] * 10 + [_I] * 5 + [_D] * 2 + [_I, _P],
+    # the O4 variant's entry: predictor_general's and its O4 constants
+    "predictor_general_o4": [_P] * 10 + [_I] * 5 + [_D] * 2 + [_I, _P, _P],
     "divergence": [_P] * 7 + [_I] * 6 + [_P],
     "correct": [_P] * 11 + [_I] * 6 + [_P],
     "nu_sgs": [_P] * 11 + [_I] * 6 + [_D, _P],
@@ -340,11 +342,13 @@ def tile_refusal(name: str, nx: int, largest: int,
     return None
 
 
-def _axis_mode(ax) -> int:
-    """0: one cell (skipped), 1: periodic (N faces), 2: bounded (N+1)."""
-    if ax.n == 1:
-        return 0
-    return 1 if ax.periodic else 2
+def _modes(geom: Geometry):
+    """The divergence and correct kernels' mode of each axis: 0 one cell
+    (skipped), 1 periodic (N faces), 2 bounded (N+1), 3 periodic at O4
+    (Geometry.use_o4)."""
+    return tuple(0 if ax.n == 1 else 3 if geom.use_o4(a)
+                 else 1 if ax.periodic else 2
+                 for a, ax in enumerate(geom.axes))
 
 
 def _nfaces(ax) -> int:
@@ -503,10 +507,10 @@ def predictor_periodic_div(u, v, w, dt, *, geom: Geometry, nu, fx):
     dtype. The kernel runs on an (x, z) tile walked along y: a field past
     2^31 - 1 elements raises ValueError (`tile_refusal`), on the CPU as
     on the card."""
-    if not periodic_eligible(geom):
+    if not periodic_eligible(geom) or geom.space_order != 2:
         raise NotImplementedError(
             "predictor_periodic_div: the kernel serves an all-periodic "
-            "uniform 3-D grid")
+            "uniform 3-D grid at O2")
     _check("predictor_periodic_div", (u, v, w, dt),
            _face_shapes(geom) + ((),))
     _check_geom("predictor_periodic_div", geom, (u,))
@@ -827,10 +831,10 @@ def predictor_channel_div(u, v, w, dt, ys, *, geom: Geometry, nu, fx, scheme,
     raises ValueError, on the CPU as on the card."""
     x, y, z = geom.axes
     if not (x.periodic and x.uniform and z.periodic and z.uniform
-            and z.n > 1 and y.bc == BCType.WALL):
+            and z.n > 1 and y.bc == BCType.WALL and geom.space_order == 2):
         raise NotImplementedError(
             "predictor_channel_div: the kernel serves periodic uniform x "
-            "and z with no-slip y walls, 3-D")
+            "and z with no-slip y walls, 3-D, O2")
     if y.n < 2:
         raise ValueError("predictor_channel_div: needs Ny >= 2")
     nx, ny, nz = x.n, y.n, z.n
@@ -870,11 +874,12 @@ def _yz_ok(ax) -> bool:
 def _general_geom_ok(geom: Geometry, x_wall: bool = False) -> bool:
     """The grids the general predictor kernel serves: periodic uniform x
     (or, through predictor_xpad, a uniform no-slip x) with x.n >= 8, y and
-    z as `_yz_ok`, O2."""
+    z as `_yz_ok`, O2 or O4 (O4 on the periodic axes of n >= 4, x among
+    them; a no-slip x is O2 at every order, so its padded periodic clone
+    would not be: xpad_eligible takes O2 only)."""
     x, y, z = geom.axes
     x_ok = x.bc == BCType.WALL if x_wall else x.periodic
-    return (x_ok and x.uniform and x.n >= 8 and _yz_ok(y) and _yz_ok(z)
-            and geom.space_order == 2)
+    return x_ok and x.uniform and x.n >= 8 and _yz_ok(y) and _yz_ok(z)
 
 
 def _general_cfg_ok(cfg) -> bool:
@@ -886,16 +891,17 @@ def _general_cfg_ok(cfg) -> bool:
 def general_eligible(geom: Geometry, cfg) -> bool:
     """Gate of the general predictor: the reference's shared gate
     (cfdnn_tpu/solver.py:335-347) less its TPU memory fits, for what the
-    port's operators express (O2, skew or central, no implicit
+    port's operators express (O2 or O4, skew or central, no implicit
     y-diffusion). Moving walls are served."""
     return _general_geom_ok(geom) and _general_cfg_ok(cfg)
 
 
 def xpad_eligible(geom: Geometry, cfg) -> bool:
     """Gate of predictor_xpad: the general gate with a uniform no-slip x
-    in place of the periodic one (INFLOW/OUTFLOW x wait for ROADMAP
-    A.8)."""
-    return _general_geom_ok(geom, x_wall=True) and _general_cfg_ok(cfg)
+    in place of the periodic one, O2 (the reference's xpad mode,
+    cfdnn_tpu/solver.py:379; INFLOW/OUTFLOW x wait for ROADMAP A.8)."""
+    return (_general_geom_ok(geom, x_wall=True) and _general_cfg_ok(cfg)
+            and geom.space_order == 2)
 
 
 def general_arrays(geom: Geometry):
@@ -952,9 +958,23 @@ def _predictor_general_launch(u, v, w, dt, nu_t=None, *, gs, geom, nu, fx,
                                    nu=nu, fx=fx, scheme=scheme)
 
 
+def _o4_constants(geom: Geometry, with_nut: bool, skew: bool):
+    """The O4 general predictor's constants, a host array (ctypes) of
+    (12 h, 12 h^2) a axis, 0 on an O2 axis, as the reference's same_diff4
+    and same_diff2_4 divide; None where the O2 kernel computes the step:
+    at O2, and for skew convection with nu_t, which have no O4 term."""
+    if geom.space_order == 2 or (with_nut and skew):
+        return None
+    return (ctypes.c_double * 6)(*(
+        t for a, ax in enumerate(geom.axes)
+        for t in ((12.0 * ax.h, 12.0 * ax.h**2) if geom.use_o4(a)
+                  else (0.0, 0.0))))
+
+
 def _general_call(name, u, v, w, dt, nu_t, gs, geom, nu, fx, scheme):
     """Launch `name` (predictor_general or predictor_general_xz: one C
-    interface) and return its three stars."""
+    interface; the former's O4 variant, predictor_general_o4, with its O4
+    constants after it) and return its three stars."""
     skew = _scheme_is_skew(scheme)
     su, sv, sw = (torch.empty_like(a) for a in (u, v, w))
     x, y, z = geom.axes
@@ -963,6 +983,10 @@ def _general_call(name, u, v, w, dt, nu_t, gs, geom, nu, fx, scheme):
     metrics = (ctypes.c_void_p * 15)(*(t.data_ptr() for t in gs))
     tang = (ctypes.c_double * 12)(*(float(t) for ax in (y, z)
                                     for pair in ax.tang for t in pair))
+    o4 = (_o4_constants(geom, nu_t is not None, skew)
+          if name == "predictor_general" else None)
+    if o4 is not None:
+        name = "predictor_general_o4"
     _launch(name, u,
             *(t.data_ptr() for t in (u, v, w, dt)),
             None if nu_t is None else nu_t.data_ptr(),
@@ -970,7 +994,8 @@ def _general_call(name, u, v, w, dt, nu_t, gs, geom, nu, fx, scheme):
             ctypes.cast(metrics, ctypes.c_void_p),
             ctypes.cast(tang, ctypes.c_void_p),
             x.n, y.n, z.n, int(y.bc == BCType.WALL), int(z.bc == BCType.WALL),
-            float(nu), float(fx), int(skew))
+            float(nu), float(fx), int(skew),
+            *(() if o4 is None else (ctypes.cast(o4, ctypes.c_void_p),)))
     return su, sv, sw
 
 
@@ -985,7 +1010,9 @@ def predictor_general(u, v, w, dt, gs, *, geom: Geometry, nu, fx, scheme,
                       nu_t=None):
     """Euler star (u*, v*, w*) of the predictor on a periodic uniform x
     with periodic or no-slip (moving or not) y and z at any stretching,
-    O2 skew or central, body force fx on u. `gs` = general_arrays(geom).
+    O2 or O4 skew or central, body force fx on u. `gs` =
+    general_arrays(geom). At O4 the kernel's O4 variant runs the O4
+    stencils on each O4 axis (Geometry.use_o4), as the operators do.
     The viscosity is the scalar nu, or nu + nu_t with `nu_t` a cell field.
     Star values at the wall faces are produced as the operators produce
     them; the caller's BC pass overwrites them. The kernel walks an (x, z)
@@ -994,7 +1021,7 @@ def predictor_general(u, v, w, dt, gs, *, geom: Geometry, nu, fx, scheme,
     if not _general_geom_ok(geom):
         raise NotImplementedError(
             "predictor_general: the kernel serves a periodic uniform x "
-            "(x.n >= 8) with y and z periodic uniform or walls, O2; a wall "
+            "(x.n >= 8) with y and z periodic uniform or walls; a wall "
             "x goes through predictor_xpad, other geometries are ROADMAP "
             "A.8/A.13")
     x, y, z = geom.axes
@@ -1061,7 +1088,12 @@ def predictor_xpad(u, v, w, dt, gs, *, geom: Geometry, xgeom: Geometry, nu,
     fused_predictor_xpad, a wrapper, not a kernel): pad x by one ghost
     plane per side (`_xpad_fields`), run predictor_general on the
     fake-periodic (Nx+2)-cell axis `xgeom` = xpad_geometry(geom) (`gs` =
-    general_arrays(xgeom)), and keep the interior."""
+    general_arrays(xgeom)), and keep the interior. O2 only, as the
+    reference's (a no-slip x is O2 at every order)."""
+    if geom.space_order != 2:
+        raise NotImplementedError(
+            f"predictor_xpad: space_order={geom.space_order}; the padded x "
+            "is O2 only, as the reference's fused_predictor_xpad")
     u_pad, v_pad, w_pad, nut_pad = _xpad_fields(u, v, w, nu_t, geom)
     su, sv, sw = predictor_general(u_pad, v_pad, w_pad, dt, gs, geom=xgeom,
                                    nu=nu, fx=fx, scheme=scheme, nu_t=nut_pad)
@@ -1075,8 +1107,6 @@ def predictor_xpad(u, v, w, dt, gs, *, geom: Geometry, xgeom: Geometry, nu,
 
 
 def _check_geom(name: str, geom: Geometry, fields) -> None:
-    if geom.space_order != 2:
-        raise NotImplementedError(f"{name}: O2 only (O4 is ROADMAP A.2)")
     f0 = fields[0]
     for ax in geom.axes:
         for t in (ax.inv_d, ax.inv_dc):
@@ -1107,10 +1137,13 @@ def _divergence_call(name, u, v, w, geom):
     """Launch `name` (divergence or divergence_xz: one C interface)."""
     x, y, z = geom.axes
     out = torch.empty((x.n, y.n, z.n), dtype=u.dtype, device=u.device)
+    # an O4 axis (mode 3) passes its divisor 24 h in place of inv_d
+    modes = _modes(geom)
+    dens = [ax.o4_den if m == 3 else ax.inv_d
+            for ax, m in zip(geom.axes, modes)]
     _launch(name, u,
-            *(t.data_ptr() for t in (u, v, w, x.inv_d, y.inv_d, z.inv_d,
-                                     out)), x.n, y.n, z.n,
-            *(_axis_mode(ax) for ax in geom.axes))
+            *(t.data_ptr() for t in (u, v, w, *dens, out)), x.n, y.n, z.n,
+            *modes)
     return out
 
 
@@ -1121,7 +1154,8 @@ def _divergence_cuda(u, v, w, *, geom):
 
 
 def divergence(u, v, w, *, geom: Geometry):
-    """Staggered O2 cell divergence of (u, v, w) on `geom`. The kernel
+    """Staggered cell divergence of (u, v, w) on `geom`, O4 (f2c_diff4)
+    along each Geometry.use_o4 axis and O2 elsewhere. The kernel
     walks an (x, z) tile along y with 32-bit offsets: a face array past
     2^31 - 1 elements raises ValueError (`tile_refusal`)."""
     _check("divergence", (u, v, w), _face_shapes(geom))
@@ -1152,10 +1186,13 @@ def _correct_call(name, u, v, w, p, dt, geom):
     """Launch `name` (correct or correct_xz: one C interface)."""
     ou, ov, ow = (torch.empty_like(a) for a in (u, v, w))
     x, y, z = geom.axes
+    # an O4 axis (mode 3) passes its divisor 24 h in place of inv_dc
+    modes = _modes(geom)
+    dens = [ax.o4_den if m == 3 else ax.inv_dc
+            for ax, m in zip(geom.axes, modes)]
     _launch(name, u,
-            *(t.data_ptr() for t in (u, v, w, p, dt, x.inv_dc, y.inv_dc,
-                                     z.inv_dc, ou, ov, ow)), x.n, y.n, z.n,
-            *(_axis_mode(ax) for ax in geom.axes))
+            *(t.data_ptr() for t in (u, v, w, p, dt, *dens, ou, ov, ow)),
+            x.n, y.n, z.n, *modes)
     return ou, ov, ow
 
 
@@ -1166,7 +1203,8 @@ def _correct_cuda(u, v, w, p, dt, *, geom):
 
 
 def correct(u, v, w, p, dt, *, geom: Geometry):
-    """(u, v, w) - dt * grad(p) at the stored faces, O2, with the Neumann
+    """(u, v, w) - dt * grad(p) at the stored faces, O4 (c2f_diff4) along
+    each Geometry.use_o4 axis and O2 elsewhere, with the Neumann
     pressure ghost at bounded axes (zero gradient at the boundary faces).
     The kernel walks an (x, z) tile along y with 32-bit offsets: a face
     array past 2^31 - 1 elements raises ValueError (`tile_refusal`)."""
@@ -1203,7 +1241,8 @@ def les_refusal(name: str, geom: Geometry) -> Optional[str]:
       nu_sgs         the reference's LES gate (cfdnn_tpu/turbulence/
                      les.py:37-39): periodic uniform x, y and z each
                      periodic uniform or a stationary no-slip wall at any
-                     stretching (y.n, z.n > 1), O2;
+                     stretching (y.n, z.n > 1), at any order (the strain is
+                     O2 at every order, as the reference's);
       germano_pass1  nu_sgs's (its box filter truncates at a wall of y or
                      z, as the reference's fuses it on any slab geometry);
       nu_sgs_xz      nu_sgs's on the xz kernels' grid (xz_eligible)."""
@@ -1216,11 +1255,9 @@ def les_refusal(name: str, geom: Geometry) -> Optional[str]:
     if any(t != (0.0, 0.0) for ax in (y, z) for t in ax.tang):
         return (f"{name} needs stationary walls (its wall ghosts are "
                 "no-slip at rest; a lid or a moving wall is not served)")
-    if geom.space_order != 2:
-        return f"{name} needs O2"
     if name == "nu_sgs_xz" and not xz_eligible(geom):
         return ("nu_sgs_xz needs the (x, z) tile's grid (x.n >= 8, a "
-                "periodic z)")
+                "periodic z, O2)")
     return None
 
 
@@ -1404,8 +1441,10 @@ germano_pass1.launches = 0
 def xz_eligible(geom: Geometry) -> bool:
     """Gate of the xz kernels: the general predictor's grid with a
     periodic z (periodic uniform x with x.n >= 8 and z, y periodic
-    uniform or no-slip walls at any stretching, O2)."""
-    return _general_geom_ok(geom) and geom.axes[2].periodic
+    uniform or no-slip walls at any stretching), O2 (their O4 variants are
+    ROADMAP B.1)."""
+    return (_general_geom_ok(geom) and geom.axes[2].periodic
+            and geom.space_order == 2)
 
 
 def nu_sgs_xz_eligible(geom: Geometry) -> bool:
@@ -1422,8 +1461,9 @@ def _check_xz(name, geom, gate=xz_eligible):
     if not gate(geom):
         raise NotImplementedError(
             f"{name}: the (x, z)-tiled kernel serves a periodic uniform x "
-            "(x.n >= 8) and z with y periodic uniform or walls, O2; other "
-            "grids take the slab kernels or the operators")
+            "(x.n >= 8) and z with y periodic uniform or walls, O2 (O4 is "
+            "ROADMAP B.1); other grids take the slab kernels or the "
+            "operators")
 
 
 def _predictor_general_xz_launch(u, v, w, dt, nu_t=None, *, gs, geom, nu, fx,
@@ -1846,7 +1886,7 @@ _SYMBOLS = tuple((name, re.compile(r"(?<![A-Za-z_])" + pattern))
     ("predictor_periodic_div", r"predictor_periodic_div_tile_kernel"),
     ("predictor_channel", r"predictor_channel_tile_kernel"),
     ("predictor_channel_div", r"predictor_channel_div_tile_kernel"),
-    ("predictor_general", r"predictor_general_kernel"),
+    ("predictor_general", r"predictor_general(?:_o4)?_kernel"),
     ("divergence", r"divergence_kernel"),
     ("correct", r"correct_kernel"),
     ("nu_sgs", r"nu_sgs_tile_kernel"),

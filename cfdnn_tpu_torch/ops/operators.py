@@ -1,4 +1,5 @@
-"""Staggered-MAC spatial operators, O2 (port of `cfdnn_tpu/ops/operators.py`).
+"""Staggered-MAC spatial operators, O2 and O4 (port of
+`cfdnn_tpu/ops/operators.py`).
 
 Plain PyTorch functions on unique-DOF staggered tensors; ghosts are
 materialized by the `ops.bc` pads. These are the port's single source of
@@ -6,8 +7,13 @@ truth, as the jnp operators are the reference's: the hand-written kernels
 in `ops/kernels.py` are tested against them. `tests/test_torch_ops.py`
 holds each one to the reference at float64 roundoff.
 
-Not ported yet, and raising where reached: the O4 stencils (ROADMAP A.2,
-refused by `Geometry.make`) and the upwind and upwind2 schemes (A.2).
+With `space_order=4` the O4 stencils (f2c_mean4 ... same_diff2_4) take
+the place of the O2 ones on each `Geometry.use_o4` axis (periodic,
+uniform, n >= 4) in the advecting velocity, central convection,
+scalar-nu diffusion, the divergence, the pressure gradient and the
+Laplacian; skew convection, variable-nu diffusion and the velocity
+gradient stay O2 at every order, as in the reference. Not ported yet,
+and raising where reached: the upwind and upwind2 schemes (ROADMAP A.2).
 
 Component/axis convention: comps = (u, v, w); component c is staggered along
 axis c ("s" below); "d" ranges over the three derivative directions.
@@ -121,15 +127,63 @@ def ff_central(phi: Tensor, axis: int, ax: AxisGeom) -> Tensor:
 
 
 # ---------------------------------------------------------------------------
+# O4 periodic-uniform stencils (on `Geometry.use_o4` axes), the reference's
+# formulas and order of evaluation, divided by the host spacing h
+# ---------------------------------------------------------------------------
+
+
+def f2c_mean4(F: Tensor, axis: int, ax: AxisGeom) -> Tensor:
+    """O4 faces->cell i: (9(F_i+F_{i+1}) - (F_{i-1}+F_{i+2}))/16."""
+    return (9.0 * (F + _R(F, 1, axis))
+            - (_R(F, -1, axis) + _R(F, 2, axis))) / 16.0
+
+
+def f2c_diff4(F: Tensor, axis: int, ax: AxisGeom) -> Tensor:
+    """O4 staggered d/dx at cell i: (27(F_{i+1}-F_i) - (F_{i+2}-F_{i-1}))/(24h)."""
+    return (27.0 * (_R(F, 1, axis) - F)
+            - (_R(F, 2, axis) - _R(F, -1, axis))) / (24.0 * ax.h)
+
+
+def c2f_mean4(f: Tensor, axis: int, ax: AxisGeom) -> Tensor:
+    """O4 cells->face i: (9(f_{i-1}+f_i) - (f_{i-2}+f_{i+1}))/16."""
+    return (9.0 * (_R(f, -1, axis) + f)
+            - (_R(f, -2, axis) + _R(f, 1, axis))) / 16.0
+
+
+def c2f_diff4(f: Tensor, axis: int, ax: AxisGeom) -> Tensor:
+    """O4 staggered d/dx at face i: (27(f_i-f_{i-1}) - (f_{i+1}-f_{i-2}))/(24h)."""
+    return (27.0 * (f - _R(f, -1, axis))
+            - (_R(f, 1, axis) - _R(f, -2, axis))) / (24.0 * ax.h)
+
+
+def same_diff4(f: Tensor, axis: int, ax: AxisGeom) -> Tensor:
+    """O4 collocated d/dx: (8(f_{i+1}-f_{i-1}) - (f_{i+2}-f_{i-2}))/(12h)."""
+    return (8.0 * (_R(f, 1, axis) - _R(f, -1, axis))
+            - (_R(f, 2, axis) - _R(f, -2, axis))) / (12.0 * ax.h)
+
+
+def same_diff2_4(f: Tensor, axis: int, ax: AxisGeom) -> Tensor:
+    """O4 collocated d2/dx2: (-f_{i+2}+16f_{i+1}-30f_i+16f_{i-1}-f_{i-2})/(12h^2)."""
+    return (-_R(f, 2, axis) + 16.0 * _R(f, 1, axis) - 30.0 * f
+            + 16.0 * _R(f, -1, axis) - _R(f, -2, axis)) / (12.0 * ax.h**2)
+
+
+# ---------------------------------------------------------------------------
 # Convective term
 # ---------------------------------------------------------------------------
 
 
 def _advecting_velocity(comps: Vel, s: int, d: int, geom: Geometry) -> Tensor:
-    """Component d interpolated to the DOF points of component s (4-pt avg)."""
+    """Component d interpolated to the DOF points of component s (4-pt avg;
+    the O4 interpolation along each O4 axis)."""
     if d == s:
         return comps[s]
-    uc = f2c_mean(comps[d], d, geom.axes[d])
+    if geom.use_o4(d):
+        uc = f2c_mean4(comps[d], d, geom.axes[d])
+    else:
+        uc = f2c_mean(comps[d], d, geom.axes[d])
+    if geom.use_o4(s):
+        return c2f_mean4(uc, s, geom.axes[s])
     return c2f_mean(uc, s, geom.axes[s], kind="vel",
                     wall=geom.axes[s].tang[d])
 
@@ -148,8 +202,11 @@ def _conv_advective(comps: Vel, s: int, geom: Geometry,
         if ax.n == 1:
             continue
         adv = _advecting_velocity(comps, s, d, geom)
-        dphi = (ff_central(phi, d, ax) if d == s
-                else cc_central(phi, d, ax, wall=ax.tang[s]))
+        if geom.use_o4(d):
+            dphi = same_diff4(phi, d, ax)
+        else:
+            dphi = (ff_central(phi, d, ax) if d == s
+                    else cc_central(phi, d, ax, wall=ax.tang[s]))
         out = out + adv * dphi
     return out
 
@@ -245,7 +302,8 @@ def diffusive(comps: Vel, nu_center, geom: Geometry, skip_y: bool = False) -> Ve
     field (Nx, Ny, Nz). A cell field is taken directly at the cells along
     phi's own axis and averaged to the transverse faces, flux direction
     first, then phi's axis. `skip_y` omits the y-direction term (implicit
-    y-diffusion).
+    y-diffusion). A scalar nu takes the O4 second difference along each
+    O4 axis; a cell field stays O2 at every order, as in the reference.
     """
     scalar_nu = not torch.is_tensor(nu_center) or nu_center.ndim == 0
     out = []
@@ -256,6 +314,9 @@ def diffusive(comps: Vel, nu_center, geom: Geometry, skip_y: bool = False) -> Ve
         for d in range(3):
             ax = geom.axes[d]
             if ax.n == 1 or (skip_y and d == 1):
+                continue
+            if scalar_nu and geom.use_o4(d):
+                term = term + nu_center * same_diff2_4(phi, d, ax)
                 continue
             if d == s:
                 F = nu_center * f2c_diff(phi, s, axs)
@@ -286,8 +347,11 @@ def divergence(comps: Vel, geom: Geometry) -> Tensor:
         ax = geom.axes[axis]
         if ax.n == 1:
             continue
-        lo, hi = face_pair(comps[axis], axis, ax.bc)
-        t = (hi - lo) * ax.inv_d
+        if geom.use_o4(axis):
+            t = f2c_diff4(comps[axis], axis, ax)
+        else:
+            lo, hi = face_pair(comps[axis], axis, ax.bc)
+            t = (hi - lo) * ax.inv_d
         div = t if div is None else div + t
     return div
 
@@ -301,6 +365,8 @@ def pressure_grad_face(p: Tensor, axis: int, geom: Geometry) -> Tensor:
     stretched grids.
     """
     ax = geom.axes[axis]
+    if geom.use_o4(axis):
+        return c2f_diff4(p, axis, ax)
     if ax.bc == BCType.PERIODIC:
         return _periodic_bdiff(p, axis, ax)
     pad = pad_pressure(p, axis, ax)
@@ -328,8 +394,11 @@ def laplacian(p: Tensor, geom: Geometry) -> Tensor:
         if ax.n == 1:
             continue
         g = pressure_grad_face(p, axis, geom)
-        lo, hi = face_pair(g, axis, ax.bc)
-        t = (hi - lo) * ax.inv_d
+        if geom.use_o4(axis):
+            t = f2c_diff4(g, axis, ax)
+        else:
+            lo, hi = face_pair(g, axis, ax.bc)
+            t = (hi - lo) * ax.inv_d
         lap = t if lap is None else lap + t
     return lap
 

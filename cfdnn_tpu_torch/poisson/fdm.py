@@ -5,6 +5,8 @@
 
 Per axis the transform that diagonalizes the 1-D operator is
   - periodic + uniform  -> real FFT, eigenvalues (2 cos(2 pi k/N) - 2)/h^2
+    at O2, -s^2 with s = (27 sin(pi k/N) - sin(3 pi k/N))/(12h) at O4 (the
+    symbol of the O4 D(G), `order` = cfg.space_order, n >= 4)
     (`torch.fft`, cuFFT on the card); with transform="matmul", the dense
     real eigenbasis of the circulant; with "fht", the four-step Hartley
     transform in plain torch (poisson/fht.py) where N >= 32; with
@@ -64,22 +66,37 @@ class _AxisTransform:
     fht: Optional[object] = None       # fht: FHTAxis or PFHTAxis
 
 
-def _periodic_eig(ax) -> _AxisTransform:
-    """Real orthogonal eigenbasis of the periodic circulant O2 Laplacian
+def _periodic_eig(ax, order: int) -> _AxisTransform:
+    """Real orthogonal eigenbasis of the periodic circulant Laplacian
     (float64), applied as (N, N) matmuls: the same modal symbol as the FFT
-    path to roundoff."""
+    path to roundoff. At O4 (n >= 4, the operators' o4_ok gate) it is
+    -G^T G of the O4 staggered gradient G (ops c2f_diff4), whose wrap
+    collisions at n = 4, 5 accumulate."""
     n, h = ax.n, ax.h
     L = np.zeros((n, n))
     idx = np.arange(n)
-    L[idx, idx] = -2.0 / (h * h)
-    L[idx, (idx + 1) % n] += 1.0 / (h * h)
-    L[idx, (idx - 1) % n] += 1.0 / (h * h)
+    if order >= 4 and n >= 4:
+        # G: [+1, -27, +27, -1]/(24h) at cell offsets (i-2, i-1, i, i+1);
+        # the matching divergence is D = -G^T, so L = D G = -G^T G
+        Gm = np.zeros((n, n))
+        for i in range(n):
+            Gm[i, (i - 2) % n] += 1.0 / (24.0 * h)
+            Gm[i, (i - 1) % n] += -27.0 / (24.0 * h)
+            Gm[i, i % n] += 27.0 / (24.0 * h)
+            Gm[i, (i + 1) % n] += -1.0 / (24.0 * h)
+        L = -(Gm.T @ Gm)
+        L = 0.5 * (L + L.T)
+    else:
+        L[idx, idx] = -2.0 / (h * h)
+        L[idx, (idx + 1) % n] += 1.0 / (h * h)
+        L[idx, (idx - 1) % n] += 1.0 / (h * h)
     lam, Q = np.linalg.eigh(L)
     return _AxisTransform(kind="eig", lam=lam, V=Q, Vinv=Q.T)
 
 
 def _axis_transform(ax, bc: BCType, kinds: Tuple[str, str],
-                    periodic_matmul: bool = False) -> _AxisTransform:
+                    order: int = 2, periodic_matmul: bool = False
+                    ) -> _AxisTransform:
     n = ax.n
     if n == 1:
         return _AxisTransform(kind="none", lam=np.zeros(1))
@@ -87,9 +104,16 @@ def _axis_transform(ax, bc: BCType, kinds: Tuple[str, str],
         if not ax.uniform:
             raise ValueError("FDM Poisson requires uniform spacing on periodic axes")
         if periodic_matmul:
-            return _periodic_eig(ax)
+            return _periodic_eig(ax, order)
         k = np.arange(n)
-        lam = (2.0 * np.cos(2.0 * np.pi * k / n) - 2.0) / (ax.h * ax.h)
+        if order >= 4 and n >= 4:
+            # the symbol of the O4 staggered D(G): -s(k)^2 with
+            # s = (27 sin(kh/2) - sin(3kh/2)) / (12 h)
+            th = np.pi * k / n
+            s = (27.0 * np.sin(th) - np.sin(3.0 * th)) / (12.0 * ax.h)
+            lam = -(s * s)
+        else:
+            lam = (2.0 * np.cos(2.0 * np.pi * k / n) - 2.0) / (ax.h * ax.h)
         return _AxisTransform(kind="fft", lam=lam)
     lo, hi = kinds
     aS, aP, aN = ax.laplacian_metrics(periodic=False, lo=lo, hi=hi)
@@ -164,7 +188,8 @@ class FDMPoissonSolver:
 
         bcs = (cfg.bc_x, cfg.bc_y, cfg.bc_z)
         self.tr = [
-            self._build_axis(axd, bc, pressure_bc_kinds(cfg, a), transform)
+            self._build_axis(axd, bc, pressure_bc_kinds(cfg, a), transform,
+                             cfg.space_order)
             for a, (axd, bc) in enumerate(zip((mesh.x, mesh.y, mesh.z), bcs))
         ]
         # rfft on the *last* FFT axis for the real-input saving
@@ -223,12 +248,14 @@ class FDMPoissonSolver:
         self.name = "FDM(" + ",".join(
             t.kind for t in self.tr) + f",{self.transform})"
 
-    def _build_axis(self, axd, bc, kinds, transform) -> _AxisTransform:
-        """One axis's transform, by the reference's per-axis policy
-        (cfdnn_tpu/poisson/fdm.py:250-289): with "pallas_fft" a periodic
-        axis takes the Hartley kernels where `axis_supported`, with "fht"
-        the plain four-step where N >= 32, and otherwise the dense
-        periodic eigenbasis."""
+    def _build_axis(self, axd, bc, kinds, transform,
+                    order) -> _AxisTransform:
+        """One axis's transform at space order `order`, by the reference's
+        per-axis policy (cfdnn_tpu/poisson/fdm.py:250-289): with
+        "pallas_fft" a periodic axis takes the Hartley kernels where
+        `axis_supported`, with "fht" the plain four-step where N >= 32,
+        and otherwise the dense periodic eigenbasis. The Hartley
+        transforms take the order's symbol as an operand."""
         if transform in ("pallas_fft", "fht") and bc == BCType.PERIODIC \
                 and axd.n > 1:
             if transform == "pallas_fft":
@@ -238,11 +265,12 @@ class FDMPoissonSolver:
                 fx = (FHTAxis.make(axd.n, self.dtype, device=self.device)
                       if axd.n >= 32 else None)
             if fx is None:
-                return _axis_transform(axd, bc, kinds, periodic_matmul=True)
-            base = _axis_transform(axd, bc, kinds)
+                return _axis_transform(axd, bc, kinds, order=order,
+                                       periodic_matmul=True)
+            base = _axis_transform(axd, bc, kinds, order=order)
             return _AxisTransform(kind="fht", lam=fx.lam_permuted(base.lam),
                                   fht=fx)
-        return _axis_transform(axd, bc, kinds,
+        return _axis_transform(axd, bc, kinds, order=order,
                                periodic_matmul=(transform == "matmul"))
 
     def _dev(self, a: np.ndarray) -> torch.Tensor:

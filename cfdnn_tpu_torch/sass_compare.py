@@ -8,18 +8,19 @@ except the ones a change redesigns on purpose:
   kernel of the same name: the slab, xz, walked-tile and Hartley kernels
   alike, including those that share a header with a redesigned kernel
   (`xz_tile.cuh`, `predictor_terms.cuh`, `les.cuh`, `projection.cuh`);
-- REDESIGNED names the kernels this change rewrites on purpose: the two
-  predictor + divergence slab kernels, `predictor_periodic_kernel` and
-  `predictor_channel_kernel` (now on xz_tile.cuh's window with a two-cell
-  high halo, their divergence taken from the stored stars:
-  `csrc/predictor_periodic_div_tile.cuh`,
-  `csrc/predictor_channel_div_tile.cuh`), every instantiation of each.
-  An old copy's kernel of those names is reported as REDESIGNED and not
-  compared; their sources (`predictor_periodic.cu`,
-  `predictor_channel.cu`) are gone from the new copy, and an old source
-  the new copy lacks is compiled in the old copy alone, each of its
-  kernels REDESIGNED or MISSING. A later change that redesigns other
-  kernels names them here in place of these.
+- REDESIGNED names the kernels a change rewrites on purpose (none now:
+  the O4 change added variants and rewrote nothing). An old copy's
+  kernel of those names is reported as REDESIGNED and not compared; an
+  old source the new copy lacks is compiled in the old copy alone, each
+  of its kernels REDESIGNED or MISSING. A change that redesigns kernels
+  names them there;
+- GAINED_O4 names the kernels that gained the O4 template argument as
+  their last (`divergence_kernel`, `correct_kernel`): an old kernel
+  X<args> of those names is held to the new copy's O2 instantiation
+  X<args, false>, which must be the old kernel instruction for
+  instruction; their O4 instantiations (and every other new kernel, such
+  as predictor_general_o4_kernel) have no old counterpart and are not
+  listed.
 This compiles each file of both copies to a cubin with the library's
 flags, disassembles it with cuobjdump, and holds every kernel of the old
 copy to the new copy's kernel of the same name.
@@ -45,9 +46,11 @@ from pathlib import Path
 from .ops.kernels import NVCC_FLAGS, _CSRC, _nvcc
 
 # the kernels redesigned on purpose (demangled names of the old copy):
-# the periodic and channel predictor + divergence slab kernels (each
-# dtype, nu_t and DIV)
-REDESIGNED = re.compile(r"predictor_(?:periodic|channel)_kernel<[^<>]*>")
+# none (a pattern that matches no name)
+REDESIGNED = re.compile(r"(?!)")
+# the kernels that gained the O4 template argument (demangled names of
+# the old copy): each held to its new O2 instantiation
+GAINED_O4 = re.compile(r"(?:divergence|correct)_kernel<[^<>]*>")
 OUT = Path(__file__).resolve().parents[1] / "build" / "sass"
 
 
@@ -69,6 +72,9 @@ def sass(src: Path, tag: str) -> dict:
                                   capture_output=True, text=True,
                                   check=True).stdout.strip()
             name = name.split(">(")[0].replace("void <unnamed>::", "") + ">"
+            # a bool template argument as cu++filt may print it
+            name = name.replace("(bool)0", "false").replace("(bool)1",
+                                                            "true")
             cur = funcs.setdefault(name, [])
             continue
         m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s*(.*?);", line)
@@ -101,16 +107,21 @@ def main(argv) -> int:
             if REDESIGNED.fullmatch(name):
                 print(f"REDESIGNED {len(ins)} instructions: {name}")
                 continue
-            new_ins = new.get(name)
+            new_name = (name[:-1] + ", false>" if GAINED_O4.fullmatch(name)
+                        else name)
+            new_ins = new.get(new_name)
             if new_ins is None:
                 where = f"{stem}.cu gone from" if gone else "not in"
-                print(f"MISSING {name}: {where} {_CSRC}")
+                near = [n for n in new if n.split("<")[0] == name.split("<")[0]]
+                print(f"MISSING {name}: {where} {_CSRC} (of that name there: "
+                      f"{near})")
                 ok = False
                 continue
             same = ins == new_ins
             ok &= same
             print(f"{'SAME' if same else 'DIFF'} {len(ins)} vs {len(new_ins)} "
-                  f"instructions: {name}")
+                  f"instructions: {name}"
+                  + ("" if new_name == name else f" (as {new_name})"))
             if not same:
                 print("\n".join(list(difflib.unified_diff(
                     ins, new_ins, lineterm="", n=0))[:40]))

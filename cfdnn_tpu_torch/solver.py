@@ -28,13 +28,15 @@ Smagorinsky and the k-omega transport run their plain chains there, as in
 the reference. In "slab", in the reference's order (cfdnn_tpu/solver.py
 :783-827),
   - predictor_periodic when the grid is all-periodic uniform, 3-D, O2
-    skew with no turbulence closure (the reference's fused_predictor);
+    skew with no turbulence closure (the reference's fused_predictor; an
+    O4 grid takes predictor_general);
   - else predictor_channel when `channel_slab_eligible` holds, with the
     closure's nu_t as its cell-viscosity operand;
   - else predictor_general when `general_eligible` holds: any periodic or
     wall y and z, moving walls, the closure's nu_t (an all-periodic LES
-    run, the duct, the lid channel); predictor_xpad, the same kernel on a
-    ghost-padded axis, for a uniform no-slip x (`xpad_eligible`);
+    run, the duct, the lid channel, every O4 slab grid); predictor_xpad,
+    the same kernel on a ghost-padded axis, for a uniform no-slip x at O2
+    (`xpad_eligible`);
   - divergence and correct whenever x is periodic and uniform (a no-slip
     x runs the eager projection);
   - nu_sgs for Smagorinsky, WALE and Vreman, germano_pass1 for dynamic
@@ -201,17 +203,18 @@ def xz_tileable(nx: int, ny: int, nz: int, ng: int = 1) -> bool:
 
 def tiling_mode(geom: Geometry, cfg: Config) -> Optional[str]:
     """The reference's single-device tiling mode (its _pallas_eligible,
-    cfdnn_tpu/solver.py:297-411) for what the port serves (O2, skew or
-    central, no implicit y-diffusion: _check_supported): None unless x is
-    uniform with x.n >= 8 and the grid is 3-D; then "slab" where the slab
-    block fits (slab_fits; a no-slip x too, the reference's ghost-padded
-    "xpad" slab), else "xz" where z is periodic uniform and the grid tiles
-    (xz_tileable, halo 1 at O2), else None."""
+    cfdnn_tpu/solver.py:297-411) for what the port serves (O2 or O4, skew
+    or central, no implicit y-diffusion: _check_supported): None unless x
+    is uniform with x.n >= 8 and the grid is 3-D; then "slab" where the
+    slab block fits (slab_fits; a no-slip x too at O2, the reference's
+    ghost-padded "xpad" slab), else "xz" where z is periodic uniform and
+    the grid tiles (xz_tileable, halo 1 at O2, 2 at O4), else None."""
     x, y, z = geom.axes
     if not (x.uniform and z.n > 1 and x.n >= 8):
         return None
     if not x.periodic:
-        return "slab" if x.bc == BCType.WALL and slab_fits(geom) else None
+        return ("slab" if x.bc == BCType.WALL and cfg.space_order == 2
+                and slab_fits(geom) else None)
     if slab_fits(geom):
         return "slab"
     ng = 2 if cfg.space_order >= 4 else 1
@@ -230,8 +233,6 @@ def _check_supported(cfg: Config) -> None:
     unsupported = [
         (cfg.implicit_y_diffusion, "implicit_y_diffusion=True",
          "A.8 (implicit y-diffusion)"),
-        (cfg.space_order != 2, f"space_order={cfg.space_order}",
-         "A.2 (O4 stencils)"),
         (cfg.convective_scheme in (ConvectiveScheme.UPWIND,
                                    ConvectiveScheme.UPWIND2),
          f"convective_scheme={cfg.convective_scheme.value}",
@@ -392,6 +393,15 @@ class Simulation:
         # that the launches match it. Should measurements favour the slab
         # kernels there (PERF.md), this is the one place to change.
         tiling = tiling_mode(geom, cfg)
+        if tiling == "xz" and cfg.space_order != 2:
+            # the reference runs its xz kernels at O4 (halo 2); the port's
+            # are O2, and a grid the reference runs with kernels is not run
+            # eagerly on the card in their place
+            raise NotImplementedError(
+                f"space_order={cfg.space_order} on a grid whose kernel plan "
+                "is \"xz\" (2 Ny Nz > SLAB_FIT_CELLS): the O4 variants of "
+                "the xz kernels are not in the port yet; ROADMAP B.1 (O4 "
+                "xz variants)")
         x = geom.x
         laminar = cfg.turb_model == TurbulenceModel.NONE
         predictor = None
@@ -404,7 +414,9 @@ class Simulation:
         elif tiling == "slab":
             # the periodic kernel has no nu_t operand (nor has the
             # reference's fused_predictor): an LES run never takes it
+            # (O2 only, as the reference's fused_predictor, solver.py:789)
             if (laminar and kernels.periodic_eligible(geom)
+                    and cfg.space_order == 2
                     and cfg.convective_scheme == ConvectiveScheme.SKEW):
                 predictor = "periodic"
             elif kernels.channel_slab_eligible(geom, cfg):

@@ -63,7 +63,14 @@ Phases, each of which raises on failure (nothing is caught):
      ny = 2 and 3, the same z and ragged shapes, stretched and uniform y,
      skew and central, scalar nu and nu_t, div also against the
      divergence kernel of the kernel's own star (the general and div
-     cases between NaN bands);
+     cases between NaN bands); the O4 variants of predictor_general,
+     divergence and correct (`_o4_cases`: space_order=4) in float64 at
+     32^3 on the box, the stretched channel (skew and central, scalar nu
+     and nu_t) and the duct, at nx = 8 with ny = 2, 3 and 4, on the
+     ragged 12x70x40 and with periodic axes of 4 and 5 cells, and in
+     float32 at the O4 paths' 128^3 and 128x64x128, each beside the O2
+     kernel on the same inputs; fht_modal with tgv_re1600_o4's O4
+     symbols at 128^3;
      float64 to 1e-14 of scale and float32 to 1e-5; each output of a
      kernel is held to its own twin output's scale;
   3. capture (`phase_capture`): on each main path at its full width,
@@ -88,7 +95,12 @@ Phases, each of which raises on failure (nothing is caught):
      Poisson transform "pallas_fft" (tgv512_pfht: four fht_pass and one
      fht_modal a step; channel512_pfht: two and one), and the 640^3 LES
      Taylor-Green (les_tgv640, 20 steps: the "xz" plan, each xz kernel
-     once a step and no other kernel);
+     once a step and no other kernel), and the three O4 paths
+     (space_order=4: predictor_general, divergence and correct in their
+     O4 variants): the Re 1600 Taylor-Green of validation/run_tgv1600.py
+     --order 4 (tgv_re1600_o4, RK3, adaptive dt, three of each a step),
+     the 128^3 channel (channel128_o4) and the 128x64x128 Smagorinsky
+     channel (les_channel_o4, with nu_sgs);
      float32, 200 steps, use_pallas="auto", the launch
      counts set to 0 just before each run and read just after (the run
      replays graphs captured by a run before it; a replay adds the port's
@@ -247,7 +259,15 @@ F32_OPS_PER_S = 67e12
 # adds an axis each), the filtered means, L, M and their weighted
 # contractions 66 (nine divisions, L 12, M 9, L:M and M:M 36), the
 # gradient 42 and the strain with |S| 20 (194; 600 counted the 27-point
-# filter that the kernel before this one ran).
+# filter that the kernel before this one ran). The O4 variants, their
+# function's work a cell: an O4 second difference times nu 10 a component
+# and axis, an O4 first difference 5, an O4 mean 5 (f2c_mean4 or
+# c2f_mean4), an O4 staggered difference 5 (divergence 17 on three O4
+# axes, 14 on two; correct 7 a face on an O4 axis, 4 on an O2 one); the
+# predictor on the box with skew (O2) convection 29 a component, O4
+# diffusion 32 and the update 4 (196); on the channel with central
+# convection (O4 along x and z, O2 across the walls: 151), diffusion 90
+# (254), with nu_t's O2 diffusion 204 in its place (368).
 OPS_PER_CELL = {"predictor_periodic": 154, "predictor_channel": 154,
                 "predictor_channel+nu_t": 292,
                 "predictor_channel les_ibm+nu_t": 292,
@@ -258,7 +278,17 @@ OPS_PER_CELL = {"predictor_periodic": 154, "predictor_channel": 154,
                 "transport sst": 260, "transport komega": 205,
                 # the xz kernels: their slab kernels' functions
                 "predictor_general_xz": 300, "nu_sgs_xz": 100,
-                "divergence_xz": 6, "correct_xz": 9}
+                "divergence_xz": 6, "correct_xz": 9,
+                # the O4 variants (`_o4_cases`' float32 labels)
+                "predictor_general o4 tgv_re1600_o4 skew": 196,
+                "predictor_general o4 channel128_o4 central": 254,
+                "predictor_general o4 les_channel_o4 central+nu_t": 368,
+                "divergence o4 tgv_re1600_o4": 17,
+                "divergence o4 channel128_o4": 14,
+                "divergence o4 les_channel_o4": 14,
+                "correct o4 tgv_re1600_o4": 21,
+                "correct o4 channel128_o4": 18,
+                "correct o4 les_channel_o4": 18}
 
 
 class Case(NamedTuple):
@@ -1177,6 +1207,140 @@ def _general_tile_cases(dtype, device, seed):
     return cases
 
 
+# the O4 edge grids of `_o4_cases` (float64): (tag, grid, scheme, with
+# nu_t); "periodic" and "wall" name an axis's BC, a walled y is stretched
+_O4_GRIDS = (
+    ("box32", dict(Nx=32, Ny=32, Nz=32, bc_y="periodic"), "skew", False),
+    ("box32", dict(Nx=32, Ny=32, Nz=32, bc_y="periodic"), "central", True),
+    ("channel32x48x32", dict(Nx=32, Ny=48, Nz=32), "skew", False),
+    ("channel32x48x32", dict(Nx=32, Ny=48, Nz=32), "central", False),
+    ("channel32x48x32", dict(Nx=32, Ny=48, Nz=32), "skew", True),
+    ("channel32x48x32", dict(Nx=32, Ny=48, Nz=32), "central", True),
+    ("duct32x24x24", dict(Nx=32, Ny=24, Nz=24, bc_z="wall"), "central",
+     False),
+    ("duct32x24x24", dict(Nx=32, Ny=24, Nz=24, bc_z="wall"), "skew", True),
+    ("8x2x6 periodic y", dict(Nx=8, Ny=2, Nz=6, bc_y="periodic"), "central",
+     False),
+    ("8x3x6", dict(Nx=8, Ny=3, Nz=6), "central", False),
+    ("8x4x6 periodic y", dict(Nx=8, Ny=4, Nz=6, bc_y="periodic"), "central",
+     False),
+    ("8x4x6", dict(Nx=8, Ny=4, Nz=6), "skew", False),
+    ("12x70x40 periodic y", dict(Nx=12, Ny=70, Nz=40, bc_y="periodic"),
+     "central", False),
+    ("12x70x40", dict(Nx=12, Ny=70, Nz=40), "central", True),
+    ("8x4x5 periodic y", dict(Nx=8, Ny=4, Nz=5, bc_y="periodic"), "central",
+     False),
+    ("8x5x4 periodic y", dict(Nx=8, Ny=5, Nz=4, bc_y="periodic"), "skew",
+     False),
+    ("12x5x33 duct", dict(Nx=12, Ny=5, Nz=33, bc_z="wall"), "central",
+     False),
+)
+
+
+def _o4_cases(dtype, device, seed):
+    """The O4 variants of predictor_general, divergence and correct
+    (space_order=4: O4 along each periodic axis of n >= 4) against their
+    twins. Float64, to 1e-12 of scale, on `_O4_GRIDS`: the 32^3 box, the
+    stretched channel 32x48x32 (skew and central, scalar nu and nu_t), the
+    duct 32x24x24, nx = 8 with ny = 2, 3 and 4 (periodic and walled y: a
+    periodic y below 4 cells stays O2), the ragged 12x70x40 (several
+    chunks of planes), periodic y and z of 4 and 5 cells (the stencils'
+    reads colliding across the wrap) and a duct of two z tiles. Float32,
+    to 1e-5, at the O4 paths' shapes: the 128^3 box (tgv_re1600_o4: skew,
+    scalar nu), the 128^3 channel (channel128_o4: central, scalar nu) and
+    the 128x64x128 LES channel (les_channel_o4: central with nu_t), each
+    also through the O2 kernel on the same inputs ("o2" labels: the O2
+    kernels' times on the same grids). Every input of the predictor and
+    every tensor its wrapper allocates lie between NaN bands."""
+    import dataclasses
+    from cfdnn_tpu_torch import BCType, Config, ConvectiveScheme, bench
+    from cfdnn_tpu_torch import velocity_shapes
+    from cfdnn_tpu_torch.mesh import Mesh
+    from cfdnn_tpu_torch.ops import kernels as K
+    from cfdnn_tpu_torch.ops.grid import Geometry
+    gen = torch.Generator(device=device).manual_seed(seed)
+    dts = "float64" if dtype == torch.float64 else "float32"
+
+    def rnd(shape):
+        return _band(torch.randn(shape, generator=gen, dtype=dtype,
+                                 device=device))
+
+    def edge_config(grid, scheme):
+        kw = dict(nu=3e-3, nu_specified=True, dp_dx=-0.4,
+                  dp_dx_specified=True, dt=1e-3, adaptive_dt=False,
+                  dtype=dts, y_min=-1.0, y_max=1.0, z_min=-1.0, z_max=1.0,
+                  space_order=4, convective_scheme=ConvectiveScheme(scheme))
+        for axis in ("bc_y", "bc_z"):
+            periodic = grid.get(axis) == "periodic"
+            kw[axis] = BCType.PERIODIC if periodic else (
+                BCType.WALL if axis == "bc_y" or axis in grid
+                else BCType.PERIODIC)
+            kw["stretch_" + axis[-1]] = kw[axis] == BCType.WALL
+        kw.update(Nx=grid["Nx"], Ny=grid["Ny"], Nz=grid["Nz"])
+        return Config(**kw).finalize()
+
+    if dtype == torch.float64:
+        grids = [(tag, edge_config(grid, scheme), with_nut, False)
+                 for tag, grid, scheme, with_nut in _O4_GRIDS]
+    else:
+        n = 128
+        grids = [
+            ("tgv_re1600_o4", bench.tgv_re1600_config(n, dts, space_order=4),
+             False, True),
+            ("channel128_o4", bench.channel_config(n, dts, space_order=4),
+             False, True),
+            ("les_channel_o4", bench.les_channel_config(n, dts,
+                                                        space_order=4),
+             True, True)]
+    cases, projected = [], set()
+    for tag, cfg, with_nut, beside_o2 in grids:
+        cfg = cfg.finalize()
+        g4 = Geometry.make(Mesh.from_config(cfg), cfg, device=device)
+        check(K.general_eligible(g4, cfg) and g4.use_o4(0),
+              f"O4 {tag}: not an O4 general grid")
+        u, v, w = (rnd(sh) for sh in velocity_shapes(cfg))
+        cells = (cfg.Nx, cfg.Ny, cfg.Nz)
+        nu_t = _band(rnd(cells).abs() * 1e-2) if with_nut else None
+        p = rnd(cells)
+        dt = _band(torch.full((), 1e-2, dtype=dtype, device=device))
+        arrays = tuple(map(_band, K.general_arrays(g4)))
+        kg = dict(nu=cfg.nu, fx=0.7, scheme=cfg.convective_scheme)
+        extra = () if nu_t is None else (nu_t,)
+        scheme = cfg.convective_scheme.value
+        orders = ((g4, "o4"), (dataclasses.replace(g4, space_order=2), "o2")
+                  ) if beside_o2 else ((g4, "o4"),)
+        for g, order in orders:
+            cases.append(Case(
+                f"predictor_general {order} {tag} {scheme}"
+                + ("+nu_t" if with_nut else ""), "predictor_general",
+                lambda u=u, v=v, w=w, dt=dt, n=nu_t, a=arrays, g=g, kg=kg:
+                    K.predictor_general(u, v, w, dt, a, geom=g, nu_t=n,
+                                        **kg),
+                lambda u=u, v=v, w=w, dt=dt, n=nu_t, g=g, kg=kg:
+                    K.predictor_general_twin(u, v, w, dt, n, geom=g, **kg),
+                (u, v, w, dt, *arrays, *extra), banded=True))
+            # the projection once a grid
+            if (tag, order) in projected:
+                continue
+            projected.add((tag, order))
+            dens = tuple(ax.o4_den if order == "o4" and g.use_o4(a)
+                         else ax.inv_d for a, ax in enumerate(g.axes))
+            cases.append(Case(
+                f"divergence {order} {tag}", "divergence",
+                lambda u=u, v=v, w=w, g=g: K.divergence(u, v, w, geom=g),
+                lambda u=u, v=v, w=w, g=g: K.divergence_twin(u, v, w,
+                                                             geom=g),
+                (u, v, w, *dens)))
+            cases.append(Case(
+                f"correct {order} {tag}", "correct",
+                lambda u=u, v=v, w=w, p=p, dt=dt, g=g: K.correct(
+                    u, v, w, p, dt, geom=g),
+                lambda u=u, v=v, w=w, p=p, dt=dt, g=g: K.correct_twin(
+                    u, v, w, p, dt, geom=g),
+                (u, v, w, p, dt, *dens)))
+    return cases
+
+
 def _tile_cases_512(device, seed):
     """predictor_channel on channel512's grid (512^3, stretched, central,
     scalar nu), predictor_periodic on tgv512's (all periodic, skew),
@@ -1394,7 +1558,8 @@ def _fht_cases(dtype, device, seed, split640=False):
     inverse(forward(x)) = N x and, at N <= 256, against the dense
     reference_forward. Float32 at 512^3, every axis, random fields; the
     modal pass with the tgv512 solver's symbols on each axis and the
-    channel512 solver's on its Hartley axes z and x. The first
+    channel512 solver's on its Hartley axes z and x, and at 128^3 with
+    the O4 symbols of tgv_re1600_o4's solver. The first
     case of each label is the main path's. With `split640`, float32 also
     at 640^3 (N1 = 5, N2 = 128) in the main path's order with the symbols
     of les_tgv640's solver under "pallas_fft", the transform the
@@ -1509,6 +1674,11 @@ def _fht_cases(dtype, device, seed, split640=False):
                         (" channel512", bench.channel_config)):
         add_solver(tag, config(n, poisson_transform="pallas_fft").finalize(),
                    x)
+    # the O4 symbol (the modal pass's operand) of tgv_re1600_o4's solver
+    # under "pallas_fft", at its 128^3
+    add_solver(" tgv_re1600_o4 128", bench.tgv_re1600_config(
+        128, "float32", space_order=4,
+        poisson_transform="pallas_fft").finalize(), rnd((128, 128, 128)))
     if split640:
         n, tag = 640, " les_tgv640"
         t = P.PFHTAxis.make(n, dtype, device=device)
@@ -1576,12 +1746,16 @@ def _hold(case, dtype, errs):
     pair = errs.setdefault(case.name, [0.0, 0.0])
     k = 0 if dtype == torch.float64 else 1
     tol = case.f64_tol or (XZ_F64_TOL if case.slab else F64_TOL)
+    # the O4 variants' errors apart too (`_o4_cases`)
+    o4 = (errs.setdefault("o4", {}).setdefault(case.name, [0.0, 0.0])
+          if " o4 " in case.label else [0.0, 0.0])
     for out, err, lim, scale in compare(case.name, got, ref, dtype, tol):
         print(f"[kernels] {case.label} {out} {str(dtype)[6:]} "
               f"{shape}: max|d|={err:.3e} (limit {lim:.3e}, "
               f"max|twin|={scale:.3e})")
         check(err <= lim, f"{case.label} {out} {dtype}: {err} > {lim}")
         pair[k] = max(pair[k], err)
+        o4[k] = max(o4[k], err)
     if case.name == "germano_pass1":
         # the plane sums are fixed-order float64 partials: a second launch
         # on the same inputs gives them bit for bit
@@ -1619,7 +1793,8 @@ def phase_kernels(device):
     its own star, each xz kernel also against the slab kernel of its
     function, the slab kernels on a walked tile also on their edge
     shapes (`_tile_cases`, `_div_tile_cases`, `_closure_tile_cases`,
-    `_general_tile_cases`),
+    `_general_tile_cases`), the O4 variants of predictor_general,
+    divergence and correct (`_o4_cases`),
     germano_pass1's plane sums also over a second launch (bit for bit);
     returns {name: [largest float64 error, largest float32 error]}."""
     errs = {}
@@ -1634,6 +1809,7 @@ def phase_kernels(device):
         cases += _div_tile_cases(dtype, device, seed=1)
         cases += _closure_tile_cases(dtype, device, seed=1)
         cases += _general_tile_cases(dtype, device, seed=1)
+        cases += _o4_cases(dtype, device, seed=1)
         for case in cases:
             _hold(case, dtype, errs)
     return errs
@@ -1686,6 +1862,7 @@ def _paths():
     proj = {"divergence": 1, "correct": 1}
     ch_rans = dict(proj, predictor_channel=1, transport=1)
     pfht = dict(poisson_transform="pallas_fft")
+    o4 = dict(space_order=4)
     return (
         MainPath("tgv", bench.tgv_case, {}, False, ("periodic", None), False,
                  dict(proj, predictor_periodic=1)),
@@ -1754,6 +1931,18 @@ def _paths():
                  ("general_xz", "nu_sgs_xz"), False,
                  dict(predictor_general_xz=1, nu_sgs_xz=1, divergence_xz=1,
                       correct_xz=1), n=640, steps=20, xz=True),
+        # O4 (space_order=4): the general predictor's, divergence's and
+        # correct's O4 variants; the Re 1600 Taylor-Green of
+        # validation/run_tgv1600.py --order 4 (RK3, adaptive dt; no fused
+        # divergence at O4), the channel and the LES channel
+        MainPath("tgv_re1600_o4", bench.tgv_re1600_case, o4, False,
+                 ("general", None), False,
+                 dict(predictor_general=3, divergence=3, correct=3)),
+        MainPath("channel128_o4", bench.channel_case, o4, False,
+                 ("general", None), False, dict(proj, predictor_general=1)),
+        MainPath("les_channel_o4", bench.les_channel_case, o4, False,
+                 ("general", "nu_sgs"), False,
+                 dict(proj, predictor_general=1, nu_sgs=1)),
     )
 
 
@@ -1963,7 +2152,7 @@ def phase_main_path(device):
         check(math.isfinite(ke), f"{name}: KE {ke}")
         check(div <= 1e-3, f"{name}: div_linf {div} > 1e-3")
         if name in ("tgv", "les_tgv", "tgv_re1600", "tgv_fused",
-                    "tgv512_pfht", "les_tgv640"):
+                    "tgv512_pfht", "les_tgv640", "tgv_re1600_o4"):
             check(ke < ke0, f"{name}: KE {ke} did not decay from {ke0}")
         extra = ""
         if closure:
@@ -2551,7 +2740,8 @@ def phase_timing(device, errs):
     with torch.no_grad():
         for case in (_cases(128, torch.float32, device, seed=2)
                      + _div_cases(128, torch.float32, device, seed=2)
-                     + _fht_cases(torch.float32, device, seed=2)):
+                     + _fht_cases(torch.float32, device, seed=2)
+                     + _o4_cases(torch.float32, device, seed=2)):
             if case.label in times:   # timed on the first (main-path) grid
                 continue
             # the 512^3 Hartley calls take milliseconds: fewer reps
@@ -2695,6 +2885,10 @@ def kernel_entries(errs, launches, per_step, times):
             "launches_per_step": per_step[name],
             "max_abs_err": errs[name][1],
             "max_abs_err_f64": errs[name][0],
+            # the O4 variant's cases (`_o4_cases`), where it has one
+            **({"max_abs_err_o4": errs["o4"][name][1],
+                "max_abs_err_o4_f64": errs["o4"][name][0]}
+               if name in errs.get("o4", {}) else {}),
             # no single PyTorch call computes any of these stencils
             # (library_ms None); the Hartley kernels' yardstick is torch.fft
             # along the same axis of the same tensor: fht_pass's one rfft

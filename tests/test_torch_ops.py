@@ -149,11 +149,7 @@ def test_geometry_matches_reference(grid):
             assert getattr(ta, f).dtype == torch.float64
 
 
-def test_o4_and_upwind_raise():
-    _, tcfg = _cfgs("periodic16")
-    with pytest.raises(NotImplementedError, match="A.2"):
-        TGeometry.make(TMesh.from_config(tcfg), tcfg.with_(space_order=4),
-                       device="cpu")
+def test_upwind_raises():
     (_, _, _, _), (to, _, tg, tA) = _setup("periodic16")
     with pytest.raises(NotImplementedError, match="A.2"):
         to.convective(_vel(tA), tg, T.ConvectiveScheme.UPWIND)

@@ -140,7 +140,9 @@ def test_kahan_time_float32():
     (dict(time_integrator="rk2", force_ramp_time=1.0), "A.8"),
     (dict(adaptive_dt=True, bulk_velocity_target=1.0), "A.8"),
     (dict(implicit_y_diffusion=True), "A.8"),
-    (dict(space_order=4), "A.2"),
+    # O4 on a grid whose plan is "xz" (2 Ny Nz > SLAB_FIT_CELLS, a
+    # periodic z of 32-cell blocks): the O4 xz variants
+    (dict(space_order=4, use_pallas="on", Nx=8, Ny=8, Nz=24608), "B.1"),
     (dict(convective_scheme="upwind"), "A.2"),
     (dict(convective_scheme="upwind2"), "A.2"),
     (dict(turb_model="nn_mlp"), "A.12"),
