@@ -8,7 +8,9 @@
 // plain PyTorch twin is ops/kernels.py predictor_general_twin, the
 // operator library itself, as for the slab kernel. Grid: periodic uniform
 // x and z, y periodic or bounded by no-slip walls (moving or not) at any
-// stretching; O2 skew or central, scalar nu or nu + a cell nu_t. Shapes
+// stretching; O2 skew or central, scalar nu or nu + a cell nu_t (at
+// space_order 4: predictor_general_xz_o4.cuh, but for skew with nu_t,
+// which has no O4 term and runs this kernel). Shapes
 // and metrics as predictor_general.cu, whose C interface this shares (z
 // periodic: nzf = nz; the launcher refuses wall_z).
 //

@@ -21,6 +21,21 @@
 // Grid: periodic uniform x and z (the launchers refuse anything else), y
 // periodic or bounded by stationary no-slip walls at any stretching.
 //
+// O4 (space_order 4; replacing the same two Pallas kernels at ng = 2):
+// divergence_xz and correct_xz take the O4 template argument where x and z
+// are O4 (mode 3: periodic, uniform, n >= 4; the wrappers pass 24 h in
+// place of the metric, as to divergence.cu and correct.cu), and y is O4
+// too where it is periodic with ny >= 4 (mode 3), O2 where walled or
+// shorter. The stencils are the slab kernels' O4 terms, expression for
+// expression: f2c_diff4, (27 (F[i+1] - F[i]) - (F[i+2] - F[i-1])) / 24 h,
+// for the divergence, on a window with a two-cell high x/z halo and the
+// planes j - 1 ... j + 2; c2f_diff4, (27 (p[f] - p[f-1]) - (p[f+1] -
+// p[f-2])) / 24 h, for the gradient, on a window with a two-cell low halo
+// and the planes j - 2 ... j + 1. A walled y keeps the O2 terms and the
+// zero wall-face gradient. The O2 instantiations are the kernels of
+// before. nu_sgs_xz needs no O4 variant: its strain is O2 at every order,
+// as the reference's (fused_nu_sgs_xz takes ng = 1 at O4).
+//
 // Bound on the H100: device-memory bandwidth. nu_sgs_xz reads u, v, w and
 // writes nu_t (16 bytes a cell in float32, ~100-250 flops); divergence_xz
 // the same bytes and 6 flops; correct_xz reads u, v, w, p and writes
@@ -160,14 +175,20 @@ int launch_nu_sgs(const void* u, const void* v, const void* w,
 // ---- divergence_xz -----------------------------------------------------
 
 // div_cell with a periodic x and z (mx = mz = 1) and my = 1 (periodic)
-// or 2 (walled): (face_hi - face_lo) * inv_d along x, then y, then z.
-template <typename T>
+// or 2 (walled): (face_hi - face_lo) * inv_d along x, then y, then z. O4:
+// x and z in mode 3 (f2c_diff4 over the divisors 24 h in inv_dx, inv_dz),
+// y in my = 3 (O4, inv_dy holding 24 h) or 1 or 2 (O2), with
+// divergence.cu's O4 expressions and its first-term rule.
+template <typename T, bool O4>
 __global__ void __launch_bounds__(kThreads)
 divergence_xz_kernel(const T* __restrict__ u, const T* __restrict__ v,
                      const T* __restrict__ w, const T* __restrict__ inv_dx,
                      const T* __restrict__ inv_dy, const T* __restrict__ inv_dz,
                      T* __restrict__ out, int nx, int ny, int nz, int my) {
-    using Win = Window<T, 3, 0, 1>;
+    // O4: faces i - 1 ... i + 2 along each axis (a two-cell high halo,
+    // the planes j - 1 ... j + 2)
+    using Win = std::conditional_t<O4, Window<T, 3, 1, 2, 1, 2>,
+                                   Window<T, 3, 0, 1>>;
     using View = typename Win::View;
     __shared__ T buf[Win::kSize];
     Win win;
@@ -180,23 +201,38 @@ divergence_xz_kernel(const T* __restrict__ u, const T* __restrict__ v,
     win.walk([&](const View& r) {
         if (!owns) return;
         const int j = r.j;
-        T acc = (r.template at<0>(1, 0, 0) - r.template at<0>(0, 0, 0)) * inv_dx[i];
-        acc = acc + (r.template at<1>(0, 1, 0) - r.template at<1>(0, 0, 0)) * inv_dy[j];
-        acc = acc + (r.template at<2>(0, 0, 1) - r.template at<2>(0, 0, 0)) * inv_dz[k];
-        out[(i * ny + j) * nz + k] = acc;
+        if constexpr (O4) {
+            T acc = (T(27) * (r.template at<0>(1, 0, 0) - r.template at<0>(0, 0, 0))
+                     - (r.template at<0>(2, 0, 0) - r.template at<0>(-1, 0, 0)))
+                    / inv_dx[i];
+            T t;
+            if (my == 3)
+                t = (T(27) * (r.template at<1>(0, 1, 0) - r.template at<1>(0, 0, 0))
+                     - (r.template at<1>(0, 2, 0) - r.template at<1>(0, -1, 0)))
+                    / inv_dy[j];
+            else
+                t = (r.template at<1>(0, 1, 0) - r.template at<1>(0, 0, 0)) * inv_dy[j];
+            acc = acc + t;
+            acc = acc + (T(27) * (r.template at<2>(0, 0, 1) - r.template at<2>(0, 0, 0))
+                         - (r.template at<2>(0, 0, 2) - r.template at<2>(0, 0, -1)))
+                        / inv_dz[k];
+            out[(i * ny + j) * nz + k] = acc;
+        } else {
+            T acc = (r.template at<0>(1, 0, 0) - r.template at<0>(0, 0, 0)) * inv_dx[i];
+            acc = acc + (r.template at<1>(0, 1, 0) - r.template at<1>(0, 0, 0)) * inv_dy[j];
+            acc = acc + (r.template at<2>(0, 0, 1) - r.template at<2>(0, 0, 0)) * inv_dz[k];
+            out[(i * ny + j) * nz + k] = acc;
+        }
     });
 }
 
-template <typename T>
-int launch_divergence(const void* u, const void* v, const void* w,
-                      const void* inv_dx, const void* inv_dy,
-                      const void* inv_dz, void* out, int nx, int ny, int nz,
-                      int mx, int my, int mz, void* stream) {
-    if (mx != 1 || mz != 1 || (my != 1 && my != 2)
-        || !fits(nx, my == 2 ? ny + 1 : ny, nz))
-        return static_cast<int>(cudaErrorInvalidValue);
-    divergence_xz_kernel<T><<<cfdnn::xz::grid(nx, nz, ny), kThreads, 0,
-                              static_cast<cudaStream_t>(stream)>>>(
+template <typename T, bool O4>
+int walk_divergence(const void* u, const void* v, const void* w,
+                    const void* inv_dx, const void* inv_dy,
+                    const void* inv_dz, void* out, int nx, int ny, int nz,
+                    int my, void* stream) {
+    divergence_xz_kernel<T, O4><<<cfdnn::xz::grid(nx, nz, ny), kThreads, 0,
+                                  static_cast<cudaStream_t>(stream)>>>(
         static_cast<const T*>(u), static_cast<const T*>(v),
         static_cast<const T*>(w), static_cast<const T*>(inv_dx),
         static_cast<const T*>(inv_dy), static_cast<const T*>(inv_dz),
@@ -204,12 +240,40 @@ int launch_divergence(const void* u, const void* v, const void* w,
     return static_cast<int>(cudaGetLastError());
 }
 
+// The modes the xz projection kernels take: x and z both periodic at O2
+// (1) or both at O4 (3: n >= 4), y periodic (1), walled (2) or, with an O4
+// x and z, periodic at O4 (3: ny >= 4). Whether they take the O4
+// instantiation: `o4`.
+inline bool xz_modes(int nx, int ny, int nz, int mx, int my, int mz,
+                     bool& o4) {
+    o4 = mx == 3;
+    if (mx != mz || (mx != 1 && mx != 3) || my < 1 || my > (o4 ? 3 : 2))
+        return false;
+    return !(o4 && (nx < 4 || nz < 4 || (my == 3 && ny < 4)));
+}
+
+template <typename T>
+int launch_divergence(const void* u, const void* v, const void* w,
+                      const void* inv_dx, const void* inv_dy,
+                      const void* inv_dz, void* out, int nx, int ny, int nz,
+                      int mx, int my, int mz, void* stream) {
+    bool o4;
+    if (!xz_modes(nx, ny, nz, mx, my, mz, o4)
+        || !fits(nx, my == 2 ? ny + 1 : ny, nz))
+        return static_cast<int>(cudaErrorInvalidValue);
+    return (o4 ? walk_divergence<T, true> : walk_divergence<T, false>)(
+        u, v, w, inv_dx, inv_dy, inv_dz, out, nx, ny, nz, my, stream);
+}
+
 // ---- correct_xz --------------------------------------------------------
 
 // face_grad of p at the three faces of the point: (p - p one cell down) *
 // inv_dc, periodic along x and z; along y periodic (my = 1) or walled (my
-// = 2: zero at the two wall faces, bc.pad_pressure's Neumann copy).
-template <typename T>
+// = 2: zero at the two wall faces, bc.pad_pressure's Neumann copy). O4:
+// x and z in mode 3 (c2f_diff4 over the divisors 24 h in inv_dcx,
+// inv_dcz), y in my = 3 (O4, inv_dcy holding 24 h) or 1 or 2 (O2), with
+// correct.cu's O4 expressions.
+template <typename T, bool O4>
 __global__ void __launch_bounds__(kThreads)
 correct_xz_kernel(const T* __restrict__ u, const T* __restrict__ v,
                   const T* __restrict__ w, const T* __restrict__ p,
@@ -217,7 +281,10 @@ correct_xz_kernel(const T* __restrict__ u, const T* __restrict__ v,
                   const T* __restrict__ inv_dcy, const T* __restrict__ inv_dcz,
                   T* __restrict__ ou, T* __restrict__ ov, T* __restrict__ ow,
                   int nx, int ny, int nz, int my) {
-    using Win = Window<T, 1, 1, 0>;
+    // O4: cells f - 2 ... f + 1 along each axis (a two-cell low halo, the
+    // planes j - 2 ... j + 1)
+    using Win = std::conditional_t<O4, Window<T, 1, 2, 1, 1, 1, 0, 2>,
+                                   Window<T, 1, 1, 0>>;
     using View = typename Win::View;
     __shared__ T buf[Win::kSize];
     const int nfy = my == 2 ? ny + 1 : ny;
@@ -230,31 +297,56 @@ correct_xz_kernel(const T* __restrict__ u, const T* __restrict__ v,
     win.walk([&](const View& r) {
         if (!owns) return;
         const int j = r.j;
-        if (j < ny) {
-            const int c = (i * ny + j) * nz + k;
-            const T p0 = r.template at<0>(0, 0, 0);
-            ou[c] = u[c] - dt * ((p0 - r.template at<0>(-1, 0, 0)) * inv_dcx[i]);
-            ow[c] = w[c] - dt * ((p0 - r.template at<0>(0, 0, -1)) * inv_dcz[k]);
-        }
-        const int f = (i * nfy + j) * nz + k;
-        const T gy = my == 2 && (j == 0 || j == ny)
+        if constexpr (O4) {
+            if (j < ny) {
+                const int c = (i * ny + j) * nz + k;
+                const T p0 = r.template at<0>(0, 0, 0);
+                ou[c] = u[c] - dt * ((T(27) * (p0 - r.template at<0>(-1, 0, 0))
+                                      - (r.template at<0>(1, 0, 0)
+                                         - r.template at<0>(-2, 0, 0)))
+                                     / inv_dcx[i]);
+                ow[c] = w[c] - dt * ((T(27) * (p0 - r.template at<0>(0, 0, -1))
+                                      - (r.template at<0>(0, 0, 1)
+                                         - r.template at<0>(0, 0, -2)))
+                                     / inv_dcz[k]);
+            }
+            const int f = (i * nfy + j) * nz + k;
+            T gy;
+            if (my == 3)
+                gy = (T(27) * (r.template at<0>(0, 0, 0) - r.template at<0>(0, -1, 0))
+                      - (r.template at<0>(0, 1, 0) - r.template at<0>(0, -2, 0)))
+                     / inv_dcy[j];
+            else
+                gy = my == 2 && (j == 0 || j == ny)
                          ? T(0) * inv_dcy[j]
                          : (r.template at<0>(0, 0, 0) - r.template at<0>(0, -1, 0))
                                * inv_dcy[j];
-        ov[f] = v[f] - dt * gy;
+            ov[f] = v[f] - dt * gy;
+        } else {
+            if (j < ny) {
+                const int c = (i * ny + j) * nz + k;
+                const T p0 = r.template at<0>(0, 0, 0);
+                ou[c] = u[c] - dt * ((p0 - r.template at<0>(-1, 0, 0)) * inv_dcx[i]);
+                ow[c] = w[c] - dt * ((p0 - r.template at<0>(0, 0, -1)) * inv_dcz[k]);
+            }
+            const int f = (i * nfy + j) * nz + k;
+            const T gy = my == 2 && (j == 0 || j == ny)
+                             ? T(0) * inv_dcy[j]
+                             : (r.template at<0>(0, 0, 0) - r.template at<0>(0, -1, 0))
+                                   * inv_dcy[j];
+            ov[f] = v[f] - dt * gy;
+        }
     });
 }
 
-template <typename T>
-int launch_correct(const void* u, const void* v, const void* w, const void* p,
-                   const void* dt, const void* inv_dcx, const void* inv_dcy,
-                   const void* inv_dcz, void* ou, void* ov, void* ow, int nx,
-                   int ny, int nz, int mx, int my, int mz, void* stream) {
+template <typename T, bool O4>
+int walk_correct(const void* u, const void* v, const void* w, const void* p,
+                 const void* dt, const void* inv_dcx, const void* inv_dcy,
+                 const void* inv_dcz, void* ou, void* ov, void* ow, int nx,
+                 int ny, int nz, int my, void* stream) {
     const int nfy = my == 2 ? ny + 1 : ny;
-    if (mx != 1 || mz != 1 || (my != 1 && my != 2) || !fits(nx, nfy, nz))
-        return static_cast<int>(cudaErrorInvalidValue);
-    correct_xz_kernel<T><<<cfdnn::xz::grid(nx, nz, nfy), kThreads, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
+    correct_xz_kernel<T, O4><<<cfdnn::xz::grid(nx, nz, nfy), kThreads, 0,
+                               static_cast<cudaStream_t>(stream)>>>(
         static_cast<const T*>(u), static_cast<const T*>(v),
         static_cast<const T*>(w), static_cast<const T*>(p),
         static_cast<const T*>(dt), static_cast<const T*>(inv_dcx),
@@ -262,6 +354,20 @@ int launch_correct(const void* u, const void* v, const void* w, const void* p,
         static_cast<T*>(ou), static_cast<T*>(ov), static_cast<T*>(ow),
         nx, ny, nz, my);
     return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_correct(const void* u, const void* v, const void* w, const void* p,
+                   const void* dt, const void* inv_dcx, const void* inv_dcy,
+                   const void* inv_dcz, void* ou, void* ov, void* ow, int nx,
+                   int ny, int nz, int mx, int my, int mz, void* stream) {
+    bool o4;
+    if (!xz_modes(nx, ny, nz, mx, my, mz, o4)
+        || !fits(nx, my == 2 ? ny + 1 : ny, nz))
+        return static_cast<int>(cudaErrorInvalidValue);
+    return (o4 ? walk_correct<T, true> : walk_correct<T, false>)(
+        u, v, w, p, dt, inv_dcx, inv_dcy, inv_dcz, ou, ov, ow, nx, ny, nz,
+        my, stream);
 }
 
 }  // namespace

@@ -8,7 +8,8 @@
 // On the TPU the xz kernels exist because a whole y-z plane overflows the
 // core's VMEM, so they tile x and z and keep full y columns. The Hopper
 // tile takes the same shape: z fastest and a warp wide, so every load of
-// a plane coalesces along z; the tile and its one-cell x/z halo (corners
+// a plane coalesces along z; the tile and its x/z halo (one cell, or two
+// on a side where an O4 stencil or a div kernel reaches; corners
 // included) are staged in shared memory; and a ring of y-planes (j - YLO
 // ... j + YHI of the current plane j, and one plane more in flight) rolls
 // along the walk, so each plane is fetched from device memory once per
@@ -17,8 +18,9 @@
 // barrier a plane both publishes the copy and retires the slot it reuses.
 //
 // The stencils read the window through View::at<C>(di, dj, dk): component
-// C at an offset of -1, 0 or +1 along each axis from the thread's point,
-// one shared-memory load at a fixed offset from the plane's base. The
+// C at an offset within the halo and the planes staged (-1, 0 or +1 at
+// O2) along each axis from the thread's point, one shared-memory load at
+// a fixed offset from the plane's base. The
 // x and z halo is staged wrapped (x and z are periodic here: the wrappers'
 // gate refuses anything else), and on a periodic y the ring holds the
 // wrapped planes, so inside the tile a neighbour is always one step away
@@ -80,23 +82,27 @@ __device__ __forceinline__ void wait_copies_but() {
 }
 
 // The staged window of NF fields over a tile: y-planes j - YLO ... j + YHI
-// of the current plane j, and the next AHEAD planes in flight (one for
-// the xz kernels), in a ring of shared-memory slots, each [NF][kPx][kPz].
-// The x/z halo is one cell on the low side and HI on the high side: one
-// for every stencil of a point; two (11 x 35 points a plane) for the div
-// kernels, whose block also forms the stars of the next tiles' first x
-// row and z column (div_tile.cuh). A two-cell high halo reaches past a
-// single wrap of x below nx = kTx + 1, so it is staged wrapped fully and
-// takes every nx. A walk goes PAST planes beyond the end of its chunk:
-// none, or one for the div kernels, which form star v of the next face
-// there (the next chunk's first, or a walled y's face ny).
+// of the current plane j (YLO, YHI of 0 to 2), and the next AHEAD planes
+// in flight (one for the xz kernels), in a ring of shared-memory slots,
+// each [NF][kPx][kPz]. The x/z halo is LO cells on the low side and HI on
+// the high side: one each for every O2 stencil of a point; a two-cell
+// high halo (11 x 35 points a plane) for the div kernels, whose block
+// also forms the stars of the next tiles' first x row and z column
+// (div_tile.cuh), and for O4 divergence_xz (f2c_diff4 reaches i + 2); a
+// two-cell low halo for O4 correct_xz (c2f_diff4 reaches i - 2). A
+// two-cell halo reaches past a single wrap of x below nx = kTx + 1, so it
+// is staged wrapped fully and takes every nx. A walk goes PAST planes
+// beyond the end of its chunk: none, or one for the div kernels, which
+// form star v of the next face there (the next chunk's first, or a
+// walled y's face ny).
 template <typename T, int NF, int YLO, int YHI, int AHEAD = 1, int HI = 1,
-          int PAST = 0>
+          int PAST = 0, int LO = 1>
 struct Window {
     static_assert(HI >= 1 && HI <= 2, "a high halo of one or two cells");
+    static_assert(LO >= 1 && LO <= 2, "a low halo of one or two cells");
     static_assert(PAST >= 0 && PAST <= 1, "one plane past a chunk at most");
-    static constexpr int kPx = kTx + 1 + HI;          // staged x points
-    static constexpr int kPz = kTz + 1 + HI;          // staged z points
+    static constexpr int kPx = kTx + LO + HI;         // staged x points
+    static constexpr int kPz = kTz + LO + HI;         // staged z points
     static constexpr int kPlane = kPx * kPz;          // ... of a plane
     static constexpr int kSlots = YLO + YHI + 1 + AHEAD;
     static constexpr int kSize = kSlots * NF * kPlane;   // elements
@@ -144,12 +150,12 @@ struct Window {
         for (int q = 0; q < 2; ++q) {
             const int p = min(e + q * kThreads, kPlane - 1);
             const int lx = p / kPz;
-            const int g = i0 - 1 + lx;
-            if constexpr (HI > 1)
+            const int g = i0 - LO + lx;
+            if constexpr (HI > 1 || LO > 1)
                 gx[q] = (g % nx + nx) % nx;
             else
                 gx[q] = g < 0 ? g + nx : (g >= nx ? g - nx : g);
-            gz[q] = (k0 - 1 + p - lx * kPz + nz) % nz;
+            gz[q] = (k0 - LO + p - lx * kPz + nz) % nz;
         }
     }
 
@@ -192,15 +198,25 @@ struct Window {
         int o[YLO + YHI + 1];
         int j;
 
-        // Component C at (i + di, j + dj, k + dk), each offset in -1 ... 1.
-        // dj picks the plane; on the planes next to a wall it may vary at
-        // run time, elsewhere every offset is a constant and the read is
-        // one load at a fixed offset from the plane's base.
+        // Component C at (i + di, j + dj, k + dk), each offset within the
+        // halo and the planes staged. dj picks the plane; on the planes
+        // next to a wall it may vary at run time, elsewhere every offset
+        // is a constant and the read is one load at a fixed offset from
+        // the plane's base.
         template <int C>
         __device__ __forceinline__ T at(int di, int dj, int dk) const {
-            const int base = (YLO && dj < 0) ? o[0]
-                             : ((YHI && dj > 0) ? o[YLO + YHI] : o[YLO]);
-            return buf[base + C * kPlane + di * kPz + dk];
+            if constexpr (YLO <= 1 && YHI <= 1) {
+                const int base = (YLO && dj < 0) ? o[0]
+                                 : ((YHI && dj > 0) ? o[YLO + YHI] : o[YLO]);
+                return buf[base + C * kPlane + di * kPz + dk];
+            } else {
+                // plane j + dj's slot, by selects (no indexed register)
+                int base = o[0];
+#pragma unroll
+                for (int d = 1; d <= YLO + YHI; ++d)
+                    if (dj >= d - YLO) base = o[d];
+                return buf[base + C * kPlane + di * kPz + dk];
+            }
         }
     };
 
@@ -209,8 +225,8 @@ struct Window {
     // walk; body decides what a thread that owns no point does).
     template <typename Body>
     __device__ __forceinline__ void walk(Body body) {
-        static_assert(YLO >= 0 && YLO <= 1 && YHI >= 0 && YHI <= 1,
-                      "the stencils reach one plane either way");
+        static_assert(YLO >= 0 && YLO <= 2 && YHI >= 0 && YHI <= 2,
+                      "the stencils reach two planes either way at most");
         static_assert(AHEAD >= 1, "one plane in flight at least");
         // planes j0 - YLO ... j0 + YHI into slots 0 ... YLO + YHI, then
         // with AHEAD > 1 the planes after them, a copy group each
@@ -222,7 +238,7 @@ struct Window {
             if (j0 + a < j1) fetch(j0 + YHI + a, YLO + YHI + a);
             commit_copies();
         }
-        const int point = (tx + 1) * kPz + tz + 1;
+        const int point = (tx + LO) * kPz + tz + LO;
         int s = 0;   // the slot of plane j - YLO
         for (int j = j0; j < j1; ++j) {
             // plane j + YHI has landed for every thread, and every thread

@@ -39,7 +39,9 @@ steps of the benchmark grids:
                          predictor_general, nu_sgs, divergence and correct
                          on an (x, z) tile staged in shared memory and
                          walked along y (csrc/xz_tile.cuh), the kernels of
-                         the reference's "xz" plan
+                         the reference's "xz" plan, at O2 and O4 (the
+                         predictor's O4 variant in
+                         csrc/predictor_general_xz_o4.cuh)
 
 Each source file's head says what bounds the kernel on the H100 and what
 its design does about it. Each kernel computes what its TPU kernel
@@ -204,8 +206,10 @@ _SIGNATURES = {
     "predictor_channel": [_P] * 13 + [_I] * 3 + [_D] * 4 + [_I, _P],
     "predictor_channel_div": [_P] * 14 + [_I] * 3 + [_D] * 4 + [_I, _P],
     "predictor_general": [_P] * 10 + [_I] * 5 + [_D] * 2 + [_I, _P],
-    # the O4 variant's entry: predictor_general's and its O4 constants
+    # the O4 variants' entries: predictor_general's and its O4 constants
     "predictor_general_o4": [_P] * 10 + [_I] * 5 + [_D] * 2 + [_I, _P, _P],
+    "predictor_general_xz_o4": [_P] * 10 + [_I] * 5 + [_D] * 2
+                               + [_I, _P, _P],
     "divergence": [_P] * 7 + [_I] * 6 + [_P],
     "correct": [_P] * 11 + [_I] * 6 + [_P],
     "nu_sgs": [_P] * 11 + [_I] * 6 + [_D, _P],
@@ -973,8 +977,9 @@ def _o4_constants(geom: Geometry, with_nut: bool, skew: bool):
 
 def _general_call(name, u, v, w, dt, nu_t, gs, geom, nu, fx, scheme):
     """Launch `name` (predictor_general or predictor_general_xz: one C
-    interface; the former's O4 variant, predictor_general_o4, with its O4
-    constants after it) and return its three stars."""
+    interface; at O4 its O4 variant, predictor_general_o4 or
+    predictor_general_xz_o4, with the O4 constants after it) and return
+    its three stars."""
     skew = _scheme_is_skew(scheme)
     su, sv, sw = (torch.empty_like(a) for a in (u, v, w))
     x, y, z = geom.axes
@@ -983,10 +988,9 @@ def _general_call(name, u, v, w, dt, nu_t, gs, geom, nu, fx, scheme):
     metrics = (ctypes.c_void_p * 15)(*(t.data_ptr() for t in gs))
     tang = (ctypes.c_double * 12)(*(float(t) for ax in (y, z)
                                     for pair in ax.tang for t in pair))
-    o4 = (_o4_constants(geom, nu_t is not None, skew)
-          if name == "predictor_general" else None)
+    o4 = _o4_constants(geom, nu_t is not None, skew)
     if o4 is not None:
-        name = "predictor_general_o4"
+        name += "_o4"
     _launch(name, u,
             *(t.data_ptr() for t in (u, v, w, dt)),
             None if nu_t is None else nu_t.data_ptr(),
@@ -1245,7 +1249,8 @@ def les_refusal(name: str, geom: Geometry) -> Optional[str]:
                      O2 at every order, as the reference's);
       germano_pass1  nu_sgs's (its box filter truncates at a wall of y or
                      z, as the reference's fuses it on any slab geometry);
-      nu_sgs_xz      nu_sgs's on the xz kernels' grid (xz_eligible)."""
+      nu_sgs_xz      nu_sgs's on the xz kernels' grid (xz_eligible), at
+                     any order too."""
     x, y, z = geom.axes
     if not (x.periodic and x.uniform and x.n > 1):
         return f"{name} needs a periodic uniform x"
@@ -1257,7 +1262,7 @@ def les_refusal(name: str, geom: Geometry) -> Optional[str]:
                 "no-slip at rest; a lid or a moving wall is not served)")
     if name == "nu_sgs_xz" and not xz_eligible(geom):
         return ("nu_sgs_xz needs the (x, z) tile's grid (x.n >= 8, a "
-                "periodic z, O2)")
+                "periodic z; at O4 x and z of 4 cells or more)")
     return None
 
 
@@ -1433,18 +1438,23 @@ germano_pass1.launches = 0
 # (x, z) tile walked along y (csrc/xz_tile.cuh), for the grids whose y-z
 # planes the reference's TPU slab cannot hold (its "xz" plan; the
 # Simulation's plan routes them as the reference does, solver.py). Their
-# twins are the slab kernels' twins, the same functions. Each shares its
-# slab kernel's C interface and argument builder (`_general_call`,
-# `_nu_sgs_call`, `_divergence_call`, `_correct_call`).
+# twins are the slab kernels' twins, the same functions, O2 or O4. Each
+# shares its slab kernel's C interface and argument builder
+# (`_general_call`, `_nu_sgs_call`, `_divergence_call`, `_correct_call`):
+# at O4 the predictor launches its O4 variant (predictor_general_xz_o4,
+# the O4 constants after the xz entry's arguments) and the projection
+# kernels take mode 3 on each O4 axis, as the slab kernels do.
 
 
 def xz_eligible(geom: Geometry) -> bool:
     """Gate of the xz kernels: the general predictor's grid with a
     periodic z (periodic uniform x with x.n >= 8 and z, y periodic
-    uniform or no-slip walls at any stretching), O2 (their O4 variants are
-    ROADMAP B.1)."""
+    uniform or no-slip walls at any stretching), O2 or O4; at O4 x and z
+    O4 both (AxisGeom.o4_ok: periodic, uniform, n >= 4), as the O4
+    variants take them."""
     return (_general_geom_ok(geom) and geom.axes[2].periodic
-            and geom.space_order == 2)
+            and (geom.space_order == 2
+                 or (geom.use_o4(0) and geom.use_o4(2))))
 
 
 def nu_sgs_xz_eligible(geom: Geometry) -> bool:
@@ -1461,9 +1471,9 @@ def _check_xz(name, geom, gate=xz_eligible):
     if not gate(geom):
         raise NotImplementedError(
             f"{name}: the (x, z)-tiled kernel serves a periodic uniform x "
-            "(x.n >= 8) and z with y periodic uniform or walls, O2 (O4 is "
-            "ROADMAP B.1); other grids take the slab kernels or the "
-            "operators")
+            "(x.n >= 8) and z with y periodic uniform or walls, O2 or O4 "
+            "(O4 on an x and a z of 4 cells or more); other grids take the "
+            "slab kernels or the operators")
 
 
 def _predictor_general_xz_launch(u, v, w, dt, nu_t=None, *, gs, geom, nu, fx,
@@ -1481,7 +1491,9 @@ def predictor_general_xz(u, v, w, dt, gs, *, geom: Geometry, nu, fx, scheme,
                          nu_t=None):
     """`predictor_general` (the same function, arguments and twin) on the
     (x, z) tile: periodic uniform x and z, y periodic or no-slip (moving
-    or not) at any stretching. `gs` = general_arrays(geom)."""
+    or not) at any stretching, O2 or O4 (the O4 variant's kernel,
+    csrc/predictor_general_xz_o4.cuh, where predictor_general runs its
+    own). `gs` = general_arrays(geom)."""
     _check_xz("predictor_general_xz", geom)
     x, y, z = geom.axes
     extra = () if nu_t is None else (nu_t,)
@@ -1529,7 +1541,8 @@ def _divergence_xz_launch(u, v, w, *, geom):
 
 
 def divergence_xz(u, v, w, *, geom: Geometry):
-    """`divergence` (the same function and twin) on the (x, z) tile."""
+    """`divergence` (the same function and twin) on the (x, z) tile,
+    O4 (f2c_diff4) along each Geometry.use_o4 axis."""
     _check_xz("divergence_xz", geom)
     _check("divergence_xz", (u, v, w), _face_shapes(geom))
     _check_geom("divergence_xz", geom, (u,))
@@ -1549,7 +1562,8 @@ def _correct_xz_launch(u, v, w, p, dt, *, geom):
 
 
 def correct_xz(u, v, w, p, dt, *, geom: Geometry):
-    """`correct` (the same function and twin) on the (x, z) tile."""
+    """`correct` (the same function and twin) on the (x, z) tile, O4
+    (c2f_diff4) along each Geometry.use_o4 axis."""
     _check_xz("correct_xz", geom)
     x, y, z = geom.axes
     _check("correct_xz", (u, v, w, p, dt),
@@ -1895,7 +1909,7 @@ _SYMBOLS = tuple((name, re.compile(r"(?<![A-Za-z_])" + pattern))
     ("transport", r"transport_tile_kernel"),
     ("fht_pass", _FHT + r"[01](?!\d)"),
     ("fht_modal", _FHT + r"2(?!\d)"),
-    ("predictor_general_xz", r"predictor_general_xz_kernel"),
+    ("predictor_general_xz", r"predictor_general_xz(?:_o4)?_kernel"),
     ("nu_sgs_xz", r"nu_sgs_xz_kernel"),
     ("divergence_xz", r"divergence_xz_kernel"),
     ("correct_xz", r"correct_xz_kernel")))

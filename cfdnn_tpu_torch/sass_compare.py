@@ -9,17 +9,20 @@ except the ones a change redesigns on purpose:
   alike, including those that share a header with a redesigned kernel
   (`xz_tile.cuh`, `predictor_terms.cuh`, `les.cuh`, `projection.cuh`);
 - REDESIGNED names the kernels a change rewrites on purpose (none now:
-  the O4 change added variants and rewrote nothing). An old copy's
+  the O4 changes added variants and rewrote nothing). An old copy's
   kernel of those names is reported as REDESIGNED and not compared; an
   old source the new copy lacks is compiled in the old copy alone, each
   of its kernels REDESIGNED or MISSING. A change that redesigns kernels
   names them there;
 - GAINED_O4 names the kernels that gained the O4 template argument as
-  their last (`divergence_kernel`, `correct_kernel`): an old kernel
+  their last (`divergence_kernel`, `correct_kernel` and their xz
+  kernels `divergence_xz_kernel`, `correct_xz_kernel`): an old kernel
   X<args> of those names is held to the new copy's O2 instantiation
   X<args, false>, which must be the old kernel instruction for
-  instruction; their O4 instantiations (and every other new kernel, such
-  as predictor_general_o4_kernel) have no old counterpart and are not
+  instruction (from a copy that has them already, the name is held as
+  it is); their O4 instantiations (and every other new kernel, such as
+  predictor_general_o4_kernel and predictor_general_xz_o4_kernel, whose
+  source the old copy lacks) have no old counterpart and are not
   listed.
 This compiles each file of both copies to a cubin with the library's
 flags, disassembles it with cuobjdump, and holds every kernel of the old
@@ -50,7 +53,9 @@ from .ops.kernels import NVCC_FLAGS, _CSRC, _nvcc
 REDESIGNED = re.compile(r"(?!)")
 # the kernels that gained the O4 template argument (demangled names of
 # the old copy): each held to its new O2 instantiation
-GAINED_O4 = re.compile(r"(?:divergence|correct)_kernel<[^<>]*>")
+GAINED_O4 = re.compile(
+    r"(?:divergence|correct)(?:_xz)?_kernel<(?![^<>]*, (?:false|true)>)"
+    r"[^<>]*>")
 OUT = Path(__file__).resolve().parents[1] / "build" / "sass"
 
 

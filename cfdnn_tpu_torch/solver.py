@@ -23,10 +23,15 @@ holds a y-z plane (`slab_fits`), "xz" above that on a periodic uniform z
 that tiles (`xz_tileable`), and no kernel at all where neither holds or
 where x is not uniform with x.n >= 8 on a 3-D grid. In "xz" the step runs
 predictor_general_xz (laminar or LES, periodic or walled y), divergence_xz
-and correct_xz, and nu_sgs_xz for Smagorinsky, WALE and Vreman; dynamic
-Smagorinsky and the k-omega transport run their plain chains there, as in
-the reference. In "slab", in the reference's order (cfdnn_tpu/solver.py
-:783-827),
+and correct_xz, O2 or O4 (their O4 variants at space_order=4, as the
+reference runs its xz kernels at a halo of 2), and nu_sgs_xz for
+Smagorinsky, WALE and Vreman; dynamic Smagorinsky and the k-omega
+transport run their plain chains there, as in the reference. The LES
+closures follow the reference's own LES gate (turbulence/les.py:37-64,
+`les_tiling`), which tiles at a halo of 1 at every order: at O4 an x with
+no divisor between 2 and the block cap (a prime Nx) gives the predictor no
+tiling and no kernel, while nu_sgs_xz still serves the closure. In "slab",
+in the reference's order (cfdnn_tpu/solver.py :783-827),
   - predictor_periodic when the grid is all-periodic uniform, 3-D, O2
     skew with no turbulence closure (the reference's fused_predictor; an
     O4 grid takes predictor_general);
@@ -223,6 +228,25 @@ def tiling_mode(geom: Geometry, cfg: Config) -> Optional[str]:
     return None
 
 
+def les_tiling(geom: Geometry) -> Optional[str]:
+    """The reference's LES tiling mode (its LESModelBase._fuse,
+    cfdnn_tpu/turbulence/les.py:37-64, single device): None unless x is
+    periodic and uniform with x.n >= 8 on a 3-D grid; then "slab" where the
+    slab block fits (slab_fits), else "xz" on a periodic uniform z that
+    tiles at a halo of 1 (xz_tileable: its nu_sgs_xz reaches one cell at
+    every order), else None. On a periodic x it differs from
+    `tiling_mode` only at O4, where the predictor's tiling takes a halo
+    of 2."""
+    x, y, z = geom.axes
+    if not (x.periodic and x.uniform and x.n >= 8 and z.n > 1):
+        return None
+    if slab_fits(geom):
+        return "slab"
+    if z.periodic and z.uniform and xz_tileable(x.n, y.n, z.n):
+        return "xz"
+    return None
+
+
 def _check_supported(cfg: Config) -> None:
     """Raise NotImplementedError for every config the port does not serve
     yet, naming the ROADMAP item that brings it."""
@@ -393,15 +417,6 @@ class Simulation:
         # that the launches match it. Should measurements favour the slab
         # kernels there (PERF.md), this is the one place to change.
         tiling = tiling_mode(geom, cfg)
-        if tiling == "xz" and cfg.space_order != 2:
-            # the reference runs its xz kernels at O4 (halo 2); the port's
-            # are O2, and a grid the reference runs with kernels is not run
-            # eagerly on the card in their place
-            raise NotImplementedError(
-                f"space_order={cfg.space_order} on a grid whose kernel plan "
-                "is \"xz\" (2 Ny Nz > SLAB_FIT_CELLS): the O4 variants of "
-                "the xz kernels are not in the port yet; ROADMAP B.1 (O4 "
-                "xz variants)")
         x = geom.x
         laminar = cfg.turb_model == TurbulenceModel.NONE
         predictor = None
@@ -435,9 +450,16 @@ class Simulation:
                 "and a y-z plane the reference's slab or (x, z) tiling "
                 "serves); use 'auto' or 'off'")
         # with no mode the reference fuses no closure either (its
-        # turb._fuse is False, les.py:37-64)
-        closure = self.turb.kernel if tiling is not None else None
-        if tiling == "xz":
+        # turb._fuse is False, les.py:37-64). Its LES closures keep a gate
+        # of their own, which tiles at a halo of 1: at O4 it may give "xz"
+        # where the predictor's (halo 2) gives no mode
+        closure_tiling = tiling
+        if tiling is None and self.turb.kernel in ("nu_sgs",
+                                                    "germano_pass1"):
+            closure_tiling = les_tiling(geom)
+        closure = (self.turb.kernel if closure_tiling is not None
+                   else None)
+        if closure_tiling == "xz":
             # the static LES closures take nu_sgs_xz (the reference's
             # les.py:57-62, :93-96); dynamic Smagorinsky and the k-omega
             # transport run their plain chains there (les.py:316-324,

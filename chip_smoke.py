@@ -70,7 +70,15 @@ Phases, each of which raises on failure (nothing is caught):
      ragged 12x70x40 and with periodic axes of 4 and 5 cells, and in
      float32 at the O4 paths' 128^3 and 128x64x128, each beside the O2
      kernel on the same inputs; fht_modal with tgv_re1600_o4's O4
-     symbols at 128^3;
+     symbols at 128^3 and tgv_re1600_o4_512's at 512^3; the O4 variants
+     of the xz kernels (`_xz_o4_cases`: predictor_general_xz skew and
+     central, with and without nu_t, walled and periodic y;
+     divergence_xz; correct_xz; nu_sgs_xz on an O4 grid) on the 512^3
+     planes 32x512x512 of tgv_re1600_o4_512 and channel512_o4 and on
+     small grids (nx = 8 and 12, ragged tiles over two y chunks, a
+     stretched walled y, a lid, periodic y of 4 and 5 cells, between NaN
+     bands), each against its twin and the O4 slab kernel of its
+     function;
      float64 to 1e-14 of scale and float32 to 1e-5; each output of a
      kernel is held to its own twin output's scale;
   3. capture (`phase_capture`): on each main path at its full width,
@@ -100,7 +108,13 @@ Phases, each of which raises on failure (nothing is caught):
      O4 variants): the Re 1600 Taylor-Green of validation/run_tgv1600.py
      --order 4 (tgv_re1600_o4, RK3, adaptive dt, three of each a step),
      the 128^3 channel (channel128_o4) and the 128x64x128 Smagorinsky
-     channel (les_channel_o4, with nu_sgs);
+     channel (les_channel_o4, with nu_sgs); and O4 on the "xz" plan
+     (the O4 variants of predictor_general_xz, divergence_xz and
+     correct_xz): the Re 1600 Taylor-Green of validation/run_tgv1600.py
+     --N 512 --order 4 (tgv_re1600_o4_512, three of each a step), run to
+     t = 12 in runs of 20 steps, its dissipation peak -dKE/dt within
+     [0.0120, 0.0136] at t within [8.4, 9.6] (the 512^3 spectral DNS:
+     0.0127 near t = 9), and its peak device memory;
      float32, 200 steps, use_pallas="auto", the launch
      counts set to 0 just before each run and read just after (the run
      replays graphs captured by a run before it; a replay adds the port's
@@ -132,7 +146,8 @@ Phases, each of which raises on failure (nothing is caught):
      Taylor-Green 32x32x64 and the stretched channel 32x24x64, 20 float64
      steps of the xz kernels on the card against the operators on the CPU,
      u, v, w, nu_t <= 1e-12 of each one's scale, p of the larger of its
-     own and the velocity's;
+     own and the velocity's; the same at O4 (the Taylor-Green, the
+     channel and the central LES Taylor-Green: the O4 xz variants);
   6. the apps (`phase_apps`) through their entry points on the card:
      the 128^3 Re 1600 taylor_green_3d (float32, 300 steps, KE never
      rising, div_linf <= 1e-3), the channel's Poiseuille at 32x64x32
@@ -160,7 +175,10 @@ Phases, each of which raises on failure (nothing is caught):
      tgv512 and channel512 solvers; les_tgv640 over 100 steps (one rep)
      with its profile, and each xz kernel at 640^3 beside its twin and
      the slab kernel of its function on the same inputs (with its float32
-     difference from that slab kernel);
+     difference from that slab kernel); tgv_re1600_o4_512 and the
+     timed-only channel512_o4 (100 steps, one rep), and each O4 xz
+     variant at 512^3 beside its twin and the O4 slab kernel of its
+     function on the same inputs;
   8. the A/B: tgv, channel and les_channel unfused and fused, in the
      order off, on, on, off, ms/step and device ms/step of each.
 It prints the `kernels` JSON line (each kernel's bound: the larger of its
@@ -220,6 +238,8 @@ KERNEL_SOURCE = {"predictor_periodic": "predictor_periodic_tile.cuh",
                  "predictor_general_xz": "predictor_general_xz.cuh",
                  "nu_sgs_xz": "xz.cu", "divergence_xz": "xz.cu",
                  "correct_xz": "xz.cu"}
+# the O4 variant's source where it is not the kernel's own
+KERNEL_SOURCE_O4 = {"predictor_general_xz": "predictor_general_xz_o4.cuh"}
 # the xz kernels run their slab kernels' arithmetic on staged operands:
 # float64 to 1e-13 of scale, against their twins and the slab kernels
 XZ_F64_TOL = 1e-13
@@ -288,7 +308,19 @@ OPS_PER_CELL = {"predictor_periodic": 154, "predictor_channel": 154,
                 "divergence o4 les_channel_o4": 14,
                 "correct o4 tgv_re1600_o4": 21,
                 "correct o4 channel128_o4": 18,
-                "correct o4 les_channel_o4": 18}
+                "correct o4 les_channel_o4": 18,
+                # the O4 xz variants (`_xz_o4_cases`' 512^3 labels): their
+                # slab kernels' counts, and the box's central convection O4
+                # along all three axes (an own term 6, a cross term 31:
+                # 210) with nu_t's O2 diffusion (427)
+                "predictor_general_xz o4 tgv_re1600_o4_512 skew": 196,
+                "predictor_general_xz o4 tgv_re1600_o4_512 central+nu_t":
+                    427,
+                "predictor_general_xz o4 channel512_o4 central": 254,
+                "divergence_xz o4 tgv_re1600_o4_512": 17,
+                "divergence_xz o4 channel512_o4": 14,
+                "correct_xz o4 tgv_re1600_o4_512": 21,
+                "correct_xz o4 channel512_o4": 18}
 
 
 class Case(NamedTuple):
@@ -1534,6 +1566,133 @@ def _xz_cases(dtype, device, seed, nx=32, small=True):
     return cases
 
 
+_XZ_O4_GRIDS = (
+    # (tag, grid, scheme, with nu_t, nu_sgs closures, divergence/correct):
+    # a stretched walled y (O2 across it), a lid, nx = 8 and 12 (the
+    # smallest tiles: one wrap of a two-cell halo), ragged tiles over two
+    # 64-plane chunks on a walled and a periodic y, periodic y of 4 and 5
+    # cells (O4, the stencils' reads colliding across the wrap)
+    ("channel", dict(Nx=16, Ny=24, Nz=32), "central", True,
+     ("smagorinsky", "wale", "vreman"), True),
+    ("lid", dict(Nx=16, Ny=12, Nz=32, lid=1.3), "skew", False, (), True),
+    ("nx8", dict(Nx=8, Ny=5, Nz=6), "central", True, ("wale",), True),
+    ("nx12 periodic-y", dict(Nx=12, Ny=6, Nz=8, bc_y="periodic"), "skew",
+     True, ("smagorinsky",), True),
+    ("ragged", dict(Nx=12, Ny=70, Nz=40), "skew", True,
+     ("smagorinsky", "wale", "vreman"), True),
+    ("ragged periodic-y", dict(Nx=20, Ny=67, Nz=44, bc_y="periodic"),
+     "central", True, ("vreman",), True),
+    ("periodic-y4", dict(Nx=12, Ny=4, Nz=8, bc_y="periodic"), "central",
+     False, ("smagorinsky",), True),
+    ("periodic-y5", dict(Nx=8, Ny=5, Nz=5, bc_y="periodic"), "central",
+     True, ("wale",), True),
+)
+
+
+def _xz_o4_cases(dtype, device, seed, nx=32, small=True):
+    """The O4 variants of the xz kernels (space_order=4), each with the O4
+    slab kernel of its function on the same inputs (`slab`): first on the
+    512^3 planes, nx x 512 x 512 (nx = 512: the cube), of
+    tgv_re1600_o4_512 (all periodic and O4, skew, scalar nu: the main
+    path's predictor, divergence and correct) with the predictor also
+    central with a random nu_t >= 0 and nu_sgs_xz (Smagorinsky), and of
+    channel512_o4 (a stretched walled y, central: its predictor,
+    divergence and correct); then, with `small`, on `_XZ_O4_GRIDS`. With
+    `small` every input and every tensor a wrapper allocates lie between
+    NaN bands (`_banded_call`)."""
+    import functools
+    from cfdnn_tpu_torch import BCType, Config, bench, velocity_shapes
+    from cfdnn_tpu_torch import ConvectiveScheme as CS
+    from cfdnn_tpu_torch.mesh import Mesh
+    from cfdnn_tpu_torch.ops import kernels as K
+    from cfdnn_tpu_torch.ops.grid import Geometry
+    from cfdnn_tpu_torch.turbulence import les as L
+    gen = torch.Generator(device=device).manual_seed(seed)
+    dts = "float64" if dtype == torch.float64 else "float32"
+    P = functools.partial
+    coeffs = {m.closure: m.coeff for m in (L.SmagorinskyModel, L.WALEModel,
+                                           L.VremanModel)}
+    base = dict(nu=3e-3, nu_specified=True, dp_dx=-0.4, dp_dx_specified=True,
+                dt=1e-3, adaptive_dt=False, dtype=dts, space_order=4)
+    grids = [
+        ("tgv_re1600_o4_512",
+         bench.tgv_re1600_config(512, dts, space_order=4, Nx=nx), False,
+         ("smagorinsky",), True, "central"),
+        ("channel512_o4", bench.channel_config(512, dts, space_order=4,
+                                               Nx=nx),
+         False, (), True, None)]
+    if small:
+        for tag, grid, scheme, with_nut, closures, proj in _XZ_O4_GRIDS:
+            kw = dict(base, Nx=grid["Nx"], Ny=grid["Ny"], Nz=grid["Nz"],
+                      convective_scheme=CS(scheme))
+            if grid.get("bc_y") == "periodic":
+                kw.update(bc_y=BCType.PERIODIC, y_min=0.0, y_max=1.0)
+            elif "lid" in grid:
+                kw.update(y_min=0.0, y_max=1.0, lid_velocity=grid["lid"])
+            else:
+                kw.update(stretch_y=True)
+            grids.append((tag, Config(**kw), with_nut, closures, proj, None))
+    cases = []
+    for tag, cfg, with_nut, closures, proj, also in grids:
+        cfg = cfg.finalize()
+        g = Geometry.make(Mesh.from_config(cfg), cfg, device=device)
+        check(K.xz_eligible(g) and g.use_o4(0) and g.use_o4(2),
+              f"xz o4 {tag}: not an O4 xz grid")
+        band = _band if small else (lambda t: t)
+
+        def rnd(shape):
+            return band(torch.randn(shape, generator=gen, dtype=dtype,
+                                    device=device))
+
+        u, v, w = (rnd(sh) for sh in velocity_shapes(cfg))
+        cells = (cfg.Nx, cfg.Ny, cfg.Nz)
+        nut, p = band(rnd(cells).abs() * 1e-3), rnd(cells)
+        dt = band(torch.full((), cfg.dt, dtype=dtype, device=device))
+        gs = tuple(map(band, K.general_arrays(g)))
+        les = tuple(map(band, K.les_arrays(g)))
+        kg = dict(geom=g, nu=cfg.nu, fx=-cfg.dp_dx)
+        scheme = cfg.convective_scheme
+        # (scheme, nu_t) of each predictor case: the grid's own, then on
+        # the 512^3 plane of the Taylor-Green central with nu_t
+        runs = [(scheme, n) for n in ((None, nut) if with_nut else (None,))]
+        if also:
+            runs.append((CS(also), nut))
+        for sch, n in runs:
+            cases.append(Case(
+                f"predictor_general_xz o4 {tag} {sch.value}"
+                + ("" if n is None else "+nu_t"), "predictor_general_xz",
+                P(K.predictor_general_xz, u, v, w, dt, gs, nu_t=n,
+                  scheme=sch, **kg),
+                P(K.predictor_general_twin, u, v, w, dt, n, scheme=sch, **kg),
+                (u, v, w, dt, *gs) + (() if n is None else (n,)),
+                slab=P(K.predictor_general, u, v, w, dt, gs, nu_t=n,
+                       scheme=sch, **kg), banded=small))
+        for closure in closures:
+            kl = dict(geom=g, closure=closure, coeff=coeffs[closure])
+            cases.append(Case(
+                f"nu_sgs_xz o4 {tag} {closure}", "nu_sgs_xz",
+                P(K.nu_sgs_xz, u, v, w, les, **kl),
+                P(K.nu_sgs_twin, u, v, w, **kl), (u, v, w, *les),
+                slab=P(K.nu_sgs, u, v, w, les, **kl), banded=small))
+        if proj:
+            dens = tuple(ax.o4_den if g.use_o4(a) else ax.inv_d
+                         for a, ax in enumerate(g.axes))
+            cdens = tuple(ax.o4_den if g.use_o4(a) else ax.inv_dc
+                          for a, ax in enumerate(g.axes))
+            cases.append(Case(
+                f"divergence_xz o4 {tag}", "divergence_xz",
+                P(K.divergence_xz, u, v, w, geom=g),
+                P(K.divergence_twin, u, v, w, geom=g), (u, v, w, *dens),
+                slab=P(K.divergence, u, v, w, geom=g), banded=small))
+            cases.append(Case(
+                f"correct_xz o4 {tag}", "correct_xz",
+                P(K.correct_xz, u, v, w, p, dt, geom=g),
+                P(K.correct_twin, u, v, w, p, dt, geom=g),
+                (u, v, w, p, dt, *cdens),
+                slab=P(K.correct, u, v, w, p, dt, geom=g), banded=small))
+    return cases
+
+
 def fht_ops(t, modal):
     """Operations a cell of a Hartley kernel call along an axis of length
     t.N: those the function needs, not those of csrc/fht.cuh's algorithm
@@ -1558,8 +1717,9 @@ def _fht_cases(dtype, device, seed, split640=False):
     inverse(forward(x)) = N x and, at N <= 256, against the dense
     reference_forward. Float32 at 512^3, every axis, random fields; the
     modal pass with the tgv512 solver's symbols on each axis and the
-    channel512 solver's on its Hartley axes z and x, and at 128^3 with
-    the O4 symbols of tgv_re1600_o4's solver. The first
+    channel512 solver's on its Hartley axes z and x, at 128^3 with the
+    O4 symbols of tgv_re1600_o4's solver and at 512^3 with those of
+    tgv_re1600_o4_512's. The first
     case of each label is the main path's. With `split640`, float32 also
     at 640^3 (N1 = 5, N2 = 128) in the main path's order with the symbols
     of les_tgv640's solver under "pallas_fft", the transform the
@@ -1679,6 +1839,10 @@ def _fht_cases(dtype, device, seed, split640=False):
     add_solver(" tgv_re1600_o4 128", bench.tgv_re1600_config(
         128, "float32", space_order=4,
         poisson_transform="pallas_fft").finalize(), rnd((128, 128, 128)))
+    # and of tgv_re1600_o4_512's, on the 512^3 field
+    add_solver(" tgv_re1600_o4_512", bench.tgv_re1600_config(
+        n, "float32", space_order=4,
+        poisson_transform="pallas_fft").finalize(), x)
     if split640:
         n, tag = 640, " les_tgv640"
         t = P.PFHTAxis.make(n, dtype, device=device)
@@ -1794,8 +1958,10 @@ def phase_kernels(device):
     function, the slab kernels on a walked tile also on their edge
     shapes (`_tile_cases`, `_div_tile_cases`, `_closure_tile_cases`,
     `_general_tile_cases`), the O4 variants of predictor_general,
-    divergence and correct (`_o4_cases`),
-    germano_pass1's plane sums also over a second launch (bit for bit);
+    divergence and correct (`_o4_cases`) and of the xz kernels
+    (`_xz_o4_cases`, each also against the O4 slab kernel of its
+    function), germano_pass1's plane sums also over a second launch (bit
+    for bit);
     returns {name: [largest float64 error, largest float32 error]}."""
     errs = {}
     for dtype, n in ((torch.float64, 32), (torch.float32, 128)):
@@ -1810,6 +1976,7 @@ def phase_kernels(device):
         cases += _closure_tile_cases(dtype, device, seed=1)
         cases += _general_tile_cases(dtype, device, seed=1)
         cases += _o4_cases(dtype, device, seed=1)
+        cases += _xz_o4_cases(dtype, device, seed=1)
         for case in cases:
             _hold(case, dtype, errs)
     return errs
@@ -1848,6 +2015,10 @@ class MainPath(NamedTuple):
     # kernel checks in phase_kernels
     steps: int = MAIN_STEPS
     xz: bool = False
+    # a main-path run to this time in chunks of TGV_CHUNK steps (the
+    # validation script's run), its dissipation peak held to the DNS
+    # (`check_dissipation_peak`), in place of `steps` steps
+    until: float = None
 
 
 def _paths():
@@ -1943,6 +2114,18 @@ def _paths():
         MainPath("les_channel_o4", bench.les_channel_case, o4, False,
                  ("general", "nu_sgs"), False,
                  dict(proj, predictor_general=1, nu_sgs=1)),
+        # O4 on the "xz" plan (2 Ny Nz above the slab cap): the O4 variants
+        # of predictor_general_xz, divergence_xz and correct_xz; the Re
+        # 1600 Taylor-Green of validation/run_tgv1600.py --N 512 --order 4
+        # run to t = 12, and the 512^3 channel, timed
+        MainPath("tgv_re1600_o4_512", bench.tgv_re1600_case, o4, False,
+                 ("general_xz", None), False,
+                 dict(predictor_general_xz=3, divergence_xz=3,
+                      correct_xz=3), n=512, xz=True, until=12.0),
+        MainPath("channel512_o4", bench.channel_case, o4, False,
+                 ("general_xz", None), False,
+                 dict(predictor_general_xz=1, divergence_xz=1,
+                      correct_xz=1), n=512, timed_only=True),
     )
 
 
@@ -2101,6 +2284,53 @@ def check_adaptive_dt(name, sim, st):
     check(dts[0] != dts[1], f"{name}: dt did not change ({dts})")
 
 
+# the run to t = 12 of tgv_re1600_o4_512 (validation/run_tgv1600.py): runs
+# of TGV_CHUNK steps, KE read off each run's diagnostics, eps = -dKE/dt by
+# np.gradient; the canonical 512^3 spectral DNS of the Re 1600
+# Taylor-Green (van Rees et al., J. Comput. Phys. 230 (2011) 2794) peaks
+# at eps ~ 0.0127 near t ~ 9: the run's peak must lie in EPS_PEAK and its
+# time in T_PEAK
+TGV_CHUNK = 20
+DNS_EPS_PEAK, DNS_T_PEAK = 0.0127, 9.0
+EPS_PEAK = (0.0120, 0.0136)
+T_PEAK = (8.4, 9.6)
+
+
+def run_until(sim, st, until):
+    """sim.run in chunks of TGV_CHUNK steps until t >= until: (State,
+    diagnostics, steps, times, kinetic energies), the first time and
+    energy the initial state's."""
+    ts, kes, steps = [float(st.t)], [_ke(st)], 0
+    while ts[-1] < until:
+        st, d = sim.run(st, TGV_CHUNK)
+        steps += TGV_CHUNK
+        ts.append(float(st.t))
+        kes.append(float(d.ke))
+        check(math.isfinite(kes[-1]), f"KE {kes[-1]} at t = {ts[-1]}")
+    return st, d, steps, ts, kes
+
+
+def check_dissipation_peak(name, ts, kes):
+    """The dissipation rate eps = -dKE/dt of the series (np.gradient, as
+    the validation script takes it): its peak within EPS_PEAK, at a time
+    within T_PEAK."""
+    import numpy as np
+    t, ke = np.asarray(ts), np.asarray(kes)
+    eps = -np.gradient(ke, t)
+    i = int(np.argmax(eps))
+    print(f"[main] {name} series: " + json.dumps(
+        {"t": [round(x, 6) for x in t.tolist()],
+         "ke": [round(x, 9) for x in ke.tolist()]}))
+    print(f"[main] {name} dissipation peak eps = {eps[i]:.6f} at t = "
+          f"{t[i]:.4f} (the 512^3 spectral DNS, van Rees et al. 2011: "
+          f"{DNS_EPS_PEAK} at t ~ {DNS_T_PEAK}); KE {ke[0]:.6f} -> "
+          f"{ke[-1]:.6f} at t = {t[-1]:.4f}")
+    check(EPS_PEAK[0] <= eps[i] <= EPS_PEAK[1]
+          and T_PEAK[0] <= t[i] <= T_PEAK[1],
+          f"{name}: dissipation peak {eps[i]} at t = {t[i]}, outside "
+          f"{EPS_PEAK} x {T_PEAK}")
+
+
 def phase_main_path(device):
     """Drive each main-path step at its benchmark size through
     Simulation.run; returns the launch counts of the kernels summed over
@@ -2132,19 +2362,26 @@ def phase_main_path(device):
                 check_first_transport_step(path, sim)
             elif closure:
                 check_initial_nu_t(path, sim, st)
-        capture = warm_graphs(sim, st, path.steps)
+        capture = warm_graphs(sim, st,
+                              path.steps if path.until is None else TGV_CHUNK)
+        torch.cuda.reset_peak_memory_stats()
         K.reset_launch_counts()
         t0 = time.perf_counter()
-        st, d = sim.run(st, path.steps)
+        if path.until is None:
+            steps = path.steps
+            st, d = sim.run(st, steps)
+        else:
+            st, d, steps, ts, kes = run_until(sim, st, path.until)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        peak_gb = torch.cuda.max_memory_allocated() / 2**30
         counts = K.launch_counts()
         for k, c in counts.items():
-            check(c == path.steps * path.launches.get(k, 0),
-                  f"{name}: {k} launched {c} times in {path.steps} steps")
+            check(c == steps * path.launches.get(k, 0),
+                  f"{name}: {k} launched {c} times in {steps} steps")
             total[k] += c
             if c:
-                per_step[k][name] = c / path.steps
+                per_step[k][name] = c / steps
         for comp, shape in zip(st.velocity, velocity_shapes(sim.cfg)):
             check(tuple(comp.shape) == shape, f"{name}: shape {comp.shape}")
             check(bool(torch.isfinite(comp).all()), f"{name}: non-finite")
@@ -2152,7 +2389,8 @@ def phase_main_path(device):
         check(math.isfinite(ke), f"{name}: KE {ke}")
         check(div <= 1e-3, f"{name}: div_linf {div} > 1e-3")
         if name in ("tgv", "les_tgv", "tgv_re1600", "tgv_fused",
-                    "tgv512_pfht", "les_tgv640", "tgv_re1600_o4"):
+                    "tgv512_pfht", "les_tgv640", "tgv_re1600_o4",
+                    "tgv_re1600_o4_512"):
             check(ke < ke0, f"{name}: KE {ke} did not decay from {ke0}")
         extra = ""
         if closure:
@@ -2195,14 +2433,16 @@ def phase_main_path(device):
                       f"max|u| inside the body {u_in:.3e} of {u_max:.3e}")
         grid = "x".join(str(a) for a in (sim.cfg.Nx, sim.cfg.Ny, sim.cfg.Nz))
         print(f"[main] {name} {grid} float32 (built in {built:.2f} s, "
-              f"graphs captured in {capture:.2f} s) {path.steps} steps in "
+              f"graphs captured in {capture:.2f} s) {steps} steps in "
               f"{wall:.2f} s: launches {counts}, "
               f"KE {ke0:.6e} -> {ke:.6e}, "
               f"div_linf {div:.3e}{extra}, t {float(st.t):.6f}, "
-              f"dt {float(d.dt):.6e}")
+              f"dt {float(d.dt):.6e}, peak device memory {peak_gb:.2f} GB")
+        if path.until is not None:
+            check_dissipation_peak(name, ts, kes)
         if sim.cfg.adaptive_dt:
             check_adaptive_dt(name, sim, st)
-        out[name] = (div, path.steps)
+        out[name] = (div, steps)
     return total, out, per_step
 
 
@@ -2261,18 +2501,28 @@ def phase_xz_trajectories(device):
     """20 float64 steps in forced "xz" (the port's SLAB_FIT_CELLS lowered
     while the Simulation is built, as tests/test_torch_xz.py lowers it):
     the LES Taylor-Green at 32x32x64 and the stretched channel at 32x24x64,
+    and at O4 (space_order=4: the O4 xz variants) the Taylor-Green, the
+    channel and the central LES Taylor-Green on the same grids,
     the kernels on the card against the eager operators on the CPU from
     the same initial state, u, v, w and nu_t to 1e-12 of each one's scale,
     p to 1e-12 of the larger of its own and the velocity's scale; each
     step launches the xz kernels once each and nothing else."""
     import numpy as np
-    from cfdnn_tpu_torch import State, bench, state_to_numpy
+    from cfdnn_tpu_torch import ConvectiveScheme, State, bench, state_to_numpy
     from cfdnn_tpu_torch import solver as S
     from cfdnn_tpu_torch.ops import kernels as K
     xz = ("predictor_general_xz", "divergence_xz", "correct_xz")
+    o4 = dict(space_order=4)
+    central = dict(convective_scheme=ConvectiveScheme.CENTRAL)
     for name, case, kw, launches in (
             ("les_tgv", bench.les_tgv_case, dict(Nz=64), xz + ("nu_sgs_xz",)),
-            ("channel", bench.channel_case, dict(Ny=24, Nz=64), xz)):
+            ("channel", bench.channel_case, dict(Ny=24, Nz=64), xz),
+            # O4: the O4 xz variants (the LES Taylor-Green central: the
+            # predictor's O4 variant with nu_t)
+            ("tgv o4", bench.tgv_case, dict(Nz=64, **o4), xz),
+            ("channel o4", bench.channel_case, dict(Ny=24, Nz=64, **o4), xz),
+            ("les_tgv o4", bench.les_tgv_case, dict(Nz=64, **o4, **central),
+             xz + ("nu_sgs_xz",))):
         cap = S.SLAB_FIT_CELLS
         S.SLAB_FIT_CELLS = 8
         try:
@@ -2618,10 +2868,11 @@ def _bound(case, outputs):
 # (bench.py:185-186)
 TIMED_STEPS = {"tgv": 1000, "channel": 1000, "les_ibm256": 150,
                "tgv512": 100, "channel512": 100, "tgv512_pfht": 100,
-               "channel512_pfht": 100, "les_tgv640": 100}
+               "channel512_pfht": 100, "les_tgv640": 100,
+               "tgv_re1600_o4_512": 100, "channel512_o4": 100}
 # best-of repetitions of the marginal (bench.time_steps' 3), fewer where a
 # step takes tens of milliseconds
-TIMED_REPS = {"les_tgv640": 1}
+TIMED_REPS = {"les_tgv640": 1, "tgv_re1600_o4_512": 1, "channel512_o4": 1}
 # paths also timed a step at a time, as advance_unsteady runs with a
 # callback (the apps' unsteady loop): `step` replaying one-step graphs
 # against the plain loop stepped one step a call
@@ -2798,6 +3049,27 @@ def phase_timing(device, errs):
                   f"{t[7]:.4f} ms; device kernel {t[3]:.4f} ms, twin "
                   f"{t[4]:.4f} ms, slab kernel {t[8]:.4f} ms; bound "
                   f"{t[5][0]:.4f} ms ({t[5][1]})")
+        # the O4 xz variants at 512^3 (tgv_re1600_o4_512's and
+        # channel512_o4's inputs), each checked against its twin and the
+        # O4 slab kernel of its function and timed beside that slab kernel
+        # on the same inputs: the A/B of the two O4 tilings (recorded; the
+        # plan routes as the reference does)
+        for case in _xz_o4_cases(torch.float32, device, seed=2, nx=512,
+                                 small=False):
+            errs.setdefault("vs slab", {}).pop(case.label, None)
+            ref = _hold(case, torch.float32, errs)
+            t = times[case.label] = (
+                case.name, _event_ms(case.kern, 20), _event_ms(case.twin, 3),
+                _device_ms(case.kern, 5), _device_ms(case.twin, 2),
+                _bound(case, ref), None, _event_ms(case.slab, 20),
+                _device_ms(case.slab, 5))
+            print(f"[timing] {case.label} float32 512^3: per call kernel "
+                  f"{t[1]:.4f} ms, twin {t[2]:.4f} ms, O4 slab kernel "
+                  f"{t[7]:.4f} ms; device kernel {t[3]:.4f} ms, twin "
+                  f"{t[4]:.4f} ms, O4 slab kernel {t[8]:.4f} ms; bound "
+                  f"{t[5][0]:.4f} ms ({t[5][1]}); max|d| / max|slab| = "
+                  f"{errs['vs slab'][case.label]:.3e}")
+            del case, ref
     return rows, times
 
 
@@ -2881,6 +3153,8 @@ def kernel_entries(errs, launches, per_step, times):
             "source": ("cfdnn_tpu_torch/csrc/"
                        + KERNEL_SOURCE.get(name, name + ".cu")),
             "replaces": KERNEL_REPLACES[name],
+            **({"source_o4": "cfdnn_tpu_torch/csrc/" + KERNEL_SOURCE_O4[name]}
+               if name in KERNEL_SOURCE_O4 else {}),
             "launches": launches[name],
             "launches_per_step": per_step[name],
             "max_abs_err": errs[name][1],

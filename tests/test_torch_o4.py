@@ -13,12 +13,13 @@ The same NumPy-seeded inputs go through both packages:
     Laplacian of a solve against the rhs less its null component;
   - the O2-only kernels' refusal of an O4 geometry;
   - each path's kernel plan against the reference's kernel choice (the
-    periodic predictor never at O4, an "xz" grid refused);
+    periodic predictor never at O4, an "xz" grid on the O4 xz kernels);
   - the O4 divergence's rate of convergence on the port.
 The O4 kernel wrappers are held to the reference's interpret-mode kernels
 in tests/test_torch_o4_kernels.py, the O4 paths' trajectories in
 tests/test_torch_o4_traj.py (three files, so that the test run's workers
-share them).
+share them), the O4 xz kernels, plan and trajectories in
+tests/test_torch_xz_o4.py.
 """
 
 import dataclasses
@@ -259,15 +260,13 @@ def test_fdm_solve_matches_reference(grid, transform):
 
 def test_o2_only_wrappers_refuse_o4():
     """The kernels the reference runs at O2 only refuse an O4 geometry:
-    the padded-x predictor and the two predictor + divergence kernels; the
-    xz kernels' gate is O2."""
+    the padded-x predictor and the two predictor + divergence kernels."""
     _, tg, cfg = _geoms("box16")
     comps, _, _ = _inputs(cfg, seed=1)
     u, v, w = (_t(c) for c in comps)
     dt = torch.tensor(1e-3, dtype=torch.float64)
     with pytest.raises(NotImplementedError, match="O2"):
         K.predictor_periodic_div(u, v, w, dt, geom=tg, nu=1e-3, fx=0.0)
-    assert not K.xz_eligible(tg)
     assert K.nu_sgs_eligible(tg) and K.germano_pass1_eligible(tg)
     _, cg, ccfg = _geoms("channel")
     comps, _, _ = _inputs(ccfg, seed=2)
@@ -383,21 +382,23 @@ def test_periodic_predictor_never_at_o4(monkeypatch):
 
 
 def test_o4_xz_grid_is_refused(monkeypatch):
-    """Above the slab cap (lowered here, as tests/test_torch_xz.py lowers
-    it) the reference runs its xz kernels at O4; the port refuses the grid
-    wherever its plan would launch kernels (use_pallas "on", or "auto" on
-    the card), naming the ROADMAP item, and runs it eagerly under "off"
-    or "auto" on the CPU."""
+    """An O4 grid above the slab cap (lowered here, as
+    tests/test_torch_xz.py lowers it), which the port refused before it
+    had the O4 xz kernels, is no longer refused: its plan is the
+    reference's, "xz" with the O4 xz kernels (general_xz, the xz
+    projection and nu_sgs_xz for the LES closure) under use_pallas "on"
+    and "auto" on the card, and the eager chain under "off" or "auto" on
+    the CPU."""
     monkeypatch.setattr(TS, "SLAB_FIT_CELLS", 8)
     cfg = bench.les_tgv_config(16, "float64", Nz=32, space_order=4)
     assert TS.tiling_mode(T.Simulation(cfg, device="cpu").geom, cfg) == "xz"
-    with pytest.raises(NotImplementedError, match="ROADMAP B.1"):
-        T.Simulation(cfg.with_(use_pallas="on"), device="cpu")
+    plan = KernelPlan("general_xz", "xz", "nu_sgs_xz")
+    assert T.Simulation(cfg.with_(use_pallas="on"),
+                        device="cpu").kernels == plan
     sim = T.Simulation(cfg, device="cpu")
     assert sim.kernels == KernelPlan(None, None)
     sim.device = torch.device("cuda", 0)
-    with pytest.raises(NotImplementedError, match="ROADMAP B.1"):
-        sim._select_kernels()
+    assert sim._select_kernels() == plan
     off = T.Simulation(cfg.with_(use_pallas="off"), device="cpu")
     assert off.kernels == KernelPlan(None, None)
 

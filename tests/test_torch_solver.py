@@ -19,6 +19,7 @@ import torch
 
 import cfdnn_tpu as R
 import cfdnn_tpu_torch as T
+from cfdnn_tpu_torch import solver as TS
 from cfdnn_tpu_torch.solver import KernelPlan
 
 ATOL = 1e-11
@@ -140,9 +141,9 @@ def test_kahan_time_float32():
     (dict(time_integrator="rk2", force_ramp_time=1.0), "A.8"),
     (dict(adaptive_dt=True, bulk_velocity_target=1.0), "A.8"),
     (dict(implicit_y_diffusion=True), "A.8"),
-    # O4 on a grid whose plan is "xz" (2 Ny Nz > SLAB_FIT_CELLS, a
-    # periodic z of 32-cell blocks): the O4 xz variants
-    (dict(space_order=4, use_pallas="on", Nx=8, Ny=8, Nz=24608), "B.1"),
+    # O4 with upwind2 (the O4 "xz" grid of this place, 8x8x24608, now
+    # takes the O4 xz kernels: test_o4_xz_grid_takes_the_xz_kernels)
+    (dict(space_order=4, convective_scheme="upwind2"), "A.2"),
     (dict(convective_scheme="upwind"), "A.2"),
     (dict(convective_scheme="upwind2"), "A.2"),
     (dict(turb_model="nn_mlp"), "A.12"),
@@ -174,6 +175,19 @@ def test_outside_the_slice_raises(kw, item):
             k[name] = enum_(k[name])
     with pytest.raises(NotImplementedError, match=item):
         T.Simulation(T.Config(**k), device="cpu")
+
+
+def test_o4_xz_grid_takes_the_xz_kernels():
+    """O4 on a grid whose plan is "xz" (2 Ny Nz > SLAB_FIT_CELLS, a
+    periodic z of 32-cell blocks), which the port refused before it had
+    the O4 xz variants, plans the xz kernels under use_pallas="on"; the
+    eager chain under "auto" on the CPU."""
+    kw = dict(CHANNEL, space_order=4, Nx=8, Ny=8, Nz=24608)
+    sim = T.Simulation(T.Config(**kw, use_pallas="on"), device="cpu")
+    assert sim.kernels == KernelPlan("general_xz", "xz")
+    assert TS.tiling_mode(sim.geom, sim.cfg) == "xz"
+    assert T.Simulation(T.Config(**kw), device="cpu").kernels == \
+        KernelPlan(None, None)
 
 
 def test_use_pallas_on_without_a_kernel_raises():

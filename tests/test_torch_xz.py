@@ -305,23 +305,23 @@ CUDA_GRIDS = {
 }
 
 
-@pytest.mark.cuda
-def test_xz_kernels_match_twins_and_slab_kernels_on_cuda():
-    """On a CUDA card: each xz kernel against its twin and against the slab
-    kernel of the same function, float64, to 1e-13 of each output's scale,
-    on CUDA_GRIDS: the predictor skew and central, with and without nu_t;
-    nu_sgs_xz with the three closures (where its gate serves: not the
-    lid); divergence_xz and correct_xz."""
+def hold_xz_kernels_on_cuda(grids, seed):
+    """Each xz kernel against its twin and against the slab kernel of the
+    same function (at O4 the O4 variants of both), float64, to 1e-13 of
+    each output's scale, on `grids` (name: Config fields), inputs drawn
+    with numpy from `seed`: the predictor skew and central, with and
+    without nu_t; nu_sgs_xz with the three closures (where its gate
+    serves: not on a lid); divergence_xz and correct_xz."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
     dev = torch.device("cuda", 0)
-    for name, grid in CUDA_GRIDS.items():
+    for name, grid in grids.items():
         for scheme in ("skew", "central"):
             cfg = _cfg(T, **grid, convective_scheme=scheme).finalize()
             sim = T.Simulation(cfg.with_(use_pallas="off"), device=dev)
             g = sim.geom
             assert K.xz_eligible(g), name
-            comps, cell = _rand(sim, 14)
+            comps, cell = _rand(sim, seed)
             u, v, w = (_t(c).to(dev) for c in comps)
             nut = _t(0.01 * np.abs(cell)).to(dev)
             p = _t(cell).to(dev)
@@ -357,3 +357,11 @@ def test_xz_kernels_match_twins_and_slab_kernels_on_cuda():
                     for other in outs[1:]:
                         err = float((outs[0] - other).abs().max())
                         assert err <= 1e-13 * scale, (name, scheme, what, err)
+
+
+@pytest.mark.cuda
+def test_xz_kernels_match_twins_and_slab_kernels_on_cuda():
+    """On a CUDA card: each xz kernel against its twin and against the slab
+    kernel of the same function, float64, to 1e-13 of each output's scale,
+    on CUDA_GRIDS (`hold_xz_kernels_on_cuda`)."""
+    hold_xz_kernels_on_cuda(CUDA_GRIDS, 14)
