@@ -1,8 +1,9 @@
 """Shared command-line runner of the case apps (port of
 `cfdnn_tpu/apps/runner.py`).
 
-Each case module supplies a default Config, an initial condition and a
-validation hook, and calls `run_case`: config-file and `--key value`
+Each case module supplies a default Config, an initial condition, an
+immersed body where it has one and a validation hook, and calls
+`run_case`: config-file and `--key value`
 overrides, the Simulation on the device `--platform` names, steady or
 unsteady stepping with console diagnostics, VTK snapshots, checkpoints
 and `--resume`, final fields and profiles, and the `QOI_JSON:` lines.
@@ -43,17 +44,22 @@ def select_device(platform: str) -> torch.device:
 
 def run_case(name: str, cfg: Config, argv=None,
              ic: Optional[Callable] = None,
+             body=None,
              validate: Optional[Callable] = None,
              callback: Optional[Callable] = None):
     """Parse CLI overrides, run to steady state or for max_steps, write
     outputs; returns (sim, state, diags). `ic(cfg, mesh, device=...)` makes
-    the initial State (zero_state when None); `callback(it, state, diags)`
+    the initial State (zero_state when None); `body` is an IBMBody (or a
+    ready IBMForcing), or `body(cfg, mesh)` makes one, attached before the
+    initial state; `callback(it, state, diags)`
     runs after the console's at each callback of the stepping (every step
     unsteady, every diag_interval steps steady)."""
     argv = sys.argv[1:] if argv is None else argv
     cfg = cfg.parse_args(argv).finalize()
     device = select_device(cfg.platform)
     sim = Simulation(cfg, device=device)
+    if body is not None:
+        sim.set_ibm_forcing(body(cfg, sim.mesh) if callable(body) else body)
     state = (ic(cfg, sim.mesh, device=device) if ic
              else sim.initial_state())
     state = sim.initialize(state)

@@ -26,7 +26,11 @@ a TPU: the hand-written Hartley kernels. One row at 640^3, `les_tgv640`
 100 steps as the 512^3 rows): the smallest cube whose y-z plane the
 reference's TPU slab cannot hold (solver.slab_fits) and whose z tiles
 (solver.xz_tileable), so it runs the (x, z)-tiled kernels, as the
-reference's "xz" plan does. It prints one JSON line with
+reference's "xz" plan does. One row of the inflow/outflow pair,
+`les_cylinder3900`: the LES cylinder at Re 3900 of
+validation/run_les_cylinder3900.py (256x192x32, WALE, RK3, adaptive dt,
+the convective outlet, an immersed cylinder; perf mode), which runs the
+general predictor on the ghost-padded x. It prints one JSON line with
 bench.py's headline keys: ms/step and Mcells/s of each grid, the
 wall-bounded grids' float32 post-projection divergence, and the card.
 Every row runs unfused (CFDNN_FUSE_DIV unset), as the reference's
@@ -161,6 +165,52 @@ def les_ibm_config(n: int = 256, dtype: str = "float32", **kw) -> Config:
         turb_model=TurbulenceModel.SMAGORINSKY)
     base.update(kw)
     return Config(**base)
+
+
+def les_cylinder_config(n: int = 256, dtype: str = "float32",
+                        **kw) -> Config:
+    """The LES cylinder at Re 3900 of validation/run_les_cylinder3900.py
+    (:36-51; the reference's scripts/les_cylinder_re3900.sh): Nx = n, Ny =
+    3n/4, Nz = n/8 (256x192x32) over [0, 25] x [-8, 8] x [0, pi], the
+    inflow/outflow pair in x with the convective outlet, periodic y and
+    z, nu 1/3900, WALE, RK3, skew, adaptive dt at CFL 0.4 (safety 0.9),
+    float32; in perf mode (benchmark mode turns adaptive dt off). The
+    cylinder is attached by `les_cylinder_case`. `kw` overrides any
+    field."""
+    base = dict(
+        Nx=n, Ny=3 * n // 4, Nz=max(n // 8, 1),
+        x_min=0.0, x_max=25.0, y_min=-8.0, y_max=8.0,
+        z_min=0.0, z_max=float(np.pi),
+        bc_x=BCType.INFLOW, bc_y=BCType.PERIODIC, bc_z=BCType.PERIODIC,
+        nu=1.0 / 3900.0, nu_specified=True, dp_dx=0.0, dp_dx_specified=True,
+        dt=1e-3, adaptive_dt=True, CFL_max=0.4, dt_safety=0.9,
+        time_integrator=TimeIntegrator.RK3,
+        convective_scheme=ConvectiveScheme.SKEW,
+        turb_model=TurbulenceModel.WALE, convective_outflow=True,
+        perf_mode=True, dtype=dtype)
+    base.update(kw)
+    return Config(**base)
+
+
+def les_cylinder_case(n=256, device="cuda", dtype="float32", **kw):
+    """(Simulation, initial State) of the LES cylinder: the unit cylinder
+    CylinderBody(5, 0, 0.5) attached, the validation script's start
+    (:60-66: u = 1, the wake seed v = 1e-2 exp(-y^2) sin(x) (1 + 0.5
+    sin(4 z)), in float64 then cast) through `Simulation.initialize`,
+    which captures the inflow profile."""
+    sim = Simulation(les_cylinder_config(n, dtype, **kw), device=device)
+    sim.set_ibm_forcing(CylinderBody(5.0, 0.0, 0.5))
+    st = sim.initial_state()
+    mesh, f64 = sim.mesh, dict(dtype=torch.float64, device=sim.device)
+    x = torch.as_tensor(mesh.x.centers, **f64)[:, None, None]
+    yc = torch.as_tensor(mesh.y.centers, **f64)[None, :, None]
+    zc = torch.as_tensor(mesh.z.centers, **f64)[None, None, :]
+    v0 = 1e-2 * torch.exp(-(yc ** 2)) * torch.sin(x) * (
+        1.0 + 0.5 * torch.sin(4 * zc))
+    st = st.replace(u=torch.full_like(st.u, 1.0),
+                    v=torch.broadcast_to(v0, st.v.shape).to(st.v.dtype)
+                    .contiguous())
+    return sim, sim.initialize(st)
 
 
 def tgv_case(n=128, device="cuda", dtype="float32", **kw):
@@ -303,7 +353,9 @@ def _window(fn, n, spin):
 # share of a profiler window's device span (less launch gaps) its recorded
 # kernels must fill, and the windows tried.
 SPIN_CYCLES_PER_S = 2e9
-SPIN_PAD = 32
+# (32 pads still lost the window's first two kernels, three windows of
+# three, on one loop window on an H100: 128)
+SPIN_PAD = 128
 MIN_DEVICE_SHARE = 0.8
 PROFILE_WINDOWS = 3
 
@@ -461,6 +513,10 @@ def main():
             rows_512[f"{key}_div_linf_f32"] = float(d.div_linf)
     # 640^3, the "xz" plan, over 100/20 steps as the 512^3 rows
     s_640, _ = time_steps(*les_tgv_case(640), steps=100)
+    # the LES cylinder (the inflow/outflow pair), 400/80 steps as the LES
+    # rows
+    s_cyl, d_cyl = time_steps(*les_cylinder_case(), steps=400)
+    cyl_cells = 256 * 192 * 32
     cells = 128 ** 3
     ibm_cells = 256 * 128 * 256
     les_cells = 128 * 64 * 128
@@ -490,6 +546,9 @@ def main():
         **rows_512,
         "les_tgv640_ms_per_step": s_640 * 1e3,
         "les_tgv640_mcells_per_s": 640 ** 3 / s_640 / 1e6,
+        "les_cylinder3900_ms_per_step": s_cyl * 1e3,
+        "les_cylinder3900_mcells_per_s": cyl_cells / s_cyl / 1e6,
+        "les_cylinder3900_div_linf_f32": float(d_cyl.div_linf),
         "device": torch.cuda.get_device_name(0),
     }), flush=True)
 

@@ -16,8 +16,9 @@ steps of the benchmark grids:
                          divergence of its star)
   predictor_general   <- pallas_kernels.fused_predictor_general (periodic
                          x, periodic or wall y and z, moving walls, scalar
-                         nu or nu_t); `predictor_xpad` wraps it for a wall
-                         x, as fused_predictor_xpad wraps the reference's
+                         nu or nu_t); `predictor_xpad` wraps it for a
+                         no-slip, inflow/outflow or outflow x, as
+                         fused_predictor_xpad wraps the reference's
   divergence          <- pallas_kernels.fused_divergence
   correct             <- pallas_kernels.fused_correct
   nu_sgs              <- pallas_kernels.fused_nu_sgs (Smagorinsky, WALE,
@@ -875,14 +876,20 @@ def _yz_ok(ax) -> bool:
                          or ax.bc == BCType.WALL)
 
 
-def _general_geom_ok(geom: Geometry, x_wall: bool = False) -> bool:
+# the non-periodic x kinds predictor_xpad pads (the reference's xpad mode,
+# cfdnn_tpu/solver.py:379-382): no-slip, the inflow/outflow pair, outflow
+XPAD_BCS = (BCType.WALL, BCType.INFLOW, BCType.OUTFLOW)
+
+
+def _general_geom_ok(geom: Geometry, x_pad: bool = False) -> bool:
     """The grids the general predictor kernel serves: periodic uniform x
-    (or, through predictor_xpad, a uniform no-slip x) with x.n >= 8, y and
-    z as `_yz_ok`, O2 or O4 (O4 on the periodic axes of n >= 4, x among
-    them; a no-slip x is O2 at every order, so its padded periodic clone
-    would not be: xpad_eligible takes O2 only)."""
+    (or, through predictor_xpad, a uniform no-slip, inflow/outflow or
+    outflow x) with x.n >= 8, y and z as `_yz_ok`, O2 or O4 (O4 on the
+    periodic axes of n >= 4, x among them; a non-periodic x is O2 at every
+    order, so its padded periodic clone would not be: xpad_eligible takes
+    O2 only)."""
     x, y, z = geom.axes
-    x_ok = x.bc == BCType.WALL if x_wall else x.periodic
+    x_ok = x.bc in XPAD_BCS if x_pad else x.periodic
     return x_ok and x.uniform and x.n >= 8 and _yz_ok(y) and _yz_ok(z)
 
 
@@ -901,10 +908,10 @@ def general_eligible(geom: Geometry, cfg) -> bool:
 
 
 def xpad_eligible(geom: Geometry, cfg) -> bool:
-    """Gate of predictor_xpad: the general gate with a uniform no-slip x
-    in place of the periodic one, O2 (the reference's xpad mode,
-    cfdnn_tpu/solver.py:379; INFLOW/OUTFLOW x wait for ROADMAP A.8)."""
-    return (_general_geom_ok(geom, x_wall=True) and _general_cfg_ok(cfg)
+    """Gate of predictor_xpad: the general gate with a uniform no-slip,
+    inflow/outflow or outflow x in place of the periodic one, O2 (the
+    reference's xpad mode, cfdnn_tpu/solver.py:363-385)."""
+    return (_general_geom_ok(geom, x_pad=True) and _general_cfg_ok(cfg)
             and geom.space_order == 2)
 
 
@@ -1025,9 +1032,9 @@ def predictor_general(u, v, w, dt, gs, *, geom: Geometry, nu, fx, scheme,
     if not _general_geom_ok(geom):
         raise NotImplementedError(
             "predictor_general: the kernel serves a periodic uniform x "
-            "(x.n >= 8) with y and z periodic uniform or walls; a wall "
-            "x goes through predictor_xpad, other geometries are ROADMAP "
-            "A.8/A.13")
+            "(x.n >= 8) with y and z periodic uniform or walls; a "
+            "no-slip, inflow/outflow or outflow x goes through "
+            "predictor_xpad, other geometries are ROADMAP B.3/A.13")
     x, y, z = geom.axes
     extra = () if nu_t is None else (nu_t,)
     _check("predictor_general", (u, v, w, dt, *extra, *gs),
@@ -1060,16 +1067,22 @@ def xpad_geometry(geom: Geometry) -> Geometry:
 
 def _xpad_fields(u, v, w, nu_t, geom):
     """u, v, w (and nu_t) padded by one ghost plane per side of a uniform
-    no-slip x with the bc.py values: u the odd reflection 2 u_0 - u_1 (no
-    ghost above face Nx: the wrap feeds only u's face Nx, which the BC
-    pass overwrites), v and w the no-slip sign flip, nu_t the mirror."""
+    non-periodic x with the bc.py values, the reference's ghost rules
+    (pallas_kernels.py:374-391): u's low ghost the odd reflection
+    2 u_0 - u_1 at a wall or an inflow, the zero-gradient copy u_0 at an
+    outflow (no ghost above face Nx: the wrap feeds only u's face Nx,
+    which the BC pass or the convective outlet overwrites); v and w the
+    mirror, with the no-slip sign flip at a wall; nu_t the mirror."""
     x = geom.axes[0]
-    if x.bc != BCType.WALL or not x.uniform:
+    if x.bc not in XPAD_BCS or not x.uniform:
         raise NotImplementedError(
-            f"predictor_xpad: x is {x.bc.value}; the port pads a uniform "
-            "no-slip x (inflow and outflow x are ROADMAP A.8)")
-    u_pad = torch.cat([2.0 * u[:1] - u[1:2], u])
-    v_pad, w_pad = (torch.cat([-f[:1], f, -f[-1:]]) for f in (v, w))
+            f"predictor_xpad: x is {x.bc.value}"
+            f"{'' if x.uniform else ', stretched'}; the port pads a "
+            "uniform no-slip, inflow/outflow or outflow x")
+    u_lo = u[:1] if x.bc == BCType.OUTFLOW else 2.0 * u[:1] - u[1:2]
+    u_pad = torch.cat([u_lo, u])
+    s = -1.0 if x.bc == BCType.WALL else 1.0
+    v_pad, w_pad = (torch.cat([s * f[:1], f, s * f[-1:]]) for f in (v, w))
     nut_pad = (None if nu_t is None
                else torch.cat([nu_t[:1], nu_t, nu_t[-1:]]))
     return u_pad, v_pad, w_pad, nut_pad
@@ -1088,12 +1101,13 @@ def predictor_xpad_twin(u, v, w, dt, nu_t=None, *, geom, xgeom, nu, fx,
 
 def predictor_xpad(u, v, w, dt, gs, *, geom: Geometry, xgeom: Geometry, nu,
                    fx, scheme, nu_t=None):
-    """The general predictor on a uniform no-slip x (the reference's
-    fused_predictor_xpad, a wrapper, not a kernel): pad x by one ghost
+    """The general predictor on a uniform non-periodic x, no-slip,
+    inflow/outflow or outflow (the reference's fused_predictor_xpad, a
+    wrapper, not a kernel): pad x by one ghost
     plane per side (`_xpad_fields`), run predictor_general on the
     fake-periodic (Nx+2)-cell axis `xgeom` = xpad_geometry(geom) (`gs` =
     general_arrays(xgeom)), and keep the interior. O2 only, as the
-    reference's (a no-slip x is O2 at every order)."""
+    reference's (a non-periodic x is O2 at every order)."""
     if geom.space_order != 2:
         raise NotImplementedError(
             f"predictor_xpad: space_order={geom.space_order}; the padded x "
@@ -1215,8 +1229,8 @@ def correct(u, v, w, p, dt, *, geom: Geometry):
     for ax in geom.axes:
         if not ax.periodic and "dirichlet" in (ax.p_lo, ax.p_hi):
             raise NotImplementedError(
-                "correct: a Dirichlet pressure end (the inflow/outflow "
-                "pair) is not served by the kernel; ROADMAP A.8")
+                "correct: a Dirichlet pressure end (an OUTFLOW y or z on "
+                "a periodic x) is not served by the kernel; ROADMAP B.3")
     x, y, z = geom.axes
     _check("correct", (u, v, w, p, dt),
            _face_shapes(geom) + ((x.n, y.n, z.n), ()))

@@ -2,11 +2,15 @@
 `cfdnn_tpu/solver.py`).
 
 One step is the turbulence closure's advance (the k-omega transport of
-the RANS closures) and nu_t -> dt (fixed, or the adaptive CFL and
-diffusion limit) -> the time integrator: forward Euler, or RK2/RK3
-(SSP) with a projection after every stage. A stage is predictor -> BC ->
-IBM forcing -> divergence -> direct FDM Poisson solve (rhs masked in the
-solid with IBM) -> pressure correction -> IBM forcing -> BC. The per-step
+the RANS closures, its y diffusion implicit under implicit y-diffusion)
+and nu_t -> dt (fixed, or the adaptive CFL and diffusion limit) -> the
+time integrator: forward Euler, or RK2/RK3 (SSP) with a projection after
+every stage. A stage is predictor (the body force -dp/dx, with the force
+ramp and the bulk-velocity controller) -> the convective outlet -> BC
+(the inflow pin) -> implicit y-diffusion (batched Thomas solves) and BC ->
+IBM forcing -> the outlet's flux anchor -> divergence -> direct FDM
+Poisson solve (rhs masked in the solid with IBM) -> pressure correction
+-> IBM forcing -> BC. The per-step
 work on CUDA goes through the hand-written kernels of `ops/kernels.py`.
 dt is a 0-d tensor on the device, the kernels read it through a pointer,
 and nothing in a step reads it (or any other device value) on the host.
@@ -40,17 +44,22 @@ in the reference's order (cfdnn_tpu/solver.py :783-827),
   - else predictor_general when `general_eligible` holds: any periodic or
     wall y and z, moving walls, the closure's nu_t (an all-periodic LES
     run, the duct, the lid channel, every O4 slab grid); predictor_xpad,
-    the same kernel on a ghost-padded axis, for a uniform no-slip x at O2
-    (`xpad_eligible`);
-  - divergence and correct whenever x is periodic and uniform (a no-slip
-    x runs the eager projection);
+    the same kernel on a ghost-padded axis, for a uniform no-slip,
+    inflow/outflow or outflow x at O2 (`xpad_eligible`);
+  - divergence and correct whenever x is periodic and uniform (a
+    non-periodic x runs the eager projection);
   - nu_sgs for Smagorinsky, WALE and Vreman, germano_pass1 for dynamic
     Smagorinsky, each where its own gate (`ops.kernels.LES_GATES`) holds
-    (Sigma runs plain, as in the reference);
+    behind the reference's LES gate (`les_tiling`: a periodic x; Sigma
+    runs plain, as in the reference);
   - transport for the k-omega advance of SST (with its nu_t), Wilcox and
     the EARSM trio, where `nu_sgs_eligible` holds and the predictor is
     "channel" or "general" (the reference's single-device slab mode: never
     with "xpad"). The mixing-length and GEP closures run plain.
+Under implicit y-diffusion there is no mode, so no predictor or projection
+kernel (the LES closures keep their own gate; transport runs plain); under
+a force ramp or bulk-velocity control the predictor runs plain and the
+projection keeps its kernels, as the reference's.
 With CFDNN_FUSE_DIV=1 in the environment at construction (the reference's
 opt-in, solver.py:116-159), the first predictor of each step is the
 predictor + divergence kernel of the plan's predictor, predictor_periodic_div
@@ -62,8 +71,9 @@ reference's "auto" resolves to its operators off an accelerator), and
 "on" runs the kernels' wrappers on any device (on the CPU they take the
 plain twins, as the reference's "on" runs Pallas in interpret mode). "on"
 raises when no ported kernel serves the config's predictor (a 2-D grid,
-for one) or closure (but for the plain chains the reference itself takes
-in "xz").
+for one; not where the reference's predictor is plain by design:
+implicit y-diffusion, a force ramp, bulk control) or a closure that the
+reference's own closure gate would fuse.
 
 Everything outside the port so far raises NotImplementedError naming the
 ROADMAP item that brings it (`_check_supported`); no Config field is
@@ -85,6 +95,7 @@ import torch
 from .config import (BCType, Config, ConvectiveScheme, PoissonSolverType,
                      TimeIntegrator, TurbulenceModel)
 from .fields import _STATE_KEYS, State, velocity_shapes, zero_state
+from .forcing import implicit_y_diffusion
 from .mesh import Mesh
 from .ops import kernels
 from .ops import operators as ops
@@ -209,17 +220,24 @@ def xz_tileable(nx: int, ny: int, nz: int, ng: int = 1) -> bool:
 def tiling_mode(geom: Geometry, cfg: Config) -> Optional[str]:
     """The reference's single-device tiling mode (its _pallas_eligible,
     cfdnn_tpu/solver.py:297-411) for what the port serves (O2 or O4, skew
-    or central, no implicit y-diffusion: _check_supported): None unless x
-    is uniform with x.n >= 8 and the grid is 3-D; then "slab" where the
-    slab block fits (slab_fits; a no-slip x too at O2, the reference's
-    ghost-padded "xpad" slab), else "xz" where z is periodic uniform and
-    the grid tiles (xz_tileable, halo 1 at O2, 2 at O4), else None."""
+    or central): None under implicit y-diffusion (its shared gate, :342)
+    and unless x is uniform with x.n >= 8 and the grid is 3-D; then on a
+    non-periodic x (wall, or the inflow/outflow pair, or outflow) "slab"
+    at O2 where the slab block fits (the reference's ghost-padded "xpad"
+    slab, :363-385); on a periodic x "slab" where the slab block fits
+    (slab_fits), else "xz" where z is periodic uniform and the grid tiles
+    (xz_tileable, halo 1 at O2, 2 at O4), else None. A force ramp and
+    bulk-velocity control leave the mode as it is: the step then runs its
+    predictor plain and keeps the projection kernels, as the reference's
+    _euler_substep (:688-690)."""
     x, y, z = geom.axes
-    if not (x.uniform and z.n > 1 and x.n >= 8):
+    if cfg.implicit_y_diffusion or not (x.uniform and z.n > 1
+                                        and x.n >= 8):
         return None
     if not x.periodic:
-        return ("slab" if x.bc == BCType.WALL and cfg.space_order == 2
-                and slab_fits(geom) else None)
+        return ("slab" if x.bc in (BCType.WALL, BCType.INFLOW,
+                                   BCType.OUTFLOW)
+                and cfg.space_order == 2 and slab_fits(geom) else None)
     if slab_fits(geom):
         return "slab"
     ng = 2 if cfg.space_order >= 4 else 1
@@ -253,10 +271,7 @@ def _check_supported(cfg: Config) -> None:
     n_dev = 1
     for d in (cfg.mesh_shape or (1,)):
         n_dev *= int(d)
-    bcs = (cfg.bc_x, cfg.bc_y, cfg.bc_z)
     unsupported = [
-        (cfg.implicit_y_diffusion, "implicit_y_diffusion=True",
-         "A.8 (implicit y-diffusion)"),
         (cfg.convective_scheme in (ConvectiveScheme.UPWIND,
                                    ConvectiveScheme.UPWIND2),
          f"convective_scheme={cfg.convective_scheme.value}",
@@ -266,13 +281,12 @@ def _check_supported(cfg: Config) -> None:
          "A.14 (recycling inflow)"),
         (cfg.filter_strength > 0.0, f"filter_strength={cfg.filter_strength}",
          "A.14 (velocity filter)"),
-        (cfg.force_ramp_time > 0, f"force_ramp_time={cfg.force_ramp_time}",
-         "A.8 (force ramp)"),
-        (cfg.bulk_velocity_target > 0,
-         f"bulk_velocity_target={cfg.bulk_velocity_target}",
-         "A.8 (bulk-velocity control)"),
-        (any(b in (BCType.INFLOW, BCType.OUTFLOW) for b in bcs),
-         "an inflow/outflow boundary", "A.8 (inflow pinning, outlet)"),
+        # the inflow/outflow pair is an x boundary; an open y or z runs
+        # OUTFLOW ghosts that no kernel of the port has
+        (any(b in (BCType.INFLOW, BCType.OUTFLOW)
+             for b in (cfg.bc_y, cfg.bc_z)),
+         "an inflow or outflow y or z boundary",
+         "B.3 (an OUTFLOW y or z on a periodic x)"),
         (n_dev > 1, f"mesh_shape={tuple(cfg.mesh_shape)}",
          "A.17 (multi-device)"),
         (cfg.poisson_solver == PoissonSolverType.MG, "poisson_solver=mg",
@@ -305,6 +319,19 @@ class Simulation:
         self._dt = torch.full((), cfg.dt, dtype=self.dtype, device=self.device)
         self._zero = torch.zeros((), dtype=self.dtype, device=self.device)
         self._fx = float(-cfg.dp_dx / cfg.rho)
+        # the reference's _yz_area_weights (solver.py:229-237): the
+        # normalized (y, z) cell areas, the measure of the bulk velocity
+        # and of the inflow/outflow pair's plane fluxes
+        wy = self.geom.y.d.reshape(-1, 1)
+        wz = self.geom.z.d.reshape(1, -1)
+        w = wy * wz
+        self._yz_w = w / torch.sum(w)
+        # the inflow/outflow pair: the convective outlet (an opt-in, the
+        # reference's _convective_out) and the inflow profile that
+        # `initialize` captures (u, v, w at the inlet; None before it)
+        self._inflow = cfg.bc_x == BCType.INFLOW
+        self._convective_out = self._inflow and cfg.convective_outflow
+        self._inflow_profile = None
         self.ibm = None
         # the reference reads its fused-divergence opt-in at construction
         self._fuse_div_requested = os.environ.get("CFDNN_FUSE_DIV") == "1"
@@ -355,11 +382,19 @@ class Simulation:
         this Simulation's own kernel plan: with CFDNN_FUSE_DIV=1 at
         construction, "periodic" or "channel" where the plan's predictor is
         that kernel (with or without nu_t), False otherwise and always
-        with an immersed body. Trip, recycling, inflow, the convective
-        outlet and implicit y-diffusion are refused by _check_supported.
-        (The reference's gate also says "periodic" for an all-periodic LES
-        run, whose predictor has no div kernel, and then fails its assert;
-        keyed to the plan, the port runs that case unfused.) Each div
+        with an immersed body. The reference's gate also excludes the
+        inflow/outflow pair, its convective outlet and implicit
+        y-diffusion (solver.py:144-147); keyed to the plan, these are off
+        the fused paths by the plan's gates: an inflow or outflow x has no
+        periodic or channel predictor (the xpad predictor has no div
+        kernel), and implicit y-diffusion has no predictor kernel at all
+        (`tiling_mode` gives no mode), nor has a force ramp or
+        bulk-velocity control (the reference's plain predictor, whose
+        projection takes its divergence). Trip and recycling are refused
+        by _check_supported. (The reference's gate also says "periodic"
+        for an all-periodic LES run, whose predictor has no div kernel,
+        and then fails its assert; keyed to the plan, the port runs that
+        case unfused.) Each div
         kernel walks its predictor's tile and refuses what that tile
         refuses (`kernels.tile_refusal`: nx < 8 for the channel, 32-bit
         offsets), so the fused mode takes every grid the plan's predictor
@@ -384,8 +419,10 @@ class Simulation:
         x_h = self.geom.x.h
         cfl_z = cfg.CFL_xz * d_min(mesh.z) if mesh.Nz > 1 else None
         inv_h2 = 1.0 / x_h ** 2
-        # (implicit y-diffusion, which would drop y here, is refused)
-        inv_h2 = inv_h2 + 1.0 / d_min(mesh.y) ** 2
+        # implicit y-diffusion takes y out of the explicit diffusion limit
+        # (the reference's solver.py:943-947)
+        if not cfg.implicit_y_diffusion:
+            inv_h2 = inv_h2 + 1.0 / d_min(mesh.y) ** 2
         if mesh.Nz > 1:
             inv_h2 = inv_h2 + 1.0 / d_min(mesh.z) ** 2
         # the diffusion limit of scalar nu, a device constant
@@ -440,25 +477,39 @@ class Simulation:
                 predictor = "general"
             elif kernels.xpad_eligible(geom, cfg):
                 predictor = "xpad"
-        # a wall x runs the eager projection, as the reference's xpad mode
+        # a non-periodic x runs the eager projection, as the reference's
+        # xpad mode (its use_fused needs a periodic x, solver.py:601-602)
         projection = tiling if x.periodic else None
-        if cfg.use_pallas == "on" and predictor is None:
+        # under a force ramp or bulk-velocity control the reference's
+        # predictor is plain (its _euler_substep, solver.py:688-690: the
+        # kernels take a constant fx) while its projection keeps its
+        # kernels; implicit y-diffusion has no predictor kernel (no mode)
+        plain_predictor = (cfg.force_ramp_time > 0
+                           or cfg.bulk_velocity_target > 0)
+        if (cfg.use_pallas == "on" and predictor is None
+                and not (plain_predictor or cfg.implicit_y_diffusion)):
             raise NotImplementedError(
                 "use_pallas='on': no ported kernel serves this config's "
-                "predictor (the kernels need a 3-D grid with a periodic or "
-                "no-slip uniform x, x.n >= 8, periodic or no-slip y and z, "
-                "and a y-z plane the reference's slab or (x, z) tiling "
-                "serves); use 'auto' or 'off'")
-        # with no mode the reference fuses no closure either (its
-        # turb._fuse is False, les.py:37-64). Its LES closures keep a gate
-        # of their own, which tiles at a halo of 1: at O4 it may give "xz"
-        # where the predictor's (halo 2) gives no mode
-        closure_tiling = tiling
-        if tiling is None and self.turb.kernel in ("nu_sgs",
-                                                    "germano_pass1"):
+                "predictor (the kernels need a 3-D grid with a periodic, "
+                "no-slip, inflow/outflow or outflow uniform x, x.n >= 8, "
+                "periodic or no-slip y and z, and a y-z plane the "
+                "reference's slab or (x, z) tiling serves); use 'auto' or "
+                "'off'")
+        # each closure kernel behind the reference's own gate: its LES
+        # closures' (les.py:37-64: a periodic uniform x, which tiles at a
+        # halo of 1, so at O4 it may give "xz" where the predictor's halo
+        # of 2 gives no mode; no implicit-y condition), its transport's
+        # (transport.py:375-377: the single-device "slab" mode of a
+        # periodic x, never "xpad" or "xz")
+        kernel = self.turb.kernel
+        if kernel in ("nu_sgs", "germano_pass1"):
             closure_tiling = les_tiling(geom)
-        closure = (self.turb.kernel if closure_tiling is not None
-                   else None)
+        elif kernel == "transport":
+            closure_tiling = ("slab" if tiling == "slab" and x.periodic
+                              else None)
+        else:
+            closure_tiling = None
+        closure = kernel if closure_tiling is not None else None
         if closure_tiling == "xz":
             # the static LES closures take nu_sgs_xz (the reference's
             # les.py:57-62, :93-96); dynamic Smagorinsky and the k-omega
@@ -466,8 +517,8 @@ class Simulation:
             # transport.py:375-378)
             closure = "nu_sgs_xz" if closure == "nu_sgs" else None
         if closure == "transport":
-            # the strain stencil is nu_sgs's (implicit y-diffusion, which
-            # the reference never fuses, is refused by _check_supported)
+            # the strain stencil is nu_sgs's; the predictor's grid (before
+            # a force ramp or bulk control makes the step's plain)
             ok = (predictor in ("channel", "general")
                   and kernels.nu_sgs_eligible(geom))
             why = ("the transport kernel serves a channel or general "
@@ -481,7 +532,8 @@ class Simulation:
                 raise NotImplementedError(
                     f"use_pallas='on': {why}; use 'auto' or 'off'")
             closure = None
-        return KernelPlan(predictor, projection, closure)
+        return KernelPlan(None if plain_predictor else predictor,
+                          projection, closure)
 
     def set_ibm_forcing(self, body) -> None:
         """Attach an immersed body (the reference's set_ibm_forcing,
@@ -499,8 +551,28 @@ class Simulation:
 
     def initialize(self, state: State) -> State:
         """The closure's initialisation of a state (the k and omega
-        estimates of the transport models; the identity otherwise)."""
-        return self.turb.initialize(state, self)
+        estimates of the transport models; the identity otherwise) and, on
+        the inflow/outflow pair, the capture of the inflow profile (the
+        reference's initialize, solver.py:495-505): the initial state's
+        inlet u face and first v and w cells, which `_apply_bc` pins from
+        then on. The profile is held in buffers that the captured CUDA
+        graphs read: the first capture drops the graphs captured before it
+        (they pin nothing), a later one is copied into the buffers in
+        place, so a replayed graph pins the new profile."""
+        state = self.turb.initialize(state, self)
+        if self._inflow:
+            planes = tuple(c[0].detach() for c in state.velocity)
+            held = self._inflow_profile
+            if held is not None and all(
+                    (h.shape, h.dtype, h.device) == (p.shape, p.dtype,
+                                                     p.device)
+                    for h, p in zip(held, planes)):
+                for h, p in zip(held, planes):
+                    h.copy_(p)
+            else:
+                self._inflow_profile = tuple(p.clone() for p in planes)
+                self._graphs.clear()
+        return state
 
     def project_initial_velocity(self, state: State) -> State:
         """One-time divergence cleanup of an initial or perturbed field
@@ -516,26 +588,87 @@ class Simulation:
     # Physics pieces
     # ------------------------------------------------------------------
 
-    def _apply_bc(self, comps):
-        return apply_velocity_bc(*comps, self.geom)
+    def _apply_bc(self, comps, pin_tangential=True):
+        """The velocity BCs (the convective outlet's face left as the
+        outlet set it) and, once `initialize` captured an inflow profile,
+        u's inlet face pinned to it (the reference's _apply_bc,
+        solver.py:200-227); with `pin_tangential` (the predictor stages)
+        v's and w's first cells too. After a projection the pin leaves v
+        and w alone: their small tangential pressure correction stands."""
+        comps = apply_velocity_bc(*comps, self.geom,
+                                  convective_outlet=self._convective_out)
+        profile = self._inflow_profile
+        if profile is None:
+            return comps
+        n = 3 if pin_tangential else 1
+        return tuple(torch.cat((p.unsqueeze(0), c[1:]))
+                     for p, c in zip(profile[:n], comps[:n])) + comps[n:]
 
-    def _momentum_rhs(self, comps, nu_t):
+    def _body_force(self, t, comps, dt):
+        """The driving force on u (the reference's _body_force,
+        solver.py:523-541): -dp_dx/rho, times 1 - exp(-t/T) under a force
+        ramp of time T, plus (target - bulk u)/dt under bulk-velocity
+        control, the bulk the (y, z)-area-weighted mean of u. A host float
+        without either, else a 0-d tensor."""
+        cfg = self.cfg
+        fx = self._fx
+        if cfg.force_ramp_time > 0:
+            fx = fx * (1.0 - torch.exp(-t / cfg.force_ramp_time))
+        if cfg.bulk_velocity_target > 0:
+            u = comps[0]
+            u_bulk = torch.sum(u * self._yz_w[None, :, :]) / u.shape[0]
+            fx = fx + (cfg.bulk_velocity_target - u_bulk) / dt
+        return fx
+
+    def _momentum_rhs(self, comps, nu_t, t, dt):
         cfg, geom = self.cfg, self.geom
         conv = ops.convective(comps, geom, cfg.convective_scheme)
         nu_eff = cfg.nu if nu_t is None else cfg.nu + nu_t
-        diff = ops.diffusive(comps, nu_eff, geom)
-        ru = -conv[0] + diff[0] + self._fx
+        diff = ops.diffusive(comps, nu_eff, geom,
+                             skip_y=cfg.implicit_y_diffusion)
+        ru = -conv[0] + diff[0] + self._body_force(t, comps, dt)
         rv = -conv[1] + diff[1]
         rw = -conv[2] + diff[2]
         return ru, rv, rw
 
-    def _euler_substep(self, comps, nu_t, dt, forces=None, want_div=False,
-                       fw=1.0):
-        """One Euler predictor substep: predictor -> BC -> IBM forcing
-        (its force sums, weighted by `fw`, appended to `forces`). With
-        want_div, returns (star, div): div is div(u*) where the plan's
-        predictor + divergence kernel produced it (`_fuse_div`), else
-        None and the projection takes it."""
+    def _convective_outlet(self, star, old, dt):
+        """The time-discrete convective outlet on the inflow/outflow
+        pair's high-x face (the reference's _convective_outlet,
+        solver.py:247-271): u*|out = u^n|out - U_c dt (u^n|out -
+        u^n|out-1) / dx for each component, U_c = cfg.outflow_u_c, or
+        else the area-weighted outlet-plane bulk of u^n, clipped at 0."""
+        cfg = self.cfg
+        if cfg.outflow_u_c > 0:
+            uc = torch.full((), cfg.outflow_u_c, dtype=self.dtype,
+                            device=self.device)
+        else:
+            uc = torch.clamp(torch.sum(old[0][-1] * self._yz_w), min=0.0)
+        lam = uc * dt / self.geom.x.h
+        return tuple(torch.cat((s[:-1], (o[-1] - lam * (o[-1] - o[-2]))
+                                .unsqueeze(0)))
+                     for s, o in zip(star, old))
+
+    def _anchor_outlet_flux(self, comps):
+        """u's outlet face shifted by a uniform offset so that its
+        area-weighted flux equals the inlet face's (the reference's
+        _project, solver.py:567-599): it keeps the Poisson rhs solvable
+        and anchors the through-flow."""
+        u = comps[0]
+        q_out = torch.sum(u[-1] * self._yz_w)
+        q_in = torch.sum(u[0] * self._yz_w)
+        u = torch.cat((u[:-1], (u[-1] + (q_in - q_out)).unsqueeze(0)))
+        return (u, comps[1], comps[2])
+
+    def _euler_substep(self, comps, nu_t, dt, forces=None, t=None,
+                       want_div=False, fw=1.0):
+        """One Euler predictor substep, in the reference's order
+        (solver.py:680-744): predictor (at time t, which only a force
+        ramp reads) -> convective outlet -> BC with the inflow pin ->
+        implicit y-diffusion and BC again -> IBM forcing (its force sums,
+        weighted by `fw`, appended to `forces`). With want_div, returns
+        (star, div): div is div(u*) where the plan's predictor +
+        divergence kernel produced it (`_fuse_div`), else None and the
+        projection takes it."""
         cfg, geom = self.cfg, self.geom
         fuse = self._fuse_div if want_div else False
         pred = self.kernels.predictor
@@ -570,16 +703,22 @@ class Simulation:
                 nu=float(cfg.nu), fx=self._fx, scheme=cfg.convective_scheme,
                 nu_t=nu_t)
         else:
-            rhs = self._momentum_rhs(comps, nu_t)
+            rhs = self._momentum_rhs(comps, nu_t, t, dt)
             star = tuple(c + dt * r for c, r in zip(comps, rhs))
         if fuse and div is None:
             # the reference asserts here (solver.py:833); keyed to the plan,
             # the gate makes this unreachable
             raise RuntimeError(f"fused divergence {fuse!r} requested, but "
                                f"the {pred!r} predictor produced none")
+        if self._convective_out:
+            star = self._convective_outlet(star, comps, dt)
         # the div kernels' star is BC-applied already (v's wall faces are
         # zeroed in the channel kernel): the BC pass is idempotent on it
         star = self._apply_bc(tuple(star))
+        if cfg.implicit_y_diffusion:
+            star = implicit_y_diffusion(
+                star, cfg.nu if nu_t is None else cfg.nu + nu_t, dt, geom)
+            star = self._apply_bc(star)
         if self.ibm is not None:
             star, f = self.ibm.apply(star, dt, accumulate=forces is not None)
             if forces is not None:
@@ -588,9 +727,13 @@ class Simulation:
 
     def _project(self, comps, dt, forces=None, div=None, fw=1.0):
         """Divergence (unless the predictor produced it) -> Poisson (rhs
-        masked in the solid) -> correction -> IBM forcing -> BC. `fw`
+        masked in the solid) -> correction -> IBM forcing -> BC (the
+        inflow pin without v's and w's cells), on the inflow/outflow pair
+        after the outlet's flux anchor (`_anchor_outlet_flux`). `fw`
         weighs this stage's IBM force sums (see _advance_velocity)."""
         geom = self.geom
+        if self._inflow:
+            comps = self._anchor_outlet_flux(comps)
         xz = self.kernels.projection == "xz"
         div_kernel = kernels.divergence_xz if xz else kernels.divergence
         correct_kernel = kernels.correct_xz if xz else kernels.correct
@@ -616,18 +759,22 @@ class Simulation:
                                       accumulate=forces is not None)
             if forces is not None:
                 forces.append(tuple(fw * c for c in f))
-        return self._apply_bc(comps), p_corr
+        return self._apply_bc(comps, pin_tangential=False), p_corr
 
-    def _advance_velocity(self, comps, nu_t, dt, forces=None):
+    def _advance_velocity(self, comps, nu_t, dt, forces=None, t=None):
         """One step of the velocity with a projection after each stage:
         Euler, RK2 or SSP-RK3 (the reference's _advance_velocity,
-        solver.py:860-926). The predictor is pressure-free, so the last
+        solver.py:860-926), the stages' predictors at t, t + dt and (RK3)
+        t + dt/2. The predictor is pressure-free, so the last
         projection's correction IS the pressure: it replaces p, rescaled by
         the last blend's weight (2 for RK2, 1.5 for RK3). Only the first
-        stage may take the fused divergence."""
+        stage may take the fused divergence. The stage times are formed
+        only where a force ramp reads them."""
         ti = self.cfg.time_integrator
+        ramp = self.cfg.force_ramp_time > 0
+        t2 = t + dt if ramp else None
         if ti == TimeIntegrator.EULER:
-            star, div = self._euler_substep(comps, nu_t, dt, forces,
+            star, div = self._euler_substep(comps, nu_t, dt, forces, t,
                                             want_div=True)
             return self._project(star, dt, forces, div=div)
 
@@ -637,20 +784,22 @@ class Simulation:
         # IBM force weights: each stage's impulse counts with the product of
         # the blend coefficients between it and the step's output
         if ti == TimeIntegrator.RK2:
-            s1, d1 = self._euler_substep(comps, nu_t, dt, forces,
+            s1, d1 = self._euler_substep(comps, nu_t, dt, forces, t,
                                          want_div=True, fw=0.5)
             s1, _ = self._project(s1, dt, forces, div=d1, fw=0.5)
-            s2 = self._euler_substep(s1, nu_t, dt, forces, fw=0.5)
+            s2 = self._euler_substep(s1, nu_t, dt, forces, t2, fw=0.5)
             s2 = self._apply_bc(blend(comps, 0.5, s2, 0.5))
             s2, pc2 = self._project(s2, dt, forces)
             return s2, 2.0 * pc2
-        s1, d1 = self._euler_substep(comps, nu_t, dt, forces, want_div=True,
-                                     fw=1.0 / 6.0)
+        s1, d1 = self._euler_substep(comps, nu_t, dt, forces, t,
+                                     want_div=True, fw=1.0 / 6.0)
         s1, _ = self._project(s1, dt, forces, div=d1, fw=1.0 / 6.0)
-        s2 = self._euler_substep(s1, nu_t, dt, forces, fw=1.0 / 6.0)
+        s2 = self._euler_substep(s1, nu_t, dt, forces, t2, fw=1.0 / 6.0)
         s2 = self._apply_bc(blend(comps, 0.75, s2, 0.25))
         s2, _ = self._project(s2, dt, forces, fw=2.0 / 3.0)
-        s3 = self._euler_substep(s2, nu_t, dt, forces, fw=2.0 / 3.0)
+        s3 = self._euler_substep(s2, nu_t, dt, forces,
+                                 t + 0.5 * dt if ramp else None,
+                                 fw=2.0 / 3.0)
         s3 = self._apply_bc(blend(comps, 1.0 / 3.0, s3, 2.0 / 3.0))
         s3, pc3 = self._project(s3, dt, forces)
         return s3, 1.5 * pc3
@@ -688,7 +837,8 @@ class Simulation:
         dt = (self._adaptive_dt(comps, nu_t) if self.cfg.adaptive_dt
               else self._dt)
         forces = [] if self.ibm is not None else None
-        new_comps, p = self._advance_velocity(comps, nu_t, dt, forces)
+        new_comps, p = self._advance_velocity(comps, nu_t, dt, forces,
+                                              state.t)
         zero = self._zero
         if with_diags:
             div = ops.divergence(new_comps, self.geom)

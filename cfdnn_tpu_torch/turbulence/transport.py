@@ -15,8 +15,11 @@ held to it. Where the Simulation's kernel plan names that kernel
 `advance_and_nu_t` launch it: SST with nu_t as a third output, SST with
 two (the EARSM subclasses, whose own nu_t keeps the two-pass form), or
 Wilcox with two. The clip and omega-pin epilogue runs after it, as in the
-reference. The IMEX y-diffusion branch (`implicit_y_diffusion`) is not
-ported (ROADMAP A.8; the solver refuses it).
+reference. Under implicit y-diffusion with a y wall (the IMEX branch of
+`advance`) the plain math skips the y diffusion and k and omega are then
+solved implicitly in y (`forcing.implicit_scalar_y_diffusion`, wall values
+0 and omega_wall); the plan never names the kernel there, as the
+reference never fuses it.
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ import numpy as np
 import torch
 
 from ..config import BCType
+from ..forcing import implicit_scalar_y_diffusion
 from ..ops import kernels
 from ..ops.bc import sl
 from ..ops.operators import _inv_dpos_c, ax_of
@@ -129,14 +133,15 @@ def _transport_terms(f, geom, vel_cc, wall_value):
     return adv, grads
 
 
-def _diffusion(f, geom, nu_eff, wall_value):
+def _diffusion(f, geom, nu_eff, wall_value, skip_y=False):
     """Conservative variable-coefficient diffusion div(nu_eff grad f):
     the face nu is the arithmetic mean of the two cells (mirror ghosts at
-    a wall), the gradient takes the ghost-aware centre spacing."""
+    a wall), the gradient takes the ghost-aware centre spacing. `skip_y`
+    leaves out the y term (the IMEX branch solves it implicitly)."""
     out = torch.zeros_like(f)
     for axis in range(3):
         ax = geom.axes[axis]
-        if ax.n <= 1:
+        if ax.n <= 1 or (skip_y and axis == 1):
             continue
         wv = wall_value if ax.bc == BCType.WALL else None
         f_m, f_p = _neighbors(f, axis, ax, wv)
@@ -150,7 +155,7 @@ def _diffusion(f, geom, nu_eff, wall_value):
 
 
 def sst_advance_math(comps, k, om, nu_t, geom, nu, c, y_wall, om_wall,
-                     dt, return_sr=False):
+                     dt, skip_y=False, return_sr=False):
     """The SST k/omega point-implicit update before the clip and pin
     epilogue: (k_new, om_new, nu_k, nu_om[, strain]). The single source of
     truth of the eager path and the transport kernel."""
@@ -190,8 +195,8 @@ def sst_advance_math(comps, k, om, nu_t, geom, nu, c, y_wall, om_wall,
     P_k = torch.minimum(nu_t * S2, 10.0 * c.beta_star * k * om)
     CD = torch.clamp(2.0 * (1.0 - F1) * c.sigma_omega2 / om * gkgo, min=0.0)
 
-    diff_k = _diffusion(k, geom, nu_k, 0.0)
-    diff_om = _diffusion(om, geom, nu_om, om_wall)
+    diff_k = _diffusion(k, geom, nu_k, 0.0, skip_y)
+    diff_om = _diffusion(om, geom, nu_om, om_wall, skip_y)
     src_k = P_k + diff_k - adv_k
     src_om = alpha * (om / k) * P_k + diff_om - adv_om + CD
     k_new = (k + dt * src_k) / (1.0 + dt * c.beta_star * om)
@@ -237,7 +242,7 @@ def sst_with_nut_math(comps, k, om, nu_t, geom, nu, c, y_wall, om_wall, dt,
 
 
 def komega_advance_math(comps, k, om, nu_t, geom, nu, c, y_wall, om_wall,
-                        dt):
+                        dt, skip_y=False):
     """The Wilcox k-omega point-implicit update before the clip:
     (k_new, om_new, nu_k, nu_om). `y_wall` is taken for the calling
     convention of sst_advance_math (Wilcox has no wall blending)."""
@@ -257,8 +262,8 @@ def komega_advance_math(comps, k, om, nu_t, geom, nu, c, y_wall, om_wall,
     nu_om = nu + c.sigma_omega * nu_t
     P_k = torch.minimum(nu_t * S2, 10.0 * c.beta_star * k * om)
 
-    diff_k = _diffusion(k, geom, nu_k, 0.0)
-    diff_om = _diffusion(om, geom, nu_om, om_wall)
+    diff_k = _diffusion(k, geom, nu_k, 0.0, skip_y)
+    diff_om = _diffusion(om, geom, nu_om, om_wall, skip_y)
     src_k = P_k + diff_k - adv_k
     src_om = c.alpha * (om / k) * P_k + diff_om - adv_om
     k_new = (k + dt * src_k) / (1.0 + dt * c.beta_star * om)
@@ -312,6 +317,27 @@ class _TransportBase(TurbulenceModelBase):
     def _nu_t_in(self, state):
         return (state.nu_t if state.nu_t is not None
                 else torch.zeros_like(state.k))
+
+    def _imex(self, sim) -> bool:
+        """Whether the advance takes the IMEX branch: implicit
+        y-diffusion with a y wall."""
+        return bool(sim.cfg.implicit_y_diffusion) and self.has_y_wall
+
+    def _plain_advance(self, math, state, sim, dt):
+        """(k_new, om_new) of the plain math before the clip; under IMEX
+        with the y diffusion left out of it and solved implicitly after
+        (k to 0 and omega to omega_wall at the walls)."""
+        imex = self._imex(sim)
+        k_new, om_new, nu_k, nu_om = math(
+            state.velocity, state.k, state.omega, self._nu_t_in(state),
+            sim.geom, self.nu, self.c, self.y_wall, self.om_wall, dt,
+            skip_y=imex)
+        if imex:
+            k_new = implicit_scalar_y_diffusion(k_new, nu_k, dt, sim.geom,
+                                                0.0)
+            om_new = implicit_scalar_y_diffusion(om_new, nu_om, dt,
+                                                 sim.geom, self.om_wall)
+        return k_new, om_new
 
     def _kernel(self, sim, state, dt, model):
         """The transport kernel on this state: 2 or 3 cell fields."""
@@ -368,9 +394,8 @@ class SSTTransport(_TransportBase):
         if sim.kernels.closure == "transport":
             k_new, om_new = self._kernel(sim, state, dt, "sst")
         else:
-            k_new, om_new, _, _ = sst_advance_math(
-                state.velocity, state.k, state.omega, self._nu_t_in(state),
-                sim.geom, self.nu, self.c, self.y_wall, self.om_wall, dt)
+            k_new, om_new = self._plain_advance(sst_advance_math, state,
+                                                sim, dt)
         k_new, om_new = self._epilogue(k_new, om_new)
         return state.replace(k=k_new, omega=om_new)
 
@@ -409,9 +434,8 @@ class KOmegaTransport(_TransportBase):
         if sim.kernels.closure == "transport":
             k_new, om_new = self._kernel(sim, state, dt, "komega")
         else:
-            k_new, om_new, _, _ = komega_advance_math(
-                state.velocity, state.k, state.omega, self._nu_t_in(state),
-                sim.geom, self.nu, c, self.y_wall, self.om_wall, dt)
+            k_new, om_new = self._plain_advance(komega_advance_math, state,
+                                                sim, dt)
         return state.replace(
             k=torch.clamp(k_new, c.k_min, c.k_max),
             omega=torch.clamp(om_new, c.omega_min, c.omega_max))

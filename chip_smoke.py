@@ -78,9 +78,13 @@ Phases, each of which raises on failure (nothing is caught):
      small grids (nx = 8 and 12, ragged tiles over two y chunks, a
      stretched walled y, a lid, periodic y of 4 and 5 cells, between NaN
      bands), each against its twin and the O4 slab kernel of its
-     function;
-     float64 to 1e-14 of scale and float32 to 1e-5; each output of a
-     kernel is held to its own twin output's scale;
+     function; predictor_general through the xpad wrapper on an INFLOW
+     and an OUTFLOW x (`_xpad_cases`), with and without nu_t, skew and
+     central, at the LES cylinder's 256x192x32 and at 9x5x32 (an odd x,
+     nz = 32), between NaN bands;
+     float64 to 1e-14 of scale and float32 to 1e-5 (the xpad cases
+     1e-12 and 1e-5); each output of a kernel is held to its own twin
+     output's scale;
   3. capture (`phase_capture`): on each main path at its full width,
      `Simulation.run` (CUDA graphs) against the plain loop of the same step
      (`Simulation._run_loop`) from one state, 37 steps (two 16-step
@@ -114,7 +118,17 @@ Phases, each of which raises on failure (nothing is caught):
      --N 512 --order 4 (tgv_re1600_o4_512, three of each a step), run to
      t = 12 in runs of 20 steps, its dissipation peak -dKE/dt within
      [0.0120, 0.0136] at t within [8.4, 9.6] (the 512^3 spectral DNS:
-     0.0127 near t = 9), and its peak device memory;
+     0.0127 near t = 9), and its peak device memory; and ROADMAP A.8:
+     the 256x192x32 LES cylinder at Re 3900 of
+     validation/run_les_cylinder3900.py (les_cylinder3900: the
+     inflow/outflow pair with the convective outlet, WALE, RK3, adaptive
+     dt, an immersed cylinder; predictor_general through xpad three times
+     a step, no nu_sgs, divergence or correct), after its run u's inlet
+     face the captured profile bit for bit, the outlet's flux anchor
+     equal to the inlet flux to 1e-5 in each stage of a further step, and
+     a second `initialize` with the inlet scaled by 1.5 pinned by the
+     replayed graphs; and rans_channel_imex (rans_channel with implicit
+     y-diffusion: the IMEX SST transport, no kernel), k, omega > 0;
      float32, 200 steps, use_pallas="auto", the launch
      counts set to 0 just before each run and read just after (the run
      replays graphs captured by a run before it; a replay adds the port's
@@ -148,6 +162,14 @@ Phases, each of which raises on failure (nothing is caught):
      u, v, w, nu_t <= 1e-12 of each one's scale, p of the larger of its
      own and the velocity's; the same at O4 (the Taylor-Green, the
      channel and the central LES Taylor-Green: the O4 xz variants);
+  5b. ROADMAP A.8 (`phase_a8`): the LES cylinder in float64 at
+     64x48x16, 20 steps, kernels against use_pallas="off" on the card;
+     rans_channel_imex in float64 at 32x24x32, 20 steps, the card against
+     the CPU; each field to 1e-12 of its scale (p of the larger of its own
+     and the velocity's); the 2-D Re 100 external cylinder of
+     validation/run_cylinder_strouhal.py (384x256, 24000 steps of dt
+     5e-3, float32), its Strouhal number within [0.15, 0.18], printed
+     with the Cl amplitude and the seconds;
   6. the apps (`phase_apps`) through their entry points on the card:
      the 128^3 Re 1600 taylor_green_3d (float32, 300 steps, KE never
      rising, div_linf <= 1e-3), the channel's Poiseuille at 32x64x32
@@ -178,7 +200,13 @@ Phases, each of which raises on failure (nothing is caught):
      difference from that slab kernel); tgv_re1600_o4_512 and the
      timed-only channel512_o4 (100 steps, one rep), and each O4 xz
      variant at 512^3 beside its twin and the O4 slab kernel of its
-     function on the same inputs;
+     function on the same inputs; predictor_general through xpad on the
+     LES cylinder's inflow x beside its twin, with the pads alone; and
+     the device ms/step of les_cylinder3900 and rans_channel_imex by
+     part, each part timed alone (its plain chains captured in a CUDA
+     graph and replayed under the profiler): the predictor, its pads,
+     plain WALE, the FDM's GEMMs and cuFFT, IBM and the outlet's
+     reductions; the Thomas sweeps;
   8. the A/B: tgv, channel and les_channel unfused and fused, in the
      order off, on, on, off, ms/step and device ms/step of each.
 It prints the `kernels` JSON line (each kernel's bound: the larger of its
@@ -1239,6 +1267,73 @@ def _general_tile_cases(dtype, device, seed):
     return cases
 
 
+# predictor_xpad on an inflow/outflow and an outflow x (`_xpad_cases`):
+# (tag, the grid's overrides of the LES cylinder's configuration); the
+# cylinder's own 256x192x32 (258 padded planes in x, z = 32: one z tile)
+# and an edge shape with an odd x (11 padded planes) and nz = 32
+_XPAD_GRIDS = (("les_cylinder3900", dict(Nx=256, Ny=192, Nz=32)),
+               ("9x5x32", dict(Nx=9, Ny=5, Nz=32)))
+# the label of the LES cylinder's own call (inflow x, skew, WALE's nu_t):
+# phase_timing times it, PERF.md's row 5 sub-row
+XPAD_MAIN = "predictor_general xpad inflow les_cylinder3900 skew+nu_t"
+
+
+def _xpad_cases(dtype, device, seed, grids=_XPAD_GRIDS):
+    """predictor_xpad (the general predictor on the ghost-padded x) on an
+    INFLOW and an OUTFLOW x, with and without nu_t, skew and central, on
+    `grids` (the LES cylinder's configuration, bench.les_cylinder_config,
+    with the grid's overrides), each against its twin (float64 to 1e-12
+    of scale, float32 to 1e-5), every input and every tensor the wrapper
+    allocates between NaN bands (`_band`, `_banded_call`)."""
+    from cfdnn_tpu_torch import BCType, ConvectiveScheme, bench
+    from cfdnn_tpu_torch import velocity_shapes
+    from cfdnn_tpu_torch.mesh import Mesh
+    from cfdnn_tpu_torch.ops import kernels as K
+    from cfdnn_tpu_torch.ops.grid import Geometry
+    gen = torch.Generator(device=device).manual_seed(seed)
+    dts = "float64" if dtype == torch.float64 else "float32"
+
+    def rnd(shape):
+        return _band(torch.randn(shape, generator=gen, dtype=dtype,
+                                 device=device))
+
+    cases = []
+    for tag, grid in grids:
+        for bc in ("inflow", "outflow"):
+            for scheme in ("skew", "central"):
+                for with_nut in (True, False):
+                    cfg = bench.les_cylinder_config(
+                        dtype=dts, bc_x=BCType(bc),
+                        convective_scheme=ConvectiveScheme(scheme),
+                        **grid).finalize()
+                    g = Geometry.make(Mesh.from_config(cfg), cfg,
+                                      device=device)
+                    check(K.xpad_eligible(g, cfg),
+                          f"xpad {bc} {tag}: not an xpad grid")
+                    xg = K.xpad_geometry(g)
+                    arrays = tuple(map(_band, K.general_arrays(xg)))
+                    u, v, w = (rnd(sh) for sh in velocity_shapes(cfg))
+                    nu_t = (_band(rnd((cfg.Nx, cfg.Ny, cfg.Nz)).abs()
+                                  * 1e-2) if with_nut else None)
+                    dt = _band(torch.full((), 1e-2, dtype=dtype,
+                                          device=device))
+                    kg = dict(geom=g, xgeom=xg, nu=cfg.nu, fx=0.7,
+                              scheme=cfg.convective_scheme)
+                    cases.append(Case(
+                        f"predictor_general xpad {bc} {tag} {scheme}"
+                        + ("+nu_t" if with_nut else ""),
+                        "predictor_general",
+                        lambda u=u, v=v, w=w, dt=dt, n=nu_t, a=arrays,
+                        kg=kg: K.predictor_xpad(u, v, w, dt, a, nu_t=n,
+                                                **kg),
+                        lambda u=u, v=v, w=w, dt=dt, n=nu_t, kg=kg:
+                            K.predictor_xpad_twin(u, v, w, dt, n, **kg),
+                        (u, v, w, dt, *arrays)
+                        + (() if nu_t is None else (nu_t,)),
+                        banded=True))
+    return cases
+
+
 # the O4 edge grids of `_o4_cases` (float64): (tag, grid, scheme, with
 # nu_t); "periodic" and "wall" name an axis's BC, a walled y is stretched
 _O4_GRIDS = (
@@ -1977,6 +2072,7 @@ def phase_kernels(device):
         cases += _general_tile_cases(dtype, device, seed=1)
         cases += _o4_cases(dtype, device, seed=1)
         cases += _xz_o4_cases(dtype, device, seed=1)
+        cases += _xpad_cases(dtype, device, seed=1)
         for case in cases:
             _hold(case, dtype, errs)
     return errs
@@ -2019,6 +2115,19 @@ class MainPath(NamedTuple):
     # validation script's run), its dissipation peak held to the DNS
     # (`check_dissipation_peak`), in place of `steps` steps
     until: float = None
+    # a path whose float64 check on the card has its own phase (phase_a8)
+    # in place of phase_trajectories'
+    own_traj: bool = False
+
+
+def _projection(predictor):
+    """The projection kernels of a plan with this predictor kernel: the
+    xz pair with the xz predictor, none on a non-periodic x (xpad) or
+    where the predictor is plain (implicit y-diffusion), else the slab
+    pair."""
+    if predictor == "general_xz":
+        return "xz"
+    return None if predictor in (None, "xpad") else "slab"
 
 
 def _paths():
@@ -2126,6 +2235,19 @@ def _paths():
                  ("general_xz", None), False,
                  dict(predictor_general_xz=1, divergence_xz=1,
                       correct_xz=1), n=512, timed_only=True),
+        # ROADMAP A.8: the LES cylinder at Re 3900 of
+        # validation/run_les_cylinder3900.py (the inflow/outflow pair with
+        # the convective outlet, WALE, RK3, adaptive dt, an immersed
+        # cylinder): predictor_general through xpad three times a step, the
+        # projection and WALE plain, as the reference's xpad mode; and the
+        # RANS channel with implicit y-diffusion (the IMEX SST transport),
+        # which runs no kernel, as the reference's
+        MainPath("les_cylinder3900", bench.les_cylinder_case, {}, False,
+                 ("xpad", None), False, dict(predictor_general=3), n=256,
+                 own_traj=True),
+        MainPath("rans_channel_imex", bench.rans_channel_case,
+                 dict(implicit_y_diffusion=True), False, (None, None),
+                 False, {}, own_traj=True),
     )
 
 
@@ -2252,13 +2374,91 @@ def _inside_body_u(sim, st):
     (tests/test_ibm.py:79-93), and max |u| overall."""
     import numpy as np
     body, mesh = sim.ibm.body, sim.mesh
-    X = mesh.x.faces[:-1][:, None]
+    # the u faces the state holds: Nx on a periodic x, Nx + 1 on a bounded
+    X = mesh.x.faces[:st.u.shape[0]][:, None]
     Y = mesh.y.centers[None, :]
     inside = np.sqrt((X - body.cx) ** 2 + (Y - body.cy) ** 2) < (
         body.radius - sim.ibm.band)
     check(bool(inside.any()), "les_ibm256: no u face inside the body")
     mask = torch.as_tensor(inside, device=st.u.device)
     return float(st.u[mask].abs().max()), float(st.u.abs().max())
+
+
+def _plane_flux(sim, plane):
+    """The area-weighted mean of a u plane (float64; the (y, z) cell
+    areas of the reference's _yz_area_weights)."""
+    import numpy as np
+    w = np.outer(sim.mesh.y.d, sim.mesh.z.d)
+    w = torch.as_tensor(w / w.sum(), device=plane.device)
+    return float(torch.sum(plane.double() * w))
+
+
+def check_inflow(name, sim, st, profile):
+    """After a run of the inflow/outflow pair: u's inlet face equal to the
+    profile `initialize` captured, bit for bit; one more step of the loop
+    with the outlet's flux anchor observed (`_anchor_outlet_flux`, before
+    each projection), the outlet face's area-weighted flux equal to the
+    inlet's there to 1e-5 relative in each stage. (After the projection
+    they differ by the divergence the IBM forcing leaves in the solid,
+    whose Poisson rhs is masked: printed, as the reference has it.) Then a
+    second `initialize` with the inlet profile scaled by 1.5 is pinned by
+    the replayed graphs (16 steps of `run`, the graphs captured before)."""
+    q_in, q_out = _plane_flux(sim, st.u[0]), _plane_flux(sim, st.u[-1])
+    same = torch.equal(st.u[0], profile[0])
+    print(f"[main] {name} inlet face equal to the captured profile bit for "
+          f"bit: {same}; after the step's last projection and IBM forcing "
+          f"flux in {q_in:.9e}, out {q_out:.9e} (relative d "
+          f"{abs(q_out / q_in - 1):.3e}: the solid's divergence)")
+    check(same, f"{name}: the inlet face is not the captured profile")
+    anchored = []
+    anchor = sim._anchor_outlet_flux
+
+    def observed(comps):
+        out = anchor(comps)
+        anchored.append((_plane_flux(sim, out[0][0]),
+                         _plane_flux(sim, out[0][-1])))
+        return out
+
+    sim._anchor_outlet_flux = observed
+    try:
+        sim._run_loop(st, 1, True)
+    finally:
+        del sim._anchor_outlet_flux
+    worst = max(abs(o / i - 1) for i, o in anchored)
+    print(f"[main] {name} the outlet's flux anchor in {len(anchored)} "
+          f"stages of a step: outlet flux / inlet flux - 1 at most "
+          f"{worst:.3e} (limit 1e-5)")
+    check(len(anchored) > 0 and worst <= 1e-5,
+          f"{name}: anchored fluxes {anchored}")
+    graphs = dict(sim._graphs)
+    u1 = st.u.clone()
+    u1[0] *= 1.5
+    st1 = sim.initialize(st.replace(u=u1))
+    check(sim._graphs == graphs, f"{name}: a second initialize dropped the "
+          "graphs")
+    st1, _ = sim.run(st1, 16)
+    torch.cuda.synchronize()
+    same = torch.equal(st1.u[0], 1.5 * profile[0])
+    print(f"[main] {name} second initialize (inlet x 1.5): 16 steps by the "
+          f"graphs captured before, inlet face the new profile bit for "
+          f"bit: {same}")
+    check(same and sim._graphs == graphs,
+          f"{name}: the replayed graphs did not pin the new profile")
+
+
+def check_imex(name, st):
+    """After a run with implicit y-diffusion and a k-omega closure: k and
+    omega > 0 and nu_t >= 0, finite, nu_t not 0 everywhere."""
+    extra = []
+    for field, f in (("k", st.k), ("omega", st.omega), ("nu_t", st.nu_t)):
+        if f is None:
+            continue
+        lo, hi = float(f.min()), float(f.max())
+        extra.append(f"{field} in [{lo:.3e}, {hi:.3e}]")
+        check(bool(torch.isfinite(f).all()) and hi > 0.0
+              and (lo >= 0.0 if field == "nu_t" else lo > 0.0),
+              f"{name}: {field} in [{lo}, {hi}]")
+    print(f"[main] {name} after the run: {', '.join(extra)}")
 
 
 def check_adaptive_dt(name, sim, st):
@@ -2268,7 +2468,7 @@ def check_adaptive_dt(name, sim, st):
     cfg, mesh = sim.cfg, sim.mesh
     dts = []
     for _ in range(2):
-        vmax = [float(c.abs().max()) for c in st.velocity]
+        vmax = [max(float(c.abs().max()), 1e-30) for c in st.velocity]
         bound = cfg.dt_safety * min(
             cfg.CFL_xz * mesh.x.d.min() / vmax[0],
             cfg.CFL_max * mesh.y.d.min() / vmax[1],
@@ -2348,7 +2548,7 @@ def phase_main_path(device):
         t0 = time.perf_counter()
         sim, st = build_case(path, path.n, device=device)
         built = time.perf_counter() - t0
-        projection = "xz" if predictor == "general_xz" else "slab"
+        projection = _projection(predictor)
         check(sim.kernels.predictor == predictor
               and sim.kernels.projection == projection
               and sim.kernels.closure == closure
@@ -2362,6 +2562,8 @@ def phase_main_path(device):
                 check_first_transport_step(path, sim)
             elif closure:
                 check_initial_nu_t(path, sim, st)
+        profile = (None if sim._inflow_profile is None
+                   else tuple(p.clone() for p in sim._inflow_profile))
         capture = warm_graphs(sim, st,
                               path.steps if path.until is None else TGV_CHUNK)
         torch.cuda.reset_peak_memory_stats()
@@ -2440,6 +2642,10 @@ def phase_main_path(device):
               f"dt {float(d.dt):.6e}, peak device memory {peak_gb:.2f} GB")
         if path.until is not None:
             check_dissipation_peak(name, ts, kes)
+        if profile is not None:
+            check_inflow(name, sim, st, profile)
+        if sim.cfg.implicit_y_diffusion:
+            check_imex(name, st)
         if sim.cfg.adaptive_dt:
             check_adaptive_dt(name, sim, st)
         out[name] = (div, steps)
@@ -2455,7 +2661,7 @@ def phase_trajectories(device):
     from cfdnn_tpu_torch import State, state_to_numpy
     from cfdnn_tpu_torch.ops import kernels as K
     for path in _paths():
-        if path.timed_only or path.xz:
+        if path.timed_only or path.xz or path.own_traj:
             continue
         kw = path.traj or {}
         if (path.case.__name__ in ("les_channel_case", "rans_channel_case")
@@ -2561,6 +2767,129 @@ def phase_xz_trajectories(device):
                   f"vs cpu: max|d| = {err:.3e} ({err / scale:.2e} of its "
                   f"scale {scale:.3e}; limit {lim:.3e})")
             check(err <= lim, f"xz {name} {k}: {err} > {lim}")
+
+
+# the 2-D Re 100 external cylinder of validation/run_cylinder_strouhal.py
+# (:43-108): its driver's gate on the Strouhal number (the reference
+# measured 0.172 there; published ~0.165), its 12000-step transient and
+# 1200 samples of Cl, 10 steps apart
+ST_GATE = (0.15, 0.18)
+RE100_TRANSIENT, RE100_SAMPLES, RE100_STRIDE = 12000, 1200, 10
+
+
+def _steps_vs(sims, st0, steps, what):
+    """{label: (final numpy State, launches)} of `steps` steps of each
+    (label, Simulation) from copies of st0 on its device."""
+    from cfdnn_tpu_torch import State, state_to_numpy
+    from cfdnn_tpu_torch.ops import kernels as K
+    out = {}
+    for label, sim in sims:
+        st = State(**{k: (None if v is None else v.to(sim.device))
+                      for k, v in vars(st0).items()})
+        warm_graphs(sim, st, steps)
+        K.reset_launch_counts()
+        fin, _ = sim.run(st, steps)
+        out[label] = (state_to_numpy(fin),
+                      {k: c for k, c in K.launch_counts().items() if c})
+        print(f"[a8] {what} {label} ({sim.device}, {sim.kernels}): "
+              f"launches {out[label][1]}")
+    return out
+
+
+def _scaled_errors(what, a, b, tol):
+    """Each field of two numpy States held to tol of its scale; p, as in
+    phase_xz_trajectories, to tol of the larger of its own and the
+    velocity's scale (it solves div(u*) / dt: its roundoff is the
+    velocity's, and a near-steady p is small beside it)."""
+    import numpy as np
+    scales = {k: float(np.max(np.abs(b[k])))
+              for k in ("u", "v", "w", "p", "k", "omega", "nu_t") if k in a}
+    for k, scale in scales.items():
+        err = float(np.max(np.abs(a[k] - b[k])))
+        lim = tol * (max(scale, scales["u"], scales["v"], scales["w"])
+                     if k == "p" else scale)
+        print(f"[a8] {what} {k}: max|d| = {err:.3e} ({err / scale:.2e} of "
+              f"its scale {scale:.3e}; limit {lim:.3e})")
+        check(err <= lim, f"{what} {k}: {err} > {lim}")
+
+
+def phase_a8(device):
+    """ROADMAP A.8 on the card beyond the main paths: (1) the LES
+    cylinder in float64 at 64x48x16, 20 steps, the kernels (predictor_general
+    through xpad, three a step) against use_pallas="off" on the card, each
+    field to 1e-12 of its scale; (2) rans_channel_imex (SST, implicit
+    y-diffusion: no kernel) in float64 at 32x24x32, 20 steps on the card
+    against the CPU, each field to 1e-12 of its scale (p of the larger of
+    its own and the velocity's, `_scaled_errors`); (3) the 2-D Re 100
+    external cylinder of validation/run_cylinder_strouhal.py (384x256,
+    dt 5e-3, float32, the inflow/outflow pair without the convective
+    outlet): 12000 steps of transient, then Cl sampled every 10 steps for
+    12000 more, the Strouhal number from its upward zero crossings within
+    ST_GATE, with the Cl amplitude and the seconds it took."""
+    import numpy as np
+    from cfdnn_tpu_torch import bench
+    from cfdnn_tpu_torch.solver import KernelPlan
+    with timed("a8 les_cylinder float64"):
+        grid = dict(Nx=64, Ny=48, Nz=16)
+        sim_k, st0 = bench.les_cylinder_case(64, device=device,
+                                             dtype="float64", **grid)
+        check(sim_k.kernels == KernelPlan("xpad", None, None),
+              f"les_cylinder float64: plan {sim_k.kernels}")
+        off = bench.les_cylinder_case(64, device=device, dtype="float64",
+                                      use_pallas="off", **grid)[0]
+        res = _steps_vs((("kernels", sim_k), ("off", off)), st0, 20,
+                        "les_cylinder 64x48x16 float64 20 steps")
+        check(res["kernels"][1] == {"predictor_general": 60}
+              and res["off"][1] == {}, f"les_cylinder float64 launches "
+              f"{res['kernels'][1]}, {res['off'][1]}")
+        _scaled_errors("les_cylinder 64x48x16 float64 kernels vs off",
+                       res["kernels"][0], res["off"][0], F64_TOL)
+    with timed("a8 rans_channel_imex float64"):
+        kw = dict(Ny=24, implicit_y_diffusion=True)
+        sim_c, st0 = bench.rans_channel_case(32, device=device,
+                                             dtype="float64", **kw)
+        check(sim_c.kernels == KernelPlan(None, None, None),
+              f"rans_channel_imex float64: plan {sim_c.kernels}")
+        cpu = bench.rans_channel_case(32, device="cpu", dtype="float64",
+                                      **kw)[0]
+        res = _steps_vs((("card", sim_c), ("cpu", cpu)), st0, 20,
+                        "rans_channel_imex 32x24x32 float64 20 steps")
+        check(res["card"][1] == {} and res["cpu"][1] == {},
+              "rans_channel_imex: a kernel launched")
+        _scaled_errors("rans_channel_imex 32x24x32 float64 card vs cpu",
+                       res["card"][0], res["cpu"][0], F64_TOL)
+    with timed("a8 cylinder_re100_2d"):
+        from cfdnn_tpu_torch.apps import cylinder
+        cfg = cylinder.external_config().with_(convective_outflow=False)
+        sim = bench.Simulation(cfg, device=device)
+        sim.set_ibm_forcing(cylinder.make_body_external(cfg, sim.mesh))
+        st = sim.initialize(cylinder.external_ic(cfg, sim.mesh,
+                                                 device=device))
+        t0 = time.perf_counter()
+        st, d = sim.run(st, RE100_TRANSIENT)
+        check(math.isfinite(float(d.ke)), "cylinder_re100_2d: blow-up in "
+              "the transient")
+        t, cl = [], []
+        for _ in range(RE100_SAMPLES):
+            st, d = sim.run(st, RE100_STRIDE)
+            t.append(float(st.t))
+            cl.append(float(d.fy) / 0.5)     # q A = 0.5 U^2 D, U = D = 1
+        seconds = time.perf_counter() - t0
+        cl = np.asarray(cl) - np.mean(cl)
+        t = np.asarray(t)
+        up = np.where((cl[:-1] < 0) & (cl[1:] >= 0))[0]
+        check(len(up) >= 5, f"cylinder_re100_2d: {len(up)} shedding periods")
+        st_num = 1.0 / ((t[up[-1]] - t[up[0]]) / (len(up) - 1))
+        amp = float(np.max(np.abs(cl)))
+        steps = RE100_TRANSIENT + RE100_SAMPLES * RE100_STRIDE
+        print(f"[a8] cylinder_re100_2d 384x256 float32 {steps} steps in "
+              f"{seconds:.2f} s ({seconds / steps * 1e3:.4f} ms/step): St "
+              f"{st_num:.4f} (gate {ST_GATE}; the reference 0.172, "
+              f"published ~0.165), Cl amplitude {amp:.4f} (published "
+              f"~0.33), {len(up) - 1} periods, div_linf "
+              f"{float(d.div_linf):.3e}, plan {sim.kernels}")
+        check(ST_GATE[0] <= st_num <= ST_GATE[1],
+              f"cylinder_re100_2d: St {st_num} outside {ST_GATE}")
 
 
 def _same(a, b):
@@ -2869,10 +3198,25 @@ def _bound(case, outputs):
 TIMED_STEPS = {"tgv": 1000, "channel": 1000, "les_ibm256": 150,
                "tgv512": 100, "channel512": 100, "tgv512_pfht": 100,
                "channel512_pfht": 100, "les_tgv640": 100,
-               "tgv_re1600_o4_512": 100, "channel512_o4": 100}
+               "tgv_re1600_o4_512": 100, "channel512_o4": 100,
+               # ~4100 launches a step (the plain Thomas sweeps; its loop
+               # 65 ms/step on an H100, PERF.md)
+               "rans_channel_imex": 50,
+               # the loops of these two take 5-13 ms a step: the depth
+               # the script's time limit leaves them (bench.py: 400)
+               "les_cylinder3900": 150, "rans_channel_earsm_wj": 150}
+# paths whose step launches thousands of kernels (the plain Thomas sweeps):
+# their device ms/step is one step captured alone in a CUDA graph and
+# replayed under the profiler (`_chain_ms`), not a window of `run` (CUPTI
+# left one kernel record out of each replay of its 4120-node graphs,
+# three windows of three, so `bench.window_complete` refused every one),
+# and their loop is timed but not profiled (its launches outrun the
+# card's queue, so no window of it is gated)
+STEP_CHAIN = ("rans_channel_imex",)
 # best-of repetitions of the marginal (bench.time_steps' 3), fewer where a
 # step takes tens of milliseconds
-TIMED_REPS = {"les_tgv640": 1, "tgv_re1600_o4_512": 1, "channel512_o4": 1}
+TIMED_REPS = {"les_tgv640": 1, "tgv_re1600_o4_512": 1, "channel512_o4": 1,
+              "rans_channel_imex": 1}
 # paths also timed a step at a time, as advance_unsteady runs with a
 # callback (the apps' unsteady loop): `step` replaying one-step graphs
 # against the plain loop stepped one step a call
@@ -2895,16 +3239,27 @@ def _time_path(path, sim, st, rows, loop=True):
     rows[f"{name}_mcells_per_s"] = _cells(sim) / s / 1e6
     if sim.cfg.bc_y.value == "wall":
         rows[f"{name}_div_linf_f32"] = float(d.div_linf)
-    prof = bench.profile_steps(sim, st)
-    busy = prof["device_ms_per_step"]
+    if name in STEP_CHAIN:
+        fast = sim.cfg.benchmark or sim.cfg.perf_mode
+        busy, launches, _ = _chain_ms(
+            lambda: sim._step_impl(st, with_diags=not fast), reps=5)
+        print(f"[profile] {name}: device {busy:.4f} ms/step of "
+              f"{s * 1e3:.4f} ms/step (idle share "
+              f"{1 - busy / (s * 1e3):.3f}; one step captured alone, "
+              f"{launches:g} kernels)")
+    else:
+        prof = bench.profile_steps(sim, st)
+        busy = prof["device_ms_per_step"]
+        print(f"[profile] {name}: device {busy:.4f} ms/step of "
+              f"{s * 1e3:.4f} ms/step (idle share "
+              f"{1 - busy / (s * 1e3):.3f}; device span "
+              f"{prof['span_ms_per_step']:.4f} ms/step over "
+              f"{prof['steps']} steps)")
+        for kname, ms, count in prof["kernels"][:12]:
+            print(f"[profile]   {ms:9.5f} ms/step  x{count:g}  "
+                  f"{kname[:110]}")
     check(busy > 0, f"{name}: the profiler recorded no device time")
     rows[f"{name}_device_ms_per_step"] = busy
-    print(f"[profile] {name}: device {busy:.4f} ms/step of "
-          f"{s * 1e3:.4f} ms/step (idle share {1 - busy / (s * 1e3):.3f};"
-          f" device span {prof['span_ms_per_step']:.4f} ms/step over "
-          f"{prof['steps']} steps)")
-    for kname, ms, count in prof["kernels"][:12]:
-        print(f"[profile]   {ms:9.5f} ms/step  x{count:g}  {kname[:110]}")
     if loop:
         fast = sim.cfg.benchmark or sim.cfg.perf_mode
 
@@ -2913,17 +3268,135 @@ def _time_path(path, sim, st, rows, loop=True):
 
         s_loop, _ = bench.time_steps(sim, st, steps=steps, reps=reps,
                                      run=run_loop)
-        busy_loop = bench.profile_steps(sim, st, run=run_loop)[
-            "device_ms_per_step"]
         rows[f"{name}_loop_ms_per_step"] = s_loop * 1e3
-        rows[f"{name}_loop_device_ms_per_step"] = busy_loop
-        print(f"[profile] {name} loop: device {busy_loop:.4f} ms/step of "
-              f"{s_loop * 1e3:.4f} ms/step (idle share "
-              f"{1 - busy_loop / (s_loop * 1e3):.3f}); captured "
-              f"{s * 1e3:.4f} ms/step, {s_loop / s:.3f}x faster")
+        if name in STEP_CHAIN:
+            print(f"[profile] {name} loop: {s_loop * 1e3:.4f} ms/step (not "
+                  f"profiled); captured {s * 1e3:.4f} ms/step, "
+                  f"{s_loop / s:.3f}x faster")
+        else:
+            busy_loop = bench.profile_steps(sim, st, run=run_loop)[
+                "device_ms_per_step"]
+            rows[f"{name}_loop_device_ms_per_step"] = busy_loop
+            print(f"[profile] {name} loop: device {busy_loop:.4f} ms/step "
+                  f"of {s_loop * 1e3:.4f} ms/step (idle share "
+                  f"{1 - busy_loop / (s_loop * 1e3):.3f}); captured "
+                  f"{s * 1e3:.4f} ms/step, {s_loop / s:.3f}x faster")
     if loop and name in STEPWISE:
         _time_stepwise(name, sim, st, steps, reps, rows)
+    if name in BREAKDOWNS:
+        BREAKDOWNS[name](name, sim, st, busy, rows)
     return s * 1e3, busy, float(d.div_linf)
+
+
+def _chain_ms(fn, reps=20):
+    """(device ms a call, kernels a call, {"gemm" | "fft" | "other": device
+    ms a call}) of a plain-torch chain: fn() captured in a CUDA graph (after
+    one uncaptured call) and its replays profiled (bench.profiled), so the
+    chain's kernels run back to back without its host time. Not for a
+    chain that launches one of the port's kernels (a replay adds no
+    launches to its count)."""
+    from cfdnn_tpu_torch.bench import is_copy, profiled
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream), torch.no_grad():
+        fn()
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.no_grad(), torch.cuda.graph(graph):
+        fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    events, reps, _ = profiled(lambda n: [graph.replay() for _ in range(n)],
+                               reps)
+    parts = {"gemm": 0.0, "fft": 0.0, "other": 0.0}
+    for e in events:
+        key = e.key.lower()
+        part = ("gemm" if "gemm" in key or "cutlass" in key
+                else "fft" if "fft" in key else "other")
+        parts[part] += e.self_device_time_total / reps / 1e3
+    n = sum(e.count for e in events if not is_copy(e.key)) / reps
+    del graph
+    return sum(parts.values()), n, parts
+
+
+def _print_breakdown(name, busy, rows, parts):
+    """Each part's device ms a call, calls a step, ms/step and share of the
+    step's device ms/step (`busy`), into rows[<name>_breakdown]."""
+    table = {}
+    for part, (ms, calls, launches) in parts.items():
+        table[part] = dict(ms_per_call=ms, calls_per_step=calls,
+                           ms_per_step=ms * calls,
+                           share=ms * calls / busy, launches_per_call=launches)
+        print(f"[profile] {name} part {part}: {ms:.5f} ms a call x {calls} a "
+              f"step = {ms * calls:.5f} ms/step, share "
+              f"{ms * calls / busy:.3f} of {busy:.4f} device ms/step "
+              f"({launches:g} launches a call)")
+    rest = busy - sum(v["ms_per_step"] for v in table.values())
+    print(f"[profile] {name} part rest (BCs, blends, dt, diagnostics, state "
+          f"copies): {rest:.5f} ms/step, share {rest / busy:.3f}")
+    rows[f"{name}_breakdown"] = table
+
+
+def _breakdown_les_cylinder(name, sim, st, busy, rows):
+    """les_cylinder3900's device ms/step by part, each timed alone on the
+    path's state: predictor_general on the padded fields (the profiler's
+    device ms) and the pads (`_xpad_fields`), three a step (RK3); WALE's
+    plain nu_t, one; the FDM solve, three (its eigenbasis GEMMs on x,
+    cuFFT on y and z); IBM forcing, six (after each predictor and each
+    correction); the convective outlet and the outlet's flux anchor,
+    three each."""
+    from cfdnn_tpu_torch.ops import kernels as K
+    comps = tuple(st.velocity)
+    nu_t = sim.turb.nu_t(st, sim)
+    dt = sim._dt
+    xg, gs = sim._gen_geom, sim._gen_arrays
+    padded = K._xpad_fields(*comps, nu_t, sim.geom)
+    kg = dict(geom=xg, nu=float(sim.cfg.nu), fx=sim._fx,
+              scheme=sim.cfg.convective_scheme)
+    kern = _device_ms(lambda: K.predictor_general(*padded[:3], dt, gs,
+                                                  nu_t=padded[3], **kg))
+    rhs = torch.randn(nu_t.shape, dtype=nu_t.dtype, device=nu_t.device)
+    solve_ms, solve_n, solve_parts = _chain_ms(lambda: sim.poisson.solve(rhs))
+    pads = _chain_ms(lambda: K._xpad_fields(*comps, nu_t, sim.geom))
+    wale = _chain_ms(lambda: sim.turb.nu_t(st, sim))
+    ibm = _chain_ms(lambda: sim.ibm.apply(comps, dt, accumulate=True))
+    outlet = _chain_ms(lambda: sim._convective_outlet(comps, comps, dt))
+    anchor = _chain_ms(lambda: sim._anchor_outlet_flux(comps))
+    parts = {
+        "predictor_general": (kern, 3, 1),
+        "pads": (pads[0], 3, pads[1]),
+        "wale_plain": (wale[0], 1, wale[1]),
+        "fdm_x_gemms": (solve_parts["gemm"], 3, solve_n),
+        "fdm_cufft_yz": (solve_parts["fft"], 3, 0),
+        "fdm_other": (solve_parts["other"], 3, 0),
+        "ibm": (ibm[0], 6, ibm[1]),
+        "convective_outlet": (outlet[0], 3, outlet[1]),
+        "outlet_flux_anchor": (anchor[0], 3, anchor[1]),
+    }
+    _print_breakdown(name, busy, rows, parts)
+
+
+def _breakdown_rans_imex(name, sim, st, busy, rows):
+    """rans_channel_imex's device ms/step by part: the implicit
+    y-diffusion of the velocity (three Thomas solves, `forcing.
+    implicit_y_diffusion`) and of k and omega (two,
+    `implicit_scalar_y_diffusion`), one each a step, each timed alone on
+    the path's state."""
+    from cfdnn_tpu_torch import forcing
+    comps = tuple(st.velocity)
+    nu_eff = sim.cfg.nu + st.nu_t
+    dt = sim._dt
+    vel = _chain_ms(lambda: forcing.implicit_y_diffusion(comps, nu_eff, dt,
+                                                         sim.geom))
+    scal = _chain_ms(lambda: forcing.implicit_scalar_y_diffusion(
+        st.k, nu_eff, dt, sim.geom, 0.0))
+    parts = {"thomas_velocity": (vel[0], 1, vel[1]),
+             "thomas_k_omega": (scal[0], 2, scal[1])}
+    _print_breakdown(name, busy, rows, parts)
+
+
+BREAKDOWNS = {"les_cylinder3900": _breakdown_les_cylinder,
+              "rans_channel_imex": _breakdown_rans_imex}
 
 
 def _time_stepwise(name, sim, st, steps, reps, rows):
@@ -3010,6 +3483,34 @@ def phase_timing(device, errs):
                   + ("" if lib is None else
                      f"; torch.fft.{case.library.__name__} {lib:.4f} ms")
                   + _pair_text(t))
+        # predictor_general through xpad on the LES cylinder's inflow x
+        # (its own call: 256x192x32 padded to 258 planes, skew, WALE's
+        # nu_t), held to its twin and timed beside it; the pads alone
+        # (`_xpad_fields`, two torch.cat a field) beside it
+        from cfdnn_tpu_torch import bench
+        from cfdnn_tpu_torch.mesh import Mesh
+        from cfdnn_tpu_torch.ops import kernels as K
+        from cfdnn_tpu_torch.ops.grid import Geometry
+        cfg = bench.les_cylinder_config().finalize()
+        geom = Geometry.make(Mesh.from_config(cfg), cfg, device=device)
+        for case in _xpad_cases(torch.float32, device, seed=2,
+                                grids=_XPAD_GRIDS[:1]):
+            if case.label != XPAD_MAIN:
+                continue
+            ref = _hold(case, torch.float32, errs)
+            t = times[case.label] = (
+                case.name, _event_ms(case.kern), _event_ms(case.twin, 20),
+                _device_ms(case.kern), _device_ms(case.twin, 10),
+                _bound(case, ref), None, None, None)
+            u, v, w, nu_t = (case.inputs[i] for i in (0, 1, 2, -1))
+            pads = _chain_ms(lambda: K._xpad_fields(u, v, w, nu_t, geom))
+            times["xpad pads"] = pads
+            print(f"[timing] {case.label} float32: per call kernel "
+                  f"{t[1]:.4f} ms, twin {t[2]:.4f} ms; device kernel "
+                  f"{t[3]:.4f} ms, twin {t[4]:.4f} ms; bound {t[5][0]:.4f} "
+                  f"ms ({t[5][1]}); the pads alone (_xpad_fields) device "
+                  f"{pads[0]:.4f} ms, {pads[1]:g} launches")
+            del case, ref
         # the six slab kernels that walk an (x, z) tile at 512^3
         # (channel512's and tgv512's predictor, tgv512's and channel512's
         # correction and divergence, the two div kernels beside their
@@ -3135,7 +3636,7 @@ def kernel_entries(errs, launches, per_step, times):
         name = k.__name__
         variants = {}
         for label, t in times.items():
-            if t[0] != name:
+            if label == "xpad pads" or t[0] != name:
                 continue
             # an xz kernel's slab kernel, a div kernel's unfused pair
             beside = "pair" if name in DIV_KERNELS else "slab"
@@ -3195,6 +3696,8 @@ def main():
         phase_trajectories(device)
     with timed("xz trajectories"):
         phase_xz_trajectories(device)
+    with timed("a8"):
+        phase_a8(device)
     with timed("apps"):
         phase_apps(device)
     with timed("timing"):

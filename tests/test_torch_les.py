@@ -292,16 +292,19 @@ def test_les_kernels_refuse_other_geometries():
 
 
 def test_les_refusal_names_the_x_gate():
-    """use_pallas="on" on a wall-x lid cavity with WALE: the refusal names
-    the nu_sgs gate's failing condition, a periodic x, not another
-    kernel's."""
+    """On a wall-x lid cavity with WALE the nu_sgs gate's refusal names its
+    failing condition, a periodic x, not another kernel's. use_pallas="on"
+    does not raise there: the reference's LES gate never fuses a closure
+    on a non-periodic x (les.py:37-39), so the plan runs the xpad
+    predictor with the plain closure, as the reference's "on"."""
     cfg = _cfg(T, Nx=12, Ny=12, Nz=12, bc_x="wall", x_max=1.5, y_min=0.0,
                y_max=1.0, z_max=2.0, lid_velocity=1.0, turb_model="wale",
                use_pallas="on")
-    with pytest.raises(NotImplementedError) as err:
-        T.Simulation(cfg, device="cpu")
-    assert "nu_sgs needs a periodic uniform x" in str(err.value)
-    assert "germano" not in str(err.value)
+    sim = T.Simulation(cfg, device="cpu")
+    why = K.les_refusal("nu_sgs", sim.geom)
+    assert "nu_sgs needs a periodic uniform x" in why
+    assert "germano" not in why
+    assert sim.kernels == KernelPlan("xpad", None, None)
 
 
 def test_les_refusal_names_the_xz_wall_gate(monkeypatch):

@@ -295,15 +295,22 @@ def test_rans_kernel_plans():
 def test_transport_gate_refuses(grid):
     """No transport kernel on a 2-D grid, a moving lid (the strain's wall
     ghosts are stationary) or a wall x (the xpad predictor: the
-    reference fuses only in its slab mode): "auto" runs the plain math,
-    "on" raises."""
+    reference fuses only in its slab mode): "auto" runs the plain math.
+    "on" raises on the 2-D grid (no predictor kernel) and on the lid
+    (the reference would fuse its transport there), and runs the plain
+    math on the wall x, as the reference's "on", whose transport gate
+    never fuses outside its slab mode."""
     g = {"2d": dict(GRIDS["channel"], Nz=1),
          "lid": dict(GRIDS["channel"], lid_velocity=0.5),
          "xpad": dict(Nx=12, Ny=12, Nz=12, bc_x="wall", x_max=1.5,
                       z_max=2.0)}[grid]
     assert _cuda_plan(g, turb_model="sst").closure is None
-    with pytest.raises(NotImplementedError):
-        _sims(g, turb_model="sst", use_pallas="on")
+    if grid == "xpad":
+        _, on = _sims(g, turb_model="sst", use_pallas="on")
+        assert on.kernels == KernelPlan("xpad", None, None)
+    else:
+        with pytest.raises(NotImplementedError):
+            _sims(g, turb_model="sst", use_pallas="on")
     if grid == "lid":
         _, ts = _sims(g, turb_model="sst")
         assert not K.nu_sgs_eligible(ts.geom)
