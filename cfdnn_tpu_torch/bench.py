@@ -357,7 +357,9 @@ SPIN_CYCLES_PER_S = 2e9
 # three, on one loop window on an H100: 128)
 SPIN_PAD = 128
 MIN_DEVICE_SHARE = 0.8
-PROFILE_WINDOWS = 3
+# (three windows of one kernel call on an H100 recorded no device event in
+# two and 13 of its 20 launches in the third: five)
+PROFILE_WINDOWS = 5
 
 
 def _spin_for(seconds):

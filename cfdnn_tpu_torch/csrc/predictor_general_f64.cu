@@ -5,8 +5,8 @@ extern "C" int cfdnn_predictor_general_f64(
         const void* u, const void* v, const void* w, const void* dt,
         const void* nut, void* su, void* sv, void* sw,
         const void* const* metrics, const double* tang, int nx, int ny,
-        int nz, int wall_y, int wall_z, double nu, double fx, int skew,
+        int nz, int wall_y, int wall_z, double nu, double fx, int scheme,
         void* stream) {
     return launch<double>(u, v, w, dt, nut, su, sv, sw, metrics, tang, nx, ny,
-                          nz, wall_y, wall_z, nu, fx, skew, stream);
+                          nz, wall_y, wall_z, nu, fx, scheme, stream);
 }

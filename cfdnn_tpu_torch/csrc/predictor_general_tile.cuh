@@ -2,8 +2,9 @@
 // uniform x with y and z each periodic (uniform) or bounded by no-slip
 // walls at any stretching, moving or not (the LES Taylor-Green, the square
 // duct, the lid-driven channel, and through the xpad wrapper a wall x), on
-// an (x, z) tile walked along y. O2 skew or central convection, scalar nu
-// or nu + a cell eddy viscosity.
+// an (x, z) tile walked along y. O2 or O4, skew, central, upwind or
+// upwind2 convection (the kernels' SCHEME), scalar nu or nu + a cell eddy
+// viscosity.
 //
 // Replaces cfdnn_tpu/ops/pallas_kernels.py fused_predictor_general (body
 // _general_kernel, which runs ops.convective + ops.diffusive on an
@@ -63,6 +64,20 @@
 // nu_t has no O4 term: the wrapper takes the O2 entry for it. The O4
 // reach costs the O2 kernel's bytes (each plane of each field is still
 // fetched once a block) and ~40% more staged points a plane.
+//
+// Upwind and upwind2 (operators._conv_advective's upwind branch): the
+// advecting velocity as central's (O4 along O4 axes), times the one-sided
+// difference on the side it comes from (a tie takes the backward one),
+// divided by the ghost-aware spacing of that side (general_arrays' dg_c
+// and dg_f, a kernel parameter of their own: Spacing) as the operators
+// divide. Upwind reaches one cell and runs on the O2 kernel (at O4 on the
+// O4 kernel, for its advecting velocity); upwind2, the minmod-limited
+// MUSCL difference over five points, reaches two and runs on the O4
+// kernel at every order (the O4 constants 0 on O2 axes), its two-deep
+// wall ghosts formed at run-time offsets (Tile::normal2, tangential2:
+// pad_normal's 2 f_wall - f_{1,2}, pad_tangential's 2 tang - f_{0,1}) on
+// the planes within two of a walled y and in the z tiles within two of a
+// walled z.
 //
 // The float and double entry points are compiled apart
 // (predictor_general.cu, predictor_general_f64.cu, and the O4 kernel's
@@ -134,8 +149,8 @@ struct O4Axes {
 // offsets are constants after inlining but on those planes and in those
 // blocks.
 template <typename T, bool NUT, bool EDGE, int ZW, typename View,
-          bool O4 = false>
-struct Tile {
+          bool O4 = false, typename Up = NoSpacing>
+struct Tile : Up {
     // the staged metrics' row length (the window's x and z points)
     static constexpr int kMx = O4 ? xz::kWidePx : kPx;
     static constexpr int kMz = O4 ? xz::kWidePz : kPz;
@@ -338,12 +353,109 @@ struct Tile {
         return adv * dphi;
     }
 
-    template <bool SKEW, int S, int D>
-    __device__ __forceinline__ T conv_term(const Off& p) const {
+    // normal<S>(p, X) two cells deep (upwind2, X in -2 ... 2): pad_normal's
+    // ng = 2 ghosts 2 f_0 - f_{-g} below face 0 and 2 f_n - f_{2n-g}
+    // above face n, g = pos + X, read at run-time offsets
+    template <int S>
+    __device__ __forceinline__ T normal2(const Off& p, int X) const {
+        const int g = pos<S>() + X;
+        if (lo_wall<S>() && g < 0)
+            return T(2) * val<S>(with(p, S, -pos<S>()))
+                   - val<S>(with(p, S, -g - pos<S>()));
+        if (hi_wall<S>() && g > cells<S>())
+            return T(2) * val<S>(with(p, S, cells<S>() - pos<S>()))
+                   - val<S>(with(p, S, 2 * cells<S>() - g - pos<S>()));
+        return val<S>(with(p, S, X));
+    }
+
+    // tangential<C, D>(p, X) two cells deep: pad_tangential's ng = 2
+    // ghosts 2 tang - f_{-g-1} below cell 0 and 2 tang - f_{2n-1-g} above
+    // cell n - 1
+    template <int C, int D>
+    __device__ __forceinline__ T tangential2(const Off& p, int X) const {
+        const int g = pos<D>() + X;
+        if (lo_wall<D>() && g < 0)
+            return T(2) * tlo<D>(C) - val<C>(with(p, D, -g - 1 - pos<D>()));
+        if (hi_wall<D>() && g >= cells<D>())
+            return T(2) * thi<D>(C)
+                   - val<C>(with(p, D, 2 * cells<D>() - 1 - g - pos<D>()));
+        return val<C>(with(p, D, X));
+    }
+
+    // the advecting velocity of component D at component S's point:
+    // central_cross's (O2) and central_cross_o4's (O4) adv, written out
+    // apart so that their code stays as it was
+    template <int S, int D>
+    __device__ __forceinline__ T advect(const Off& p) const {
+        const T h = T(0.5);
+        auto uc = [&](int x) -> T {
+            const Off px = with(p, S, x);
+            if (o4<D>())
+                return (T(9) * (val<D>(with(px, D, 0)) + val<D>(with(px, D, 1)))
+                        - (val<D>(with(px, D, -1)) + val<D>(with(px, D, 2))))
+                       / T(16);
+            return h * (val<D>(with(px, D, 0)) + val<D>(with(px, D, 1)));
+        };
+        if (o4<S>()) return (T(9) * (uc(-1) + uc(0)) - (uc(-2) + uc(1))) / T(16);
+        const T lo = lo_wall<S>() && pos<S>() == 0 ? T(2) * tlo<S>(D) - uc(0)
+                                                   : uc(-1);
+        const T hi = hi_wall<S>() && pos<S>() == cells<S>()
+                         ? T(2) * thi<S>(D) - uc(-1) : uc(0);
+        return h * (lo + hi);
+    }
+
+    // component S at offset X along D (a face offset along its own axis),
+    // with the ghosts of a reach of one (R = 1) or two cells
+    template <int R, int S, int D>
+    __device__ __forceinline__ T along(const Off& p, int X) const {
         if constexpr (D == S)
-            return SKEW ? skew_own<S>(p) : central_own<S>(p);
+            return R == 1 ? normal<S>(p, X) : normal2<S>(p, X);
         else
-            return SKEW ? skew_cross<S, D>(p) : central_cross<S, D>(p);
+            return R == 1 ? tangential<S, D>(p, X) : tangential2<S, D>(p, X);
+    }
+
+    // upwind (R = 1) or upwind2 (R = 2): adv times the one-sided
+    // derivative on the side the advecting velocity comes from
+    // (operators._conv_advective: a tie takes the backward one), divided
+    // as the operators divide. The side picks the operands, and one
+    // expression forms the derivative: upwind2's forward difference
+    // dp1 - (mm(dp2, dp1) - mm(dp1, d0)) / 2 is its backward one
+    // c + (mm(m, c) - mm(c, o)) / 2 with c = dp1, m = d0, o = dp2, bit for
+    // bit (minmod is symmetric, and a - b = -(b - a) exactly)
+    template <int R, int S, int D>
+    __device__ __forceinline__ T upwind(const Off& p) const {
+        T adv;
+        if constexpr (D == S) adv = val<S>(p);
+        else adv = advect<S, D>(p);
+        const bool back = adv >= T(0);
+        // Up: the upwind spacings at this point (Spacing)
+        const T* dg = D == S ? this->f[D] : this->c[D];
+        const T den = back ? dg[0] : dg[1];
+        const T f0 = val<S>(p);
+        const T fm1 = along<R, S, D>(p, -1), fp1 = along<R, S, D>(p, 1);
+        T num;
+        if constexpr (R == 1) {
+            num = back ? f0 - fm1 : fp1 - f0;
+        } else {
+            const T d0 = f0 - fm1, dp1 = fp1 - f0;
+            const T c = back ? d0 : dp1;
+            const T m = back ? dp1 : d0;
+            const T o = back ? fm1 - along<2, S, D>(p, -2)
+                             : along<2, S, D>(p, 2) - fp1;
+            num = c + T(0.5) * (minmod(m, c) - minmod(c, o));
+        }
+        return adv * (num / den);
+    }
+
+    template <int SCHEME, int S, int D>
+    __device__ __forceinline__ T conv_term(const Off& p) const {
+        if constexpr (SCHEME == kUpwind || SCHEME == kUpwind2)
+            return upwind<SCHEME == kUpwind2 ? 2 : 1, S, D>(p);
+        else if constexpr (D == S)
+            return SCHEME == kSkew ? skew_own<S>(p) : central_own<S>(p);
+        else
+            return SCHEME == kSkew ? skew_cross<S, D>(p)
+                                   : central_cross<S, D>(p);
     }
 
     template <int S>
@@ -396,12 +508,12 @@ struct Tile {
     }
 
     // u* (S = 0, with the body force), v* or w* at the thread's point
-    template <bool SKEW, int S>
+    template <int SCHEME, int S>
     __device__ __forceinline__ T star(T dt, T fx) const {
         const Off p{{0, 0, 0}};
-        T conv = conv_term<SKEW, S, 0>(p);
-        conv = conv + conv_term<SKEW, S, 1>(p);
-        conv = conv + conv_term<SKEW, S, 2>(p);
+        T conv = conv_term<SCHEME, S, 0>(p);
+        conv = conv + conv_term<SCHEME, S, 1>(p);
+        conv = conv + conv_term<SCHEME, S, 2>(p);
         T lap = diff_term<S, 0>(p);
         lap = lap + diff_term<S, 1>(p);
         lap = lap + diff_term<S, 2>(p);
@@ -422,12 +534,14 @@ template <typename T>
 constexpr int kGeneralMinBlocks = sizeof(T) == 4 ? 3 : 2;
 
 // WZ: a walled z (its ghosts compiled in; a periodic z's instantiation
-// has none of that code)
-template <typename T, bool NUT, bool SKEW, bool WZ>
+// has none of that code). SCHEME: central, skew or upwind (upwind2 reaches
+// two cells: the wide kernel below); `sg` is read by upwind only.
+template <typename T, bool NUT, int SCHEME, bool WZ>
 __global__ void __launch_bounds__(xz::kThreads, kGeneralMinBlocks<T>)
 predictor_general_kernel(Grid<T> g, const T* __restrict__ dt_ptr,
                          T* __restrict__ su, T* __restrict__ sv,
-                         T* __restrict__ sw, T fx, int chunk) {
+                         T* __restrict__ sw, T fx, int chunk,
+                         Spacing<T> sg) {
     constexpr int NF = NUT ? 4 : 3;
     using Win = xz::Stage<T, NF, kGeneralAhead<T>>;
     using View = typename Win::View;
@@ -475,15 +589,15 @@ predictor_general_kernel(Grid<T> g, const T* __restrict__ dt_ptr,
                      int jp) {
         constexpr bool E = decltype(edge)::value;
         constexpr int Z = decltype(z_walls)::value;
-        using Tl = Tile<T, NUT, E, Z, View>;
-        const Tl r{view, mxt, mzt, g.ax[1], g.ax[2], j, jm, jp, k, ny, nz,
-                   g.nu};
+        using Tl = Tile<T, NUT, E, Z, View, false, SpacingOf<SCHEME, T>>;
+        const Tl r{spacing_at<SCHEME>(sg, i, j, k), view, mxt, mzt, g.ax[1],
+                   g.ax[2], j, jm, jp, k, ny, nz, g.nu};
         if (owns && j < ny)
-            su[i * g.sx[0] + j * g.sy[0] + k] = r.template star<SKEW, 0>(dt, fx);
+            su[i * g.sx[0] + j * g.sy[0] + k] = r.template star<SCHEME, 0>(dt, fx);
         if ((owns || face_lane) && j < ny)
-            sw[i * g.sx[2] + j * g.sy[2] + k] = r.template star<SKEW, 2>(dt, fx);
+            sw[i * g.sx[2] + j * g.sy[2] + k] = r.template star<SCHEME, 2>(dt, fx);
         if (owns)
-            sv[i * g.sx[1] + j * g.sy[1] + k] = r.template star<SKEW, 1>(dt, fx);
+            sv[i * g.sx[1] + j * g.sy[1] + k] = r.template star<SCHEME, 1>(dt, fx);
         if constexpr ((Z & 2) != 0) {
             if (face_warp && j < ny) {
                 // this thread's point is (0, lf); the face's (lf, nz)
@@ -493,9 +607,10 @@ predictor_general_kernel(Grid<T> g, const T* __restrict__ dt_ptr,
                 for (int d = 0; d < 3; ++d) shifted.o[d] += by;
                 const int x = win.i0 + lf;
                 sw[x * g.sx[2] + j * g.sy[2] + nz] =
-                    Tl{shifted, mx + lf + 1, mz + xz::kTz + 1, g.ax[1],
-                       g.ax[2], j, jm, jp, nz, ny, nz, g.nu}
-                        .template star<SKEW, 2>(dt, fx);
+                    Tl{spacing_at<SCHEME>(sg, x, j, nz), shifted,
+                       mx + lf + 1, mz + xz::kTz + 1, g.ax[1], g.ax[2], j,
+                       jm, jp, nz, ny, nz, g.nu}
+                        .template star<SCHEME, 2>(dt, fx);
             }
         }
     };
@@ -526,21 +641,28 @@ predictor_general_kernel(Grid<T> g, const T* __restrict__ dt_ptr,
     });
 }
 
-// The O4 kernel: predictor_general_kernel's walk and writes on xz::Wide
-// with Tile's O4 terms. At most 128 registers a thread (two blocks an
-// SM); the ring is dynamic shared memory. The walk is written out apart
-// from the O2 kernel's: one walk shared by both kernels (a device
-// function over the window and its halo) changed the SASS of the O2
-// kernel's walled-z instantiations (register allocation), which must stay
-// the kernel's of before (sass_compare).
-template <typename T, bool NUT, bool SKEW, bool WZ>
+// The O4 kernel, also the wide kernel of upwind2 at every order (its
+// two-cell window; every axis O2 where the O4 constants are 0):
+// predictor_general_kernel's walk and writes on xz::Wide with Tile's O4
+// terms. Under upwind2 the planes within two of a walled y (EDGE) and the
+// z tiles within two of a walled z (their ZW bits) form the ghosts. At
+// most 128 registers a thread (two blocks an SM); the ring is dynamic
+// shared memory. The walk is written out apart from the O2 kernel's: one
+// walk shared by both kernels (a device function over the window and its
+// halo) changed the SASS of the O2 kernel's walled-z instantiations
+// (register allocation), which must stay the kernel's of before
+// (sass_compare).
+template <typename T, bool NUT, int SCHEME, bool WZ>
 __global__ void __launch_bounds__(xz::kThreads, 2)
 predictor_general_o4_kernel(Grid<T> g, O4Axes<T> q,
                             const T* __restrict__ dt_ptr, T* __restrict__ su,
                             T* __restrict__ sv, T* __restrict__ sw, T fx,
-                            int chunk) {
+                            int chunk, Spacing<T> sg) {
     constexpr int NF = NUT ? 4 : 3;
     constexpr int H = xz::kWideH;
+    // the ghosts' reach: two cells under upwind2, else one (a walled axis
+    // is O2)
+    constexpr int R = SCHEME == kUpwind2 ? 2 : 1;
     using Win = xz::Wide<T, NF>;
     using View = typename Win::View;
     extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -569,8 +691,10 @@ predictor_general_o4_kernel(Grid<T> g, O4Axes<T> q,
     const T* mxt = mx + win.tx + H;
     const T* mzt = mz + win.tz + H;
     const bool owns = win.owns;
+    // the last z tile's bit: the tiles whose points reach the high wall of
+    // z within R cells
     const int zw = wall_z ? (win.k0 == 0 ? 1 : 0)
-                            | (win.k0 + xz::kTz >= nz ? 2 : 0)
+                            | (win.k0 + (xz::kTz + R - 1) >= nz ? 2 : 0)
                           : 0;
     const bool face_lane = (zw & 2) && k == nz && i < nx;
     const int lf = static_cast<int>(threadIdx.x);
@@ -580,15 +704,15 @@ predictor_general_o4_kernel(Grid<T> g, O4Axes<T> q,
                      int jp) {
         constexpr bool E = decltype(edge)::value;
         constexpr int Z = decltype(z_walls)::value;
-        using Tl = Tile<T, NUT, E, Z, View, true>;
-        const Tl r{view, mxt, mzt, g.ax[1], g.ax[2], j, jm, jp, k, ny, nz,
-                   g.nu, q};
+        using Tl = Tile<T, NUT, E, Z, View, true, SpacingOf<SCHEME, T>>;
+        const Tl r{spacing_at<SCHEME>(sg, i, j, k), view, mxt, mzt, g.ax[1],
+                   g.ax[2], j, jm, jp, k, ny, nz, g.nu, q};
         if (owns && j < ny)
-            su[i * g.sx[0] + j * g.sy[0] + k] = r.template star<SKEW, 0>(dt, fx);
+            su[i * g.sx[0] + j * g.sy[0] + k] = r.template star<SCHEME, 0>(dt, fx);
         if ((owns || face_lane) && j < ny)
-            sw[i * g.sx[2] + j * g.sy[2] + k] = r.template star<SKEW, 2>(dt, fx);
+            sw[i * g.sx[2] + j * g.sy[2] + k] = r.template star<SCHEME, 2>(dt, fx);
         if (owns)
-            sv[i * g.sx[1] + j * g.sy[1] + k] = r.template star<SKEW, 1>(dt, fx);
+            sv[i * g.sx[1] + j * g.sy[1] + k] = r.template star<SCHEME, 1>(dt, fx);
         if constexpr ((Z & 2) != 0) {
             if (face_warp && j < ny) {
                 // this thread's point is (0, lf); the face's (lf, nz)
@@ -598,9 +722,10 @@ predictor_general_o4_kernel(Grid<T> g, O4Axes<T> q,
                 for (int d = 0; d < 5; ++d) shifted.o[d] += by;
                 const int x = win.i0 + lf;
                 sw[x * g.sx[2] + j * g.sy[2] + nz] =
-                    Tl{shifted, mx + lf + H, mz + xz::kTz + H, g.ax[1],
-                       g.ax[2], j, jm, jp, nz, ny, nz, g.nu, q}
-                        .template star<SKEW, 2>(dt, fx);
+                    Tl{spacing_at<SCHEME>(sg, x, j, nz), shifted,
+                       mx + lf + H, mz + xz::kTz + H, g.ax[1], g.ax[2], j,
+                       jm, jp, nz, ny, nz, g.nu, q}
+                        .template star<SCHEME, 2>(dt, fx);
             }
         }
     };
@@ -618,23 +743,36 @@ predictor_general_o4_kernel(Grid<T> g, O4Axes<T> q,
             default: plane(edge, std::integral_constant<int, 3>{}, view, j, jm, jp);
         }
     };
+    // the walk written out for each reach: the reach of one is the
+    // kernel's walk of before, whose code must stay as it was (sass_compare)
     win.walk([&](const View& view) {
         if (!owns && !face_lane && !face_warp) return;
         const int j = view.j;
-        if (wall_y && (j == 0 || j >= ny - 1)) {
-            z_plane(Yes{}, view, j, j - 1, j + 1);
+        if constexpr (R == 1) {
+            if (wall_y && (j == 0 || j >= ny - 1)) {
+                z_plane(Yes{}, view, j, j - 1, j + 1);
+            } else {
+                const int jm = wall_y ? j - 1 : cfdnn::wrap_m(j, ny);
+                const int jp = wall_y ? j + 1 : cfdnn::wrap_p(j, ny);
+                z_plane(No{}, view, j, jm, jp);
+            }
         } else {
-            const int jm = wall_y ? j - 1 : cfdnn::wrap_m(j, ny);
-            const int jp = wall_y ? j + 1 : cfdnn::wrap_p(j, ny);
-            z_plane(No{}, view, j, jm, jp);
+            if (wall_y && (j <= 1 || j >= ny - 2)) {
+                z_plane(Yes{}, view, j, j - 1, j + 1);
+            } else {
+                const int jm = wall_y ? j - 1 : cfdnn::wrap_m(j, ny);
+                const int jp = wall_y ? j + 1 : cfdnn::wrap_p(j, ny);
+                z_plane(No{}, view, j, jm, jp);
+            }
         }
     });
 }
 
-template <typename T, bool NUT, bool SKEW, bool WZ>
+template <typename T, bool NUT, int SCHEME, bool WZ>
 int launch_o4_walls(const Grid<T>& g, const O4Axes<T>& q, const T* dt, T* su,
-                    T* sv, T* sw, T fx, cudaStream_t stream) {
-    constexpr auto kernel = predictor_general_o4_kernel<T, NUT, SKEW, WZ>;
+                    T* sv, T* sw, T fx, const Spacing<T>& sg,
+                    cudaStream_t stream) {
+    constexpr auto kernel = predictor_general_o4_kernel<T, NUT, SCHEME, WZ>;
     constexpr size_t smem = xz::Wide<T, NUT ? 4 : 3>::kBytes;
     if constexpr (smem > 48 * 1024) {
         const cudaError_t e = cudaFuncSetAttribute(
@@ -647,48 +785,70 @@ int launch_o4_walls(const Grid<T>& g, const O4Axes<T>& q, const T* dt, T* su,
     const int chunk = cfdnn::walk_chunk<kernel, xz::kThreads>(tiles, nyf,
                                                                smem);
     kernel<<<xz::grid(g.ax[0].n, g.ax[2].n, nyf, chunk), xz::kThreads, smem,
-             stream>>>(g, q, dt, su, sv, sw, fx, chunk);
+             stream>>>(g, q, dt, su, sv, sw, fx, chunk, sg);
     return 0;
 }
 
-template <typename T, bool NUT, bool SKEW>
+template <typename T, bool NUT, int SCHEME>
 int launch_o4(const Grid<T>& g, const O4Axes<T>& q, const T* dt, T* su,
-              T* sv, T* sw, T fx, cudaStream_t stream) {
+              T* sv, T* sw, T fx, const Spacing<T>& sg, cudaStream_t stream) {
     if (g.ax[2].wall)
-        return launch_o4_walls<T, NUT, SKEW, true>(g, q, dt, su, sv, sw, fx,
-                                                    stream);
-    return launch_o4_walls<T, NUT, SKEW, false>(g, q, dt, su, sv, sw, fx,
-                                                 stream);
+        return launch_o4_walls<T, NUT, SCHEME, true>(g, q, dt, su, sv, sw, fx,
+                                                      sg, stream);
+    return launch_o4_walls<T, NUT, SCHEME, false>(g, q, dt, su, sv, sw, fx,
+                                                   sg, stream);
 }
 
-template <typename T, bool NUT, bool SKEW, bool WZ>
+template <typename T, bool NUT, int SCHEME, bool WZ>
 void launch_walls(const Grid<T>& g, const T* dt, T* su, T* sv, T* sw, T fx,
-                  cudaStream_t stream) {
+                  const Spacing<T>& sg, cudaStream_t stream) {
     const int nyf = g.ax[1].wall ? g.ax[1].n + 1 : g.ax[1].n;
     const long long tiles = xz::grid(g.ax[0].n, g.ax[2].n, 1).x;   // a plane
     const int chunk = cfdnn::walk_chunk<
-        predictor_general_kernel<T, NUT, SKEW, WZ>, xz::kThreads>(tiles, nyf);
-    predictor_general_kernel<T, NUT, SKEW, WZ>
+        predictor_general_kernel<T, NUT, SCHEME, WZ>, xz::kThreads>(tiles,
+                                                                    nyf);
+    predictor_general_kernel<T, NUT, SCHEME, WZ>
         <<<xz::grid(g.ax[0].n, g.ax[2].n, nyf, chunk), xz::kThreads, 0,
-           stream>>>(g, dt, su, sv, sw, fx, chunk);
+           stream>>>(g, dt, su, sv, sw, fx, chunk, sg);
 }
 
-template <typename T, bool NUT, bool SKEW>
+template <typename T, bool NUT, int SCHEME>
 void launch_kernel(const Grid<T>& g, const T* dt, T* su, T* sv, T* sw, T fx,
-                   cudaStream_t stream) {
+                   const Spacing<T>& sg, cudaStream_t stream) {
     if (g.ax[2].wall)
-        launch_walls<T, NUT, SKEW, true>(g, dt, su, sv, sw, fx, stream);
+        launch_walls<T, NUT, SCHEME, true>(g, dt, su, sv, sw, fx, sg, stream);
     else
-        launch_walls<T, NUT, SKEW, false>(g, dt, su, sv, sw, fx, stream);
+        launch_walls<T, NUT, SCHEME, false>(g, dt, su, sv, sw, fx, sg, stream);
+}
+
+// The O2 kernel of each scheme it takes (central, skew, upwind), with or
+// without nu_t; cudaErrorInvalidValue for another.
+template <typename T, bool NUT>
+int launch_scheme(int scheme, const Grid<T>& g, const T* dt, T* su, T* sv,
+                  T* sw, T fx, const Spacing<T>& sg, cudaStream_t stream) {
+    switch (scheme) {
+        case kCentral:
+            launch_kernel<T, NUT, kCentral>(g, dt, su, sv, sw, fx, sg, stream);
+            return 0;
+        case kSkew:
+            launch_kernel<T, NUT, kSkew>(g, dt, su, sv, sw, fx, sg, stream);
+            return 0;
+        case kUpwind:
+            launch_kernel<T, NUT, kUpwind>(g, dt, su, sv, sw, fx, sg, stream);
+            return 0;
+        default:
+            return static_cast<int>(cudaErrorInvalidValue);
+    }
 }
 
 // The entry's body: refuses (cudaErrorInvalidValue) an x of fewer than
-// xz::kTx cells (the wrappers' gate) and a field past 32-bit offsets.
+// xz::kTx cells (the wrappers' gate), a field past 32-bit offsets and
+// upwind2 (the wide entry's, predictor_general_o4.cu).
 template <typename T>
 int launch(const void* u, const void* v, const void* w, const void* dt,
            const void* nut, void* su, void* sv, void* sw,
            const void* const* metrics, const double* tang, int nx, int ny,
-           int nz, int wall_y, int wall_z, double nu, double fx, int skew,
+           int nz, int wall_y, int wall_z, double nu, double fx, int scheme,
            void* stream) {
     const long long cx = nx, cy = ny, cz = nz;
     const long long n_v = cx * (cy + (wall_y ? 1 : 0)) * cz;
@@ -698,35 +858,60 @@ int launch(const void* u, const void* v, const void* w, const void* dt,
         return static_cast<int>(cudaErrorInvalidValue);
     const Grid<T> g = make_grid<T>(u, v, w, nut, metrics, tang, nx, ny, nz,
                                    wall_y, wall_z, nu);
+    const Spacing<T> sg = make_spacing<T>(metrics);
     const T* d = static_cast<const T*>(dt);
     T* o[3] = {static_cast<T*>(su), static_cast<T*>(sv), static_cast<T*>(sw)};
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (nut) {
-        if (skew) launch_kernel<T, true, true>(g, d, o[0], o[1], o[2], T(fx), s);
-        else launch_kernel<T, true, false>(g, d, o[0], o[1], o[2], T(fx), s);
-    } else {
-        if (skew) launch_kernel<T, false, true>(g, d, o[0], o[1], o[2], T(fx), s);
-        else launch_kernel<T, false, false>(g, d, o[0], o[1], o[2], T(fx), s);
-    }
-    return static_cast<int>(cudaGetLastError());
+    const int err = nut ? launch_scheme<T, true>(scheme, g, d, o[0], o[1],
+                                                 o[2], T(fx), sg, s)
+                        : launch_scheme<T, false>(scheme, g, d, o[0], o[1],
+                                                  o[2], T(fx), sg, s);
+    return err ? err : static_cast<int>(cudaGetLastError());
 }
 
-// The O4 entry's body (predictor_general_o4.cu, _o4_f64.cu): the O2
+// The wide kernel of each scheme: central, upwind and upwind2 with or
+// without nu_t, skew without (skew with nu_t has no O4 term);
+// cudaErrorInvalidValue for another.
+template <typename T, bool NUT>
+int launch_o4_scheme(int scheme, const Grid<T>& g, const O4Axes<T>& q,
+                     const T* dt, T* su, T* sv, T* sw, T fx,
+                     const Spacing<T>& sg, cudaStream_t stream) {
+    switch (scheme) {
+        case kCentral:
+            return launch_o4<T, NUT, kCentral>(g, q, dt, su, sv, sw, fx, sg,
+                                               stream);
+        case kSkew:
+            if constexpr (NUT) return static_cast<int>(cudaErrorInvalidValue);
+            else return launch_o4<T, NUT, kSkew>(g, q, dt, su, sv, sw, fx, sg,
+                                                 stream);
+        case kUpwind:
+            return launch_o4<T, NUT, kUpwind>(g, q, dt, su, sv, sw, fx, sg,
+                                              stream);
+        case kUpwind2:
+            return launch_o4<T, NUT, kUpwind2>(g, q, dt, su, sv, sw, fx, sg,
+                                               stream);
+        default:
+            return static_cast<int>(cudaErrorInvalidValue);
+    }
+}
+
+// The wide entry's body (predictor_general_o4.cu, _o4_f64.cu): the O2
 // entry's arguments and `o4`, (12 h, 12 h^2) of each axis, 0 on an O2
-// axis. Refuses what the O2 entry refuses, an O2 x (x is periodic with
-// nx >= 8: always O4), an O4 axis that is walled or of fewer than 4
-// cells, and skew convection with nu_t, which has no O4 term (the O2
-// kernel's work: the wrapper launches the O2 entry for it).
+// axis. Refuses what the O2 entry refuses, an O2 x but under upwind2 (x
+// is periodic with nx >= 8: O4 at space_order 4; upwind2 runs here at
+// every order), an O4 axis that is walled or of fewer than 4 cells, and
+// skew convection with nu_t, which has no O4 term (the O2 kernel's work:
+// the wrapper launches the O2 entry for it).
 template <typename T>
 int launch_o4_entry(const void* u, const void* v, const void* w,
                     const void* dt, const void* nut, void* su, void* sv,
                     void* sw, const void* const* metrics, const double* tang,
                     int nx, int ny, int nz, int wall_y, int wall_z, double nu,
-                    double fx, int skew, const double* o4, void* stream) {
+                    double fx, int scheme, const double* o4, void* stream) {
     const long long cx = nx, cy = ny, cz = nz;
     const long long n_v = cx * (cy + (wall_y ? 1 : 0)) * cz;
     const long long n_w = cx * cy * (cz + (wall_z ? 1 : 0));
-    if (nx < xz::kTx || ny < 2 || nz < 2 || (nut && skew)
+    if (nx < xz::kTx || ny < 2 || nz < 2
         || (n_v > n_w ? n_v : n_w) > 2147483647LL)
         return static_cast<int>(cudaErrorInvalidValue);
     O4Axes<T> q;
@@ -738,19 +923,19 @@ int launch_o4_entry(const void* u, const void* v, const void* w,
         if (q.on[a] && (wall[a] || n[a] < 4))
             return static_cast<int>(cudaErrorInvalidValue);
     }
-    if (!q.on[0]) return static_cast<int>(cudaErrorInvalidValue);
+    if (!q.on[0] && scheme != kUpwind2)
+        return static_cast<int>(cudaErrorInvalidValue);
     const Grid<T> g = make_grid<T>(u, v, w, nut, metrics, tang, nx, ny, nz,
                                    wall_y, wall_z, nu);
+    const Spacing<T> sg = make_spacing<T>(metrics);
     const T* d = static_cast<const T*>(dt);
     T* o[3] = {static_cast<T*>(su), static_cast<T*>(sv), static_cast<T*>(sw)};
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
-    int err;
-    if (nut)
-        err = launch_o4<T, true, false>(g, q, d, o[0], o[1], o[2], T(fx), s);
-    else if (skew)
-        err = launch_o4<T, false, true>(g, q, d, o[0], o[1], o[2], T(fx), s);
-    else
-        err = launch_o4<T, false, false>(g, q, d, o[0], o[1], o[2], T(fx), s);
+    const int err = nut ? launch_o4_scheme<T, true>(scheme, g, q, d, o[0],
+                                                    o[1], o[2], T(fx), sg, s)
+                        : launch_o4_scheme<T, false>(scheme, g, q, d, o[0],
+                                                     o[1], o[2], T(fx), sg,
+                                                     s);
     return err ? err : static_cast<int>(cudaGetLastError());
 }
 

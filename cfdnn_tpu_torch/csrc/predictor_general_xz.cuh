@@ -8,9 +8,10 @@
 // plain PyTorch twin is ops/kernels.py predictor_general_twin, the
 // operator library itself, as for the slab kernel. Grid: periodic uniform
 // x and z, y periodic or bounded by no-slip walls (moving or not) at any
-// stretching; O2 skew or central, scalar nu or nu + a cell nu_t (at
-// space_order 4: predictor_general_xz_o4.cuh, but for skew with nu_t,
-// which has no O4 term and runs this kernel). Shapes
+// stretching; O2 skew, central or upwind, scalar nu or nu + a cell nu_t
+// (at space_order 4, and upwind2 at every order:
+// predictor_general_xz_o4.cuh, but for skew with nu_t, which has no O4
+// term and runs this kernel). Shapes
 // and metrics as predictor_general.cu, whose C interface this shares (z
 // periodic: nzf = nz; the launcher refuses wall_z).
 //
@@ -78,8 +79,9 @@ __device__ __forceinline__ Off with(Off o, int a, int x) {
 // a plane next to a wall of a walled y, where the y ghosts are formed at
 // run time from j. The offsets are constants after inlining but on those
 // planes.
-template <typename T, bool NUT, bool EDGE, typename View>
-struct Tile {
+template <typename T, bool NUT, bool EDGE, typename View,
+          typename Up = NoSpacing>
+struct Tile : Up {
     View win;
     const T* mx;       // staged x metrics at this thread's x: [m * kPx + di]
     const T* mz;       // staged z metrics at this thread's z: [m * kPz + dk]
@@ -204,12 +206,55 @@ struct Tile {
         return adv * dphi;
     }
 
-    template <bool SKEW, int S, int D>
+    // upwind: adv (central_cross's, written out apart so that its code
+    // stays as it was; phi itself along S) times the one-sided derivative
+    // on the side the advecting velocity comes from, a tie taking the
+    // backward one, divided as the operators divide (upwind2 reaches two
+    // cells: predictor_general_xz_o4.cuh's window)
+    template <int S, int D>
+    __device__ __forceinline__ T upwind(const Off& p) const {
+        T adv;
+        if constexpr (D == S) {
+            adv = val<S>(p);
+        } else {
+            const T h = T(0.5);
+            auto uc = [&](int x) -> T {
+                const Off px = with(p, S, x);
+                return h * (val<D>(with(px, D, 0)) + val<D>(with(px, D, 1)));
+            };
+            if (!walled(S)) {
+                adv = h * (uc(-1) + uc(0));
+            } else {
+                const T lo = j == 0 ? T(2) * ay.tlo[D] - uc(0) : uc(-1);
+                const T hi = j == ny ? T(2) * ay.thi[D] - uc(-1) : uc(0);
+                adv = h * (lo + hi);
+            }
+        }
+        const bool back = adv >= T(0);
+        // Up: the upwind spacings at this point (Spacing)
+        const T* dg = D == S ? this->f[D] : this->c[D];
+        const T f0 = val<S>(p);
+        T fm1, fp1;
+        if constexpr (D == S) {
+            fm1 = normal<S>(p, -1);
+            fp1 = normal<S>(p, 1);
+        } else {
+            fm1 = tangential<S, D>(p, -1);
+            fp1 = tangential<S, D>(p, 1);
+        }
+        return adv * ((back ? f0 - fm1 : fp1 - f0) / (back ? dg[0] : dg[1]));
+    }
+
+    template <int SCHEME, int S, int D>
     __device__ __forceinline__ T conv_term(const Off& p) const {
-        if constexpr (D == S)
-            return SKEW ? skew_own<S>(p) : central_own<S>(p);
+        static_assert(SCHEME != kUpwind2, "upwind2: the wide xz kernel");
+        if constexpr (SCHEME == kUpwind)
+            return upwind<S, D>(p);
+        else if constexpr (D == S)
+            return SCHEME == kSkew ? skew_own<S>(p) : central_own<S>(p);
         else
-            return SKEW ? skew_cross<S, D>(p) : central_cross<S, D>(p);
+            return SCHEME == kSkew ? skew_cross<S, D>(p)
+                                   : central_cross<S, D>(p);
     }
 
     template <int S>
@@ -257,12 +302,12 @@ struct Tile {
     }
 
     // u* (S = 0, with the body force), v* or w* at the thread's point
-    template <bool SKEW, int S>
+    template <int SCHEME, int S>
     __device__ __forceinline__ T star(T dt, T fx) const {
         const Off p{{0, 0, 0}};
-        T conv = conv_term<SKEW, S, 0>(p);
-        conv = conv + conv_term<SKEW, S, 1>(p);
-        conv = conv + conv_term<SKEW, S, 2>(p);
+        T conv = conv_term<SCHEME, S, 0>(p);
+        conv = conv + conv_term<SCHEME, S, 1>(p);
+        conv = conv + conv_term<SCHEME, S, 2>(p);
         T lap = diff_term<S, 0>(p);
         lap = lap + diff_term<S, 1>(p);
         lap = lap + diff_term<S, 2>(p);
@@ -278,11 +323,12 @@ struct Tile {
 template <typename T>
 constexpr int kMinBlocks = sizeof(T) == 4 ? 3 : 2;
 
-template <typename T, bool NUT, bool SKEW>
+// SCHEME: central, skew or upwind; `sg` is read by upwind only.
+template <typename T, bool NUT, int SCHEME>
 __global__ void __launch_bounds__(cfdnn::xz::kThreads, kMinBlocks<T>)
 predictor_general_xz_kernel(Grid<T> g, const T* __restrict__ dt_ptr,
                             T* __restrict__ su, T* __restrict__ sv,
-                            T* __restrict__ sw, T fx) {
+                            T* __restrict__ sw, T fx, Spacing<T> sg) {
     constexpr int NF = NUT ? 4 : 3;
     using Win = Window<T, NF, 1, 1>;
     using View = typename Win::View;
@@ -317,56 +363,81 @@ predictor_general_xz_kernel(Grid<T> g, const T* __restrict__ dt_ptr,
     const bool wall_y = g.ax[1].wall;
     auto stars = [&](const auto& r, int j) {
         if (j < ny) {
-            su[i * g.sx[0] + j * g.sy[0] + k] = r.template star<SKEW, 0>(dt, fx);
-            sw[i * g.sx[2] + j * g.sy[2] + k] = r.template star<SKEW, 2>(dt, fx);
+            su[i * g.sx[0] + j * g.sy[0] + k] = r.template star<SCHEME, 0>(dt, fx);
+            sw[i * g.sx[2] + j * g.sy[2] + k] = r.template star<SCHEME, 2>(dt, fx);
         }
-        sv[i * g.sx[1] + j * g.sy[1] + k] = r.template star<SKEW, 1>(dt, fx);
+        sv[i * g.sx[1] + j * g.sy[1] + k] = r.template star<SCHEME, 1>(dt, fx);
     };
     win.walk([&](const View& view) {
         if (!owns) return;
         const int j = view.j;
         if (wall_y && (j == 0 || j >= ny - 1)) {
-            stars(Tile<T, NUT, true, View>{view, mxt, mzt, g.ax[1], j, j - 1,
-                                           j + 1, ny, g.nu}, j);
+            stars(Tile<T, NUT, true, View, SpacingOf<SCHEME, T>>{
+                      spacing_at<SCHEME>(sg, i, j, k), view, mxt, mzt,
+                      g.ax[1], j, j - 1, j + 1, ny, g.nu},
+                  j);
         } else {
             const int jm = wall_y ? j - 1 : cfdnn::wrap_m(j, ny);
             const int jp = wall_y ? j + 1 : cfdnn::wrap_p(j, ny);
-            stars(Tile<T, NUT, false, View>{view, mxt, mzt, g.ax[1], j, jm,
-                                            jp, ny, g.nu}, j);
+            stars(Tile<T, NUT, false, View, SpacingOf<SCHEME, T>>{
+                      spacing_at<SCHEME>(sg, i, j, k), view, mxt, mzt,
+                      g.ax[1], j, jm, jp, ny, g.nu},
+                  j);
         }
     });
 }
 
-template <typename T, bool NUT, bool SKEW>
+template <typename T, bool NUT, int SCHEME>
 void launch_kernel(const Grid<T>& g, const T* dt, T* su, T* sv, T* sw, T fx,
-                   cudaStream_t stream) {
+                   const Spacing<T>& sg, cudaStream_t stream) {
     const int nyf = g.ax[1].wall ? g.ax[1].n + 1 : g.ax[1].n;
-    predictor_general_xz_kernel<T, NUT, SKEW>
+    predictor_general_xz_kernel<T, NUT, SCHEME>
         <<<cfdnn::xz::grid(g.ax[0].n, g.ax[2].n, nyf), cfdnn::xz::kThreads, 0,
-           stream>>>(g, dt, su, sv, sw, fx);
+           stream>>>(g, dt, su, sv, sw, fx, sg);
 }
 
+// The kernel of each scheme it takes (central, skew, upwind), with or
+// without nu_t; cudaErrorInvalidValue for another.
+template <typename T, bool NUT>
+int launch_scheme(int scheme, const Grid<T>& g, const T* dt, T* su, T* sv,
+                  T* sw, T fx, const Spacing<T>& sg, cudaStream_t stream) {
+    switch (scheme) {
+        case kCentral:
+            launch_kernel<T, NUT, kCentral>(g, dt, su, sv, sw, fx, sg, stream);
+            return 0;
+        case kSkew:
+            launch_kernel<T, NUT, kSkew>(g, dt, su, sv, sw, fx, sg, stream);
+            return 0;
+        case kUpwind:
+            launch_kernel<T, NUT, kUpwind>(g, dt, su, sv, sw, fx, sg, stream);
+            return 0;
+        default:
+            return static_cast<int>(cudaErrorInvalidValue);
+    }
+}
+
+// The entry's body: refuses a walled z, a grid the tile does not fit
+// (xz::fits) and upwind2 (the wide xz entry's,
+// predictor_general_xz_o4.cu).
 template <typename T>
 int launch(const void* u, const void* v, const void* w, const void* dt,
            const void* nut, void* su, void* sv, void* sw,
            const void* const* metrics, const double* tang, int nx, int ny,
-           int nz, int wall_y, int wall_z, double nu, double fx, int skew,
+           int nz, int wall_y, int wall_z, double nu, double fx, int scheme,
            void* stream) {
     if (wall_z || !cfdnn::xz::fits(nx, wall_y ? ny + 1 : ny, nz))
         return static_cast<int>(cudaErrorInvalidValue);
     const Grid<T> g = make_grid<T>(u, v, w, nut, metrics, tang, nx, ny, nz,
                                    wall_y, 0, nu);
+    const Spacing<T> sg = make_spacing<T>(metrics);
     const T* d = static_cast<const T*>(dt);
     T* o[3] = {static_cast<T*>(su), static_cast<T*>(sv), static_cast<T*>(sw)};
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (nut) {
-        if (skew) launch_kernel<T, true, true>(g, d, o[0], o[1], o[2], T(fx), s);
-        else launch_kernel<T, true, false>(g, d, o[0], o[1], o[2], T(fx), s);
-    } else {
-        if (skew) launch_kernel<T, false, true>(g, d, o[0], o[1], o[2], T(fx), s);
-        else launch_kernel<T, false, false>(g, d, o[0], o[1], o[2], T(fx), s);
-    }
-    return static_cast<int>(cudaGetLastError());
+    const int err = nut ? launch_scheme<T, true>(scheme, g, d, o[0], o[1],
+                                                 o[2], T(fx), sg, s)
+                        : launch_scheme<T, false>(scheme, g, d, o[0], o[1],
+                                                  o[2], T(fx), sg, s);
+    return err ? err : static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace

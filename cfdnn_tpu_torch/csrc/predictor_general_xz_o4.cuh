@@ -9,11 +9,13 @@
 // library itself, as for every general predictor kernel. Grid: periodic
 // uniform x and z (both O4: n >= 4), y periodic (O4 where ny >= 4) or
 // bounded by no-slip walls (moving or not; O2 across them) at any
-// stretching; O4 central convection with a scalar nu or with nu + a cell
-// nu_t, or skew convection (O2, as in the reference) with O4 diffusion of
-// a scalar nu. Skew convection with nu_t has no O4 term: the wrapper
-// launches the O2 xz kernel for it (predictor_general_xz.cuh), as the
-// slab entry does.
+// stretching; O4 central, upwind or upwind2 convection with a scalar nu or
+// with nu + a cell nu_t, or skew convection (O2, as in the reference) with
+// O4 diffusion of a scalar nu. Skew convection with nu_t has no O4 term:
+// the wrapper launches the O2 xz kernel for it (predictor_general_xz.cuh),
+// as the slab entry does. It is also the xz kernel of upwind2 at O2 (its
+// two-cell window; the O4 constants 0 on every axis), as the reference
+// tiles "xz" at a halo of 2 for upwind2.
 //
 // The terms are predictor_general_tile.cuh's `Tile` with its O4 template
 // argument, the O4 slab kernel's own (no third copy of the O4 terms), on
@@ -43,14 +45,17 @@
 
 namespace {
 
-template <typename T, bool NUT, bool SKEW>
+// SCHEME: any of the four (skew without nu_t); upwind2 reaches two cells,
+// so its planes next to a walled y (EDGE) are those within two.
+template <typename T, bool NUT, int SCHEME>
 __global__ void __launch_bounds__(xz::kThreads, 2)
 predictor_general_xz_o4_kernel(Grid<T> g, O4Axes<T> q,
                                const T* __restrict__ dt_ptr,
                                T* __restrict__ su, T* __restrict__ sv,
-                               T* __restrict__ sw, T fx) {
+                               T* __restrict__ sw, T fx, Spacing<T> sg) {
     constexpr int NF = NUT ? 4 : 3;
     constexpr int H = xz::kWideH;
+    constexpr int R = SCHEME == kUpwind2 ? 2 : 1;
     using Win = xz::Wide<T, NF>;
     using View = typename Win::View;
     extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -79,31 +84,45 @@ predictor_general_xz_o4_kernel(Grid<T> g, O4Axes<T> q,
     const bool owns = win.owns;
     auto plane = [&](auto edge, const View& view, int j, int jm, int jp) {
         constexpr bool E = decltype(edge)::value;
-        const Tile<T, NUT, E, 0, View, true> r{
-            view, mxt, mzt, g.ax[1], g.ax[2], j, jm, jp, k, ny, nz, g.nu, q};
+        const Tile<T, NUT, E, 0, View, true, SpacingOf<SCHEME, T>> r{
+            spacing_at<SCHEME>(sg, i, j, k), view, mxt, mzt, g.ax[1],
+            g.ax[2], j, jm, jp, k, ny, nz, g.nu, q};
         if (j < ny) {
-            su[i * g.sx[0] + j * g.sy[0] + k] = r.template star<SKEW, 0>(dt, fx);
-            sw[i * g.sx[2] + j * g.sy[2] + k] = r.template star<SKEW, 2>(dt, fx);
+            su[i * g.sx[0] + j * g.sy[0] + k] = r.template star<SCHEME, 0>(dt, fx);
+            sw[i * g.sx[2] + j * g.sy[2] + k] = r.template star<SCHEME, 2>(dt, fx);
         }
-        sv[i * g.sx[1] + j * g.sy[1] + k] = r.template star<SKEW, 1>(dt, fx);
+        sv[i * g.sx[1] + j * g.sy[1] + k] = r.template star<SCHEME, 1>(dt, fx);
     };
+    // the walk written out for each reach: the reach of one is the
+    // kernel's walk of before, whose code must stay as it was (sass_compare)
     win.walk([&](const View& view) {
         if (!owns) return;
         const int j = view.j;
-        if (wall_y && (j == 0 || j >= ny - 1)) {
-            plane(std::true_type{}, view, j, j - 1, j + 1);
+        if constexpr (R == 1) {
+            if (wall_y && (j == 0 || j >= ny - 1)) {
+                plane(std::true_type{}, view, j, j - 1, j + 1);
+            } else {
+                const int jm = wall_y ? j - 1 : cfdnn::wrap_m(j, ny);
+                const int jp = wall_y ? j + 1 : cfdnn::wrap_p(j, ny);
+                plane(std::false_type{}, view, j, jm, jp);
+            }
         } else {
-            const int jm = wall_y ? j - 1 : cfdnn::wrap_m(j, ny);
-            const int jp = wall_y ? j + 1 : cfdnn::wrap_p(j, ny);
-            plane(std::false_type{}, view, j, jm, jp);
+            if (wall_y && (j <= 1 || j >= ny - 2)) {
+                plane(std::true_type{}, view, j, j - 1, j + 1);
+            } else {
+                const int jm = wall_y ? j - 1 : cfdnn::wrap_m(j, ny);
+                const int jp = wall_y ? j + 1 : cfdnn::wrap_p(j, ny);
+                plane(std::false_type{}, view, j, jm, jp);
+            }
         }
     });
 }
 
-template <typename T, bool NUT, bool SKEW>
+template <typename T, bool NUT, int SCHEME>
 int launch_xz_o4(const Grid<T>& g, const O4Axes<T>& q, const T* dt, T* su,
-                 T* sv, T* sw, T fx, cudaStream_t stream) {
-    constexpr auto kernel = predictor_general_xz_o4_kernel<T, NUT, SKEW>;
+                 T* sv, T* sw, T fx, const Spacing<T>& sg,
+                 cudaStream_t stream) {
+    constexpr auto kernel = predictor_general_xz_o4_kernel<T, NUT, SCHEME>;
     constexpr size_t smem = xz::Wide<T, NUT ? 4 : 3>::kBytes;
     if constexpr (smem > 48 * 1024) {
         const cudaError_t e = cudaFuncSetAttribute(
@@ -113,24 +132,51 @@ int launch_xz_o4(const Grid<T>& g, const O4Axes<T>& q, const T* dt, T* su,
     }
     const int nyf = g.ax[1].wall ? g.ax[1].n + 1 : g.ax[1].n;
     kernel<<<xz::grid(g.ax[0].n, g.ax[2].n, nyf), xz::kThreads, smem,
-             stream>>>(g, q, dt, su, sv, sw, fx);
+             stream>>>(g, q, dt, su, sv, sw, fx, sg);
     return 0;
+}
+
+// The kernel of each scheme: central, upwind and upwind2 with or without
+// nu_t, skew without (skew with nu_t has no O4 term: the O2 xz kernel's);
+// cudaErrorInvalidValue for another.
+template <typename T, bool NUT>
+int launch_xz_o4_scheme(int scheme, const Grid<T>& g, const O4Axes<T>& q,
+                        const T* dt, T* su, T* sv, T* sw, T fx,
+                        const Spacing<T>& sg, cudaStream_t stream) {
+    switch (scheme) {
+        case kCentral:
+            return launch_xz_o4<T, NUT, kCentral>(g, q, dt, su, sv, sw, fx,
+                                                  sg, stream);
+        case kSkew:
+            if constexpr (NUT) return static_cast<int>(cudaErrorInvalidValue);
+            else return launch_xz_o4<T, NUT, kSkew>(g, q, dt, su, sv, sw, fx,
+                                                    sg, stream);
+        case kUpwind:
+            return launch_xz_o4<T, NUT, kUpwind>(g, q, dt, su, sv, sw, fx,
+                                                 sg, stream);
+        case kUpwind2:
+            return launch_xz_o4<T, NUT, kUpwind2>(g, q, dt, su, sv, sw, fx,
+                                                  sg, stream);
+        default:
+            return static_cast<int>(cudaErrorInvalidValue);
+    }
 }
 
 // The entry's body (predictor_general_xz_o4.cu, _f64.cu): the xz entry's
 // arguments and `o4`, (12 h, 12 h^2) of each axis, 0 on an O2 axis.
-// Refuses what the O2 xz entry refuses (a walled z, a grid the tile does
-// not fit: xz::fits), an x or z that is not O4, an O4 y that is walled or
-// of fewer than 4 cells, and skew convection with nu_t (no O4 term: the
-// O2 xz kernel's work).
+// Refuses what the O2 xz entry refuses but upwind2 (a walled z, a grid the
+// tile does not fit: xz::fits), an x or z that is not O4 but under upwind2
+// (which runs here at every order), an O4 y that is walled or of fewer
+// than 4 cells, and skew convection with nu_t (no O4 term: the O2 xz
+// kernel's work).
 template <typename T>
 int launch_xz_o4_entry(const void* u, const void* v, const void* w,
                        const void* dt, const void* nut, void* su, void* sv,
                        void* sw, const void* const* metrics,
                        const double* tang, int nx, int ny, int nz, int wall_y,
-                       int wall_z, double nu, double fx, int skew,
+                       int wall_z, double nu, double fx, int scheme,
                        const double* o4, void* stream) {
-    if (wall_z || (nut && skew) || !xz::fits(nx, wall_y ? ny + 1 : ny, nz))
+    if (wall_z || !xz::fits(nx, wall_y ? ny + 1 : ny, nz))
         return static_cast<int>(cudaErrorInvalidValue);
     O4Axes<T> q;
     const int n[3] = {nx, ny, nz};
@@ -141,20 +187,21 @@ int launch_xz_o4_entry(const void* u, const void* v, const void* w,
         if (q.on[a] && n[a] < 4)
             return static_cast<int>(cudaErrorInvalidValue);
     }
-    if (!q.on[0] || !q.on[2] || (q.on[1] && wall_y))
+    if ((scheme != kUpwind2 && (!q.on[0] || !q.on[2]))
+        || (q.on[1] && wall_y))
         return static_cast<int>(cudaErrorInvalidValue);
     const Grid<T> g = make_grid<T>(u, v, w, nut, metrics, tang, nx, ny, nz,
                                    wall_y, 0, nu);
+    const Spacing<T> sg = make_spacing<T>(metrics);
     const T* d = static_cast<const T*>(dt);
     T* o[3] = {static_cast<T*>(su), static_cast<T*>(sv), static_cast<T*>(sw)};
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
-    int err;
-    if (nut)
-        err = launch_xz_o4<T, true, false>(g, q, d, o[0], o[1], o[2], T(fx), s);
-    else if (skew)
-        err = launch_xz_o4<T, false, true>(g, q, d, o[0], o[1], o[2], T(fx), s);
-    else
-        err = launch_xz_o4<T, false, false>(g, q, d, o[0], o[1], o[2], T(fx), s);
+    const int err = nut ? launch_xz_o4_scheme<T, true>(scheme, g, q, d, o[0],
+                                                       o[1], o[2], T(fx), sg,
+                                                       s)
+                        : launch_xz_o4_scheme<T, false>(scheme, g, q, d,
+                                                        o[0], o[1], o[2],
+                                                        T(fx), sg, s);
     return err ? err : static_cast<int>(cudaGetLastError());
 }
 

@@ -25,16 +25,37 @@
 //                  of F = nu_e (phi_c - phi_{c-1}) inv_dg (c2f_diff with
 //                  tang ghosts, the ghost-aware spacing), nu_e the scalar
 //                  nu or c2f_mean(c2f_mean(nu + nu_t, d), s) with mirror
-//                  pads at walls and the wrap average on periodic axes.
-// A point's terms read its neighbours one cell away along each axis and
-// the diagonal ones in each plane of two axes (the cross terms), never
-// further.
+//                  pads at walls and the wrap average on periodic axes;
+//   upwind:        adv dphi with adv as central's (phi itself along s)
+//                  and dphi = adv >= 0 ? back : fwd, the one-sided
+//                  differences (phi_c - phi_{c-1}) / dg[c] and
+//                  (phi_{c+1} - phi_c) / dg[c+1] with the ghosts of
+//                  central (_upwind_pair, dg the ghost-aware spacings);
+//   upwind2:       the same with the minmod-limited MUSCL pair of
+//                  _upwind2_deriv_pair over phi_{c-2} ... phi_{c+2}, the
+//                  ghosts two deep beyond a wall (pad_normal and
+//                  pad_tangential with ng = 2).
+// A point's O2 terms read its neighbours one cell away along each axis
+// and the diagonal ones in each plane of two axes (the cross terms), never
+// further; upwind2's read two cells along each axis.
 #pragma once
+
+#include <type_traits>
 
 #include "common.cuh"
 
 namespace cfdnn {
 namespace general {
+
+// The convective scheme, the kernels' template argument and the C
+// entries' `scheme` (ops/kernels.py SCHEME_CODES): central 0 and skew 1
+// are the values of the bool SKEW the kernels took before the upwind
+// schemes.
+enum Scheme : int { kCentral = 0, kSkew = 1, kUpwind = 2, kUpwind2 = 3 };
+
+// The metric vectors of an axis in ops/kernels.py general_arrays: Axis's
+// five, then Spacing's two.
+constexpr int kAxisMetrics = 7;
 
 template <typename T>
 struct Axis {
@@ -49,6 +70,46 @@ struct Axis {
     T thi[3];                      //   at the low and the high wall
 };
 
+// The upwind schemes' one-sided spacings (general_arrays' dg_c and dg_f of
+// each axis): along axis a, a point of cell index c divides its backward
+// difference by c[a][c] and its forward one by c[a][c + 1], a point of
+// face index f by f[a][f] and f[a][f + 1]. The kernels take it as a
+// parameter of its own after their others, so that Grid, and with it the
+// code of the skew and central instantiations, stays as it was.
+template <typename T>
+struct Spacing {
+    const T* c[3];                 // (n+1) ghost-aware centre spacings
+    const T* f[3];                 // (nf+1) the faces'
+
+    // The pointers advanced to the point (i, j, k): [0] its backward
+    // divisor along each axis, [1] its forward one.
+    __device__ __forceinline__ Spacing at(int i, int j, int k) const {
+        return Spacing{{c[0] + i, c[1] + j, c[2] + k},
+                       {f[0] + i, f[1] + j, f[2] + k}};
+    }
+};
+
+// The base of a kernel's reader of the terms (its `Tile`): the point's
+// Spacing under upwind and upwind2, nothing (an empty base, no bytes)
+// under skew and central, whose reader is then the one of before: the
+// same layout and the same code.
+struct NoSpacing {};
+
+template <int SCHEME, typename T>
+using SpacingOf =
+    std::conditional_t<SCHEME == kUpwind || SCHEME == kUpwind2, Spacing<T>,
+                       NoSpacing>;
+
+// SpacingOf's value at the point (i, j, k) from the kernel's Spacing.
+template <int SCHEME, typename T>
+__device__ __forceinline__ SpacingOf<SCHEME, T> spacing_at(
+        const Spacing<T>& sg, int i, int j, int k) {
+    if constexpr (std::is_same_v<SpacingOf<SCHEME, T>, NoSpacing>)
+        return {};
+    else
+        return sg.at(i, j, k);
+}
+
 // The fields as the launcher passed them, with the axes: both kernels
 // take this struct as their parameter and stage its fields. Offsets are
 // 32-bit: the launchers refuse arrays of 2^31 elements or more.
@@ -62,9 +123,9 @@ struct Grid {
 };
 
 // The reader's fields, metrics and walls as the launchers receive them:
-// the fifteen metric pointers (five per axis, ops/kernels.py
-// general_arrays) and the (lo, hi) tangential wall velocities of u, v, w
-// on y, then on z (x is periodic).
+// the 21 metric pointers (seven per axis, ops/kernels.py general_arrays;
+// Axis takes the first five of each) and the (lo, hi) tangential wall
+// velocities of u, v, w on y, then on z (x is periodic).
 template <typename T>
 Grid<T> make_grid(const void* u, const void* v, const void* w,
                   const void* nut, const void* const* metrics,
@@ -81,7 +142,7 @@ Grid<T> make_grid(const void* u, const void* v, const void* w,
     const int wall[3] = {0, wall_y, wall_z};
     for (int a = 0; a < 3; ++a) {
         Axis<T>& A = g.ax[a];
-        const void* const* m = metrics + 5 * a;
+        const void* const* m = metrics + kAxisMetrics * a;
         A.inv_d = static_cast<const T*>(m[0]);
         A.inv_dc = static_cast<const T*>(m[1]);
         A.inv_dg = static_cast<const T*>(m[2]);
@@ -101,6 +162,25 @@ Grid<T> make_grid(const void* u, const void* v, const void* w,
     g.nut = static_cast<const T*>(nut);
     g.nu = T(nu);
     return g;
+}
+
+// The upwind spacings of the same 21 metric pointers: the last two of
+// each axis.
+template <typename T>
+Spacing<T> make_spacing(const void* const* metrics) {
+    Spacing<T> s;
+    for (int a = 0; a < 3; ++a) {
+        s.c[a] = static_cast<const T*>(metrics[kAxisMetrics * a + 5]);
+        s.f[a] = static_cast<const T*>(metrics[kAxisMetrics * a + 6]);
+    }
+    return s;
+}
+
+// minmod(a, b) of the upwind2 limiter (operators._minmod): the smaller
+// in magnitude where a and b have one sign, else 0.
+template <typename T>
+__device__ __forceinline__ T minmod(T a, T b) {
+    return a * b > T(0) ? (fabs(a) < fabs(b) ? a : b) : T(0);
 }
 
 }  // namespace general

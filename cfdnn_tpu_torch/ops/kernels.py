@@ -16,7 +16,8 @@ steps of the benchmark grids:
                          divergence of its star)
   predictor_general   <- pallas_kernels.fused_predictor_general (periodic
                          x, periodic or wall y and z, moving walls, scalar
-                         nu or nu_t); `predictor_xpad` wraps it for a
+                         nu or nu_t, skew, central, upwind or upwind2:
+                         SCHEME_CODES); `predictor_xpad` wraps it for a
                          no-slip, inflow/outflow or outflow x, as
                          fused_predictor_xpad wraps the reference's
   divergence          <- pallas_kernels.fused_divergence
@@ -569,12 +570,25 @@ def channel_y_arrays(geom: Geometry):
             inv2_cy.contiguous(), inv2_fy.contiguous())
 
 
-def _scheme_is_skew(scheme) -> bool:
-    if scheme not in (ConvectiveScheme.SKEW, ConvectiveScheme.CENTRAL):
+# The predictor kernels' convective scheme as their C entries take it
+# (csrc/predictor_terms.cuh `Scheme`): the channel kernels read 1 as skew
+# and 0 as central, the general kernels all four codes.
+SCHEME_CODES = {ConvectiveScheme.CENTRAL: 0, ConvectiveScheme.SKEW: 1,
+                ConvectiveScheme.UPWIND: 2, ConvectiveScheme.UPWIND2: 3}
+# the schemes of the channel and periodic predictors, as the reference's
+# channel_slab_eligible and fused_predictor take them
+SKEW_CENTRAL = (ConvectiveScheme.SKEW, ConvectiveScheme.CENTRAL)
+
+
+def _scheme_code(scheme, served=tuple(SCHEME_CODES)) -> int:
+    """The C entries' code of `scheme`; NotImplementedError for a scheme
+    the kernel does not take."""
+    if scheme not in served:
         raise NotImplementedError(
-            f"scheme {scheme}: the predictor kernels take skew and central "
-            "only (upwind and upwind2 are ROADMAP A.2)")
-    return scheme == ConvectiveScheme.SKEW
+            f"scheme {scheme}: this predictor kernel takes "
+            + " and ".join(s.value for s in served)
+            + " only, as the reference's")
+    return SCHEME_CODES[scheme]
 
 
 def predictor_channel_twin(u, v, w, dt, inv_dy, inv_dyc, inv_dgy, inv2_cy,
@@ -590,7 +604,8 @@ def predictor_channel_twin(u, v, w, dt, inv_dy, inv_dyc, inv_dgy, inv2_cy,
     component's own axis and averaged to the transverse faces, flux
     direction first, as ops.diffusive averages it.
     """
-    skew = _scheme_is_skew(scheme)
+    skew = (_scheme_code(scheme, SKEW_CENTRAL)
+            == SCHEME_CODES[ConvectiveScheme.SKEW])
     ihx, ihz = 1.0 / hx, 1.0 / hz
 
     def wall_pad_t(f):
@@ -742,14 +757,14 @@ def _predictor_channel_launch(u, v, w, dt, inv_dy, inv_dyc, inv_dgy,
 
 def _predictor_channel_cuda(u, v, w, dt, ys, nu_t, *, hx, hz, nu, fx,
                             scheme):
-    skew = _scheme_is_skew(scheme)
+    code = _scheme_code(scheme, SKEW_CENTRAL)
     su, sv, sw = (torch.empty_like(a) for a in (u, v, w))
     nx, ny, nz = u.shape
     _launch("predictor_channel", u,
             *(t.data_ptr() for t in (u, v, w, dt, *ys)),
             None if nu_t is None else nu_t.data_ptr(),
             *(t.data_ptr() for t in (su, sv, sw)),
-            nx, ny, nz, 1.0 / hx, 1.0 / hz, float(nu), float(fx), int(skew))
+            nx, ny, nz, 1.0 / hx, 1.0 / hz, float(nu), float(fx), code)
     predictor_channel.launches += 1
     return su, sv, sw
 
@@ -811,7 +826,7 @@ def _predictor_channel_div_launch(u, v, w, dt, inv_dy, inv_dyc, inv_dgy,
 
 def _predictor_channel_div_cuda(u, v, w, dt, ys, nu_t, *, geom, nu, fx,
                                 scheme):
-    skew = _scheme_is_skew(scheme)
+    code = _scheme_code(scheme, SKEW_CENTRAL)
     su, sv, sw = (torch.empty_like(a) for a in (u, v, w))
     dv = torch.empty_like(u)
     nx, ny, nz = u.shape
@@ -820,7 +835,7 @@ def _predictor_channel_div_cuda(u, v, w, dt, ys, nu_t, *, geom, nu, fx,
             None if nu_t is None else nu_t.data_ptr(),
             *(t.data_ptr() for t in (su, sv, sw, dv)),
             nx, ny, nz, 1.0 / geom.x.h, 1.0 / geom.z.h, float(nu), float(fx),
-            int(skew))
+            code)
     predictor_channel_div.launches += 1
     return su, sv, sw, dv
 
@@ -853,7 +868,7 @@ def predictor_channel_div(u, v, w, dt, ys, *, geom: Geometry, nu, fx, scheme,
                                  (1, ny + 1, 1), (1, ny, 1), (1, ny + 1, 1),
                                  (nx, ny, nz)))
     _check_geom("predictor_channel_div", geom, (u,))
-    _scheme_is_skew(scheme)
+    _scheme_code(scheme, SKEW_CENTRAL)
     kw = dict(geom=geom, nu=nu, fx=fx, scheme=scheme)
     return _ViaTwin.apply(_predictor_channel_div_launch,
                           predictor_channel_div_twin, kw, u, v, w, dt, *ys,
@@ -894,30 +909,30 @@ def _general_geom_ok(geom: Geometry, x_pad: bool = False) -> bool:
 
 
 def _general_cfg_ok(cfg) -> bool:
-    return (cfg.convective_scheme in (ConvectiveScheme.SKEW,
-                                      ConvectiveScheme.CENTRAL)
-            and not cfg.implicit_y_diffusion)
+    return not cfg.implicit_y_diffusion
 
 
 def general_eligible(geom: Geometry, cfg) -> bool:
     """Gate of the general predictor: the reference's shared gate
     (cfdnn_tpu/solver.py:335-347) less its TPU memory fits, for what the
-    port's operators express (O2 or O4, skew or central, no implicit
-    y-diffusion). Moving walls are served."""
+    port's operators express (O2 or O4, each of the four convective
+    schemes, no implicit y-diffusion). Moving walls are served."""
     return _general_geom_ok(geom) and _general_cfg_ok(cfg)
 
 
 def xpad_eligible(geom: Geometry, cfg) -> bool:
     """Gate of predictor_xpad: the general gate with a uniform no-slip,
-    inflow/outflow or outflow x in place of the periodic one, O2 (the
-    reference's xpad mode, cfdnn_tpu/solver.py:363-385)."""
+    inflow/outflow or outflow x in place of the periodic one, O2, and not
+    upwind2, whose stencil reaches past the one ghost plane of the pad
+    (the reference's xpad mode, cfdnn_tpu/solver.py:363-385)."""
     return (_general_geom_ok(geom, x_pad=True) and _general_cfg_ok(cfg)
-            and geom.space_order == 2)
+            and geom.space_order == 2
+            and cfg.convective_scheme != ConvectiveScheme.UPWIND2)
 
 
 def general_arrays(geom: Geometry):
-    """The fifteen 1-D metric vectors of the general predictor, five per
-    axis (x, y, z), as the operator library forms them:
+    """The 21 1-D metric vectors of the general predictor, seven per axis
+    (x, y, z), as the operator library forms them:
       inv_d  (n)    1/cell width
       inv_dc (n+1)  1/centre distance at the faces (periodic wrap, half
                     cell at a wall): the own-axis skew width and
@@ -925,20 +940,26 @@ def general_arrays(geom: Geometry):
       inv_dg (n+1)  1/ghost-aware centre spacing (operators._inv_dpos_c)
       den_c  (n)    2-apart centre distance, mirror ghosts (cc_central)
       den_f  (nf)   2-apart face distance, odd ghosts (ff_central)
+      dg_c   (n+1)  ghost-aware centre spacing: at cell c the upwind
+                    schemes' backward divisor is dg_c[c], the forward one
+                    dg_c[c + 1] (operators._upwind_pair's den_b, den_f and
+                    _upwind2_pair's h_b, h_f: the same differences)
+      dg_f   (nf+1) the same of the faces, odd ghosts
     """
     out = []
     for ax in geom.axes:
         pc = ax.pos_c_pad.reshape(-1)
         pf = ax.pos_f_pad.reshape(-1)
         out += [ax.inv_d.reshape(-1), ax.inv_dc.reshape(-1),
-                1.0 / (pc[1:] - pc[:-1]), pc[2:] - pc[:-2], pf[2:] - pf[:-2]]
+                1.0 / (pc[1:] - pc[:-1]), pc[2:] - pc[:-2], pf[2:] - pf[:-2],
+                pc[1:] - pc[:-1], pf[1:] - pf[:-1]]
     return tuple(t.contiguous() for t in out)
 
 
 def _general_array_shapes(geom: Geometry):
     return tuple(s for ax in geom.axes
                  for s in ((ax.n,), (ax.n + 1,), (ax.n + 1,), (ax.n,),
-                           (_nfaces(ax),)))
+                           (_nfaces(ax),), (ax.n + 1,), (_nfaces(ax) + 1,)))
 
 
 def predictor_general_twin(u, v, w, dt, nu_t=None, *, geom, nu, fx, scheme):
@@ -969,12 +990,15 @@ def _predictor_general_launch(u, v, w, dt, nu_t=None, *, gs, geom, nu, fx,
                                    nu=nu, fx=fx, scheme=scheme)
 
 
-def _o4_constants(geom: Geometry, with_nut: bool, skew: bool):
-    """The O4 general predictor's constants, a host array (ctypes) of
-    (12 h, 12 h^2) a axis, 0 on an O2 axis, as the reference's same_diff4
-    and same_diff2_4 divide; None where the O2 kernel computes the step:
-    at O2, and for skew convection with nu_t, which have no O4 term."""
-    if geom.space_order == 2 or (with_nut and skew):
+def _wide_constants(geom: Geometry, with_nut: bool, scheme):
+    """The constants of the general predictor's wide variant (the O4
+    kernel's two-cell window), a host array (ctypes) of (12 h, 12 h^2) a
+    axis, 0 on an O2 axis, as the reference's same_diff4 and same_diff2_4
+    divide; None where the one-cell kernel computes the step: at O2 but
+    for upwind2 (its stencil reaches two cells: the wide kernel with every
+    axis O2), and for skew convection with nu_t, which has no O4 term."""
+    if ((geom.space_order == 2 and scheme != ConvectiveScheme.UPWIND2)
+            or (with_nut and scheme == ConvectiveScheme.SKEW)):
         return None
     return (ctypes.c_double * 6)(*(
         t for a, ax in enumerate(geom.axes)
@@ -984,18 +1008,18 @@ def _o4_constants(geom: Geometry, with_nut: bool, skew: bool):
 
 def _general_call(name, u, v, w, dt, nu_t, gs, geom, nu, fx, scheme):
     """Launch `name` (predictor_general or predictor_general_xz: one C
-    interface; at O4 its O4 variant, predictor_general_o4 or
-    predictor_general_xz_o4, with the O4 constants after it) and return
-    its three stars."""
-    skew = _scheme_is_skew(scheme)
+    interface; at O4, and for upwind2, its wide variant,
+    predictor_general_o4 or predictor_general_xz_o4, with the O4 constants
+    after it) and return its three stars."""
+    code = _scheme_code(scheme)
     su, sv, sw = (torch.empty_like(a) for a in (u, v, w))
     x, y, z = geom.axes
-    # host arrays, read by the launcher: the fifteen metric pointers and
-    # the (lo, hi) tangential wall velocities of u, v, w on y, then on z
-    metrics = (ctypes.c_void_p * 15)(*(t.data_ptr() for t in gs))
+    # host arrays, read by the launcher: the 21 metric pointers and the
+    # (lo, hi) tangential wall velocities of u, v, w on y, then on z
+    metrics = (ctypes.c_void_p * len(gs))(*(t.data_ptr() for t in gs))
     tang = (ctypes.c_double * 12)(*(float(t) for ax in (y, z)
                                     for pair in ax.tang for t in pair))
-    o4 = _o4_constants(geom, nu_t is not None, skew)
+    o4 = _wide_constants(geom, nu_t is not None, scheme)
     if o4 is not None:
         name += "_o4"
     _launch(name, u,
@@ -1005,7 +1029,7 @@ def _general_call(name, u, v, w, dt, nu_t, gs, geom, nu, fx, scheme):
             ctypes.cast(metrics, ctypes.c_void_p),
             ctypes.cast(tang, ctypes.c_void_p),
             x.n, y.n, z.n, int(y.bc == BCType.WALL), int(z.bc == BCType.WALL),
-            float(nu), float(fx), int(skew),
+            float(nu), float(fx), code,
             *(() if o4 is None else (ctypes.cast(o4, ctypes.c_void_p),)))
     return su, sv, sw
 
@@ -1021,9 +1045,11 @@ def predictor_general(u, v, w, dt, gs, *, geom: Geometry, nu, fx, scheme,
                       nu_t=None):
     """Euler star (u*, v*, w*) of the predictor on a periodic uniform x
     with periodic or no-slip (moving or not) y and z at any stretching,
-    O2 or O4 skew or central, body force fx on u. `gs` =
-    general_arrays(geom). At O4 the kernel's O4 variant runs the O4
-    stencils on each O4 axis (Geometry.use_o4), as the operators do.
+    O2 or O4, skew, central, upwind or upwind2, body force fx on u. `gs`
+    = general_arrays(geom). At O4 the kernel's O4 variant runs the O4
+    stencils on each O4 axis (Geometry.use_o4), as the operators do;
+    upwind2, whose stencil reaches two cells, runs on that variant's
+    window at every order.
     The viscosity is the scalar nu, or nu + nu_t with `nu_t` a cell field.
     Star values at the wall faces are produced as the operators produce
     them; the caller's BC pass overwrites them. The kernel walks an (x, z)
@@ -1041,7 +1067,7 @@ def predictor_general(u, v, w, dt, gs, *, geom: Geometry, nu, fx, scheme,
            _face_shapes(geom) + ((),) + ((x.n, y.n, z.n),) * len(extra)
            + _general_array_shapes(geom))
     _check_geom("predictor_general", geom, (u,))
-    _scheme_is_skew(scheme)
+    _scheme_code(scheme)
     why = tile_refusal("predictor_general", x.n,
                        max(math.prod(s) for s in _face_shapes(geom)))
     if why:
@@ -1107,11 +1133,17 @@ def predictor_xpad(u, v, w, dt, gs, *, geom: Geometry, xgeom: Geometry, nu,
     plane per side (`_xpad_fields`), run predictor_general on the
     fake-periodic (Nx+2)-cell axis `xgeom` = xpad_geometry(geom) (`gs` =
     general_arrays(xgeom)), and keep the interior. O2 only, as the
-    reference's (a non-periodic x is O2 at every order)."""
+    reference's (a non-periodic x is O2 at every order), and not upwind2,
+    whose stencil reaches past the one ghost plane (the reference's xpad
+    gate refuses it)."""
     if geom.space_order != 2:
         raise NotImplementedError(
             f"predictor_xpad: space_order={geom.space_order}; the padded x "
             "is O2 only, as the reference's fused_predictor_xpad")
+    if scheme == ConvectiveScheme.UPWIND2:
+        raise NotImplementedError(
+            "predictor_xpad: upwind2 reaches two cells, past the one ghost "
+            "plane of the pad; the reference's xpad mode refuses it too")
     u_pad, v_pad, w_pad, nut_pad = _xpad_fields(u, v, w, nu_t, geom)
     su, sv, sw = predictor_general(u_pad, v_pad, w_pad, dt, gs, geom=xgeom,
                                    nu=nu, fx=fx, scheme=scheme, nu_t=nut_pad)
@@ -1505,9 +1537,10 @@ def predictor_general_xz(u, v, w, dt, gs, *, geom: Geometry, nu, fx, scheme,
                          nu_t=None):
     """`predictor_general` (the same function, arguments and twin) on the
     (x, z) tile: periodic uniform x and z, y periodic or no-slip (moving
-    or not) at any stretching, O2 or O4 (the O4 variant's kernel,
-    csrc/predictor_general_xz_o4.cuh, where predictor_general runs its
-    own). `gs` = general_arrays(geom)."""
+    or not) at any stretching, O2 or O4, each of the four schemes (the O4
+    variant's kernel, csrc/predictor_general_xz_o4.cuh, where
+    predictor_general runs its own: at O4 and for upwind2). `gs` =
+    general_arrays(geom)."""
     _check_xz("predictor_general_xz", geom)
     x, y, z = geom.axes
     extra = () if nu_t is None else (nu_t,)
@@ -1515,7 +1548,7 @@ def predictor_general_xz(u, v, w, dt, gs, *, geom: Geometry, nu, fx, scheme,
            _face_shapes(geom) + ((),) + ((x.n, y.n, z.n),) * len(extra)
            + _general_array_shapes(geom))
     _check_geom("predictor_general_xz", geom, (u,))
-    _scheme_is_skew(scheme)
+    _scheme_code(scheme)
     kw = dict(gs=gs, geom=geom, nu=nu, fx=fx, scheme=scheme)
     return _ViaTwin.apply(_predictor_general_xz_launch,
                           _predictor_general_twin_gs, kw, u, v, w, dt, *extra)
@@ -1717,8 +1750,9 @@ def transport(u, v, w, k, om, nu_t, dt, consts, gs, *, geom: Geometry,
     if not nu_sgs_eligible(geom):
         raise NotImplementedError(
             "transport: the kernel serves a periodic uniform x with y and z "
-            "periodic uniform or stationary walls, 3-D (a moving wall and a "
-            "2-D grid are queued under ROADMAP B.8)")
+            "periodic uniform or stationary walls, 3-D (a moving wall is "
+            "queued under ROADMAP B.4; the reference fuses no transport on "
+            "a 2-D grid)")
     if len(consts) not in (1, 3):
         raise ValueError(f"transport: {len(consts)} constants; y_wall, or "
                          "y_wall, the pin mask and om_visc")

@@ -12,8 +12,9 @@ the place of the O2 ones on each `Geometry.use_o4` axis (periodic,
 uniform, n >= 4) in the advecting velocity, central convection,
 scalar-nu diffusion, the divergence, the pressure gradient and the
 Laplacian; skew convection, variable-nu diffusion and the velocity
-gradient stay O2 at every order, as in the reference. Not ported yet,
-and raising where reached: the upwind and upwind2 schemes (ROADMAP A.2).
+gradient stay O2 at every order, as in the reference. The upwind and
+upwind2 schemes take the O4 advecting velocity on O4 axes and their own
+one-sided derivatives at every order, as in the reference.
 
 Component/axis convention: comps = (u, v, w); component c is staggered along
 axis c ("s" below); "d" ranges over the three derivative directions.
@@ -168,6 +169,72 @@ def same_diff2_4(f: Tensor, axis: int, ax: AxisGeom) -> Tensor:
             + 16.0 * _R(f, -1, axis) - _R(f, -2, axis)) / (12.0 * ax.h**2)
 
 
+def _minmod(a: Tensor, b: Tensor) -> Tensor:
+    same = a * b > 0.0
+    pick = torch.where(torch.abs(a) < torch.abs(b), a, b)
+    return torch.where(same, pick, torch.zeros_like(pick))
+
+
+def _upwind_pair(pad, pos, axis, a):
+    """(backward, forward) one-sided derivatives from a 1-ghost pad."""
+    num_b = sl(pad, axis, 1, -1) - sl(pad, axis, 0, -2)
+    num_f = sl(pad, axis, 2, None) - sl(pad, axis, 1, -1)
+    den_b = sl(pos, a, 1, -1) - sl(pos, a, 0, -2)
+    den_f = sl(pos, a, 2, None) - sl(pos, a, 1, -1)
+    return num_b / den_b, num_f / den_f
+
+
+def _upwind2_deriv_pair(f_m2, f_m1, f_0, f_p1, f_p2, h_b, h_f):
+    """(backward, forward) minmod-limited 2nd-order upwind derivatives,
+    as the difference of MUSCL face reconstructions:
+
+      backward: [ (f_0 + s_0/2) - (f_m1 + s_m1/2) ] / h_b
+      forward:  [ (f_p1 - s_p1/2) - (f_0 - s_0f/2) ] / h_f
+
+    with minmod-limited cell slopes s (the reference's formula, not the
+    C++ code's inconsistent increment: PARITY.md)."""
+    d_m1 = f_m1 - f_m2
+    d_0 = f_0 - f_m1
+    d_p1 = f_p1 - f_0
+    d_p2 = f_p2 - f_p1
+    back = (d_0 + 0.5 * (_minmod(d_p1, d_0) - _minmod(d_0, d_m1))) / h_b
+    fwd = (d_p1 - 0.5 * (_minmod(d_p2, d_p1) - _minmod(d_p1, d_0))) / h_f
+    return back, fwd
+
+
+def _upwind2_pair(pad2, pos2, axis, a):
+    """(backward, forward) limited 2nd-order upwind derivatives from a
+    2-ghost pad, with local spacings on stretched axes."""
+    f_m2 = sl(pad2, axis, 0, -4)
+    f_m1 = sl(pad2, axis, 1, -3)
+    f_0 = sl(pad2, axis, 2, -2)
+    f_p1 = sl(pad2, axis, 3, -1)
+    f_p2 = sl(pad2, axis, 4, None)
+    h_b = sl(pos2, a, 2, -2) - sl(pos2, a, 1, -3)
+    h_f = sl(pos2, a, 3, -1) - sl(pos2, a, 2, -2)
+    return _upwind2_deriv_pair(f_m2, f_m1, f_0, f_p1, f_p2, h_b, h_f)
+
+
+def _upwind_pair_periodic(f, pos, axis, a):
+    """_upwind_pair on same-extent roll neighbors (periodic axes)."""
+    f_m1 = _R(f, -1, axis)
+    f_p1 = _R(f, 1, axis)
+    den_b = sl(pos, a, 1, -1) - sl(pos, a, 0, -2)
+    den_f = sl(pos, a, 2, None) - sl(pos, a, 1, -1)
+    return (f - f_m1) / den_b, (f_p1 - f) / den_f
+
+
+def _upwind2_pair_periodic(f, pos2, axis, a):
+    """_upwind2_pair on same-extent roll neighbors (periodic axes)."""
+    f_m2 = _R(f, -2, axis)
+    f_m1 = _R(f, -1, axis)
+    f_p1 = _R(f, 1, axis)
+    f_p2 = _R(f, 2, axis)
+    h_b = sl(pos2, a, 2, -2) - sl(pos2, a, 1, -3)
+    h_f = sl(pos2, a, 3, -1) - sl(pos2, a, 2, -2)
+    return _upwind2_deriv_pair(f_m2, f_m1, f, f_p1, f_p2, h_b, h_f)
+
+
 # ---------------------------------------------------------------------------
 # Convective term
 # ---------------------------------------------------------------------------
@@ -190,11 +257,12 @@ def _advecting_velocity(comps: Vel, s: int, d: int, geom: Geometry) -> Tensor:
 
 def _conv_advective(comps: Vel, s: int, geom: Geometry,
                     scheme: ConvectiveScheme) -> Tensor:
-    """Advective form u.grad(phi) with central derivatives."""
-    if scheme != ConvectiveScheme.CENTRAL:
-        raise NotImplementedError(
-            f"convective_scheme={scheme.value}: the port has the skew and "
-            "central schemes; upwind and upwind2 are ROADMAP A.2")
+    """Advective form u.grad(phi): central derivatives, or the one-sided
+    pair of the upwind schemes chosen by the sign of the advecting
+    velocity (a tie takes the backward one)."""
+    if scheme == ConvectiveScheme.SKEW:
+        raise ValueError("the advective form is not the skew scheme: "
+                         "convective() routes skew to _conv_skew")
     phi = comps[s]
     out = torch.zeros_like(phi)
     for d in range(3):
@@ -202,11 +270,33 @@ def _conv_advective(comps: Vel, s: int, geom: Geometry,
         if ax.n == 1:
             continue
         adv = _advecting_velocity(comps, s, d, geom)
-        if geom.use_o4(d):
-            dphi = same_diff4(phi, d, ax)
+        if scheme == ConvectiveScheme.CENTRAL:
+            if geom.use_o4(d):
+                dphi = same_diff4(phi, d, ax)
+            else:
+                dphi = (ff_central(phi, d, ax) if d == s
+                        else cc_central(phi, d, ax, wall=ax.tang[s]))
         else:
-            dphi = (ff_central(phi, d, ax) if d == s
-                    else cc_central(phi, d, ax, wall=ax.tang[s]))
+            ng = 2 if scheme == ConvectiveScheme.UPWIND2 else 1
+            if d == s:
+                pos = ax.pos_f_pad2 if ng == 2 else ax.pos_f_pad
+            else:
+                pos = ax.pos_c_pad2 if ng == 2 else ax.pos_c_pad
+            a = ax_of(pos)
+            if ax.bc == BCType.PERIODIC:
+                if ng == 2:
+                    back, fwd = _upwind2_pair_periodic(phi, pos, d, a)
+                else:
+                    back, fwd = _upwind_pair_periodic(phi, pos, d, a)
+            else:
+                pad = (pad_normal(phi, d, ax.bc, ng=ng) if d == s
+                       else pad_tangential(phi, d, ax.bc, ng=ng,
+                                           wall=ax.tang[s]))
+                if ng == 2:
+                    back, fwd = _upwind2_pair(pad, pos, d, a)
+                else:
+                    back, fwd = _upwind_pair(pad, pos, d, a)
+            dphi = torch.where(adv >= 0.0, back, fwd)
         out = out + adv * dphi
     return out
 
@@ -279,8 +369,8 @@ def _conv_skew(comps: Vel, s: int, geom: Geometry) -> Tensor:
 def convective(comps: Vel, geom: Geometry,
                scheme: ConvectiveScheme = ConvectiveScheme.CENTRAL) -> Vel:
     """Convective term for each momentum component at its own DOF points:
-    central is the advective form u.grad(phi), skew the exactly
-    energy-conserving telescoping form (see _conv_skew)."""
+    central, upwind and upwind2 are the advective form u.grad(phi), skew
+    the exactly energy-conserving telescoping form (see _conv_skew)."""
     out = []
     for s in range(3):
         if scheme == ConvectiveScheme.SKEW:

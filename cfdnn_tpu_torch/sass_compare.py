@@ -14,6 +14,15 @@ except the ones a change redesigns on purpose:
   old source the new copy lacks is compiled in the old copy alone, each
   of its kernels REDESIGNED or MISSING. A change that redesigns kernels
   names them there;
+- SCHEMED names the general predictor's four kernels, whose bool SKEW
+  became the int SCHEME of the upwind schemes
+  (`predictor_general_kernel`, `predictor_general_o4_kernel`,
+  `predictor_general_xz_kernel`, `predictor_general_xz_o4_kernel`): an
+  old kernel X<T, NUT, true|false, ...> of those names is held to the
+  new copy's X<T, NUT, (int)1|(int)0, ...> (skew 1, central 0, as
+  cu++filt prints an int template argument), which must be the old
+  kernel instruction for instruction; the upwind instantiations (2, 3),
+  in sources the old copy lacks, have no old counterpart;
 - GAINED_O4 names the kernels that gained the O4 template argument as
   their last (`divergence_kernel`, `correct_kernel` and their xz
   kernels `divergence_xz_kernel`, `correct_xz_kernel`): an old kernel
@@ -56,6 +65,11 @@ REDESIGNED = re.compile(r"(?!)")
 GAINED_O4 = re.compile(
     r"(?:divergence|correct)(?:_xz)?_kernel<(?![^<>]*, (?:false|true)>)"
     r"[^<>]*>")
+# the kernels whose bool SKEW (their third template argument) became the
+# int SCHEME: each held to its instantiation of the same value
+SCHEMED = re.compile(
+    r"(predictor_general(?:_o4|_xz|_xz_o4)?_kernel<[^<>,]*, [^<>,]*, )"
+    r"(true|false)((?:, [^<>,]*)?>)")
 OUT = Path(__file__).resolve().parents[1] / "build" / "sass"
 
 
@@ -112,8 +126,16 @@ def main(argv) -> int:
             if REDESIGNED.fullmatch(name):
                 print(f"REDESIGNED {len(ins)} instructions: {name}")
                 continue
-            new_name = (name[:-1] + ", false>" if GAINED_O4.fullmatch(name)
-                        else name)
+            schemed = SCHEMED.fullmatch(name)
+            if schemed:
+                new_name = (schemed.group(1)
+                            + ("(int)1" if schemed.group(2) == "true"
+                               else "(int)0")
+                            + schemed.group(3))
+            elif GAINED_O4.fullmatch(name):
+                new_name = name[:-1] + ", false>"
+            else:
+                new_name = name
             new_ins = new.get(new_name)
             if new_ins is None:
                 where = f"{stem}.cu gone from" if gone else "not in"

@@ -24,11 +24,14 @@ Kernel dispatch is explicit (`Simulation.kernels`). On CUDA with
 use_pallas "auto" or "on" the plan first takes the reference's tiling mode
 (`tiling_mode`, its _pallas_eligible): "slab" where its TPU slab block
 holds a y-z plane (`slab_fits`), "xz" above that on a periodic uniform z
-that tiles (`xz_tileable`), and no kernel at all where neither holds or
-where x is not uniform with x.n >= 8 on a 3-D grid. In "xz" the step runs
-predictor_general_xz (laminar or LES, periodic or walled y), divergence_xz
-and correct_xz, O2 or O4 (their O4 variants at space_order=4, as the
-reference runs its xz kernels at a halo of 2), and nu_sgs_xz for
+that tiles (`xz_tileable`; at a halo of 2 at O4 and under upwind2), and
+no kernel at all where neither holds or where x is not uniform with
+x.n >= 8 on a 3-D grid. Every convective scheme takes the same modes, but
+for a non-periodic x under upwind2 (the reference's xpad gate refuses
+it). In "xz" the step runs predictor_general_xz (laminar or LES,
+periodic or walled y), divergence_xz and correct_xz, O2 or O4 (their O4
+variants at space_order=4, as the reference runs its xz kernels at a halo
+of 2), and nu_sgs_xz for
 Smagorinsky, WALE and Vreman; dynamic Smagorinsky and the k-omega
 transport run their plain chains there, as in the reference. The LES
 closures follow the reference's own LES gate (turbulence/les.py:37-64,
@@ -42,10 +45,11 @@ in the reference's order (cfdnn_tpu/solver.py :783-827),
   - else predictor_channel when `channel_slab_eligible` holds, with the
     closure's nu_t as its cell-viscosity operand;
   - else predictor_general when `general_eligible` holds: any periodic or
-    wall y and z, moving walls, the closure's nu_t (an all-periodic LES
-    run, the duct, the lid channel, every O4 slab grid); predictor_xpad,
-    the same kernel on a ghost-padded axis, for a uniform no-slip,
-    inflow/outflow or outflow x at O2 (`xpad_eligible`);
+    wall y and z, moving walls, the closure's nu_t, every scheme (an
+    all-periodic LES run, the duct, the lid channel, every O4 slab grid,
+    every upwind and upwind2 grid); predictor_xpad, the same kernel on a
+    ghost-padded axis, for a uniform no-slip, inflow/outflow or outflow x
+    at O2, upwind2 excepted (`xpad_eligible`);
   - divergence and correct whenever x is periodic and uniform (a
     non-periodic x runs the eager projection);
   - nu_sgs for Smagorinsky, WALE and Vreman, germano_pass1 for dynamic
@@ -219,28 +223,32 @@ def xz_tileable(nx: int, ny: int, nz: int, ng: int = 1) -> bool:
 
 def tiling_mode(geom: Geometry, cfg: Config) -> Optional[str]:
     """The reference's single-device tiling mode (its _pallas_eligible,
-    cfdnn_tpu/solver.py:297-411) for what the port serves (O2 or O4, skew
-    or central): None under implicit y-diffusion (its shared gate, :342)
-    and unless x is uniform with x.n >= 8 and the grid is 3-D; then on a
-    non-periodic x (wall, or the inflow/outflow pair, or outflow) "slab"
-    at O2 where the slab block fits (the reference's ghost-padded "xpad"
-    slab, :363-385); on a periodic x "slab" where the slab block fits
-    (slab_fits), else "xz" where z is periodic uniform and the grid tiles
-    (xz_tileable, halo 1 at O2, 2 at O4), else None. A force ramp and
-    bulk-velocity control leave the mode as it is: the step then runs its
-    predictor plain and keeps the projection kernels, as the reference's
-    _euler_substep (:688-690)."""
+    cfdnn_tpu/solver.py:297-411) for what the port serves (O2 or O4, each
+    of the four convective schemes): None under implicit y-diffusion (its
+    shared gate, :342) and unless x is uniform with x.n >= 8 and the grid
+    is 3-D; then on a non-periodic x (wall, or the inflow/outflow pair, or
+    outflow) "slab" at O2 but under upwind2 where the slab block fits (the
+    reference's ghost-padded "xpad" slab, :363-385: its one-cell ghost
+    ring is short of upwind2's reach); on a periodic x "slab" where the
+    slab block fits (slab_fits), else "xz" where z is periodic uniform and
+    the grid tiles (xz_tileable at a halo of 2 at O4 or under upwind2,
+    else 1: :405-410), else None. A force ramp and bulk-velocity control
+    leave the mode as it is: the step then runs its predictor plain and
+    keeps the projection kernels, as the reference's _euler_substep
+    (:688-690)."""
     x, y, z = geom.axes
     if cfg.implicit_y_diffusion or not (x.uniform and z.n > 1
                                         and x.n >= 8):
         return None
+    upwind2 = cfg.convective_scheme == ConvectiveScheme.UPWIND2
     if not x.periodic:
         return ("slab" if x.bc in (BCType.WALL, BCType.INFLOW,
                                    BCType.OUTFLOW)
-                and cfg.space_order == 2 and slab_fits(geom) else None)
+                and cfg.space_order == 2 and not upwind2
+                and slab_fits(geom) else None)
     if slab_fits(geom):
         return "slab"
-    ng = 2 if cfg.space_order >= 4 else 1
+    ng = 2 if cfg.space_order >= 4 or upwind2 else 1
     if z.periodic and z.uniform and xz_tileable(x.n, y.n, z.n, ng):
         return "xz"
     return None
@@ -272,10 +280,6 @@ def _check_supported(cfg: Config) -> None:
     for d in (cfg.mesh_shape or (1,)):
         n_dev *= int(d)
     unsupported = [
-        (cfg.convective_scheme in (ConvectiveScheme.UPWIND,
-                                   ConvectiveScheme.UPWIND2),
-         f"convective_scheme={cfg.convective_scheme.value}",
-         "A.2 (upwind schemes)"),
         (cfg.trip_enabled, "trip_enabled=True", "A.14 (trip forcing)"),
         (cfg.recycling_inflow, "recycling_inflow=True",
          "A.14 (recycling inflow)"),
@@ -522,7 +526,7 @@ class Simulation:
             ok = (predictor in ("channel", "general")
                   and kernels.nu_sgs_eligible(geom))
             why = ("the transport kernel serves a channel or general "
-                   "predictor's grid with stationary walls (ROADMAP B.8)")
+                   "predictor's grid with stationary walls (ROADMAP B.4)")
         else:
             why = None if closure is None else kernels.les_refusal(closure,
                                                                    geom)

@@ -81,7 +81,16 @@ Phases, each of which raises on failure (nothing is caught):
      function; predictor_general through the xpad wrapper on an INFLOW
      and an OUTFLOW x (`_xpad_cases`), with and without nu_t, skew and
      central, at the LES cylinder's 256x192x32 and at 9x5x32 (an odd x,
-     nz = 32), between NaN bands;
+     nz = 32), between NaN bands; the upwind and upwind2 variants
+     (`_upwind_cases`), each beside the skew kernel on the same inputs:
+     the slab kernel (upwind2 on the O4 kernel's window) in float64 on
+     the 32^3 box, the stretched channel 32x48x32, the duct, a lid, nx = 8
+     with ny = 2, 3 and 4, the ragged 12x70x40, ducts with nz = 31, 32
+     and 33 and moving z walls, the O4 variants at 32^3 and on edge
+     grids, the xz kernels on small grids and on the 32x640x640 plane
+     (also against the slab kernel), upwind through xpad on the LES
+     cylinder's inflow and outflow x, and in float32 the 128^3 channel's
+     call and the O4 channel's;
      float64 to 1e-14 of scale and float32 to 1e-5 (the xpad cases
      1e-12 and 1e-5); each output of a kernel is held to its own twin
      output's scale;
@@ -128,7 +137,10 @@ Phases, each of which raises on failure (nothing is caught):
      equal to the inlet flux to 1e-5 in each stage of a further step, and
      a second `initialize` with the inlet scaled by 1.5 pinned by the
      replayed graphs; and rans_channel_imex (rans_channel with implicit
-     y-diffusion: the IMEX SST transport, no kernel), k, omega > 0;
+     y-diffusion: the IMEX SST transport, no kernel), k, omega > 0; and
+     ROADMAP A.2: channel_upwind and channel_upwind2, the 128^3 channel of
+     scripts/measure_upwind.py:58-68 with the upwind schemes
+     (predictor_general, divergence and correct once each a step);
      float32, 200 steps, use_pallas="auto", the launch
      counts set to 0 just before each run and read just after (the run
      replays graphs captured by a run before it; a replay adds the port's
@@ -150,7 +162,8 @@ Phases, each of which raises on failure (nothing is caught):
      to the plain math's at float64 to 1e-12 * max|plain|; after it k,
      omega > 0 and nu_t >= 0, finite and not 0 everywhere;
   5. each path at 32^3 (the LES and RANS channels and the fused channel
-     32x24x32, the duct 32x24x24, the LES + IBM channel 32x16x32; the
+     32x24x32, the upwind channels 32x48x32, the duct 32x24x24, the
+     LES + IBM channel 32x16x32; the
      "pallas_fft" paths 256x16x64 and 256x24x64, N1 = 2 on x) in float64
      for 20 steps, kernels on against use_pallas="off" on the card (the
      "pallas_fft" paths with cuFFT there) and against the eager operators
@@ -206,7 +219,11 @@ Phases, each of which raises on failure (nothing is caught):
      part, each part timed alone (its plain chains captured in a CUDA
      graph and replayed under the profiler): the predictor, its pads,
      plain WALE, the FDM's GEMMs and cuFFT, IBM and the outlet's
-     reductions; the Thomas sweeps;
+     reductions; the Thomas sweeps; the momentum ladder of
+     scripts/measure_upwind.py on the 128^3 channel (skew, central,
+     upwind, upwind2: ms/step and device ms/step, with the card's name
+     and power limit) and each upwind variant's float32 call beside its
+     twin (the xz ones beside the slab kernel);
   8. the A/B: tgv, channel and les_channel unfused and fused, in the
      order off, on, on, off, ms/step and device ms/step of each.
 It prints the `kernels` JSON line (each kernel's bound: the larger of its
@@ -348,7 +365,35 @@ OPS_PER_CELL = {"predictor_periodic": 154, "predictor_channel": 154,
                 "divergence_xz o4 tgv_re1600_o4_512": 17,
                 "divergence_xz o4 channel512_o4": 14,
                 "correct_xz o4 tgv_re1600_o4_512": 21,
-                "correct_xz o4 channel512_o4": 18}
+                "correct_xz o4 channel512_o4": 18,
+                # the upwind variants (`_upwind_cases`' float32 labels):
+                # upwind a component 53 (u; v and w 52: an own term 3, a
+                # cross term 9 with central's advecting velocity 6, the
+                # scalar-nu diffusion 26, the update), 157; upwind2's
+                # selected MUSCL difference 7 more a term (three
+                # differences, two minmod products, the half difference
+                # and the division), 9 terms, 220; the skew and central
+                # kernels' own (the channel predictor's counts); at O4 the
+                # central channel's 254 with each O4 first difference (5)
+                # an upwind one (2), 6 terms, 236, and upwind2 299; with
+                # nu_t 138 more (the channel's nu_t count)
+                "predictor_general upwind channel 128^3": 157,
+                "predictor_general upwind2 channel 128^3": 220,
+                "predictor_general skew channel 128^3": 170,
+                "predictor_general central channel 128^3": 154,
+                "predictor_general o4 upwind channel128_o4": 236,
+                "predictor_general o4 upwind2 channel128_o4": 299,
+                "predictor_general_xz upwind les_tgv640 plane+nu_t": 295,
+                "predictor_general_xz upwind2 les_tgv640 plane+nu_t": 358,
+                "predictor_general xpad inflow les_cylinder3900 upwind+nu_t":
+                    295,
+                # the O4 box (three O4 axes, scalar nu): central's 210 with
+                # each O4 first difference an upwind one, 27 fewer, the O4
+                # diffusion and the update 108; upwind2 63 more
+                "predictor_general_xz o4 upwind tgv_re1600_o4_512 plane": 291,
+                "predictor_general_xz o4 upwind2 tgv_re1600_o4_512 plane":
+                    354,
+                "predictor_general_xz o4 skew tgv_re1600_o4_512 plane": 196}
 
 
 class Case(NamedTuple):
@@ -1788,6 +1833,227 @@ def _xz_o4_cases(dtype, device, seed, nx=32, small=True):
     return cases
 
 
+# the upwind and upwind2 grids of `_upwind_cases` (float64): (tag, the
+# grid's overrides, with nu_t); "periodic" and "wall" name an axis's BC (a
+# walled y or z stretched), "lid" a moving top wall of y, "lid_z" the
+# walls of z moving (_LID_Z)
+_UPWIND_GRIDS = (
+    ("box32", dict(Nx=32, Ny=32, Nz=32, bc_y="periodic"), False),
+    ("box32", dict(Nx=32, Ny=32, Nz=32, bc_y="periodic"), True),
+    ("channel32x48x32", dict(Nx=32, Ny=48, Nz=32), False),
+    ("channel32x48x32", dict(Nx=32, Ny=48, Nz=32), True),
+    ("duct32x24x24", dict(Nx=32, Ny=24, Nz=24, bc_z="wall"), True),
+    ("lid32x24x32", dict(Nx=32, Ny=24, Nz=32, lid=1.3), False),
+    # every plane next to a wall, the two ghost planes of upwind2 reading
+    # the same rows
+    ("8x2x6", dict(Nx=8, Ny=2, Nz=6), True),
+    ("8x3x6", dict(Nx=8, Ny=3, Nz=6), False),
+    ("8x4x6", dict(Nx=8, Ny=4, Nz=6), True),
+    ("periodic 8x2x6", dict(Nx=8, Ny=2, Nz=6, bc_y="periodic"), False),
+    ("ragged 12x70x40", dict(Nx=12, Ny=70, Nz=40), True),
+    # w's wall face by the last z tile's lane (31, 33) or by warp 0 (32);
+    # at 33 the first z tile's last cells reach the high wall of z
+    ("duct 12x9x31", dict(Nx=12, Ny=9, Nz=31, bc_z="wall"), True),
+    ("duct 12x9x32", dict(Nx=12, Ny=9, Nz=32, bc_z="wall"), False),
+    ("duct 12x70x33", dict(Nx=12, Ny=70, Nz=33, bc_z="wall"), True),
+    ("lid-z 8x10x33", dict(Nx=8, Ny=10, Nz=33, bc_y="periodic",
+                           bc_z="wall", lid_z=True), True),
+)
+# the xz kernels' small grids (float64): a stretched walled y, a lid, a
+# periodic y, nx = 8 with ny = 2 and 3, ragged tiles over two 64-plane
+# chunks
+_UPWIND_XZ_GRIDS = (
+    ("channel 16x24x32", dict(Nx=16, Ny=24, Nz=32), True),
+    ("lid 16x12x32", dict(Nx=16, Ny=12, Nz=32, lid=1.3), False),
+    ("periodic-y 16x24x32", dict(Nx=16, Ny=24, Nz=32, bc_y="periodic"),
+     True),
+    ("8x2x6", dict(Nx=8, Ny=2, Nz=6), False),
+    ("8x3x6", dict(Nx=8, Ny=3, Nz=6), True),
+    ("ragged 12x70x40", dict(Nx=12, Ny=70, Nz=40), True),
+)
+# the O4 grids (float64, space_order=4)
+_UPWIND_O4_GRIDS = (
+    ("box32", dict(Nx=32, Ny=32, Nz=32, bc_y="periodic"), True),
+    ("channel32x48x32", dict(Nx=32, Ny=48, Nz=32), False),
+    ("channel32x48x32", dict(Nx=32, Ny=48, Nz=32), True),
+    ("duct32x24x24", dict(Nx=32, Ny=24, Nz=24, bc_z="wall"), False),
+    ("8x2x6", dict(Nx=8, Ny=2, Nz=6), False),
+    ("8x4x5 periodic y", dict(Nx=8, Ny=4, Nz=5, bc_y="periodic"), True),
+    ("12x70x40", dict(Nx=12, Ny=70, Nz=40), True),
+)
+
+
+def _upwind_cases(dtype, device, seed):
+    """The general predictor's upwind and upwind2 variants against their
+    twins, on one set of inputs a grid with the skew kernel beside them
+    (the "skew" labels). Float64, to 1e-12 of scale: the slab kernel on
+    `_UPWIND_GRIDS` (the 32^3 box, the stretched channel 32x48x32, the
+    duct 32x24x24 and a lid, with and without nu_t; nx = 8 with ny = 2, 3
+    and 4, the wall ghost planes overlapping; the ragged 12x70x40; ducts
+    with nz = 31, 32 and 33; walls of z moving), the O4 variants on
+    `_UPWIND_O4_GRIDS`, the xz kernels on `_UPWIND_XZ_GRIDS` (O2 and O4)
+    and on the
+    32x640x640 plane of les_tgv640 (with nu_t; and skew there, the path's
+    scheme), each of those also against the slab kernel on the same
+    inputs, and upwind through xpad on
+    the LES cylinder's inflow and outflow x (256x192x32, and 9x5x32).
+    Float32, to 1e-5: the call of the channel_upwind and channel_upwind2
+    paths (bench.channel_config at 128^3) with skew and central beside
+    it, the O4 channel at 128^3, the xz kernels on the 32x640x640 plane
+    and at O4 on the 32x512x512 plane of tgv_re1600_o4_512, and xpad
+    upwind on the LES cylinder's inflow x with nu_t. Every input
+    and every tensor the wrappers allocate lie between NaN bands but on
+    the 640 plane."""
+    import dataclasses
+    import functools
+    from cfdnn_tpu_torch import BCType, Config, bench, velocity_shapes
+    from cfdnn_tpu_torch import ConvectiveScheme as CS
+    from cfdnn_tpu_torch.mesh import Mesh
+    from cfdnn_tpu_torch.ops import kernels as K
+    from cfdnn_tpu_torch.ops.grid import Geometry
+    gen = torch.Generator(device=device).manual_seed(seed)
+    dts = "float64" if dtype == torch.float64 else "float32"
+    P = functools.partial
+    up = (CS.UPWIND, CS.UPWIND2)
+
+    def edge_config(grid, **extra):
+        kw = dict(nu=3e-3, nu_specified=True, dp_dx=-0.4,
+                  dp_dx_specified=True, dt=1e-3, adaptive_dt=False,
+                  dtype=dts, y_min=-1.0, y_max=1.0, z_min=-1.0, z_max=1.0,
+                  stretch_y=True, convective_scheme=CS.UPWIND, **extra)
+        kw.update(Nx=grid["Nx"], Ny=grid["Ny"], Nz=grid["Nz"])
+        if grid.get("bc_y") == "periodic":
+            kw.update(bc_y=BCType.PERIODIC, stretch_y=False)
+        if grid.get("bc_z") == "wall":
+            kw.update(bc_z=BCType.WALL, stretch_z=True)
+        if "lid" in grid:
+            kw.update(y_min=0.0, lid_velocity=grid["lid"])
+        return Config(**kw).finalize()
+
+    def geometry(cfg, grid=None):
+        g = Geometry.make(Mesh.from_config(cfg), cfg, device=device)
+        if grid is not None and grid.get("lid_z"):
+            x, y, z = g.axes
+            g = dataclasses.replace(
+                g, axes=(x, y, dataclasses.replace(z, tang=_LID_Z)))
+        return g
+
+    def fields(cfg, with_nut, band=_band):
+        def rnd(shape):
+            return band(torch.randn(shape, generator=gen, dtype=dtype,
+                                    device=device))
+        u, v, w = (rnd(sh) for sh in velocity_shapes(cfg))
+        # advecting velocities of either sign, and ties (adv = 0 takes the
+        # backward difference): every seventh u is 0
+        u.view(-1)[::7] = 0.0
+        nu_t = (band(rnd((cfg.Nx, cfg.Ny, cfg.Nz)).abs() * 1e-2)
+                if with_nut else None)
+        dt = band(torch.full((), 1e-2, dtype=dtype, device=device))
+        return u, v, w, nu_t, dt
+
+    cases = []
+
+    def add(label, cfg, g, with_nut, schemes, fx=0.7, band=_band,
+            xz=False):
+        """A case of each scheme on one set of inputs: `label` with the
+        scheme's name for {scheme}; an xz case with the slab kernel
+        beside it."""
+        u, v, w, nu_t, dt = fields(cfg, with_nut, band)
+        gs = tuple(map(band, K.general_arrays(g)))
+        for sch in schemes:
+            kg = dict(geom=g, nu=cfg.nu, fx=fx, scheme=sch, nu_t=nu_t)
+            cases.append(Case(
+                label.format(scheme=sch.value)
+                + ("+nu_t" if with_nut else ""),
+                "predictor_general_xz" if xz else "predictor_general",
+                P(K.predictor_general_xz if xz else K.predictor_general,
+                  u, v, w, dt, gs, **kg),
+                P(K.predictor_general_twin, u, v, w, dt, nu_t, geom=g,
+                  nu=cfg.nu, fx=fx, scheme=sch),
+                (u, v, w, dt, *gs) + (() if nu_t is None else (nu_t,)),
+                slab=(P(K.predictor_general, u, v, w, dt, gs, **kg)
+                      if xz else None),
+                banded=band is _band))
+
+    if dtype == torch.float64:
+        for tag, grid, with_nut in _UPWIND_GRIDS:
+            cfg = edge_config(grid)
+            g = geometry(cfg, grid)
+            check(K.general_eligible(g, cfg), f"{tag}: not a general grid")
+            add("predictor_general {scheme} " + tag, cfg, g, with_nut,
+                up + (CS.SKEW,))
+        for tag, grid, with_nut in _UPWIND_O4_GRIDS:
+            cfg = edge_config(grid, space_order=4)
+            g = geometry(cfg)
+            check(K.general_eligible(g, cfg) and g.use_o4(0),
+                  f"O4 {tag}: not an O4 general grid")
+            add("predictor_general o4 {scheme} " + tag, cfg, g, with_nut,
+                up + (CS.SKEW,))
+        for order in (2, 4):
+            for tag, grid, with_nut in _UPWIND_XZ_GRIDS:
+                cfg = edge_config(grid, space_order=order)
+                g = geometry(cfg)
+                check(K.xz_eligible(g), f"xz {tag}: not an xz grid")
+                add("predictor_general_xz " + ("o4 " if order == 4 else "")
+                    + "{scheme} " + tag, cfg, g, with_nut, up + (CS.SKEW,),
+                    xz=True)
+    else:
+        # the two paths' own call at 128^3, skew and central beside it,
+        # and the O4 channel
+        cfg = bench.channel_config(128, dts).finalize()
+        add("predictor_general {scheme} channel 128^3", cfg, geometry(cfg),
+            False, up + (CS.SKEW, CS.CENTRAL), fx=-cfg.dp_dx)
+        cfg = bench.channel_config(128, dts, space_order=4).finalize()
+        add("predictor_general o4 {scheme} channel128_o4", cfg,
+            geometry(cfg), False, up, fx=-cfg.dp_dx)
+    # the 640 plane (les_tgv640's cube at nx = 32: all periodic) through
+    # the xz kernels, with nu_t; at O4 the 512 plane of tgv_re1600_o4_512
+    cfg = bench.les_tgv_config(640, dts, Nx=32).finalize()
+    g = geometry(cfg)
+    check(K.xz_eligible(g), "the 640 plane: not an xz grid")
+    add("predictor_general_xz {scheme} les_tgv640 plane", cfg, g, True,
+        up + (CS.SKEW,), fx=-cfg.dp_dx, band=lambda t: t, xz=True)
+    if dtype == torch.float32:
+        cfg = bench.tgv_re1600_config(512, dts, space_order=4,
+                                      Nx=32).finalize()
+        g = geometry(cfg)
+        check(K.xz_eligible(g) and g.use_o4(0), "the O4 512 plane")
+        add("predictor_general_xz o4 {scheme} tgv_re1600_o4_512 plane", cfg,
+            g, False, up + (CS.SKEW,), fx=0.0, band=lambda t: t, xz=True)
+    # upwind through xpad on the LES cylinder's inflow and outflow x, skew
+    # beside it
+    grids = _XPAD_GRIDS if dtype == torch.float64 else _XPAD_GRIDS[:1]
+    for tag, grid in grids:
+        for bc in (("inflow", "outflow") if dtype == torch.float64
+                   else ("inflow",)):
+            for with_nut in ((True, False) if dtype == torch.float64
+                             else (True,)):
+                cfg = bench.les_cylinder_config(
+                    dtype=dts, bc_x=BCType(bc), convective_scheme=CS.UPWIND,
+                    **grid).finalize()
+                g = geometry(cfg)
+                check(K.xpad_eligible(g, cfg),
+                      f"xpad {bc} {tag}: not an xpad grid")
+                xg = K.xpad_geometry(g)
+                gs = tuple(map(_band, K.general_arrays(xg)))
+                u, v, w, nu_t, dt = fields(cfg, with_nut)
+                for sch in (CS.UPWIND, CS.SKEW):
+                    kg = dict(geom=g, xgeom=xg, nu=cfg.nu, fx=0.7,
+                              scheme=sch)
+                    cases.append(Case(
+                        f"predictor_general xpad {bc} {tag} {sch.value}"
+                        + ("+nu_t" if with_nut else "")
+                        + ("" if sch == CS.UPWIND else " beside upwind"),
+                        "predictor_general",
+                        P(K.predictor_xpad, u, v, w, dt, gs, nu_t=nu_t,
+                          **kg),
+                        P(K.predictor_xpad_twin, u, v, w, dt, nu_t, **kg),
+                        (u, v, w, dt, *gs)
+                        + (() if nu_t is None else (nu_t,)),
+                        banded=True))
+    return cases
+
+
 def fht_ops(t, modal):
     """Operations a cell of a Hartley kernel call along an axis of length
     t.N: those the function needs, not those of csrc/fht.cuh's algorithm
@@ -2005,9 +2271,12 @@ def _hold(case, dtype, errs):
     pair = errs.setdefault(case.name, [0.0, 0.0])
     k = 0 if dtype == torch.float64 else 1
     tol = case.f64_tol or (XZ_F64_TOL if case.slab else F64_TOL)
-    # the O4 variants' errors apart too (`_o4_cases`)
+    # the O4 variants' errors apart too (`_o4_cases`), and the upwind
+    # schemes' (`_upwind_cases`)
     o4 = (errs.setdefault("o4", {}).setdefault(case.name, [0.0, 0.0])
           if " o4 " in case.label else [0.0, 0.0])
+    upwind = (errs.setdefault("upwind", {}).setdefault(case.name, [0.0, 0.0])
+              if " upwind" in case.label else [0.0, 0.0])
     for out, err, lim, scale in compare(case.name, got, ref, dtype, tol):
         print(f"[kernels] {case.label} {out} {str(dtype)[6:]} "
               f"{shape}: max|d|={err:.3e} (limit {lim:.3e}, "
@@ -2015,6 +2284,7 @@ def _hold(case, dtype, errs):
         check(err <= lim, f"{case.label} {out} {dtype}: {err} > {lim}")
         pair[k] = max(pair[k], err)
         o4[k] = max(o4[k], err)
+        upwind[k] = max(upwind[k], err)
     if case.name == "germano_pass1":
         # the plane sums are fixed-order float64 partials: a second launch
         # on the same inputs gives them bit for bit
@@ -2073,6 +2343,7 @@ def phase_kernels(device):
         cases += _o4_cases(dtype, device, seed=1)
         cases += _xz_o4_cases(dtype, device, seed=1)
         cases += _xpad_cases(dtype, device, seed=1)
+        cases += _upwind_cases(dtype, device, seed=1)
         for case in cases:
             _hold(case, dtype, errs)
     return errs
@@ -2136,7 +2407,7 @@ def _paths():
     and the tgv, channel and les_channel rows with the fused divergence
     (les_ibm256 also runs with the opt-in set, to show that a body takes
     none)."""
-    from cfdnn_tpu_torch import TurbulenceModel, bench
+    from cfdnn_tpu_torch import ConvectiveScheme, TurbulenceModel, bench
     dyn = dict(turb_model=TurbulenceModel.DYNAMIC_SMAGORINSKY)
     rans = ("channel", "transport")
     proj = {"divergence": 1, "correct": 1}
@@ -2248,6 +2519,23 @@ def _paths():
         MainPath("rans_channel_imex", bench.rans_channel_case,
                  dict(implicit_y_diffusion=True), False, (None, None),
                  False, {}, own_traj=True),
+        # ROADMAP A.2: the momentum ladder's 128^3 channel of
+        # scripts/measure_upwind.py:58-68 (laminar) with upwind and
+        # upwind2: predictor_general (upwind2 on its wide window) and the
+        # slab projection; their float64 trajectories on the 32x48x32
+        # channel; the ladder's skew row, timed (the channel predictor)
+        MainPath("channel_upwind", bench.channel_case,
+                 dict(convective_scheme=ConvectiveScheme.UPWIND), False,
+                 ("general", None), False, dict(proj, predictor_general=1),
+                 traj=dict(Ny=48)),
+        MainPath("channel_upwind2", bench.channel_case,
+                 dict(convective_scheme=ConvectiveScheme.UPWIND2), False,
+                 ("general", None), False, dict(proj, predictor_general=1),
+                 traj=dict(Ny=48)),
+        MainPath("channel_skew", bench.channel_case,
+                 dict(convective_scheme=ConvectiveScheme.SKEW), False,
+                 ("channel", None), False, dict(proj, predictor_channel=1),
+                 timed_only=True),
     )
 
 
@@ -3458,6 +3746,15 @@ def phase_timing(device, errs):
         print(f"[timing] {name}_pfht div_linf after {steps} steps "
               f"{divs[name + '_pfht']:.3e} (cuFFT {name}: "
               f"{divs[name]:.3e})")
+    # the momentum ladder of scripts/measure_upwind.py:58-68 on the 128^3
+    # channel: each scheme's marginal step and its device time
+    ladder = (("skew", "channel_skew"), ("central", "channel"),
+              ("upwind", "channel_upwind"), ("upwind2", "channel_upwind2"))
+    print(f"[ladder] {card_line()}: the 128^3 channel (laminar, float32, "
+          "benchmark mode) by momentum scheme: " + "; ".join(
+              f"{scheme} {rows[name + '_ms_per_step']:.4f} ms/step, device "
+              f"{rows[name + '_device_ms_per_step']:.4f} ms/step"
+              for scheme, name in ladder))
     rows["device"] = torch.cuda.get_device_name(0)
     print(json.dumps(rows))
     times = {}
@@ -3483,6 +3780,29 @@ def phase_timing(device, errs):
                   + ("" if lib is None else
                      f"; torch.fft.{case.library.__name__} {lib:.4f} ms")
                   + _pair_text(t))
+        # the upwind variants' float32 calls (`_upwind_cases`), each beside
+        # its twin (5-30 ms a call at 128^3, ~0.1 s on the 640 and 512
+        # planes: over fewer reps), the xz ones also beside the slab kernel
+        # on the same inputs
+        for case in _upwind_cases(torch.float32, device, seed=2):
+            big = " plane" in case.label
+            ref = case.twin()
+            t = times[case.label] = (
+                case.name, _event_ms(case.kern, 20 if big else 50),
+                _event_ms(case.twin, 3 if big else 10),
+                _device_ms(case.kern, 5 if big else 20),
+                _device_ms(case.twin, 2 if big else 5), _bound(case, ref),
+                None,
+                *((_event_ms(case.slab, 20), _device_ms(case.slab, 5))
+                  if case.slab else (None, None)))
+            print(f"[timing] {case.label} float32: per call kernel "
+                  f"{t[1]:.4f} ms, twin {t[2]:.4f} ms; device kernel "
+                  f"{t[3]:.4f} ms, twin {t[4]:.4f} ms; bound {t[5][0]:.4f} "
+                  f"ms ({t[5][1]})"
+                  + ("" if t[7] is None else
+                     f"; the slab kernel per call {t[7]:.4f} ms, device "
+                     f"{t[8]:.4f} ms"))
+            del case, ref
         # predictor_general through xpad on the LES cylinder's inflow x
         # (its own call: 256x192x32 padded to 258 planes, skew, WALE's
         # nu_t), held to its twin and timed beside it; the pads alone
@@ -3664,6 +3984,10 @@ def kernel_entries(errs, launches, per_step, times):
             **({"max_abs_err_o4": errs["o4"][name][1],
                 "max_abs_err_o4_f64": errs["o4"][name][0]}
                if name in errs.get("o4", {}) else {}),
+            # the upwind and upwind2 variants' cases (`_upwind_cases`)
+            **({"max_abs_err_upwind": errs["upwind"][name][1],
+                "max_abs_err_upwind_f64": errs["upwind"][name][0]}
+               if name in errs.get("upwind", {}) else {}),
             # no single PyTorch call computes any of these stencils
             # (library_ms None); the Hartley kernels' yardstick is torch.fft
             # along the same axis of the same tensor: fht_pass's one rfft

@@ -273,7 +273,9 @@ def test_general_wrapper_gradients_match_twin():
 
 def test_general_wrappers_refuse_what_they_do_not_serve():
     """The wrappers raise on a grid or scheme outside the kernel: a 2-D
-    grid, an upwind scheme, and a periodic x handed to xpad."""
+    grid, upwind2 handed to xpad (its stencil reaches past the pad's one
+    ghost plane, as the reference's xpad gate has it), and a periodic x
+    handed to xpad."""
     _, flat = _sims(**dict(PERIODIC, Nz=1))
     assert not K.general_eligible(flat.geom, flat.cfg)
     comps, _ = _inputs(flat, 8, False)
@@ -284,10 +286,12 @@ def test_general_wrappers_refuse_what_they_do_not_serve():
                             geom=flat.geom, **kw)
     _, ts = _sims(**PERIODIC)
     u, v, w = (_t(c) for c in _inputs(ts, 8, False)[0])
-    with pytest.raises(NotImplementedError, match="skew and central"):
-        K.predictor_general(u, v, w, dt, K.general_arrays(ts.geom),
-                            geom=ts.geom, nu=1e-3, fx=0.0,
-                            scheme=T.ConvectiveScheme.UPWIND)
+    _, wx = _sims(**WALL_X)
+    xg = K.xpad_geometry(wx.geom)
+    with pytest.raises(NotImplementedError, match="upwind2"):
+        K.predictor_xpad(*(_t(c) for c in _inputs(wx, 8, False)[0]), dt,
+                         K.general_arrays(xg), geom=wx.geom, xgeom=xg,
+                         nu=1e-3, fx=0.0, scheme=T.ConvectiveScheme.UPWIND2)
     with pytest.raises(NotImplementedError, match="inflow/outflow or "
                        "outflow x"):
         K.predictor_xpad(u, v, w, dt, (), geom=ts.geom, xgeom=ts.geom, **kw)

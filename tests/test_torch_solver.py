@@ -137,12 +137,26 @@ def test_kahan_time_float32():
     assert abs(float(st2.t) - 3e-3) <= 1e-9 and int(st2.step) == 3
 
 
+@pytest.mark.parametrize("kw", [
+    dict(space_order=4, convective_scheme="upwind2"),
+    dict(convective_scheme="upwind"),
+    dict(convective_scheme="upwind2"),
+])
+def test_upwind_schemes_are_served(kw):
+    """The configs that raised until the upwind schemes were ported
+    (ROADMAP A.2): the channel with upwind or upwind2, at O2 and O4, is
+    built, plans the general predictor under "on" (its twin on the CPU)
+    and steps to a finite, solenoidal state."""
+    k = dict(CHANNEL, **kw, use_pallas="on")
+    k["convective_scheme"] = T.ConvectiveScheme(k["convective_scheme"])
+    sim = T.Simulation(T.Config(**k), device="cpu")
+    assert sim.kernels.predictor == "general"
+    assert sim.kernels.projection == "slab"
+    st, d = sim.run(sim.initial_state(), 2)
+    assert bool(torch.isfinite(st.u).all()) and float(d.div_linf) < 1e-10
+
+
 @pytest.mark.parametrize("kw,item", [
-    # O4 with upwind2 (the O4 "xz" grid of this place, 8x8x24608, now
-    # takes the O4 xz kernels: test_o4_xz_grid_takes_the_xz_kernels)
-    (dict(space_order=4, convective_scheme="upwind2"), "A.2"),
-    (dict(convective_scheme="upwind"), "A.2"),
-    (dict(convective_scheme="upwind2"), "A.2"),
     (dict(turb_model="nn_mlp"), "A.12"),
     (dict(trip_enabled=True), "A.14"),
     (dict(recycling_inflow=True), "A.14"),
