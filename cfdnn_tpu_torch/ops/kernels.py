@@ -1957,7 +1957,7 @@ _SYMBOLS = tuple((name, re.compile(r"(?<![A-Za-z_])" + pattern))
     ("transport", r"transport_tile_kernel"),
     ("fht_pass", _FHT + r"[01](?!\d)"),
     ("fht_modal", _FHT + r"2(?!\d)"),
-    ("predictor_general_xz", r"predictor_general_xz(?:_o4)?_kernel"),
+    ("predictor_general_xz", r"predictor_general_xz(?:_o4|_wide)?_kernel"),
     ("nu_sgs_xz", r"nu_sgs_xz_kernel"),
     ("divergence_xz", r"divergence_xz_kernel"),
     ("correct_xz", r"correct_xz_kernel")))

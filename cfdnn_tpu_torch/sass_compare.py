@@ -8,12 +8,15 @@ except the ones a change redesigns on purpose:
   kernel of the same name: the slab, xz, walked-tile and Hartley kernels
   alike, including those that share a header with a redesigned kernel
   (`xz_tile.cuh`, `predictor_terms.cuh`, `les.cuh`, `projection.cuh`);
-- REDESIGNED names the kernels a change rewrites on purpose (none now:
-  the O4 changes added variants and rewrote nothing). An old copy's
-  kernel of those names is reported as REDESIGNED and not compared; an
-  old source the new copy lacks is compiled in the old copy alone, each
-  of its kernels REDESIGNED or MISSING. A change that redesigns kernels
-  names them there;
+- REDESIGNED names the kernels a change rewrites on purpose (now every
+  instantiation of predictor_general_xz_o4_kernel: its skew and central
+  instantiations on xz_o4_tile.cuh's terms with the axis pattern a
+  template argument, its upwind ones under the name
+  predictor_general_xz_wide_kernel, which an old copy lacks). An old
+  copy's kernel of those names is reported as REDESIGNED and not
+  compared; an old source the new copy lacks is compiled in the old copy
+  alone, each of its kernels REDESIGNED or MISSING. A change that
+  redesigns kernels names them there;
 - SCHEMED names the general predictor's four kernels, whose bool SKEW
   became the int SCHEME of the upwind schemes
   (`predictor_general_kernel`, `predictor_general_o4_kernel`,
@@ -58,8 +61,8 @@ from pathlib import Path
 from .ops.kernels import NVCC_FLAGS, _CSRC, _nvcc
 
 # the kernels redesigned on purpose (demangled names of the old copy):
-# none (a pattern that matches no name)
-REDESIGNED = re.compile(r"(?!)")
+# every instantiation of the O4 xz predictor
+REDESIGNED = re.compile(r"predictor_general_xz_o4_kernel<.*>")
 # the kernels that gained the O4 template argument (demangled names of
 # the old copy): each held to its new O2 instantiation
 GAINED_O4 = re.compile(

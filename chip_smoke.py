@@ -223,7 +223,8 @@ Phases, each of which raises on failure (nothing is caught):
      scripts/measure_upwind.py on the 128^3 channel (skew, central,
      upwind, upwind2: ms/step and device ms/step, with the card's name
      and power limit) and each upwind variant's float32 call beside its
-     twin (the xz ones beside the slab kernel);
+     twin (the xz ones beside the slab kernel, the xpad one also its
+     kernel alone, without the pads);
   8. the A/B: tgv, channel and les_channel unfused and fused, in the
      order off, on, on, off, ms/step and device ms/step of each.
 It prints the `kernels` JSON line (each kernel's bound: the larger of its
@@ -3462,6 +3463,20 @@ def _device_ms(fn, reps=20):
                for e in events) / 1e3
 
 
+def _port_kernel_ms(fn, reps=20):
+    """Device milliseconds per call of the port's own kernels among the
+    call's launches (torch.profiler, as `_device_ms`): a wrapper's kernel
+    alone, without the torch kernels it launches around it (the xpad
+    wrapper's pads)."""
+    from cfdnn_tpu_torch.bench import profiled
+    from cfdnn_tpu_torch.ops import kernels as K
+    fn()
+    torch.cuda.synchronize()
+    events, reps, _ = profiled(lambda n: [fn() for _ in range(n)], reps)
+    return sum(e.self_device_time_total / e.count * round(e.count / reps)
+               for e in events if K.device_launches([(e.key, 1)])) / 1e3
+
+
 def _bound(case, outputs):
     """(ms, "bytes" | "operations"): the least time the card could take
     for the call, the larger of its bytes (each input read once, each
@@ -3801,7 +3816,11 @@ def phase_timing(device, errs):
                   f"ms ({t[5][1]})"
                   + ("" if t[7] is None else
                      f"; the slab kernel per call {t[7]:.4f} ms, device "
-                     f"{t[8]:.4f} ms"))
+                     f"{t[8]:.4f} ms")
+                  # through xpad also the kernel alone, without the pads
+                  + (f"; the kernel alone device "
+                     f"{_port_kernel_ms(case.kern):.4f} ms"
+                     if " xpad " in case.label else ""))
             del case, ref
         # predictor_general through xpad on the LES cylinder's inflow x
         # (its own call: 256x192x32 padded to 258 planes, skew, WALE's
